@@ -1,0 +1,387 @@
+// K2 (backbone tail + gate embed) and K4 (detection head) for Hopper (sm_90a).
+//
+// K2 replaces planar_optical_flow_tpu/ops/pallas/conv_stack.py
+// fused_backbone_v2 (with embed_weights); K4 replaces fused_head_v2.
+//
+// Both kernels give one block a tile of cutouts and keep the tile's
+// activations in shared memory across every layer: HBM sees the input
+// activation and the outputs only. Layout in shared memory, per cutout:
+// rows of C bf16 channels (padded to C+16 so that the 16-byte row segments
+// an ldmatrix reads fall in different banks while every row stays 32-byte
+// aligned for wmma), row 0 and the rows past the last position are zero,
+// position p sits in row p+1. A k=3 SAME conv is then three shifted row
+// windows of the same buffer times the tap-major (3*Cin, Cout) weight:
+// out[p] = sum_t in_row[p + t] @ W[t*Cin:(t+1)*Cin]. A warp task is four
+// 16-position tiles x 32 output channels with nvcuda::wmma bf16 16x16x16
+// fragments and f32 accumulators: each B fragment, read from the weights in
+// global memory (L2 resident), feeds four tile products, so the block reads
+// a layer's weights from L2 once per four tiles. Positions are padded to a
+// multiple of 16 per cutout; the padded outputs are written as zero so they
+// serve as the next layer's padding.
+//
+// Rounding follows the JAX kernels: bf16 MMA operands, f32 accumulation,
+// bias + LeakyReLU(0.1) in f32, the activation stored as its bf16 MMA
+// operand (bf16 rounding is monotonic, so max-pool commutes with it), feats
+// stored bf16, zx = bf16(feats @ We + be), the head's position mean in f32.
+//
+// Bound: tensor-core operations (about 16 MFLOP per cutout for K2 at
+// L=56, 29 MFLOP for K4 at L4=14, against 8 and 7 KB of HBM traffic).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileBackbone = 8;  // cutouts per block (= embed MMA rows)
+constexpr int kTileHead = 4;
+constexpr int kPadCols = 16;  // shared-memory row padding (elements)
+constexpr int kNTiles = 2;    // 16-channel tiles per warp task
+// 16-position tiles per warp task (each B fragment feeds that many tile
+// products); must divide the block's tile count, cutouts x tiles per cutout
+constexpr int kMTilesBackbone = 8;
+constexpr int kMTilesHead = 4;
+static_assert(kTileBackbone % kMTilesBackbone == 0 &&
+                  kTileHead % kMTilesHead == 0,
+              "a warp task's tiles must not run past the block's cutouts");
+
+enum Epilogue { kStore = 0, kPool = 1, kMean = 2 };
+
+__host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
+__host__ __device__ constexpr int ld_of(int c) { return c + kPadCols; }
+inline int imax(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ float leaky(float v) {
+  return v > 0.0f ? v : 0.1f * v;
+}
+
+__device__ void zero_smem(bf16* p, int n_elems) {
+  uint4 z = make_uint4(0, 0, 0, 0);
+  uint4* q = reinterpret_cast<uint4*>(p);
+  for (int i = threadIdx.x; i < n_elems / 8; i += blockDim.x) q[i] = z;
+}
+
+// One k=3 SAME conv layer over the tile: `in` (CIN channels, L positions)
+// -> `out` (COUT channels; pooled to L/2 for kPool) or, for kMean, the f32
+// mean over the L (<= 16) positions into `means` (T x COUT).
+// `stage`: this warp's 16x16 f32 scratch.
+template <int CIN, int COUT, int EPI, int MTILES>
+__device__ void conv_layer(const bf16* in, bf16* out, float* means, int S,
+                           int L, int T, const bf16* __restrict__ W,
+                           const float* __restrict__ bias, float* stage) {
+  constexpr int LDI = ld_of(CIN), LDO = ld_of(COUT);
+  constexpr int NG = COUT / (16 * kNTiles);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mt = pad16(L) / 16;  // tiles per cutout
+  const int tasks = (T * mt / MTILES) * NG;
+  for (int task = warp; task < tasks; task += kWarps) {
+    const int g = task % NG;
+    const int u0 = (task / NG) * MTILES;  // first tile of this task
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MTILES][kNTiles];
+    const bf16* a_base[MTILES];
+#pragma unroll
+    for (int i = 0; i < MTILES; ++i) {
+      const int c = (u0 + i) / mt, m = (u0 + i) % mt;
+      a_base[i] = in + (size_t)c * S + (size_t)16 * m * LDI;
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    }
+    const bf16* w_base = W + g * 16 * kNTiles;
+    for (int t = 0; t < 3; ++t) {
+      for (int kk = 0; kk < CIN / 16; ++kk) {
+        const bf16* wrow = w_base + (size_t)(t * CIN + kk * 16) * COUT;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+            b[kNTiles];
+#pragma unroll
+        for (int j = 0; j < kNTiles; ++j)
+          wmma::load_matrix_sync(b[j], wrow + j * 16, COUT);
+#pragma unroll
+        for (int i = 0; i < MTILES; ++i) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::load_matrix_sync(a, a_base[i] + t * LDI + kk * 16, LDI);
+#pragma unroll
+          for (int j = 0; j < kNTiles; ++j)
+            wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MTILES; ++i) {
+      const int c = (u0 + i) / mt, m = (u0 + i) % mt;
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
+        __syncwarp();
+        const int n0 = (g * kNTiles + j) * 16;
+        if (EPI == kStore) {
+          for (int e = 0; e < 8; ++e) {
+            const int idx = lane + 32 * e;
+            const int r = idx >> 4, col = idx & 15;
+            const int pos = 16 * m + r;
+            float v = leaky(stage[idx] + bias[n0 + col]);
+            if (pos >= L) v = 0.0f;
+            out[(size_t)c * S + (size_t)(pos + 1) * LDO + n0 + col] =
+                __float2bfloat16(v);
+          }
+        } else if (EPI == kPool) {
+          for (int e = 0; e < 4; ++e) {
+            const int idx = lane + 32 * e;
+            const int r = idx >> 4, col = idx & 15;
+            const float bb = bias[n0 + col];
+            float v = fmaxf(leaky(stage[(2 * r) * 16 + col] + bb),
+                            leaky(stage[(2 * r + 1) * 16 + col] + bb));
+            if (16 * m + 2 * r >= L) v = 0.0f;
+            out[(size_t)c * S + (size_t)(8 * m + r + 1) * LDO + n0 + col] =
+                __float2bfloat16(v);
+          }
+        } else if (lane < 16) {  // kMean: one tile per cutout (L <= 16)
+          const float bb = bias[n0 + lane];
+          float s = leaky(stage[lane] + bb);
+          for (int r = 1; r < L; ++r) s += leaky(stage[r * 16 + lane] + bb);
+          means[c * COUT + n0 + lane] = s / (float)L;
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// Copy `rows` positions of `nv` cutouts (C bf16 each) from global rows
+// src[(c0 + c) * rows + p] into the tile buffer rows p + 1.
+template <int C>
+__device__ void load_rows(bf16* buf, const bf16* __restrict__ src, int c0,
+                          int nv, int rows, int S) {
+  constexpr int V = C / 8;  // uint4 per position
+  for (int idx = threadIdx.x; idx < nv * rows * V; idx += blockDim.x) {
+    const int c = idx / (rows * V);
+    const int rem = idx - c * rows * V;
+    const int p = rem / V, v = rem - (rem / V) * V;
+    reinterpret_cast<uint4*>(buf + (size_t)c * S + (size_t)(p + 1) * ld_of(C))[v] =
+        reinterpret_cast<const uint4*>(
+            src + ((size_t)(c0 + c) * rows + p) * C)[v];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    backbone_tail_kernel(const bf16* __restrict__ act1,
+                         const bf16* __restrict__ w2, const float* __restrict__ b2,
+                         const bf16* __restrict__ w3, const float* __restrict__ b3,
+                         const bf16* __restrict__ w4, const float* __restrict__ b4,
+                         const bf16* __restrict__ w5, const float* __restrict__ b5,
+                         const bf16* __restrict__ w6, const float* __restrict__ b6,
+                         const bf16* __restrict__ we, const bf16* __restrict__ be,
+                         bf16* __restrict__ feats, bf16* __restrict__ zx,
+                         int n, int L, int S) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int T = kTileBackbone;
+  bf16* buf0 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* buf1 = buf0 + (size_t)T * S;
+  float* stage_all = reinterpret_cast<float*>(buf1 + (size_t)T * S);
+  const int warp = threadIdx.x >> 5;
+  float* stage = stage_all + warp * 256;
+  const int c0 = blockIdx.x * T;
+  const int nv = min(T, n - c0);
+  const int L2 = L / 2, L4 = L / 4;
+
+  zero_smem(buf0, T * S);
+  zero_smem(buf1, T * S);
+  __syncthreads();
+  load_rows<64>(buf0, act1, c0, nv, L, S);
+  __syncthreads();
+  conv_layer<64, 64, kStore, kMTilesBackbone>(buf0, buf1, nullptr, S, L, T, w2, b2, stage);
+  __syncthreads();
+  zero_smem(buf0, T * S);
+  __syncthreads();
+  conv_layer<64, 128, kPool, kMTilesBackbone>(buf1, buf0, nullptr, S, L, T, w3, b3, stage);
+  __syncthreads();
+  zero_smem(buf1, T * S);
+  __syncthreads();
+  conv_layer<128, 128, kStore, kMTilesBackbone>(buf0, buf1, nullptr, S, L2, T, w4, b4, stage);
+  __syncthreads();
+  zero_smem(buf0, T * S);
+  __syncthreads();
+  conv_layer<128, 128, kStore, kMTilesBackbone>(buf1, buf0, nullptr, S, L2, T, w5, b5, stage);
+  __syncthreads();
+  zero_smem(buf1, T * S);
+  __syncthreads();
+  conv_layer<128, 256, kPool, kMTilesBackbone>(buf0, buf1, nullptr, S, L2, T, w6, b6, stage);
+  __syncthreads();
+
+  // feats: rows 1..L4 of buf1 -> (N*L4, 256)
+  for (int idx = threadIdx.x; idx < nv * L4 * 32; idx += kThreads) {
+    const int c = idx / (L4 * 32);
+    const int rem = idx - c * L4 * 32;
+    const int p = rem >> 5, v = rem & 31;
+    reinterpret_cast<uint4*>(feats + ((size_t)(c0 + c) * L4 + p) * 256)[v] =
+        reinterpret_cast<const uint4*>(buf1 + (size_t)c * S +
+                                       (size_t)(p + 1) * ld_of(256))[v];
+  }
+
+  // gate embed zx = feats_flat @ We + be: one m8n32k16 product with the
+  // tile's 8 cutouts as rows (row stride S); contraction index
+  // k = p * 256 + ch walks position p's row of buf1. Warp w takes output
+  // columns 32*(w%4).. and one half of the contraction.
+  {
+    const int ksteps = L4 * 16;  // K = L4 * 256
+    const int nt = warp & 3, kh = warp >> 2;
+    const int kbeg = kh * (ksteps / 2), kend = kh ? ksteps : ksteps / 2;
+    wmma::fragment<wmma::accumulator, 8, 32, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int ks = kbeg; ks < kend; ++ks) {
+      wmma::fragment<wmma::matrix_a, 8, 32, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(
+          a, buf1 + (size_t)((ks >> 4) + 1) * ld_of(256) + (ks & 15) * 16, S);
+      wmma::fragment<wmma::matrix_b, 8, 32, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(b, we + (size_t)ks * 16 * 128 + nt * 32, 128);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(stage, acc, 32, wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < nv * 128; idx += kThreads) {
+    const int c = idx >> 7, col = idx & 127;
+    const int nt = col >> 5, cc = col & 31;
+    const float v = stage_all[nt * 256 + c * 32 + cc] +
+                    stage_all[(nt + 4) * 256 + c * 32 + cc] +
+                    __bfloat162float(be[col]);
+    zx[(size_t)(c0 + c) * 128 + col] = __float2bfloat16(v);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    head_kernel(const bf16* __restrict__ feats,
+                const bf16* __restrict__ w1, const float* __restrict__ b1,
+                const bf16* __restrict__ w2, const float* __restrict__ b2,
+                const bf16* __restrict__ w3, const float* __restrict__ b3,
+                const bf16* __restrict__ w4, const float* __restrict__ b4,
+                const bf16* __restrict__ w5, const float* __restrict__ b5,
+                const bf16* __restrict__ wc, const float* __restrict__ bc,
+                const bf16* __restrict__ wr, const float* __restrict__ br,
+                float* __restrict__ cls, float* __restrict__ reg, int n,
+                int L4, int nc, int S) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int T = kTileHead;
+  bf16* buf0 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* buf1 = buf0 + (size_t)T * S;
+  float* stage_all = reinterpret_cast<float*>(buf1 + (size_t)T * S);
+  float* means = stage_all + kWarps * 256;  // T x 128
+  float* stage = stage_all + (threadIdx.x >> 5) * 256;
+  const int c0 = blockIdx.x * T;
+  const int nv = min(T, n - c0);
+  const int L8 = L4 / 2;
+
+  zero_smem(buf0, T * S);
+  zero_smem(buf1, T * S);
+  __syncthreads();
+  load_rows<256>(buf0, feats, c0, nv, L4, S);
+  __syncthreads();
+  conv_layer<256, 256, kStore, kMTilesHead>(buf0, buf1, nullptr, S, L4, T, w1, b1, stage);
+  __syncthreads();
+  zero_smem(buf0, T * S);
+  __syncthreads();
+  conv_layer<256, 256, kStore, kMTilesHead>(buf1, buf0, nullptr, S, L4, T, w2, b2, stage);
+  __syncthreads();
+  zero_smem(buf1, T * S);
+  __syncthreads();
+  conv_layer<256, 512, kPool, kMTilesHead>(buf0, buf1, nullptr, S, L4, T, w3, b3, stage);
+  __syncthreads();
+  zero_smem(buf0, T * S);
+  __syncthreads();
+  conv_layer<512, 256, kStore, kMTilesHead>(buf1, buf0, nullptr, S, L8, T, w4, b4, stage);
+  __syncthreads();
+  conv_layer<256, 128, kMean, kMTilesHead>(buf0, nullptr, means, S, L8, T, w5, b5, stage);
+  __syncthreads();
+
+  // cls / reg: bf16(mean) @ bf16 weights, f32 accumulate, + f32 bias
+  for (int idx = threadIdx.x; idx < nv * (nc + 2); idx += kThreads) {
+    const int c = idx / (nc + 2), j = idx - c * (nc + 2);
+    const bool is_cls = j < nc;
+    const bf16* w = is_cls ? wc + j : wr + (j - nc);
+    const int ldw = is_cls ? nc : 2;
+    float acc = 0.0f;
+    for (int k = 0; k < 128; ++k)
+      acc += __bfloat162float(__float2bfloat16(means[c * 128 + k])) *
+             __bfloat162float(w[k * ldw]);
+    if (is_cls)
+      cls[(size_t)(c0 + c) * nc + j] = acc + bc[j];
+    else
+      reg[(size_t)(c0 + c) * 2 + (j - nc)] = acc + br[j - nc];
+  }
+}
+
+int set_smem(const void* kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+size_t backbone_tail_smem(int l, int* S) {
+  *S = imax(imax((pad16(l) + 2) * ld_of(64), (pad16(l / 2) + 2) * ld_of(128)),
+            (pad16(l / 4) + 2) * ld_of(256));
+  return 2 * (size_t)kTileBackbone * *S * sizeof(bf16) +
+         kWarps * 256 * sizeof(float);
+}
+
+size_t head_smem(int l4, int* S) {
+  *S = imax((pad16(l4) + 2) * ld_of(256), (pad16(l4 / 2) + 2) * ld_of(512));
+  return 2 * (size_t)kTileHead * *S * sizeof(bf16) +
+         (kWarps * 256 + kTileHead * 128) * sizeof(float);
+}
+
+}  // namespace
+
+// dynamic shared memory a launch at these lengths asks for (bytes)
+extern "C" long long backbone_tail_smem_bytes(int l) {
+  int S;
+  return (long long)backbone_tail_smem(l, &S);
+}
+
+extern "C" long long head_smem_bytes(int l4) {
+  int S;
+  return (long long)head_smem(l4, &S);
+}
+
+extern "C" int backbone_tail_launch(
+    const void* act1, const void* w2, const void* b2, const void* w3,
+    const void* b3, const void* w4, const void* b4, const void* w5,
+    const void* b5, const void* w6, const void* b6, const void* we,
+    const void* be, void* feats, void* zx, int n, int l, void* stream) {
+  if (n == 0) return (int)cudaSuccess;
+  int S;
+  const size_t smem = backbone_tail_smem(l, &S);
+  int err = set_smem((const void*)backbone_tail_kernel, smem);
+  if (err) return err;
+  const int grid = (n + kTileBackbone - 1) / kTileBackbone;
+  backbone_tail_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)act1, (const bf16*)w2, (const float*)b2, (const bf16*)w3,
+      (const float*)b3, (const bf16*)w4, (const float*)b4, (const bf16*)w5,
+      (const float*)b5, (const bf16*)w6, (const float*)b6, (const bf16*)we,
+      (const bf16*)be, (bf16*)feats, (bf16*)zx, n, l, S);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int head_launch(const void* feats, const void* w1, const void* b1,
+                           const void* w2, const void* b2, const void* w3,
+                           const void* b3, const void* w4, const void* b4,
+                           const void* w5, const void* b5, const void* wc,
+                           const void* bc, const void* wr, const void* br,
+                           void* cls, void* reg, int n, int l4, int nc,
+                           void* stream) {
+  if (n == 0) return (int)cudaSuccess;
+  int S;
+  const size_t smem = head_smem(l4, &S);
+  int err = set_smem((const void*)head_kernel, smem);
+  if (err) return err;
+  const int grid = (n + kTileHead - 1) / kTileHead;
+  head_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)feats, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+      (const float*)b2, (const bf16*)w3, (const float*)b3, (const bf16*)w4,
+      (const float*)b4, (const bf16*)w5, (const float*)b5, (const bf16*)wc,
+      (const float*)bc, (const bf16*)wr, (const float*)br, (float*)cls,
+      (float*)reg, n, l4, nc, S);
+  return (int)cudaGetLastError();
+}

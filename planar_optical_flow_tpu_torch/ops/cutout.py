@@ -1,0 +1,137 @@
+"""Batched per-beam cutout extraction (the module engine's encoder).
+
+Counterpart of ``planar_optical_flow_tpu/ops/cutout.py`` for the
+configuration the serving step builders use: ``fixed=True`` (each scan sets
+its own window geometry) and ``stride=1``, centered or not, point or area
+sampling. ``fixed=False`` and ``stride>1`` are training-time options and
+raise ``NotImplementedError`` here.
+
+Sampling uses ``torch.gather``. In area mode the JAX ``gather_mode`` picks
+between two different area estimates, and so does this port:
+
+* ``"matmul"``: the band mean over beams ``rint(ind -+ tap_w/2)``, the
+  estimate the fused cutout kernel also computes. The band sums come from a
+  float64 prefix sum, which reproduces the JAX hi/lo bf16 matmul split's
+  near-exact f32 sums;
+* ``"gather"``: the mean of ``area_s`` rint-rounded oversampled taps per
+  output tap.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def area_s_for(window_width: float, num_cutout_pts: int,
+               angle_inc: float = math.radians(0.5),
+               min_range: float = 1e-2) -> int:
+    """Worst-case area-sampling factor: the widest possible angular window
+    (a point at ``min_range``) divided by the cutout resolution."""
+    max_half_alpha = math.atan(0.5 * window_width / min_range)
+    max_window_pts = 2.0 * max_half_alpha / angle_inc
+    return max(1, int(math.ceil(max_window_pts / num_cutout_pts)))
+
+
+def _gather_last(table, inds):
+    """``table (..., P)`` gathered at ``inds (..., P', K)`` along the beams."""
+    flat = inds.reshape(*inds.shape[:-2], -1)
+    return torch.gather(table, -1, flat).reshape(inds.shape)
+
+
+def band_mean(scans, a_lo, a_hi):
+    """Mean of ``scans (..., P)`` over the beam bands ``[a_lo, a_hi]``
+    (``(..., P', K)`` int64), from a float64 prefix sum with a leading zero
+    (``csum[i]`` = sum of beams < i)."""
+    csum = torch.cumsum(scans.double(), dim=-1)
+    csum = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
+    sums = _gather_last(csum, a_hi + 1) - _gather_last(csum, a_lo)
+    return (sums / (a_hi - a_lo + 1).double()).float()
+
+
+def scans_to_cutout(
+    scans,
+    scan_phi,
+    stride: int = 1,
+    centered: bool = True,
+    fixed: bool = False,
+    window_width: float = 1.66,
+    window_depth: float = 1.0,
+    num_cutout_pts: int = 48,
+    padding_val: float = 29.99,
+    area_mode: bool = False,
+    area_s: int | None = None,
+    area_fast: bool = False,
+    gather_mode: str = "gather",
+):
+    """``(..., S, P)`` range scans -> ``(..., P, S, C)`` cutouts.
+
+    Same contract as the JAX function; see the module docstring for the
+    supported options. Geometry runs in float32 whatever the input dtype.
+    """
+    if not fixed or stride != 1 or area_fast:
+        raise NotImplementedError(
+            "the port's cutout covers fixed=True, stride=1, area_fast=False "
+            "(the serving configuration); the training options are "
+            "ROADMAP queue 1 item 12")
+    if gather_mode not in ("gather", "matmul"):
+        raise ValueError(f"unknown gather_mode {gather_mode!r}")
+    scans = torch.as_tensor(scans)
+    out_dtype = scans.dtype
+    x = scans.float()
+    num_pts = x.shape[-1]
+    phi = np.asarray(scan_phi)
+    angle_inc = float(phi[1] - phi[0])
+    phi0 = float(phi[0])
+    phi_s = torch.as_tensor(phi, dtype=torch.float32, device=x.device)
+    c = num_cutout_pts
+
+    dists = x
+    half_alpha = torch.atan(0.5 * window_width / torch.clamp(dists, min=1e-2))
+
+    def window_indices(n_samples):
+        # angles of the window taps -> fractional beam indices
+        delta = 2.0 * half_alpha / (n_samples - 1)
+        taps = torch.arange(n_samples, dtype=torch.float32, device=x.device)
+        ang = (phi_s - half_alpha)[..., None] + taps * delta[..., None]
+        return (ang - phi0) / angle_inc  # (..., S, P, n_samples)
+
+    inds = window_indices(c)
+    outbound = (inds < 0) | (inds > num_pts - 1)
+    low = torch.clamp(torch.floor(inds), 0, num_pts - 1).long()
+    high = torch.clamp(low + 1, 0, num_pts - 1)
+    frac = torch.clamp(inds - low.float(), 0.0, 1.0)
+    ct_low = _gather_last(x, low)
+    ct_high = _gather_last(x, high)
+    ct = ct_low + frac * (ct_high - ct_low)
+
+    if area_mode:
+        window_span = inds[..., -1:] - inds[..., 0:1]
+        use_area = window_span > c
+        if gather_mode == "matmul":
+            tap_w = (inds[..., -1:] - inds[..., 0:1]) / (c - 1)
+            a_lo = torch.round(torch.clamp(inds - 0.5 * tap_w, 0, num_pts - 1)
+                               ).long()
+            a_hi = torch.round(torch.clamp(inds + 0.5 * tap_w, 0, num_pts - 1)
+                               ).long()
+            a_hi = torch.maximum(a_hi, a_lo)
+            ct = torch.where(use_area, band_mean(x, a_lo, a_hi), ct)
+        else:
+            s = (area_s_for(window_width, c, angle_inc) if area_s is None
+                 else int(area_s))
+            if s > 1:
+                inds_area = torch.round(torch.clamp(
+                    window_indices(s * c), 0, num_pts - 1)).long()
+                ct_area = _gather_last(x, inds_area)
+                # tap k of the oversampled window maps to k // s
+                ct_area = ct_area.reshape(*ct_area.shape[:-1], c, s).mean(-1)
+                ct = torch.where(use_area, ct_area, ct)
+
+    ct = torch.where(outbound, torch.full_like(ct, padding_val), ct)
+    ct = torch.minimum(torch.maximum(ct, (dists - window_depth)[..., None]),
+                       (dists + window_depth)[..., None])
+    if centered:
+        ct = (ct - dists[..., None]) / window_depth
+    return ct.transpose(-3, -2).to(out_dtype)

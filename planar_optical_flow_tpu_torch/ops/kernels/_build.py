@@ -1,0 +1,123 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled on its own with ``nvcc`` for Hopper into a shared
+library with a plain C interface, loaded with ``ctypes``. Every pointer and
+the stream are passed as ``c_void_p``; every entry returns
+``cudaGetLastError()`` and :func:`check` raises if it is not 0.
+
+* The build runs at first use, into ``build/torch_kernels/`` beside the
+  package (listed in ``.gitignore``). Only the sources in the checkout are
+  used.
+* A library is named after the hash of its source and the flags, so a
+  changed source is rebuilt and an unchanged one is not.
+* :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
+  for every one of them.
+* ``-Xptxas -v`` is always on; its report (registers, shared memory,
+  spills) is kept beside each library as ``<lib>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+SRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+SOURCES = ("cutout", "conv_stack", "gate")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# loaded libraries, one per source for the life of the process (a CDLL
+# cannot be unloaded safely while kernels may still reference it)
+_LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin/nvcc``, else the one on PATH."""
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or (
+        "/usr/local/cuda/bin/nvcc"
+        if Path("/usr/local/cuda/bin/nvcc").exists() else None)
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built at first use on a machine with a card")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every source in ``names`` that is not built yet, one
+    ``nvcc`` process per source, all started together.
+
+    Returns ``{name: {"seconds": float or None (already built), "log":
+    ptxas report}}``; raises ``RuntimeError`` with the compiler output if
+    any build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, report = {}, {}
+    compiler = None
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            log = out.with_suffix(".log")
+            report[name] = {"seconds": None, "log": log.read_text()
+                            if log.exists() else ""}
+            continue
+        compiler = compiler or nvcc()
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: concurrent builders race safely
+        report[name] = {"seconds": secs, "log": log}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch entry returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` as an integer handle."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

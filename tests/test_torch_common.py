@@ -1,0 +1,141 @@
+"""Shared set-up of the PyTorch port's tests, and the port's guards.
+
+The port's tests run the JAX function and its port on the same inputs,
+made from a seed with numpy, with weights carried across by the flax
+bridge. Geometry: 64 beams, 16 cutout points, window 5, B=2. BatchNorm
+statistics are perturbed before the bridge so that folding is exercised.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from planar_optical_flow_tpu.models import FlowDrow as JaxFlowDrow
+from planar_optical_flow_tpu_torch import resolve_device
+from planar_optical_flow_tpu_torch.interop import variables_to_state_dict
+from planar_optical_flow_tpu_torch.models import FlowDrow
+
+NUM_PTS = 64
+CT_LEN = 16
+WINDOW = 5
+CUTOUT_KW = dict(fixed=True, centered=True, window_width=1.0,
+                 window_depth=0.5, num_cutout_pts=CT_LEN, padding_val=29.99,
+                 area_mode=True, gather_mode="matmul")
+REPO = Path(__file__).resolve().parents[1]
+
+
+def perturb_batch_stats(variables, rng):
+    """numpy copy of ``variables`` with BN means ~ N(0, 0.1) and variances
+    ~ U(0.5, 2) (the init stats are 0 and 1, which folding would not
+    exercise)."""
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                out[k] = walk(v)
+            elif k == "mean":
+                out[k] = rng.normal(0.0, 0.1, v.shape).astype(np.float32)
+            elif k == "var":
+                out[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
+            else:
+                out[k] = np.asarray(v)
+        return out
+
+    return {"params": walk(variables["params"]),
+            "batch_stats": walk(variables["batch_stats"])}
+
+
+def flow_drow_pair(seed: int = 0, num_pts: int = NUM_PTS,
+                   ct_len: int = CT_LEN, window: int = WINDOW):
+    """(flax FlowDrow, its numpy variables with perturbed BN stats, the
+    port's FlowDrow carrying the same weights, on the CPU)."""
+    model = JaxFlowDrow(window_size=window, pedestrian_only=True)
+    variables = model.init(jax.random.PRNGKey(seed),
+                           jnp.zeros((1, num_pts, 1, ct_len)),
+                           jnp.zeros((1, num_pts)), train=False)
+    v_np = perturb_batch_stats(variables, np.random.default_rng(seed + 100))
+    port = FlowDrow(window_size=window, pedestrian_only=True,
+                    num_cutout_pts=ct_len)
+    port.load_state_dict(variables_to_state_dict(v_np, port))
+    return model, v_np, port.eval()
+
+
+def to_jax(v_np):
+    return jax.tree_util.tree_map(jnp.asarray, v_np)
+
+
+def t2n(t):
+    return t.detach().float().cpu().numpy()
+
+
+def assert_close_to_max(got, ref, rel, what=""):
+    """``max|got - ref| <= rel * max|ref|`` (the bf16 tolerance)."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    err = np.abs(got - ref).max()
+    lim = rel * max(np.abs(ref).max(), 1e-6)
+    assert err <= lim, f"{what}: max abs err {err:.3g} > {lim:.3g}"
+
+
+# ------------------------------------------------------------------ guards
+
+
+def test_package_imports_without_jax():
+    """The port imports nothing of JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['planar_optical_flow_tpu'] = None\n"
+        "import planar_optical_flow_tpu_torch.infer.streaming\n"
+        "import planar_optical_flow_tpu_torch.interop\n"
+        "import planar_optical_flow_tpu_torch.models\n"
+        "bad = [m for m in sys.modules if m.startswith(('jax', 'flax', "
+        "'planar_optical_flow_tpu.')) and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_resolve_device_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()  # the default is the card
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from planar_optical_flow_tpu_torch.infer.streaming import StreamingRunner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    port = FlowDrow(window_size=WINDOW, pedestrian_only=True,
+                    num_cutout_pts=CT_LEN)
+    for engine in ("module", "v3"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            StreamingRunner(port, CUTOUT_KW, num_pts=NUM_PTS, engine=engine)
+
+
+@pytest.mark.gpu
+def test_gpu_marker_skips_without_card(cuda_device):
+    """Runs only on a card: the fixture skips here with a reason."""
+    assert cuda_device.type == "cuda"
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")

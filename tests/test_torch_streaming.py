@@ -1,0 +1,200 @@
+"""The port's streaming engines against the JAX ones, over several steps.
+
+* module engine vs JAX ``make_stream_step``: f32, 1e-3, the same kept
+  detections, and identical NMS on identical inputs;
+* v3 engine (plain kernel versions on the CPU) vs JAX
+  ``make_serve_step_v3(precision="bf16", interpret=True)``: 2e-2 x max|ref|
+  on every float output and on both carry leaves; the NMS is compared on
+  identical inputs by feeding the JAX step's predictions to the port's NMS;
+* ``StreamingRunner`` with a per-stream reset, both engines;
+* the port's v3 engine vs its module engine at the JAX package's own
+  bf16-vs-f32 tolerance (``tests/test_fast_gate.py``), the check the card
+  run repeats at full size.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from planar_optical_flow_tpu.infer.streaming import (
+    StreamingRunner as JaxRunner,
+    make_serve_step_v3 as jax_v3,
+    make_stream_step as jax_module_step,
+)
+from planar_optical_flow_tpu.ops.geometry import get_laser_phi
+from planar_optical_flow_tpu_torch.infer.streaming import (
+    StreamingRunner,
+    make_serve_step_v3,
+    make_stream_step,
+)
+from planar_optical_flow_tpu_torch.ops.nms import (
+    nms_predicted_center,
+    nms_predicted_center_topk,
+)
+from tests.test_torch_common import (
+    CUTOUT_KW,
+    NUM_PTS,
+    assert_close_to_max,
+    flow_drow_pair,
+    t2n,
+    to_jax,
+)
+
+F32 = dict(rtol=1e-3, atol=1e-3)
+BF16_REL = 2e-2
+FLOAT_FIELDS = ("pred_cls", "pred_reg", "pred_flow")
+PHI = torch.as_tensor(get_laser_phi(num_pts=NUM_PTS), dtype=torch.float32)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    model, v_np, port = flow_drow_pair(seed=2)
+    return model, to_jax(v_np), port
+
+
+def _scans(seed, steps=3, b=2):
+    rng = np.random.default_rng(seed)
+    scans = rng.uniform(0.5, 20.0, (steps, b, NUM_PTS)).astype(np.float32)
+    scans[1, 0, 5] = np.nan  # the sanitize guard is on in both
+    return scans
+
+
+def _assert_same_detections(got, ref):
+    """The same kept detections. The slot-ordered keep masks are not
+    compared directly: an untrained model gives confidences that tie to
+    ~1e-7, so two f32 computations agreeing to 1e-5 may sort two tied votes
+    into the other slot order."""
+    for b in range(got["det_keep"].shape[0]):
+        kept = [np.asarray(o["det_xys"][b])[np.asarray(o["det_keep"][b])]
+                for o in ({k: v.numpy() for k, v in got.items()}, ref)]
+        assert kept[0].shape == kept[1].shape, b
+        order = [np.lexsort(k.T[::-1]) for k in kept]
+        np.testing.assert_allclose(kept[0][order[0]], kept[1][order[1]],
+                                   **F32)
+
+
+def test_module_engine_matches_jax(pair):
+    model, variables, port = pair
+    ref_step = jax_module_step(model, CUTOUT_KW, num_pts=NUM_PTS,
+                               donate_template=False)
+    step = make_stream_step(port, CUTOUT_KW, num_pts=NUM_PTS, device="cpu")
+    tmpl_j, tmpl = None, None
+    for i, scan in enumerate(_scans(30)):
+        tmpl_j, ref = ref_step(variables, tmpl_j, jnp.asarray(scan))
+        tmpl, got = step(tmpl, torch.from_numpy(scan))
+        assert set(got) == set(ref)
+        for k in FLOAT_FIELDS:
+            np.testing.assert_allclose(t2n(got[k]), np.asarray(ref[k]),
+                                       err_msg=f"step {i} {k}", **F32)
+        np.testing.assert_allclose(t2n(tmpl), np.asarray(tmpl_j), **F32)
+        _assert_same_detections(got, ref)
+        # and exactly the same NMS on identical inputs
+        clean = np.nan_to_num(scan, nan=CUTOUT_KW["padding_val"])
+        res = nms_predicted_center(
+            torch.from_numpy(clean), PHI,
+            torch.tensor(np.asarray(ref["pred_cls"])),
+            torch.tensor(np.asarray(ref["pred_reg"])))
+        np.testing.assert_array_equal(t2n(res[2]).astype(bool),
+                                      np.asarray(ref["det_keep"]))
+        np.testing.assert_array_equal(t2n(res[3]),
+                                      np.asarray(ref["instance_mask"]))
+
+
+def test_v3_engine_matches_jax(pair):
+    model, variables, port = pair
+    ref_step = jax_v3(model, variables, CUTOUT_KW, num_pts=NUM_PTS, tile=16,
+                      precision="bf16", interpret=True)
+    step = make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS, device="cpu")
+    carry_j, carry = None, None
+    for i, scan in enumerate(_scans(31)):
+        carry_j, ref = ref_step(carry_j, jnp.asarray(scan))
+        carry, got = step(carry, torch.from_numpy(scan))
+        assert set(got) == set(ref)
+        for k in FLOAT_FIELDS:
+            assert_close_to_max(t2n(got[k]), np.asarray(ref[k]), BF16_REL,
+                                f"step {i} {k}")
+        for k in ("template", "z"):
+            assert carry[k].dtype == torch.bfloat16
+            assert_close_to_max(t2n(carry[k]),
+                                np.asarray(carry_j[k], np.float32),
+                                BF16_REL, f"step {i} carry {k}")
+        # NMS on identical inputs: the JAX step's own predictions
+        clean = np.nan_to_num(scan, nan=CUTOUT_KW["padding_val"])
+        res = nms_predicted_center_topk(
+            torch.from_numpy(clean), PHI,
+            torch.tensor(np.asarray(ref["pred_cls"])),
+            torch.tensor(np.asarray(ref["pred_reg"])), top_k=64)
+        np.testing.assert_array_equal(t2n(res[2]).astype(bool),
+                                      np.asarray(ref["det_keep"]))
+        np.testing.assert_array_equal(t2n(res[3]),
+                                      np.asarray(ref["instance_mask"]))
+
+
+@pytest.mark.parametrize("engine", ["module", "v3"])
+def test_runner_with_stream_reset_matches_jax(pair, engine):
+    model, variables, port = pair
+    ref = JaxRunner(model, variables, CUTOUT_KW, num_pts=NUM_PTS,
+                    engine=engine, output_fields=("pred_cls", "pred_flow"))
+    run = StreamingRunner(port, CUTOUT_KW, num_pts=NUM_PTS, engine=engine,
+                          output_fields=("pred_cls", "pred_flow"),
+                          device="cpu")
+    for i, scan in enumerate(_scans(32, steps=4)):
+        if i == 2:
+            ref.reset(streams=[1])
+            run.reset(streams=[1])
+        a, b = run(torch.from_numpy(scan)), ref(scan)
+        assert set(a) == {"pred_cls", "pred_flow"}
+        for k in a:
+            if engine == "module":
+                np.testing.assert_allclose(t2n(a[k]), np.asarray(b[k]),
+                                           err_msg=f"step {i} {k}", **F32)
+            else:
+                assert_close_to_max(t2n(a[k]), np.asarray(b[k]), BF16_REL,
+                                    f"step {i} {k}")
+    run.reset()
+    assert run._carry is None
+
+
+def test_v3_against_module_engine(pair):
+    """bf16 serving vs the f32 reference, both in the port: the tolerance
+    of the JAX package's own test (corr > 0.99, max diff < 0.15 x
+    max(|ref|, 1))."""
+    _, _, port = pair
+    v3 = make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS, device="cpu")
+    ref_step = make_stream_step(port, CUTOUT_KW, num_pts=NUM_PTS,
+                                device="cpu")
+    carry, tmpl = None, None
+    for i, scan in enumerate(_scans(33)):
+        carry, got = v3(carry, torch.from_numpy(scan))
+        tmpl, ref = ref_step(tmpl, torch.from_numpy(scan))
+        for k in FLOAT_FIELDS:
+            a, b = t2n(got[k]).ravel(), t2n(ref[k]).ravel()
+            assert np.corrcoef(a, b)[0, 1] > 0.99, (i, k)
+            assert np.abs(a - b).max() < 0.15 * max(np.abs(b).max(), 1.0)
+
+
+def test_v3_guards(pair):
+    _, _, port = pair
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS,
+                           precision="int8c", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS, layout="pm",
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        StreamingRunner(port, CUTOUT_KW, num_pts=NUM_PTS, engine="int8c",
+                        device="cpu")
+    with pytest.raises(ValueError, match="unknown output_fields"):
+        make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS,
+                           output_fields=("nope",), device="cpu")
+    step = make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS,
+                              output_fields=("pred_flow", "det_keep"),
+                              device="cpu")
+    _, out = step(None, torch.from_numpy(_scans(34)[0]))
+    assert set(out) == {"pred_flow", "det_keep"}
+    assert out["pred_flow"].shape == (2, NUM_PTS, 2)
+    assert out["det_keep"].shape == (2, 64)
