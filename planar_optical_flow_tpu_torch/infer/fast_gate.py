@@ -1,26 +1,39 @@
-"""K3: the serving spatial-attention gate in band form (``csrc/gate.cu``).
+"""K3 and K6: the serving spatial-attention gate in band form
+(``csrc/gate.cu``).
 
-Replaces ``planar_optical_flow_tpu/infer/fast_gate.py`` ``gate_fused_flat``
-(kernel ``_gate_fused_kernel``, shared math ``_attention_body``). The module
-gate (``models/spatial_drow.py``) computes a dense ``(ct, ct)`` similarity
-and mix although only the +-window/2 band is nonzero; this computes the
-same math in band form on flat ``(N, .)`` arrays, ``N = streams * ct``
+* K3 :func:`gate` replaces ``planar_optical_flow_tpu/infer/fast_gate.py``
+  ``gate_fused_flat`` (kernel ``_gate_fused_kernel``): bf16 features and
+  template.
+* K6 :func:`gate_int8` replaces ``gate_fused_int8_pm`` with
+  ``per_stream=True`` (kernel ``_gate_int8_pm_stream_kernel``,
+  ``_quantize_attn``, ``_mix_requant``): int8 features and template carry.
+
+Both share the front half, as the JAX kernels share ``_attention_body``
+(:func:`_attention` here, ``band_attention`` in the source). The module gate
+(``models/spatial_drow.py``) computes a dense ``(ct, ct)`` similarity and
+mix although only the +-window/2 band is nonzero; these compute the same
+math in band form on flat ``(N, .)`` arrays, ``N = streams * ct``
 stream-major:
 
 * ``s[i, o] = leaky(zx[i]) . leaky(zt[i + o])`` for the 2*hw+1 offsets,
-* a softmax over the offsets valid in ``[0, ct_valid)``, rounded to bf16
-  (the JAX kernel's MXU operand),
-* ``new_t = alpha * x + (1 - alpha) * sum_o attn[o] * template[i + o]``,
-  and the same mix for the pre-activation embedding carry ``z`` (Dense +
-  eval BatchNorm is affine, so it commutes with the mix),
+* a softmax over the offsets valid in ``[0, ct_valid)`` (f32),
+* the z carry ``new_z = alpha * zx + (1 - alpha) * sum_o bf16(attn[o]) *
+  zt[i + o]`` (Dense + eval BatchNorm is affine, so it commutes with the
+  mix),
+* K3: ``new_t = alpha * x + (1 - alpha) * sum_o bf16(attn[o]) *
+  template[i + o]`` (bf16 is the JAX kernel's MXU operand),
+* K6: ``q = clip(rint(127 * attn))`` from the f32 attention, the exact
+  int32 sum ``m = sum_o q[o] * t[i + o]``, and ``new_t = clip(rint((alpha *
+  (s_x * x) + (1 - alpha) * ((s_t / 127) * m)) / s_out))``,
 * ``sim`` with the reference's edge-clamped duplicates (an invalid offset
   reads row 0 if ``i + o < 0``, else row ``ct_valid - 1``).
 
 Rows ``>= ct_valid`` have no valid offset: their attention is 0.
 
-Bound on the H100: bytes, ~22.3 KB per cutout at D=3584 (x and template
-read, new_t written, bf16). The kernel writes ``new_t``/``new_z`` to fresh
-buffers instead of over the carry as the TPU kernel does.
+Bound on the H100: bytes: per cutout at D=3584, ~22.3 KB for K3 (x and
+template read, new_t written, bf16) and ~10.8 KB for K6 (the same in int8).
+The kernels write ``new_t``/``new_z`` to fresh buffers instead of over the
+carry as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -30,12 +43,13 @@ import ctypes
 import torch
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build
+from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import div_f32
 from planar_optical_flow_tpu_torch.ops.kernels.fold import GateParams
 
 _LEAKY_SLOPE = 0.1
 EMBED_DIM = 128
 
-__all__ = ["GateParams", "gate", "gate_plain"]
+__all__ = ["GateParams", "gate", "gate_int8", "gate_int8_plain", "gate_plain"]
 
 
 def _leaky(v):
@@ -52,12 +66,11 @@ def _band_rows(ct: int, ct_valid: int, window_size: int, device):
     return torch.where(valid, j, edge), valid  # (ct, window) each
 
 
-def gate_plain(zx, zt, x, template, *, ct: int, alpha: float,
-               window_size: int, ct_valid: int | None = None):
-    """Plain PyTorch version of :func:`gate` (same arguments)."""
-    ct_valid = ct_valid or ct
-    n, d = template.shape
-    b = n // ct
+def _attention(zx, zt, *, ct: int, ct_valid: int, window_size: int):
+    """The shared front half (the JAX ``_attention_body``): -> (attn f32
+    ``(b, ct, window)``, raw similarity ``s`` of the same shape, band rows
+    ``(ct, window)``)."""
+    b = zx.shape[0] // ct
     rows, valid = _band_rows(ct, ct_valid, window_size, zx.device)
     ex = _leaky(zx.float()).reshape(b, ct, 1, -1)
     et = _leaky(zt.float()).reshape(b, ct, -1)
@@ -66,20 +79,58 @@ def gate_plain(zx, zt, x, template, *, ct: int, alpha: float,
     e = torch.exp(masked - masked.amax(-1, keepdim=True))
     e = torch.where(valid, e, torch.zeros_like(e))
     attn = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-20)
+    return attn, s, rows
+
+
+def _band_mix(attn, carry, rows, ct):
+    """``sum_o attn[..., o] * carry[i + o]`` per stream (f32)."""
+    c = carry.float().reshape(attn.shape[0], ct, -1)
+    acc = torch.zeros_like(c)
+    for k in range(rows.shape[1]):
+        acc += attn[..., k:k + 1] * c[:, rows[:, k]]
+    return acc
+
+
+def _new_z(zx, zt, attn_bf, rows, ct, alpha):
+    b = attn_bf.shape[0]
+    new_z = (alpha * zx.float().reshape(b, ct, -1)
+             + (1.0 - alpha) * _band_mix(attn_bf, zt, rows, ct))
+    return new_z.reshape(zx.shape[0], -1).to(zx.dtype)
+
+
+def gate_plain(zx, zt, x, template, *, ct: int, alpha: float,
+               window_size: int, ct_valid: int | None = None):
+    """Plain PyTorch version of :func:`gate` (same arguments)."""
+    ct_valid = ct_valid or ct
+    n, d = template.shape
+    attn, s, rows = _attention(zx, zt, ct=ct, ct_valid=ct_valid,
+                               window_size=window_size)
     attn = attn.to(torch.bfloat16).float()
-
-    def mix(carry):
-        c = carry.float().reshape(b, ct, -1)
-        acc = torch.zeros_like(c)
-        for k in range(rows.shape[1]):
-            acc += attn[..., k:k + 1] * c[:, rows[:, k]]
-        return acc
-
-    new_z = alpha * zx.float().reshape(b, ct, -1) + (1.0 - alpha) * mix(zt)
-    new_t = alpha * x.float().reshape(b, ct, d) + (1.0 - alpha) * mix(
-        template)
+    b = attn.shape[0]
+    new_t = (alpha * x.float().reshape(b, ct, d)
+             + (1.0 - alpha) * _band_mix(attn, template, rows, ct))
     return (new_t.reshape(n, d).to(template.dtype),
-            new_z.reshape(n, -1).to(zx.dtype), s.reshape(n, -1))
+            _new_z(zx, zt, attn, rows, ct, alpha), s.reshape(n, -1))
+
+
+def _check_gate_args(what, zx, zt, x, template, ct, ct_valid, window_size,
+                     dtype, d_mult):
+    n, d = template.shape
+    if n % ct or not 0 < ct_valid <= ct or d % d_mult:
+        raise ValueError(f"{what}: N={n} must be a multiple of ct={ct}, "
+                         f"0 < ct_valid={ct_valid} <= ct, D={d} % {d_mult} "
+                         "== 0")
+    if not 1 <= window_size <= 32 or window_size % 2 == 0:
+        raise ValueError(f"{what}: window_size={window_size} must be odd, "
+                         "<= 32")
+    for name, t, shape, dt in (("zx", zx, (n, EMBED_DIM), torch.bfloat16),
+                               ("zt", zt, (n, EMBED_DIM), torch.bfloat16),
+                               ("x", x, (n, d), dtype),
+                               ("template", template, (n, d), dtype)):
+        if t.device.type != "cuda" or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{what} {name}: need {dt} {shape} on cuda, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return n, d, 512 if d % 512 == 0 else d
 
 
 def gate(zx, zt, x, template, *, ct: int, alpha: float, window_size: int,
@@ -96,35 +147,84 @@ def gate(zx, zt, x, template, *, ct: int, alpha: float, window_size: int,
     if zx.device.type == "cpu":
         return gate_plain(zx, zt, x, template, **kw)
     ct_valid = ct_valid or ct
-    n, d = template.shape
-    if n % ct or not 0 < ct_valid <= ct or d % 8:
-        raise ValueError(f"gate: N={n} must be a multiple of ct={ct}, "
-                         f"0 < ct_valid={ct_valid} <= ct, D={d} % 8 == 0")
-    if not 1 <= window_size <= 32 or window_size % 2 == 0:
-        raise ValueError(f"gate: window_size={window_size} must be odd, "
-                         "<= 32")
-    for name, t, shape in (("zx", zx, (n, EMBED_DIM)),
-                           ("zt", zt, (n, EMBED_DIM)), ("x", x, (n, d)),
-                           ("template", template, (n, d))):
-        if (t.device.type != "cuda" or t.dtype != torch.bfloat16
-                or tuple(t.shape) != shape):
-            raise ValueError(f"gate {name}: need bf16 {shape} on cuda, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    n, d, d_chunk = _check_gate_args("gate", zx, zt, x, template, ct,
+                                     ct_valid, window_size, torch.bfloat16, 8)
     zx, zt, x, template = (t.contiguous() for t in (zx, zt, x, template))
-    d_chunk = 512 if d % 512 == 0 else d
     new_t = torch.empty_like(template)
     new_z = torch.empty_like(zx)
     sim = torch.empty(n, window_size, dtype=torch.float32, device=zx.device)
     fn = _build.load("gate").gate_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     _build.check(fn(zx.data_ptr(), zt.data_ptr(), x.data_ptr(),
                     template.data_ptr(), new_t.data_ptr(), new_z.data_ptr(),
                     sim.data_ptr(), n, d, ct, ct_valid, window_size, d_chunk,
-                    float(alpha), _build.stream_ptr(zx.device)), "gate")
+                    float(alpha), 1.0 - alpha,
+                    _build.stream_ptr(zx.device)), "gate")
     gate.launches += 1
     return new_t, new_z, sim
 
 
+def gate_int8_plain(zx, zt, x, template, *, ct: int, alpha: float,
+                    window_size: int, s_x: float, s_t: float, s_out: float,
+                    ct_valid: int | None = None):
+    """Plain PyTorch version of :func:`gate_int8` (same arguments)."""
+    ct_valid = ct_valid or ct
+    n, d = template.shape
+    attn, s, rows = _attention(zx, zt, ct=ct, ct_valid=ct_valid,
+                               window_size=window_size)
+    b = attn.shape[0]
+    q = torch.clamp(torch.round(attn * 127.0), -127, 127).to(torch.int32)
+    t = template.reshape(b, ct, d).to(torch.int32)
+    mixed = torch.zeros_like(t)
+    for k in range(rows.shape[1]):
+        mixed += q[..., k:k + 1] * t[:, rows[:, k]]
+    # the JAX constants: Python doubles rounded once to f32; one true f32
+    # division by s_out
+    new_t = (alpha * (x.reshape(b, ct, d).float() * s_x)
+             + (1.0 - alpha) * (mixed.float() * (s_t / 127.0)))
+    new_t = torch.clamp(torch.round(div_f32(new_t, s_out)), -127, 127).to(
+        torch.int8)
+    attn_bf = attn.to(torch.bfloat16).float()
+    return (new_t.reshape(n, d), _new_z(zx, zt, attn_bf, rows, ct, alpha),
+            s.reshape(n, -1))
+
+
+def gate_int8(zx, zt, x, template, *, ct: int, alpha: float,
+              window_size: int, s_x: float, s_t: float, s_out: float,
+              ct_valid: int | None = None):
+    """int8-carry gate on flat arrays -> (new_template, new_z, sim).
+
+    ``zx``/``zt``: ``(N, 128)`` bf16 as for :func:`gate`; ``x``: ``(N, D)``
+    int8 features at scale ``s_x``; ``template``: ``(N, D)`` int8 at
+    ``s_t``. Returns new_template ``(N, D)`` int8 at ``s_out``, new_z
+    ``(N, 128)`` bf16, sim ``(N, window)`` f32. A CUDA tensor launches K6;
+    a CPU tensor runs :func:`gate_int8_plain`.
+    """
+    kw = dict(ct=ct, alpha=alpha, window_size=window_size, s_x=s_x, s_t=s_t,
+              s_out=s_out, ct_valid=ct_valid)
+    if zx.device.type == "cpu":
+        return gate_int8_plain(zx, zt, x, template, **kw)
+    ct_valid = ct_valid or ct
+    n, d, d_chunk = _check_gate_args("gate_int8", zx, zt, x, template, ct,
+                                     ct_valid, window_size, torch.int8, 16)
+    zx, zt, x, template = (t.contiguous() for t in (zx, zt, x, template))
+    new_t = torch.empty_like(template)
+    new_z = torch.empty_like(zx)
+    sim = torch.empty(n, window_size, dtype=torch.float32, device=zx.device)
+    fn = _build.load("gate").gate_int8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+    _build.check(fn(zx.data_ptr(), zt.data_ptr(), x.data_ptr(),
+                    template.data_ptr(), new_t.data_ptr(), new_z.data_ptr(),
+                    sim.data_ptr(), n, d, ct, ct_valid, window_size, d_chunk,
+                    float(alpha), 1.0 - alpha, float(s_x), s_t / 127.0,
+                    float(s_out), _build.stream_ptr(zx.device)), "gate_int8")
+    gate_int8.launches += 1
+    return new_t, new_z, sim
+
+
 gate.launches = 0
+gate_int8.launches = 0

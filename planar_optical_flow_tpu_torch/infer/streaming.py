@@ -1,6 +1,6 @@
 """Stateful streaming inference: one step per incoming batch of scans.
 
-Counterpart of ``planar_optical_flow_tpu/infer/streaming.py`` for two
+Counterpart of ``planar_optical_flow_tpu/infer/streaming.py`` for three
 engines:
 
 * ``"module"`` (:func:`make_stream_step`): the f32 module path, the
@@ -11,8 +11,14 @@ engines:
   bf16 flow head (plain torch convs) -> sigmoid, canonical->global flow and
   top-64 vote NMS. The carry is ``{"template": (B*p_pad, D) bf16, "z":
   (B*p_pad, 128) bf16}``.
+* ``"int8c"`` (:func:`make_serve_step_v3`, ``precision="int8c"``, the JAX
+  serving default): sanitize -> pad -> K1 cutout -> K5 layer 1 + int8
+  backbone + gate embed -> K6 int8-carry gate -> K7 int8 head -> the same
+  flow head and epilogue. The template carry is int8 at the head's input
+  scale; the scales come from a ``ServeCalibration``
+  (``infer/calibration.py``).
 
-Both return ``step(carry, scan) -> (carry', outputs)`` with ``carry=None``
+All return ``step(carry, scan) -> (carry', outputs)`` with ``carry=None``
 for a stream's first scan; :class:`StreamingRunner` holds the carry and
 resets streams. Inference only: every step runs under
 ``torch.inference_mode``.
@@ -20,12 +26,17 @@ resets streams. Inference only: every step runs under
 
 from __future__ import annotations
 
+import contextlib
+import os
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch import resolve_device
-from planar_optical_flow_tpu_torch.infer.fast_gate import gate
+from planar_optical_flow_tpu_torch.infer.calibration import ServeCalibration
+from planar_optical_flow_tpu_torch.infer.fast_gate import gate, gate_int8
 from planar_optical_flow_tpu_torch.models.flow_drow import FlowDrow
 from planar_optical_flow_tpu_torch.models.spatial_drow import FEAT_CHANNELS
 from planar_optical_flow_tpu_torch.ops.cutout import area_s_for, scans_to_cutout
@@ -33,11 +44,13 @@ from planar_optical_flow_tpu_torch.ops.geometry import (
     canonical_to_global_flow,
     get_laser_phi,
 )
-from planar_optical_flow_tpu_torch.ops.kernels import fold
+from planar_optical_flow_tpu_torch.ops.kernels import fold, quant
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+    backbone_int8,
     backbone_layer1,
     backbone_tail,
     head,
+    head_int8,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
 from planar_optical_flow_tpu_torch.ops.nms import (
@@ -45,7 +58,7 @@ from planar_optical_flow_tpu_torch.ops.nms import (
     nms_predicted_center_topk,
 )
 
-ENGINES = ("module", "v3")
+ENGINES = ("module", "v3", "int8c")
 
 
 def serve_output_fields(is_flow: bool, with_nms: bool) -> tuple:
@@ -184,30 +197,205 @@ def make_stream_step(model, cutout_kwargs, num_pts: int = 450,
     return step
 
 
-def make_serve_step_v3(model, cutout_kwargs, num_pts: int = 450,
-                       nms_min_dist: float = 0.5, with_nms: bool = True,
-                       nms_top_k: int | None = 64, precision: str = "bf16",
-                       layout: str = "p2", output_fields=None,
-                       sanitize_inputs: bool = True, device="cuda"):
-    """The fused bf16 serving step on the K1-K4 kernels.
+def weights_checksum(detector) -> float:
+    """Sum of squares of the detector's parameters (not its BatchNorm
+    buffers): the JAX package's checksum of the detector's ``params``,
+    which ties a ``calibration.json`` to the weights it was computed
+    from."""
+    with torch.no_grad():
+        return float(sum(p.detach().double().square().sum().cpu()
+                         for p in detector.parameters()))
 
-    ``precision="bf16"`` only, with the cutout-major kernels that the JAX
-    builder runs for bf16 (its ``layout`` ``"p2"`` default and ``"flat"``).
-    ``output_fields`` restricts the outputs dict to the named keys.
-    Returns ``step(carry, scan) -> (carry', outputs)``.
+
+@contextlib.contextmanager
+def _full_f32():
+    """f32 convolutions and matmuls on the card (PyTorch lets cuDNN
+    convolutions run in TF32 by default), as the JAX calibration's f32
+    reference steps are."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+_CALIB_ROWS = 4096  # cutouts of each calibration sample (the JAX cap)
+
+
+@torch.inference_mode()
+def _calibrate(model, det, cutout_kwargs, calib_scans, *, num_pts, cut_kw,
+               calib_pad, percentile, steps, sanitize, san_max,
+               dev) -> ServeCalibration:
+    """The JAX int8c calibration (``streaming.py:692-743``) on this
+    package's encode path: the backbone scales from layer 1's f32 output on
+    the first 4096 cutouts of the sanitized scans, padded to ``calib_pad``
+    beams as the JAX p2 path pads them (dead beams included); the head
+    scales from the last two templates of ``steps`` f32 module steps,
+    newest first."""
+    ct_len = cutout_kwargs.get("num_cutout_pts", 48)
+    l4 = ct_len // 4
+    bb_blocks = fold.backbone_blocks(det.backbone)
+    scans = torch.as_tensor(calib_scans, dtype=torch.float32, device=dev)
+    if sanitize:
+        scans = _sanitize_scan(scans, san_max)
+    with _full_f32():
+        cut = cutout(F.pad(scans, (0, calib_pad - num_pts)), **cut_kw)
+        act1 = backbone_layer1(cut[:_CALIB_ROWS], bb_blocks[0],
+                               compute_dtype=torch.float32)
+        bb_in_scale, bb_act_scales = quant.stack_act_scales(
+            bb_blocks[1:], act1.reshape(-1, ct_len, 64), pool_after={1, 4},
+            percentile=percentile)
+        ref_step = make_stream_step(model, cutout_kwargs, num_pts,
+                                    with_nms=False, device=dev)
+        tmpl, tmpls = None, []
+        for _ in range(max(int(steps), 1)):
+            tmpl, _ = ref_step(tmpl, scans)
+            tmpls.append(tmpl)
+    sample = np.concatenate([t.float().cpu().numpy().reshape(-1, l4, 256)
+                             for t in reversed(tmpls[-2:])])
+    hd_in_scale, hd_act_scales = quant.stack_act_scales(
+        fold.head_conv_blocks(det.head), sample[:_CALIB_ROWS], pool_after={2},
+        percentile=percentile)
+    return ServeCalibration(
+        bb_in_scale=float(bb_in_scale),
+        bb_act_scales=[float(v) for v in bb_act_scales],
+        hd_in_scale=float(hd_in_scale),
+        hd_act_scales=[float(v) for v in hd_act_scales],
+        num_pts=num_pts, num_cutout_pts=ct_len,
+        weights_checksum=weights_checksum(det))
+
+
+def _check_calibration(calib, det, num_pts, ct_len):
+    """The JAX step's checks of a restored calibration: geometry, then the
+    weights checksum to the JAX check's own 1e-3."""
+    if calib.num_pts != num_pts or calib.num_cutout_pts != ct_len:
+        raise ValueError(
+            f"calibration geometry (num_pts={calib.num_pts}, "
+            f"num_cutout_pts={calib.num_cutout_pts}) does not match the "
+            f"serving config (num_pts={num_pts}, num_cutout_pts={ct_len}) "
+            "— recalibrate for this configuration")
+    if calib.weights_checksum is not None:
+        wsum = weights_checksum(det)
+        if not (abs(calib.weights_checksum - wsum)
+                <= 1e-3 * max(abs(wsum), 1.0)):
+            raise ValueError(
+                "calibration was computed for different weights (checksum "
+                f"{calib.weights_checksum:.6g} vs {wsum:.6g}) — the "
+                "checkpoint was likely retrained; recalibrate and re-save "
+                "calibration.json")
+
+
+class Int8cWeights(NamedTuple):
+    """What the int8c kernels read, quantized at one calibration."""
+    layer1: tuple      # K5 layer 1: (w (3, 64), b (64,)) f32 / in_scale
+    backbone: list     # K5 convs: (w (Cout, 3*Cin) int8, s_eff, b_eff)
+    embed: tuple       # K5 embed: ((W * feat_scale)^T (128, D) bf16, b)
+    head: list         # K7 convs, the last one dequantized
+    feat_scale: float  # scale of the int8 feats
+    tmpl_scale: float  # scale of the int8 template carry (head input)
+
+
+def int8c_weights(detector, calib: ServeCalibration, device) -> Int8cWeights:
+    """Quantize ``detector``'s f32 folded weights at ``calib``'s scales, as
+    the JAX int8c step does (``streaming.py:744-769``): the backbone's last
+    layer requantizes too, so feats are int8 at ``feat_scale`` and the
+    template carry at the head's input scale."""
+    bb_blocks = fold.backbone_blocks(detector.backbone)
+    bb_q, bb_in_scale, feat_scale = quant.quantize_stack_int8(
+        bb_blocks[1:], None, pool_after={1, 4},
+        in_scale=calib.bb_in_scale, act_scales=calib.bb_act_scales,
+        dequant_last=False)
+    hd_q, tmpl_scale, _ = quant.quantize_stack_int8(
+        fold.head_conv_blocks(detector.head), None, pool_after={2},
+        in_scale=calib.hd_in_scale, act_scales=calib.hd_act_scales)
+    gp = fold.fold_gate_params(detector.gate, dtype=torch.bfloat16)
+    # bf16 W times the scale rounded to bf16, rounded to bf16 (the JAX
+    # weakly typed product embed_w * feat_scale)
+    we = gp.w.to(device) * torch.tensor(float(feat_scale),
+                                        dtype=torch.bfloat16, device=device)
+    return Int8cWeights(
+        layer1=quant.layer1_int8_weights(bb_blocks[0], bb_in_scale, device),
+        backbone=quant.kernel_stack_weights(bb_q, device),
+        embed=(we.t().contiguous(), gp.b.to(device)),
+        head=quant.kernel_stack_weights(hd_q, device),
+        feat_scale=float(feat_scale), tmpl_scale=float(tmpl_scale))
+
+
+def _check_v3_options(precision, layout, fuse_gate_head, pm_tile):
+    """The JAX builder's options that this port does not run yet raise
+    ``NotImplementedError`` naming the ROADMAP kernel they wait for."""
+    if precision not in ("bf16", "int8", "int8c"):
+        raise ValueError(f"unknown precision {precision!r}")
+    if layout not in ("flat", "pm", "cell", "p2", "p2c"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if precision == "int8":
+        raise NotImplementedError(
+            "precision='int8' (int8 conv stacks, bf16 carry) runs the "
+            "cutout-major int8 stacks K10 (ROADMAP queue 2); use 'int8c'")
+    if precision == "bf16" and layout not in ("flat", "p2"):
+        raise ValueError(
+            f"layout={layout!r} requires precision='int8c' (got 'bf16'); "
+            "bf16 runs the cutout-major kernels (layout 'flat' or 'p2')")
+    waits = {"pm": "K9 (the pm backbone)", "cell": "K13 (serve_cell_int8)",
+             "p2c": "K8 (cutout + backbone in one kernel)",
+             "flat": "K10/K11 (the cutout-major int8 stacks and gate)"}
+    if precision == "int8c" and layout in waits:
+        raise NotImplementedError(
+            f"int8c layout={layout!r} waits for kernel {waits[layout]}, "
+            "ROADMAP queue 2; this port runs int8c with layout='p2'")
+    if fuse_gate_head:
+        raise NotImplementedError(
+            "fuse_gate_head=True waits for kernel K12 (gate + head in one "
+            "program), ROADMAP queue 2")
+    if pm_tile % 32:
+        raise ValueError("pm_tile must be a multiple of 32")
+
+
+def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
+                       num_pts: int = 450, nms_min_dist: float = 0.5,
+                       with_nms: bool = True, nms_top_k: int | None = 64,
+                       precision: str = "bf16", layout: str = "p2",
+                       pm_tile: int = 160, calib=None,
+                       gate_per_stream: bool = True,
+                       fuse_gate_head: bool = False,
+                       calib_percentile: float | None = None,
+                       calib_steps: int = 2, output_fields=None,
+                       sanitize_inputs: bool = True, device="cuda"):
+    """The fused serving step on the CUDA kernels.
+
+    * ``precision="bf16"``: K1 cutout, backbone layer 1 (plain torch), K2
+      backbone tail + gate embed, K3 gate, K4 head; the carry is
+      ``{"template": (N, D) bf16, "z": (N, 128) bf16}``.
+    * ``precision="int8c"`` (``layout="p2"``, the JAX serving default): K1
+      cutout, K5 layer 1 + int8 backbone + gate embed, K6 int8-carry gate,
+      K7 int8 head; the template carry is int8 at the head's input scale.
+      The scales come from ``calib`` (a ``ServeCalibration``, checked
+      against the geometry and the weights checksum) or are calibrated here
+      on ``calib_scans`` ``(B0, num_pts)`` (sanitized first when
+      ``sanitize_inputs``; ``calib_steps`` f32 module steps feed the head;
+      ``calib_percentile`` clips at that abs-percentile). ``pm_tile`` only
+      sets the beam padding of the calibration sample, ``ceil(num_pts /
+      pm_tile) * pm_tile`` as the JAX p2 path pads, so that both packages
+      calibrate on the same cutouts; the step itself pads to a multiple of
+      8. ``gate_per_stream`` selects between two JAX kernel forms with the
+      same result; K6 computes that result either way.
+
+    Both then run the bf16 flow head (plain torch), sigmoid,
+    canonical->global flow and the top-64 vote NMS. ``output_fields``
+    restricts the outputs dict to the named keys. Returns ``step(carry,
+    scan) -> (carry', outputs)``; ``step.calibration`` holds the int8
+    scales in effect (None for bf16).
     """
-    if precision != "bf16":
-        raise NotImplementedError(
-            f"precision={precision!r}: the int8 serving engines are ROADMAP "
-            "queue 1 item 8 (int8c, kernels K5-K7); this port runs bf16")
-    if layout not in ("p2", "flat"):
-        raise NotImplementedError(
-            f"layout={layout!r}: the position-major layouts belong to the "
-            "int8c engine (ROADMAP queue 1 item 8)")
+    _check_v3_options(precision, layout, fuse_gate_head, pm_tile)
     if not cutout_kwargs.get("fixed") or cutout_kwargs.get("stride", 1) != 1:
         raise NotImplementedError(
             "the v3 engine's cutout kernel covers fixed=True, stride=1 (the "
             "serving configuration)")
+    del gate_per_stream  # both JAX forms compute the same result
     dev, model, _, phi_t = _prepare(model, device, num_pts)
     is_flow = isinstance(model, FlowDrow)
     det = model.dr_spaam if is_flow else model
@@ -223,8 +411,7 @@ def make_serve_step_v3(model, cutout_kwargs, num_pts: int = 450,
                   centered=cutout_kwargs.get("centered", True),
                   area_mode=cutout_kwargs.get("area_mode", False),
                   p_valid=num_pts)
-    layer1, tail_w = fold.backbone_stack_weights(det.backbone)
-    hd_conv_w, hd_head_w = fold.head_stack_weights(det.head)
+    hd_head_w = fold.head_linear_weights(det.head)
     num_classes = hd_head_w[0].shape[-1]
     gp = fold.fold_gate_params(det.gate, dtype=torch.bfloat16)
     gate_kw = dict(ct=p_pad, ct_valid=num_pts, alpha=gp.alpha,
@@ -245,50 +432,104 @@ def make_serve_step_v3(model, cutout_kwargs, num_pts: int = 450,
             out = {k: out[k] for k in output_fields}
         return {"template": template, "z": z}, out
 
-    @torch.inference_mode()
-    def step(carry, scan):
+    def encode(scan):
         scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
         if sanitize_inputs:
             scan = _sanitize_scan(scan, san_max)
+        return scan, cutout(F.pad(scan, (0, p_pad - num_pts)), **cut_kw)
+
+    if precision == "bf16":
+        layer1, tail_w = fold.backbone_stack_weights(det.backbone)
+        hd_conv_w = fold.prepare_stack_weights(fold.head_conv_blocks(det.head))
+
+        @torch.inference_mode()
+        def step(carry, scan):
+            scan, flat = encode(scan)
+            b = scan.shape[0]
+            act1 = backbone_layer1(flat, layer1)            # (N*L, 64) bf16
+            feats, zx = backbone_tail(act1, tail_w, (gp.w, gp.b), l=ct_len)
+            feats = feats.reshape(b * p_pad, l4 * FEAT_CHANNELS)
+            if carry is None:
+                # bootstrap: the features become the template; the gate
+                # only supplies the similarity band
+                template, z = feats, zx
+                _, _, sim = gate(zx, zx, feats, feats, **gate_kw)
+            else:
+                template, z, sim = gate(zx, carry["z"], feats,
+                                        carry["template"], **gate_kw)
+            cls, reg = head(template.reshape(-1, FEAT_CHANNELS), hd_conv_w,
+                            hd_head_w, num_classes=num_classes, l4=l4)
+            return finish(scan, b, template, z, sim, cls, reg)
+
+        step.calibration = None
+        return step
+
+    # ---- int8c: quantized from the f32 folded weights ----
+    if calib is not None:
+        _check_calibration(calib, det, num_pts, ct_len)
+    elif calib_scans is None:
+        raise ValueError("int8 precision requires calib_scans or calib")
+    else:
+        calib = _calibrate(
+            model, det, cutout_kwargs, calib_scans, num_pts=num_pts,
+            cut_kw=cut_kw, calib_pad=-(-num_pts // pm_tile) * pm_tile,
+            percentile=calib_percentile, steps=calib_steps,
+            sanitize=sanitize_inputs, san_max=san_max, dev=dev)
+    w = int8c_weights(det, calib, dev)
+    feat_scale, tmpl_scale = w.feat_scale, w.tmpl_scale
+    gate_kw.update(s_x=feat_scale, s_out=tmpl_scale)
+
+    @torch.inference_mode()
+    def step(carry, scan):
+        scan, flat = encode(scan)
         b = scan.shape[0]
-        flat = cutout(F.pad(scan, (0, p_pad - num_pts)), **cut_kw)
-        act1 = backbone_layer1(flat, layer1)            # (N*L, 64) bf16
-        feats, zx = backbone_tail(act1, tail_w, (gp.w, gp.b), l=ct_len)
+        feats, zx = backbone_int8(flat, w.layer1, w.backbone, w.embed,
+                                  l=ct_len)
         feats = feats.reshape(b * p_pad, l4 * FEAT_CHANNELS)
         if carry is None:
-            # bootstrap: the features become the template; the gate only
-            # supplies the similarity band
-            template, z = feats, zx
-            _, _, sim = gate(zx, zx, feats, feats, **gate_kw)
+            # bootstrap: the features, rescaled to the carry's scale
+            template = torch.clamp(torch.round(
+                feats.float() * (feat_scale / tmpl_scale)), -127, 127).to(
+                    torch.int8)
+            z = zx
+            _, _, sim = gate_int8(zx, zx, feats, feats, s_t=feat_scale,
+                                  **gate_kw)
         else:
-            template, z, sim = gate(zx, carry["z"], feats, carry["template"],
-                                    **gate_kw)
-        cls, reg = head(template.reshape(-1, FEAT_CHANNELS), hd_conv_w,
-                        hd_head_w, num_classes=num_classes, l4=l4)
+            template, z, sim = gate_int8(zx, carry["z"], feats,
+                                         carry["template"], s_t=tmpl_scale,
+                                         **gate_kw)
+        cls, reg = head_int8(template.reshape(-1, FEAT_CHANNELS), w.head,
+                             hd_head_w, num_classes=num_classes, l4=l4)
         return finish(scan, b, template, z, sim, cls, reg)
 
+    step.calibration = calib
     return step
 
 
 class StreamingRunner:
     """Holds a model and the per-stream carry.
 
-    ``engine``: ``"module"`` (the f32 reference path) or ``"v3"`` (the
-    fused bf16 serving path on the CUDA kernels; on ``device="cpu"`` it
-    runs their plain versions). ``"int8c"`` is ROADMAP queue 1 item 8.
+    ``engine``: ``"module"`` (the f32 reference path), ``"v3"`` (the fused
+    bf16 serving path) or ``"int8c"`` (the int8 serving path, the JAX
+    package's flagship). On ``device="cpu"`` the serving engines run their
+    kernels' plain versions. int8c scales come from ``calib`` (a
+    ``ServeCalibration`` or a path to a ``calibration.json`` or its
+    directory) or from ``calib_scans``; with neither, the runner
+    calibrates on the first batch it sees. ``runner.calibration`` holds the
+    scales in effect.
     """
 
     def __init__(self, model, cutout_kwargs, num_pts: int = 450,
                  nms_min_dist: float = 0.5, with_nms: bool = True,
-                 engine: str = "module", output_fields=None, device="cuda"):
-        if engine == "int8c":
-            raise NotImplementedError(
-                "engine='int8c' is ROADMAP queue 1 item 8")
+                 engine: str = "module", calib=None, calib_scans=None,
+                 output_fields=None, device="cuda"):
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}")
+        resolve_device(device)
         self._engine = engine
         self._carry = None
         self._pending_reset = None
+        self.calibration = None
         is_flow = isinstance(model, FlowDrow)
         self._output_fields = _check_output_fields(output_fields, is_flow,
                                                    with_nms)
@@ -296,11 +537,21 @@ class StreamingRunner:
             self._step = make_stream_step(model, cutout_kwargs, num_pts,
                                           nms_min_dist, with_nms,
                                           device=device)
-        else:
-            self._step = make_serve_step_v3(
-                model, cutout_kwargs, num_pts=num_pts,
-                nms_min_dist=nms_min_dist, with_nms=with_nms,
-                output_fields=self._output_fields, device=device)
+            return
+        if isinstance(calib, (str, os.PathLike)):
+            calib = ServeCalibration.load(calib)
+        self._build = lambda **kw: make_serve_step_v3(
+            model, cutout_kwargs, num_pts=num_pts,
+            nms_min_dist=nms_min_dist, with_nms=with_nms,
+            precision="bf16" if engine == "v3" else "int8c",
+            output_fields=self._output_fields, device=device, **kw)
+        self._step = None
+        if engine == "v3":
+            self._step = self._build()
+        elif calib is not None or calib_scans is not None:
+            self._step = self._build(calib=calib, calib_scans=calib_scans)
+            self.calibration = self._step.calibration
+        # else: int8c calibrates on the first batch (built in __call__)
 
     def reset(self, streams=None):
         """``streams=None`` restarts every stream (the next call
@@ -329,6 +580,10 @@ class StreamingRunner:
 
     def __call__(self, scan) -> dict:
         """Process one ``(B, P)`` scan batch; returns a dict of tensors."""
+        if self._step is None:
+            # lazy int8c: calibrate on this batch
+            self._step = self._build(calib_scans=scan)
+            self.calibration = self._step.calibration
         pending = self._pending_reset
         if pending is not None and self._carry is not None:
             b = scan.shape[0]

@@ -10,9 +10,14 @@ Sampling uses ``torch.gather``. In area mode the JAX ``gather_mode`` picks
 between two different area estimates, and so does this port:
 
 * ``"matmul"``: the band mean over beams ``rint(ind -+ tap_w/2)``, the
-  estimate the fused cutout kernel also computes. The band sums come from a
-  float64 prefix sum, which reproduces the JAX hi/lo bf16 matmul split's
-  near-exact f32 sums;
+  estimate the fused cutout kernel also computes. JAX gathers here with a
+  one-hot bf16 matmul on a hi/lo bf16 split of the ranges, so every sampled
+  range carries 16 significant bits (``hi + lo``), and a band sum is the f32
+  sum of the hi parts plus that of the lo parts. The port samples the same
+  split values (each part's band sum is exact: from a float64 prefix sum).
+  Exact ranges instead shift the f32 cutouts by up to ~2e-4, which moves the
+  int8 head calibration taken from the module step by up to ~2e-5
+  relative;
 * ``"gather"``: the mean of ``area_s`` rint-rounded oversampled taps per
   output tap.
 """
@@ -41,14 +46,29 @@ def _gather_last(table, inds):
     return torch.gather(table, -1, flat).reshape(inds.shape)
 
 
-def band_mean(scans, a_lo, a_hi):
-    """Mean of ``scans (..., P)`` over the beam bands ``[a_lo, a_hi]``
-    (``(..., P', K)`` int64), from a float64 prefix sum with a leading zero
-    (``csum[i]`` = sum of beams < i)."""
-    csum = torch.cumsum(scans.double(), dim=-1)
+def split16(x):
+    """The hi/lo bf16 split of f32 ``x`` the JAX matmul gather contracts
+    with: ``(hi, lo)`` as f32, ``hi = bf16(x)``, ``lo = bf16(x - hi)``."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _band_sum(values, a_lo, a_hi):
+    """f32 sum of ``values (..., P)`` over the beam bands ``[a_lo, a_hi]``
+    (``(..., P', K)`` int64) from a float64 prefix sum with a leading zero
+    (``csum[i]`` = sum of beams < i); exact for the split parts."""
+    csum = torch.cumsum(values.double(), dim=-1)
     csum = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
-    sums = _gather_last(csum, a_hi + 1) - _gather_last(csum, a_lo)
-    return (sums / (a_hi - a_lo + 1).double()).float()
+    return (_gather_last(csum, a_hi + 1) - _gather_last(csum, a_lo)).float()
+
+
+def band_mean(scans, a_lo, a_hi):
+    """Mean of ``scans (..., P)`` over the beam bands ``[a_lo, a_hi]`` as the
+    JAX matmul gather computes it: (sum of the hi parts + sum of the lo
+    parts) / count, in f32."""
+    hi, lo = split16(scans)
+    sums = _band_sum(hi, a_lo, a_hi) + _band_sum(lo, a_lo, a_hi)
+    return sums / (a_hi - a_lo + 1).float()
 
 
 def scans_to_cutout(
@@ -103,8 +123,13 @@ def scans_to_cutout(
     low = torch.clamp(torch.floor(inds), 0, num_pts - 1).long()
     high = torch.clamp(low + 1, 0, num_pts - 1)
     frac = torch.clamp(inds - low.float(), 0.0, 1.0)
-    ct_low = _gather_last(x, low)
-    ct_high = _gather_last(x, high)
+    if gather_mode == "matmul":
+        hi, lo = split16(x)
+        sampled = hi + lo
+    else:
+        sampled = x
+    ct_low = _gather_last(sampled, low)
+    ct_high = _gather_last(sampled, high)
     ct = ct_low + frac * (ct_high - ct_low)
 
     if area_mode:

@@ -1,4 +1,5 @@
-"""K2 and K4: the fused DROW conv stacks (``csrc/conv_stack.cu``).
+"""K2, K4 (bf16) and K5, K7 (int8): the fused DROW conv stacks
+(``csrc/conv_stack.cu``, ``csrc/conv_stack_int8.cu``).
 
 * K2 :func:`backbone_tail` replaces
   ``planar_optical_flow_tpu/ops/pallas/conv_stack.py`` ``fused_backbone_v2``
@@ -24,6 +25,23 @@ traffic per cutout. The kernels keep a tile of cutouts' activations in
 shared memory across all layers (HBM sees only the input and the outputs,
 which is what the TPU kernels bought) and run each conv as three shifted
 bf16 tensor-core products (``nvcuda::wmma`` 16x16x16, f32 accumulate).
+
+The int8c engine's stacks, weights from ``quant.kernel_stack_weights``:
+
+* K5 :func:`backbone_int8` replaces ``fused_backbone_int8_p2``
+  (``l1_mode="mm"``, int8 output, with ``embed_weights``): layer 1 from the
+  f32 cutouts (``1/in_scale`` folded into its weights), the five tail convs
+  as s8 x s8 -> s32 products with the f32 epilogue ``clip(rint(leaky(
+  f32(acc) * s_eff + b_eff)))``, int8 feats ``(N*L/4, 256)`` and zx ``(N,
+  128)`` bf16 through ``W * feat_scale``.
+* K7 :func:`head_int8` replaces ``fused_head_int8_pm``: the head convs on
+  the int8 template (the last one dequantized), the f32 position mean (a
+  sequential sum, then one division) and the bf16 cls/reg products.
+
+Both run on ``mma.sync`` int8 tensor-core products (~15.1 M and 28.9 M int8
+operations per cutout). Their plain versions sum the int8 products in
+float64, which is exact (the 512-channel conv reaches 1536 * 127^2 > 2^24,
+beyond f32's exact integers).
 """
 
 from __future__ import annotations
@@ -34,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build
+from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import div_f32
 
 _LEAKY_SLOPE = 0.1
 BACKBONE_CHANNELS = (64, 64, 128, 128, 128, 256)  # layer-1 out, then 2..6
@@ -196,3 +215,195 @@ def head(feats, conv_weights, head_weights, *, num_classes: int, l4: int):
 
 backbone_tail.launches = 0
 head.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5 and K7: the int8 stacks of the int8c engine (csrc/conv_stack_int8.cu).
+# Weights from quant.kernel_stack_weights: per conv (w (Cout, 3*Cin) int8,
+# s_eff (Cout,) f32, b_eff (Cout,) f32).
+# --------------------------------------------------------------------------
+
+_PLAIN_CHUNK = 8192  # cutouts per pass of the plain versions (bounds memory)
+
+
+def _requant(y):
+    """``clip(rint(y), -127, 127)`` as int8; ``torch.round`` rounds half to
+    even, as ``jnp.rint`` does."""
+    return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+
+
+def _conv_int8_acc(xq, w):
+    """Exact int32 sums of a k=3 SAME conv of int8 ``(n, L, Cin)`` with
+    ``w (Cout, 3*Cin)`` int8, as float64 (every partial sum is an integer
+    below 2^53, so float64 is exact where f32 is not: the 512-channel conv
+    reaches 1536 * 127^2 > 2^24)."""
+    x = xq.double()
+    z = torch.zeros_like(x[:, :1])
+    xc = torch.cat([torch.cat([z, x[:, :-1]], 1), x,
+                    torch.cat([x[:, 1:], z], 1)], dim=-1)
+    return xc @ w.double().t()
+
+
+def _run_int8_plain(xq, weights, pool_after, requant_last):
+    """int8 conv stack: the int32 sum (pooled first where the plan pools),
+    ``f32(acc) * s_eff + b_eff``, leaky, requant (the last layer stays f32
+    unless ``requant_last``)."""
+    x = xq
+    for i, (w, s, b) in enumerate(weights):
+        acc = _conv_int8_acc(x, w)
+        if i in pool_after:
+            n, length, c = acc.shape
+            acc = acc.reshape(n, length // 2, 2, c).amax(2)
+        y = acc.float() * s + b
+        y = torch.where(y > 0, y, _LEAKY_SLOPE * y)
+        x = _requant(y) if (i < len(weights) - 1 or requant_last) else y
+    return x
+
+
+def backbone_int8_layer1_plain(cutouts, layer1):
+    """Layer 1 of K5: ``(N, L)`` f32 cutouts -> ``(N, L, 64)`` int8, with
+    ``layer1 = (w (3, 64), b (64,))`` f32 already divided by the int8
+    scale; ``((xl * w0 + x * w1) + xr * w2) + b``, leaky, rint, clip."""
+    w, b = layer1
+    x = cutouts.float()
+    z = torch.zeros_like(x[:, :1])
+    left = torch.cat([z, x[:, :-1]], dim=1)
+    right = torch.cat([x[:, 1:], z], dim=1)
+    acc = (left[..., None] * w[0] + x[..., None] * w[1]
+           + right[..., None] * w[2]) + b
+    return _requant(torch.where(acc > 0, acc, _LEAKY_SLOPE * acc))
+
+
+def backbone_int8_plain(cutouts, layer1, weights, embed_weights, *, l: int):
+    """Plain PyTorch version of :func:`backbone_int8` (same arguments)."""
+    we_t, be = embed_weights
+    feats, zx = [], []
+    for cut in cutouts.split(_PLAIN_CHUNK):
+        x = backbone_int8_layer1_plain(cut, layer1)
+        f = _run_int8_plain(x, weights, _BACKBONE_POOL_AFTER, True)
+        z = f.float().reshape(f.shape[0], -1) @ we_t.float().t() + be.float()
+        feats.append(f.reshape(-1, 256))
+        zx.append(z.to(torch.bfloat16))
+    return torch.cat(feats), torch.cat(zx)
+
+
+def head_int8_plain(template, conv_weights, head_weights, *, l4: int):
+    """Plain PyTorch version of :func:`head_int8`."""
+    wc, bc, wr, br = head_weights
+    cls, reg = [], []
+    for t in template.split(_PLAIN_CHUNK * l4):
+        y = _run_int8_plain(t.reshape(-1, l4, 256), conv_weights,
+                            _HEAD_POOL_AFTER, False)
+        acc = y[:, 0]
+        for i in range(1, y.shape[1]):
+            acc = acc + y[:, i]
+        pooled = _bf16(div_f32(acc, float(y.shape[1])))
+        cls.append(pooled @ wc.float() + bc.float())
+        reg.append(pooled @ wr.float() + br.float())
+    return torch.cat(cls), torch.cat(reg)
+
+
+def _check_int8_weights(weights, chans, what):
+    if len(weights) != len(chans) - 1:
+        raise ValueError(f"{what}: need {len(chans) - 1} layers")
+    for (w, s, b), cin, cout in zip(weights, chans[:-1], chans[1:]):
+        _check_cuda(w, torch.int8, (cout, 3 * cin), f"{what} w")
+        _check_cuda(s, torch.float32, (cout,), f"{what} s_eff")
+        _check_cuda(b, torch.float32, (cout,), f"{what} b_eff")
+        if not (w.is_contiguous() and s.is_contiguous() and b.is_contiguous()):
+            raise ValueError(f"{what}: layer weights must be contiguous")
+
+
+def _int8_ptrs(weights):
+    return [t.data_ptr() for layer in weights for t in layer]
+
+
+def backbone_int8(cutouts, layer1, weights, embed_weights, *, l: int):
+    """K5: layer 1 + int8 backbone tail + gate embed. ``cutouts (N, l)``
+    f32 -> (feats ``(N*l/4, 256)`` int8 at the last layer's scale, zx
+    ``(N, 128)`` bf16).
+
+    ``layer1``: ``quant.layer1_int8_weights`` (``(3, 64)``, ``(64,)`` f32,
+    ``1/in_scale`` folded in); ``weights``: the 5 tail convs from
+    ``quant.kernel_stack_weights``; ``embed_weights``: ``(W^T (128,
+    l/4*256) bf16, b (128,) bf16)`` with the feats scale folded into ``W``.
+    A CUDA tensor launches K5; a CPU tensor runs :func:`backbone_int8_plain`.
+    """
+    if cutouts.device.type == "cpu":
+        return backbone_int8_plain(cutouts, layer1, weights, embed_weights,
+                                   l=l)
+    if l % 4 or l < 4:
+        raise ValueError(f"backbone_int8: l={l} must be a positive multiple "
+                         "of 4")
+    n = cutouts.shape[0]
+    _check_cuda(cutouts, torch.float32, (n, l), "backbone_int8 cutouts")
+    w1, b1 = layer1
+    _check_cuda(w1, torch.float32, (3, 64), "backbone_int8 layer-1 w")
+    _check_cuda(b1, torch.float32, (64,), "backbone_int8 layer-1 b")
+    _check_int8_weights(weights, BACKBONE_CHANNELS, "backbone_int8")
+    we_t, be = embed_weights
+    _check_cuda(we_t, torch.bfloat16, (128, (l // 4) * 256),
+                "backbone_int8 W^T")
+    _check_cuda(be, torch.bfloat16, (128,), "backbone_int8 b")
+    cutouts, w1, b1, we_t, be = (t.contiguous()
+                                 for t in (cutouts, w1, b1, we_t, be))
+    feats = torch.empty(n * (l // 4), 256, dtype=torch.int8,
+                        device=cutouts.device)
+    zx = torch.empty(n, 128, dtype=torch.bfloat16, device=cutouts.device)
+    fn = _build.load("conv_stack_int8").backbone_int8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    _build.check(fn(cutouts.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                    *_int8_ptrs(weights), we_t.data_ptr(), be.data_ptr(),
+                    feats.data_ptr(), zx.data_ptr(), n, l,
+                    _build.stream_ptr(cutouts.device)), "backbone_int8")
+    backbone_int8.launches += 1
+    return feats, zx
+
+
+def head_int8(template, conv_weights, head_weights, *, num_classes: int,
+              l4: int):
+    """K7: int8 head convs + position mean + cls/reg. ``template (N*l4,
+    256)`` int8 at the head's input scale -> (cls ``(N, num_classes)`` f32,
+    reg ``(N, 2)`` f32).
+
+    ``conv_weights``: the 5 head convs from ``quant.kernel_stack_weights``
+    (the last one dequantized); ``head_weights``: the cls/reg weights of
+    ``fold.head_stack_weights``. A CUDA tensor launches K7; a CPU tensor
+    runs :func:`head_int8_plain`.
+    """
+    if template.device.type == "cpu":
+        return head_int8_plain(template, conv_weights, head_weights, l4=l4)
+    if l4 % 2 or not 2 <= l4 <= 32:
+        raise ValueError(f"head_int8: l4={l4} must be even and in [2, 32]")
+    if not 1 <= num_classes <= 8:
+        raise ValueError(f"head_int8: num_classes={num_classes} not in [1, 8]")
+    n = template.shape[0] // l4
+    _check_cuda(template, torch.int8, (n * l4, 256), "head_int8 template")
+    _check_int8_weights(conv_weights, HEAD_CHANNELS, "head_int8")
+    wc, bc, wr, br = head_weights
+    _check_cuda(wc, torch.bfloat16, (128, num_classes), "head_int8 wc")
+    _check_cuda(bc, torch.float32, (num_classes,), "head_int8 bc")
+    _check_cuda(wr, torch.bfloat16, (128, 2), "head_int8 wr")
+    _check_cuda(br, torch.float32, (2,), "head_int8 br")
+    template = template.contiguous()
+    wc, bc, wr, br = (t.contiguous() for t in head_weights)
+    cls = torch.empty(n, num_classes, dtype=torch.float32,
+                      device=template.device)
+    reg = torch.empty(n, 2, dtype=torch.float32, device=template.device)
+    fn = _build.load("conv_stack_int8").head_int8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    _build.check(fn(template.data_ptr(), *_int8_ptrs(conv_weights),
+                    wc.data_ptr(), bc.data_ptr(), wr.data_ptr(),
+                    br.data_ptr(), cls.data_ptr(), reg.data_ptr(), n, l4,
+                    num_classes, _build.stream_ptr(template.device)),
+                 "head_int8")
+    head_int8.launches += 1
+    return cls, reg
+
+
+backbone_int8.launches = 0
+head_int8.launches = 0

@@ -12,12 +12,19 @@ band ``[rint(ind - tap_w/2), rint(ind + tap_w/2)]`` (``rint`` rounds half
 to even); taps outside ``[0, p_valid-1]`` take ``padding_val``; clip to
 ``r +- window_depth``; center and normalise.
 
+Arithmetic: the f32 steps follow what the JAX kernel computes on XLA's CPU
+backend, the reference of the tests: divisions by compile-time constants
+(``c - 1``, ``angle_inc``, ``window_depth``) become multiplies by the f32
+reciprocal, the index and lerp multiply-adds are fused (one rounding), and
+the area-mode band sum differences XLA's f32 prefix sum (:func:`prefix_sum`).
+The int8 engine amplifies a one-ulp change of a tap index near beam 450 (a
+frac change of ~3e-5, times a range step of up to ~20 m) into int8 flips,
+so the cutouts must agree to the bit, not to 1e-3.
+
 Bound on the H100: bytes. It reads 4 B and writes ``4*C`` B per beam (0.23
 KB at C=56), a few microseconds of HBM time at B=384; the kernel is one
-block per scan with the scan in shared memory, so every tap's gather is a
-shared-memory read. The band sum adds up the at most ~8 beams of a band
-directly (the JAX kernel differences an f32 prefix sum; the plain version
-differences a float64 one; both equal the band sum within f32 rounding).
+block per scan with the scan and its prefix sum in shared memory, so every
+tap's gather is a shared-memory read.
 """
 
 from __future__ import annotations
@@ -25,17 +32,18 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build
 
 
-def _div(a, b):
-    """``a / b`` as one IEEE f32 division. PyTorch on CUDA turns a division
-    by a Python scalar into a multiply by its reciprocal (and ``scalar /
-    tensor`` into ``reciprocal * scalar``); dividing by a 0-dim tensor on
-    the same device keeps the single rounding the kernel does, so the floor
-    and rint decisions of both versions see the same indices."""
+def div_f32(a, b):
+    """``a / b`` as one IEEE f32 division, as the CUDA kernels divide
+    (``__fdiv_rn``). PyTorch on CUDA turns a division by a Python scalar
+    into a multiply by its reciprocal (and ``scalar / tensor`` into
+    ``reciprocal * scalar``); dividing by a 0-dim tensor on the same device
+    keeps the single rounding."""
     dev = b.device if torch.is_tensor(b) else a.device
     if not torch.is_tensor(a):
         a = torch.tensor(a, dtype=torch.float32, device=dev)
@@ -44,14 +52,57 @@ def _div(a, b):
     return torch.div(a, b)
 
 
+def recip(x: float) -> float:
+    """``1 / x`` rounded to f32: the constant XLA multiplies by where the JAX
+    kernel divides by a compile-time constant."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def _fma(a, b, c):
+    """``a * b + c`` rounded once to f32 (XLA contracts the JAX kernel's
+    multiply-adds): the f32 product is exact in float64."""
+    if not torch.is_tensor(b):
+        b = torch.tensor(b, dtype=torch.float32, device=a.device)
+    return (a.double() * b.double() + c.double()).float()
+
+
+SCAN_BASE = 16
+
+
+def prefix_sum(x):
+    """Inclusive f32 prefix sum over the last axis in the order XLA's CPU
+    backend computes ``jnp.cumsum``: sequential within rows of 16, the row
+    totals scanned the same way (recursively), then each row's offset
+    added."""
+    n = x.shape[-1]
+    if n <= SCAN_BASE:
+        out = torch.empty_like(x)
+        acc = torch.zeros_like(x[..., 0])
+        for i in range(n):
+            acc = acc + x[..., i]
+            out[..., i] = acc
+        return out
+    m = -(-n // SCAN_BASE) * SCAN_BASE
+    rows = torch.nn.functional.pad(x, (0, m - n)).reshape(
+        *x.shape[:-1], m // SCAN_BASE, SCAN_BASE)
+    inner = prefix_sum(rows)
+    offsets = prefix_sum(inner[..., -1])
+    offsets = torch.cat([torch.zeros_like(offsets[..., :1]),
+                         offsets[..., :-1]], dim=-1)
+    return (inner + offsets[..., None]).reshape(*x.shape[:-1], m)[..., :n]
+
+
 def _tap_indices(p: int, c: int, half_alpha, angle_inc: float):
-    """``(B, P, C)`` fractional beam indices, in the JAX kernel's f32 order."""
+    """``(B, P, C)`` fractional beam indices ``p + (k * delta - half_alpha)
+    / angle_inc`` with ``delta = 2 * half_alpha / (c - 1)``, in XLA's
+    arithmetic: constant divisors as reciprocal multiplies, the two
+    multiply-adds fused."""
     dev = half_alpha.device
     taps = torch.arange(c, dtype=torch.float32, device=dev)
     pidx = torch.arange(p, dtype=torch.float32, device=dev)[None, :, None]
-    delta = _div(2.0 * half_alpha, float(c - 1))
-    return pidx + _div(taps * delta[..., None] - half_alpha[..., None],
-                       angle_inc)
+    delta = (2.0 * half_alpha) * recip(c - 1)
+    off = _fma(taps, delta[..., None], -half_alpha[..., None])
+    return _fma(off, recip(angle_inc), pidx)
 
 
 def cutout_plain(scans, *, num_cutout_pts: int, window_width: float,
@@ -64,7 +115,7 @@ def cutout_plain(scans, *, num_cutout_pts: int, window_width: float,
     p_valid = p_valid or p
     scans = scans.float()
     dists = scans[..., None]
-    half_alpha = torch.atan(_div(0.5 * window_width,
+    half_alpha = torch.atan(div_f32(0.5 * window_width,
                                  torch.clamp(scans, min=1e-2)))
     inds = _tap_indices(p, c, half_alpha, angle_inc)
     outbound = (inds < 0) | (inds > p_valid - 1)
@@ -76,25 +127,25 @@ def cutout_plain(scans, *, num_cutout_pts: int, window_width: float,
         return torch.gather(table, 1, idx.reshape(b, -1)).reshape(idx.shape)
 
     ct_low = gather(scans, low)
-    ct = ct_low + frac * (gather(scans, high) - ct_low)
+    ct = _fma(frac, gather(scans, high) - ct_low, ct_low)
     if area_mode:
-        tap_w = _div(inds[..., c - 1:c] - inds[..., 0:1], float(c - 1))
+        span = inds[..., c - 1:c] - inds[..., 0:1]
+        tap_w = span * recip(c - 1)
         a_lo = torch.round(torch.clamp(inds - 0.5 * tap_w, 0, p_valid - 1)
                            ).long()
         a_hi = torch.round(torch.clamp(inds + 0.5 * tap_w, 0, p_valid - 1)
                            ).long()
         a_hi = torch.maximum(a_hi, a_lo)
-        csum = torch.cumsum(scans.double(), dim=1)
+        csum = prefix_sum(scans)
         csum = torch.cat([torch.zeros_like(csum[:, :1]), csum], dim=1)
-        band = (gather(csum, a_hi + 1) - gather(csum, a_lo)).float()
+        band = gather(csum, a_hi + 1) - gather(csum, a_lo)
         ct_area = band / (a_hi - a_lo + 1).float()
-        span = inds[..., c - 1:c] - inds[..., 0:1]
         ct = torch.where(span > c, ct_area, ct)
     ct = torch.where(outbound, torch.full_like(ct, padding_val), ct)
     ct = torch.minimum(torch.maximum(ct, dists - window_depth),
                        dists + window_depth)
     if centered:
-        ct = _div(ct - dists, window_depth)
+        ct = (ct - dists) * recip(window_depth)
     return ct.reshape(b * p, c)
 
 
@@ -132,10 +183,11 @@ def cutout(scans, *, num_cutout_pts: int = 56, window_width: float = 1.0,
     fn = lib.cutout_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
-        + [ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_float] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     _build.check(fn(scans.data_ptr(), out.data_ptr(), b, p, p_valid,
                     num_cutout_pts, window_width, window_depth, padding_val,
-                    angle_inc, int(centered), int(area_mode),
+                    recip(num_cutout_pts - 1), recip(angle_inc),
+                    recip(window_depth), int(centered), int(area_mode),
                     _build.stream_ptr(scans.device)), "cutout")
     cutout.launches += 1
     return out

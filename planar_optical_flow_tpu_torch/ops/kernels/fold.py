@@ -27,7 +27,11 @@ from planar_optical_flow_tpu_torch.models.spatial_drow import (
 
 
 def _bn_scale(bn):
-    return bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    """``gamma / sqrt(var + eps)`` in f32 with a correctly rounded square
+    root, as numpy folds in the JAX package (PyTorch's CPU ``sqrt`` can be
+    one ulp off, which moves an int8 weight scale by one ulp)."""
+    var = bn.running_var.float() + bn.eps
+    return bn.weight.float() / torch.sqrt(var.double()).float()
 
 
 @torch.no_grad()
@@ -58,23 +62,37 @@ def prepare_stack_weights(folded) -> list:
     return out
 
 
+def backbone_blocks(backbone: DrowBackbone) -> list:
+    """Folded f32 ``(w, b)`` of the six backbone convs (layer 1 first)."""
+    return block_params(backbone.block1) + block_params(backbone.block2)
+
+
 def backbone_stack_weights(backbone: DrowBackbone):
     """-> (layer-1 ``(w (3, 1, 64) f32, b (64,) f32)``, stacked weights of
     layers 2..6)."""
-    folded = block_params(backbone.block1) + block_params(backbone.block2)
+    folded = backbone_blocks(backbone)
     return folded[0], prepare_stack_weights(folded[1:])
 
 
+def head_conv_blocks(head: DrowHead) -> list:
+    """Folded f32 ``(w, b)`` of the five head convs."""
+    return block_params(head.block3) + block_params(head.block4)
+
+
 @torch.no_grad()
-def head_stack_weights(head: DrowHead):
-    """-> (stacked weights of the five head convs, ``(wc (128, nc) bf16,
-    bc (nc,) f32, wr (128, 2) bf16, br (2,) f32)``)."""
-    convs = prepare_stack_weights(block_params(head.block3)
-                                  + block_params(head.block4))
-    heads = tuple(t.contiguous() for t in (
+def head_linear_weights(head: DrowHead):
+    """``(wc (128, nc) bf16, bc (nc,) f32, wr (128, 2) bf16, br (2,) f32)``:
+    the cls/reg linears as every head kernel reads them."""
+    return tuple(t.contiguous() for t in (
         head.cls.weight.t().to(torch.bfloat16), head.cls.bias.float(),
         head.reg.weight.t().to(torch.bfloat16), head.reg.bias.float()))
-    return convs, heads
+
+
+def head_stack_weights(head: DrowHead):
+    """-> (stacked weights of the five head convs,
+    :func:`head_linear_weights`)."""
+    return (prepare_stack_weights(head_conv_blocks(head)),
+            head_linear_weights(head))
 
 
 class GateParams(NamedTuple):

@@ -96,6 +96,9 @@ def test_package_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['planar_optical_flow_tpu'] = None\n"
         "import planar_optical_flow_tpu_torch.infer.streaming\n"
+        "import planar_optical_flow_tpu_torch.infer.calibration\n"
+        "import planar_optical_flow_tpu_torch.ops.quantized_drow\n"
+        "import planar_optical_flow_tpu_torch.ops.kernels.quant\n"
         "import planar_optical_flow_tpu_torch.interop\n"
         "import planar_optical_flow_tpu_torch.models\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'flax', "
@@ -123,7 +126,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port = FlowDrow(window_size=WINDOW, pedestrian_only=True,
                     num_cutout_pts=CT_LEN)
-    for engine in ("module", "v3"):
+    for engine in ("module", "v3", "int8c"):
         with pytest.raises(RuntimeError, match="cuda"):
             StreamingRunner(port, CUTOUT_KW, num_pts=NUM_PTS, engine=engine)
 

@@ -1,9 +1,11 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1-K7) against their plain PyTorch versions, on the
+card.
 
 Marked ``gpu``: they skip without a card and run on one with
-``python -m pytest -m gpu tests/test_torch_gpu.py``. Shapes are the test
-geometry (16 cutout points, window 5) and the flagship one (56 points,
-window 11), at a few streams.
+``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``. Shapes
+are the test geometry (16 cutout points, window 5) and the flagship one
+(56 points, window 11), at a few streams. bf16 outputs within 2e-2 x
+max|plain|; int8 outputs within 1 LSB with under 5e-3 of them off by one.
 """
 
 from __future__ import annotations
@@ -12,14 +14,23 @@ import numpy as np
 import pytest
 import torch
 
-from planar_optical_flow_tpu_torch.infer.fast_gate import gate, gate_plain
+from planar_optical_flow_tpu_torch.infer.fast_gate import (
+    gate,
+    gate_int8,
+    gate_int8_plain,
+    gate_plain,
+)
 from planar_optical_flow_tpu_torch.models import FlowDrow
-from planar_optical_flow_tpu_torch.ops.kernels import fold
+from planar_optical_flow_tpu_torch.ops.kernels import fold, quant
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+    backbone_int8,
+    backbone_int8_plain,
     backbone_layer1,
     backbone_tail,
     backbone_tail_plain,
     head,
+    head_int8,
+    head_int8_plain,
     head_plain,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
@@ -38,6 +49,13 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _int8_close(got, ref):
+    """Within 1 LSB, with under 5e-3 of the elements off by one."""
+    diff = (got.int() - ref.int()).abs()
+    assert diff.max().item() <= 1, diff.max().item()
+    assert (diff > 0).float().mean().item() < 5e-3
 
 
 def _close(got, ref, rel):
@@ -116,3 +134,65 @@ def test_gate_kernel(cuda, ct, ct_valid, window, d):
     ref = gate_plain(*args, **kw)
     for g, r in zip(got, ref):
         _close(g, r, BF16_REL)
+
+
+@pytest.mark.parametrize("ct_len,window", [(16, 5), (56, 11)])
+def test_int8_stack_kernels(cuda, ct_len, window):
+    """K5 and K7 against their plain versions, with scales calibrated on
+    the same cutouts."""
+    det = _model(ct_len, window, cuda).dr_spaam
+    rng = np.random.default_rng(3)
+    n, l4 = 37, ct_len // 4  # n is not a multiple of the kernels' tile
+    cut = torch.tensor(rng.uniform(-1.0, 1.0, (n, ct_len)),
+                       dtype=torch.float32, device=cuda)
+    blocks = fold.backbone_blocks(det.backbone)
+    act1 = backbone_layer1(cut, blocks[0], compute_dtype=torch.float32)
+    in_scale, scales = quant.stack_act_scales(
+        blocks[1:], act1.reshape(n, ct_len, 64), {1, 4})
+    q, in_scale, feat_scale = quant.quantize_stack_int8(
+        blocks[1:], None, {1, 4}, in_scale=in_scale,
+        act_scales=scales, dequant_last=False)
+    gp = fold.fold_gate_params(det.gate, dtype=torch.bfloat16)
+    we = gp.w * torch.tensor(feat_scale, dtype=torch.bfloat16, device=cuda)
+    args = (cut, quant.layer1_int8_weights(blocks[0], in_scale, cuda),
+            quant.kernel_stack_weights(q, cuda), (we.t().contiguous(), gp.b))
+    n0 = backbone_int8.launches
+    feats, zx = backbone_int8(*args, l=ct_len)
+    torch.cuda.synchronize()
+    assert backbone_int8.launches == n0 + 1
+    feats_p, zx_p = backbone_int8_plain(*args, l=ct_len)
+    _int8_close(feats, feats_p)
+    _close(zx, zx_p, BF16_REL)
+
+    hd_blocks = fold.head_conv_blocks(det.head)
+    sample = (feats.float() * feat_scale).reshape(n, l4, 256)
+    h_in, h_scales = quant.stack_act_scales(hd_blocks, sample, {2})
+    hq, _, _ = quant.quantize_stack_int8(hd_blocks, None, {2},
+                                         in_scale=h_in, act_scales=h_scales)
+    tmpl = quant.quantize_int8(sample.reshape(-1, 256), h_in)
+    hargs = (tmpl, quant.kernel_stack_weights(hq, cuda),
+             fold.head_linear_weights(det.head))
+    cls, reg = head_int8(*hargs, num_classes=1, l4=l4)
+    torch.cuda.synchronize()
+    cls_p, reg_p = head_int8_plain(*hargs, l4=l4)
+    _close(cls, cls_p, BF16_REL)
+    _close(reg, reg_p, BF16_REL)
+
+
+@pytest.mark.parametrize("ct,ct_valid,window,d", [(64, 60, 5, 1024),
+                                                  (456, 450, 11, 3584)])
+def test_gate_int8_kernel(cuda, ct, ct_valid, window, d):
+    rng = np.random.default_rng(4)
+    n = 3 * ct
+    zx, zt = (torch.tensor(rng.normal(size=(n, 128)), dtype=torch.bfloat16,
+                           device=cuda) for _ in range(2))
+    x, t = (torch.tensor(rng.integers(-127, 128, (n, d)), dtype=torch.int8,
+                         device=cuda) for _ in range(2))
+    kw = dict(ct=ct, ct_valid=ct_valid, alpha=0.5, window_size=window,
+              s_x=0.11, s_t=0.17, s_out=0.13)
+    got = gate_int8(zx, zt, x, t, **kw)
+    torch.cuda.synchronize()
+    ref = gate_int8_plain(zx, zt, x, t, **kw)
+    _int8_close(got[0], ref[0])
+    _close(got[1], ref[1], BF16_REL)
+    _close(got[2], ref[2], 1e-5)
