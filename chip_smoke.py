@@ -3,8 +3,10 @@
 
 Drives the port's main paths, streaming FlowDROW serving on the int8c
 engine (the JAX package's serving default) and on the bf16 ``v3`` engine,
-at the flagship working point (window 11, 56 cutout points, area mode, 450
-beams, B=384 streams) with random weights made from ``--seed``.
+and the unfused int8 configurations of ``make_serve_step_v3``
+(``precision="int8"``, int8c ``layout="flat"`` and ``"pm"``), at the
+flagship working point (window 11, 56 cutout points, area mode, 450 beams,
+B=384 streams) with random weights made from ``--seed``.
 
 Phases:
 1. the card's name and power limit, CUDA version and capability; TF32 off
@@ -17,17 +19,29 @@ Phases:
 4. each kernel at the flagship shapes against its plain PyTorch version on
    the same inputs, then timed with CUDA events beside the plain version:
    K1 cutout, K2 backbone tail, K3 gate, K4 head (bf16: within 2e-2 x
-   max|plain|), then K5 int8 backbone, K6 int8 gate, K7 int8 head (int8
-   outputs within 1 LSB with under 5e-3 of them off by one, float outputs
-   within 2e-2 x max|plain|);
-5. the slices, each for 1 bootstrap + 5 carried steps with one per-stream
-   reset, every launch counter set to 0 just before and read just after:
-   ``StreamingRunner(engine="v3")`` (K1-K4 launched) within the JAX
-   package's bf16-vs-f32 tolerance of ``engine="module"`` on the same
-   scans, and ``StreamingRunner(engine="int8c")`` (K1, K5-K7 launched, K2-K4
-   not) at the JAX int8c-vs-f32 bar (corr > 0.95 on cls and flow); a
-   second int8c runner built from the saved ``calibration.json`` gives
-   bit-identical carries for two steps;
+   max|plain|), then K5 int8 backbone, K6 int8 gate, K7 int8 head; at the
+   456 rows a stream of ``"flat"`` and ``"int8"``, K10 int8 backbone on
+   the int8 layer 1 (int8 and bf16 feats) and K6 and K7 on K10's feats
+   (K11 and K10's head); at the 480 rows a stream of ``"pm"``, K1, K9 int8
+   backbone with the divide-after-leaky layer 1, and K6 and K7 on K9's
+   feats; and the K16 row-shift check (int8 outputs within 1 LSB with under
+   5e-3 of them off by one, float outputs within 2e-2 x max|plain|); K9
+   equal to the bit to layer 1 + K10, and within JAX's fold-vs-divide bar
+   of K5 (at most 4 LSB, under 2% of the feats;
+   ``tests/test_conv_stack_v2.py:292-299``);
+5. the slices, each for 1 bootstrap + 5 carried steps, every launch
+   counter set to 0 just before and read just after:
+   ``StreamingRunner(engine="v3")`` (K1-K4 launched, one per-stream reset)
+   within the JAX package's bf16-vs-f32 tolerance of ``engine="module"`` on
+   the same scans, and ``StreamingRunner(engine="int8c")`` (K1, K5-K7
+   launched, K2-K4 not) at the JAX int8c-vs-f32 bar (corr > 0.95 on cls
+   and flow); a second int8c runner built from the saved
+   ``calibration.json`` gives bit-identical carries for two steps; then
+   ``make_serve_step_v3`` with ``precision="int8"`` (K1, K10, K3, K7;
+   corr > 0.96 against the module step), int8c ``"flat"`` (K1, K10, K6,
+   K7) and int8c ``"pm"`` (K1, K9, K6, K7; both corr > 0.95), each built
+   inside the counted window with its K16 check, with ``"flat"`` and
+   ``"pm"`` equal to the bit on the valid rows of every carry and output;
 6. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -67,24 +81,68 @@ CALIB_SCANS = 8         # calibration batch (bench.py:65)
 # the restore check's calibration.json (listed in .gitignore)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "chip_smoke")
-SOURCES = {
-    "cutout": ("planar_optical_flow_tpu_torch/csrc/cutout.cu",
-               "planar_optical_flow_tpu/ops/pallas/cutout_kernel.py:159"),
-    "backbone_tail": ("planar_optical_flow_tpu_torch/csrc/conv_stack.cu",
-                      "planar_optical_flow_tpu/ops/pallas/conv_stack.py:302"),
-    "gate": ("planar_optical_flow_tpu_torch/csrc/gate.cu",
-             "planar_optical_flow_tpu/infer/fast_gate.py:274"),
-    "head": ("planar_optical_flow_tpu_torch/csrc/conv_stack.cu",
-             "planar_optical_flow_tpu/ops/pallas/conv_stack.py:340"),
-    "backbone_int8": ("planar_optical_flow_tpu_torch/csrc/conv_stack_int8.cu",
-                      "planar_optical_flow_tpu/ops/pallas/conv_stack.py:1102"),
-    "gate_int8": ("planar_optical_flow_tpu_torch/csrc/gate.cu",
-                  "planar_optical_flow_tpu/infer/fast_gate.py:679"),
-    "head_int8": ("planar_optical_flow_tpu_torch/csrc/conv_stack_int8.cu",
-                  "planar_optical_flow_tpu/ops/pallas/conv_stack.py:1277"),
+CORR_INT8_STACKS = 0.96  # precision="int8" vs module (test_fast_gate.py)
+FOLD_LSB, FOLD_SHARE = 4, 0.02  # K9 vs K5 (tests/test_conv_stack_v2.py)
+PM_TILE = 160           # make_serve_step_v3's pm_tile: "pm" pads to 480
+# the kernels line: name -> (source, the TPU kernel it replaces, wrapper,
+# the phase-5 run whose launches it reports)
+_CS = "planar_optical_flow_tpu/ops/pallas/conv_stack.py"
+_FG = "planar_optical_flow_tpu/infer/fast_gate.py"
+_SRC = "planar_optical_flow_tpu_torch/csrc/"
+KERNELS = {
+    "cutout": (_SRC + "cutout.cu",
+               "planar_optical_flow_tpu/ops/pallas/cutout_kernel.py:159",
+               "cutout", "int8c"),
+    "backbone_tail": (_SRC + "conv_stack.cu", _CS + ":302", "backbone_tail",
+                      "v3"),
+    "gate": (_SRC + "gate.cu", _FG + ":274", "gate", "v3"),
+    "head": (_SRC + "conv_stack.cu", _CS + ":340", "head", "v3"),
+    "backbone_int8": (_SRC + "conv_stack_int8.cu", _CS + ":1102",
+                      "backbone_int8", "int8c"),
+    "gate_int8": (_SRC + "gate.cu", _FG + ":679", "gate_int8", "int8c"),
+    "head_int8": (_SRC + "conv_stack_int8.cu", _CS + ":1277", "head_int8",
+                  "int8c"),
+    "backbone_int8_pm": (_SRC + "conv_stack_int8.cu", _CS + ":815",
+                         "backbone_int8_pm", "pm"),
+    # K6 and K7 again at the pm path's 480 rows a stream
+    "gate_int8_pm": (_SRC + "gate.cu", _FG + ":679", "gate_int8", "pm"),
+    "head_int8_pm": (_SRC + "conv_stack_int8.cu", _CS + ":1277", "head_int8",
+                     "pm"),
+    "backbone_int8_tail": (_SRC + "conv_stack_int8.cu", _CS + ":1361",
+                           "backbone_int8_tail", "flat"),
+    "backbone_int8_tail_bf16": (_SRC + "conv_stack_int8.cu", _CS + ":1361",
+                                "backbone_int8_tail", "int8"),
+    # K10's head and K11 compute K7's and K6's functions on the same
+    # cutout-major rows, and run on those kernels (held on the flat path's
+    # own rows)
+    "head_int8_as_fused_head_int8": (_SRC + "conv_stack_int8.cu",
+                                     _CS + ":1398", "head_int8", "flat"),
+    "gate_int8_as_gate_fused_int8": (_SRC + "gate.cu", _FG + ":783",
+                                     "gate_int8", "flat"),
+    "row_shift": (_SRC + "conv_stack_int8.cu", _CS + ":533", "row_shift",
+                  "int8"),
 }
 V3_KERNELS = ("cutout", "backbone_tail", "gate", "head")
 INT8C_KERNELS = ("cutout", "backbone_int8", "gate_int8", "head_int8")
+# the unfused int8 configurations: (make_serve_step_v3 options, wrappers
+# launched, wrappers not launched)
+LAYOUTS = {
+    "int8": (dict(precision="int8"),
+             ("cutout", "backbone_int8_tail", "gate", "head_int8",
+              "row_shift"),
+             ("backbone_tail", "head", "backbone_int8", "gate_int8",
+              "backbone_int8_pm")),
+    "flat": (dict(precision="int8c", layout="flat"),
+             ("cutout", "backbone_int8_tail", "gate_int8", "head_int8",
+              "row_shift"),
+             ("backbone_tail", "gate", "head", "backbone_int8",
+              "backbone_int8_pm")),
+    "pm": (dict(precision="int8c", layout="pm"),
+           ("cutout", "backbone_int8_pm", "gate_int8", "head_int8",
+            "row_shift"),
+           ("backbone_tail", "gate", "head", "backbone_int8",
+            "backbone_int8_tail")),
+}
 
 
 def check(cond, msg):
@@ -132,13 +190,17 @@ def wrappers():
     """Every kernel wrapper by name (each carries a ``launches`` count)."""
     from planar_optical_flow_tpu_torch.infer.fast_gate import gate, gate_int8
     from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
-        backbone_int8, backbone_tail, head, head_int8,
+        backbone_int8, backbone_int8_pm, backbone_int8_tail, backbone_tail,
+        head, head_int8, row_shift,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
 
     return {"cutout": cutout, "backbone_tail": backbone_tail, "gate": gate,
             "head": head, "backbone_int8": backbone_int8,
-            "gate_int8": gate_int8, "head_int8": head_int8}
+            "gate_int8": gate_int8, "head_int8": head_int8,
+            "backbone_int8_pm": backbone_int8_pm,
+            "backbone_int8_tail": backbone_int8_tail,
+            "row_shift": row_shift}
 
 
 def build_model(seed, device):
@@ -300,19 +362,104 @@ def kernel_phase(model, scans, device, iters):
     return results
 
 
+def int8_diff(got, ref):
+    """(max |got - ref|, share of elements that differ) of int8 tensors."""
+    diff = (got.int() - ref.int()).abs()
+    return float(diff.max()), float((diff > 0).float().mean())
+
+
+def record_int8(results, name, int8_pairs, float_pairs, ms, plain_ms,
+                bound_pair):
+    """int8 outputs within 1 LSB with under TOL_INT8_SHARE of them off by
+    one; float outputs within TOL_BF16 * max|plain|."""
+    errs, ok, notes = [], True, []
+    for g, r in int8_pairs:
+        err, share = int8_diff(g, r)
+        errs.append(err)
+        ok &= err <= 1 and share < TOL_INT8_SHARE
+        notes.append(f"int8 max={err:.0f} share={share:.3e}")
+    for g, r in float_pairs:
+        errs.append(max_err(g, r))
+        lim = TOL_BF16 * max(float(r.float().abs().max()), 1e-6)
+        ok &= errs[-1] <= lim
+        notes.append(f"err={errs[-1]:.3e} lim={lim:.3e}")
+    print(f"[kernel] {name}: {'; '.join(notes)} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={bound_pair[0]:.6f} "
+          f"({bound_pair[1]}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, f"{name} kernel disagrees with its plain version")
+    results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_pair[0], bound_by=bound_pair[1])
+
+
+def gate_head_int8(results, names, feats, zx, feats2, zx2, w, head_w, gp,
+                   p_pad, b, iters):
+    """K6 on ``(feats, zx)`` with the template made from ``(feats2, zx2)``
+    as the bootstrap makes it, then K7 on the gate's new template, each
+    against its plain version and timed, at ``p_pad`` rows a stream;
+    recorded under ``names`` (gate, head)."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.infer.fast_gate import (
+        gate_int8, gate_int8_plain,
+    )
+    from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+        head_int8, head_int8_plain,
+    )
+
+    l4 = CUTOUT_KW["num_cutout_pts"] // 4
+    n, d = b * p_pad, l4 * 256
+    # K6, carried: the second features, rescaled to the carry scale
+    tmpl = torch.clamp(torch.round(feats2.float().reshape(n, d)
+                                   * (w.feat_scale / w.tmpl_scale)),
+                       -127, 127).to(torch.int8)
+    x = feats.reshape(n, d)
+    gkw = dict(ct=p_pad, ct_valid=NUM_PTS, alpha=gp.alpha,
+               window_size=gp.window_size, s_x=w.feat_scale,
+               s_t=w.tmpl_scale, s_out=w.tmpl_scale)
+    got6 = gate_int8(zx, zx2, x, tmpl, **gkw)
+    torch.cuda.synchronize()
+    ref6 = gate_int8_plain(zx, zx2, x, tmpl, **gkw)
+    hw = WINDOW // 2
+    valid_pairs = sum(min(i + hw, NUM_PTS - 1) - max(i - hw, 0) + 1
+                      for i in range(NUM_PTS)) * b
+    ops6 = 2.0 * valid_pairs * (d + 2 * 128) + 5.0 * n * d
+    bytes6 = 3.0 * n * d + 3.0 * n * 128 * 2 + n * WINDOW * 4
+    record_int8(
+        results, names[0], [(got6[0], ref6[0])],
+        list(zip(got6[1:], ref6[1:])),
+        time_ms(lambda: gate_int8(zx, zx2, x, tmpl, **gkw), iters),
+        time_ms(lambda: gate_int8_plain(zx, zx2, x, tmpl, **gkw), 3, 1),
+        bound(ops6, H100_F32_FLOPS, bytes6))
+    del ref6, tmpl
+
+    # K7 on the gate's new template
+    t7 = got6[0].reshape(-1, 256)
+    cls, reg = head_int8(t7, w.head, head_w, num_classes=1, l4=l4)
+    torch.cuda.synchronize()
+    cls_p, reg_p = head_int8_plain(t7, w.head, head_w, l4=l4)
+    conv7 = 2.0 * (l4 * 3 * (256 * 256 * 2 + 256 * 512)
+                   + (l4 // 2) * 3 * (512 * 256 + 256 * 128))
+    bytes7 = (n * d + n * 3 * 4 + sum(t.numel() * t.element_size()
+                                      for layer in w.head for t in layer))
+    record_int8(
+        results, names[1], [], [(cls, cls_p), (reg, reg_p)],
+        time_ms(lambda: head_int8(t7, w.head, head_w, num_classes=1, l4=l4),
+                iters),
+        time_ms(lambda: head_int8_plain(t7, w.head, head_w, l4=l4), 3, 1),
+        bound([(n * conv7, H100_INT8_OPS),
+               (n * 2.0 * 128 * 3, H100_BF16_FLOPS)], None, bytes7))
+
+
 def int8_kernel_phase(model, scans, calib, device, iters):
     """Phase 4, int8c: K5-K7 against their plain versions at the flagship
     shapes, on the scales of ``calib``, and timed."""
     import torch
     import torch.nn.functional as F
 
-    from planar_optical_flow_tpu_torch.infer.fast_gate import (
-        gate_int8, gate_int8_plain,
-    )
-    from planar_optical_flow_tpu_torch.infer.streaming import int8c_weights
+    from planar_optical_flow_tpu_torch.infer.streaming import int8_weights
     from planar_optical_flow_tpu_torch.ops.kernels import fold
     from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
-        backbone_int8, backbone_int8_plain, head_int8, head_int8_plain,
+        backbone_int8, backbone_int8_plain,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
 
@@ -327,33 +474,10 @@ def int8_kernel_phase(model, scans, calib, device, iters):
                window_depth=CUTOUT_KW["window_depth"],
                padding_val=CUTOUT_KW["padding_val"], centered=True,
                area_mode=True, p_valid=NUM_PTS)
-    w = int8c_weights(det, calib, device)
+    w = int8_weights(det, calib, device)
     head_w = fold.head_linear_weights(det.head)
     gp = fold.fold_gate_params(det.gate)
     results = {}
-
-    def record(name, int8_pairs, float_pairs, ms, plain_ms, bound_pair):
-        """int8 outputs within 1 LSB with under TOL_INT8_SHARE of them off
-        by one; float outputs within TOL_BF16 * max|plain|."""
-        errs, ok, notes = [], True, []
-        for g, r in int8_pairs:
-            diff = (g.int() - r.int()).abs()
-            share = float((diff > 0).float().mean())
-            errs.append(float(diff.max()))
-            ok &= errs[-1] <= 1 and share < TOL_INT8_SHARE
-            notes.append(f"int8 max={errs[-1]:.0f} share={share:.3e}")
-        for g, r in float_pairs:
-            errs.append(max_err(g, r))
-            lim = TOL_BF16 * max(float(r.float().abs().max()), 1e-6)
-            ok &= errs[-1] <= lim
-            notes.append(f"err={errs[-1]:.3e} lim={lim:.3e}")
-        print(f"[kernel] {name}: {'; '.join(notes)} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.3f} bound_ms={bound_pair[0]:.4f} "
-              f"({bound_pair[1]}) {'ok' if ok else 'MISMATCH'}", flush=True)
-        check(ok, f"{name} kernel disagrees with its plain version")
-        results[name] = dict(max_abs_err=max(errs), ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_pair[0],
-                             bound_by=bound_pair[1])
 
     def feats_of(scan):
         flat = cutout(F.pad(scan, (0, p_pad - NUM_PTS)), **ckw)
@@ -370,56 +494,196 @@ def int8_kernel_phase(model, scans, calib, device, iters):
         bytes5 = (n * c * 4 + n * d + n * 128 * 2 + w.embed[0].numel() * 2
                   + sum(t.numel() * t.element_size()
                         for layer in w.backbone for t in layer))
-        record("backbone_int8", [(feats, feats_p)], [(zx, zx_p)],
-               time_ms(lambda: backbone_int8(*k5, l=c), iters),
-               time_ms(lambda: backbone_int8_plain(*k5, l=c), 3, 1),
-               bound([(n * conv5, H100_INT8_OPS),
-                      (n * 2.0 * d * 128, H100_BF16_FLOPS),
-                      (n * c * 64 * 7.0, H100_F32_FLOPS)], None, bytes5))
+        record_int8(
+            results, "backbone_int8", [(feats, feats_p)], [(zx, zx_p)],
+            time_ms(lambda: backbone_int8(*k5, l=c), iters),
+            time_ms(lambda: backbone_int8_plain(*k5, l=c), 3, 1),
+            bound([(n * conv5, H100_INT8_OPS),
+                   (n * 2.0 * d * 128, H100_BF16_FLOPS),
+                   (n * c * 64 * 7.0, H100_F32_FLOPS)], None, bytes5))
         del feats_p, zx_p
 
-        # K6, carried: scan 1's features, rescaled to the carry scale as
-        # the bootstrap does, as the template
+        # K6 and K7, with scan 1's features as the template
         _, (feats2, zx2) = feats_of(scans[1])
-        tmpl = torch.clamp(torch.round(feats2.float().reshape(n, d)
-                                       * (w.feat_scale / w.tmpl_scale)),
-                           -127, 127).to(torch.int8)
-        x = feats.reshape(n, d)
-        gkw = dict(ct=p_pad, ct_valid=NUM_PTS, alpha=gp.alpha,
-                   window_size=gp.window_size, s_x=w.feat_scale,
-                   s_t=w.tmpl_scale, s_out=w.tmpl_scale)
-        got6 = gate_int8(zx, zx2, x, tmpl, **gkw)
-        torch.cuda.synchronize()
-        ref6 = gate_int8_plain(zx, zx2, x, tmpl, **gkw)
-        hw = WINDOW // 2
-        valid_pairs = sum(min(i + hw, NUM_PTS - 1) - max(i - hw, 0) + 1
-                          for i in range(NUM_PTS)) * b
-        ops6 = 2.0 * valid_pairs * (d + 2 * 128) + 5.0 * n * d
-        bytes6 = 3.0 * n * d + 3.0 * n * 128 * 2 + n * WINDOW * 4
-        record("gate_int8", [(got6[0], ref6[0])], list(zip(got6[1:],
-                                                          ref6[1:])),
-               time_ms(lambda: gate_int8(zx, zx2, x, tmpl, **gkw), iters),
-               time_ms(lambda: gate_int8_plain(zx, zx2, x, tmpl, **gkw), 3,
-                       1),
-               bound(ops6, H100_F32_FLOPS, bytes6))
-        del ref6
+        gate_head_int8(results, ("gate_int8", "head_int8"), feats, zx,
+                       feats2, zx2, w, head_w, gp, p_pad, b, iters)
+    return results
 
-        # K7 on the gate's new template
-        t7 = got6[0].reshape(-1, 256)
-        cls, reg = head_int8(t7, w.head, head_w, num_classes=1, l4=l4)
+
+def layouts_kernel_phase(model, scans, calib, device, iters):
+    """Phase 4, the unfused int8 configurations, on the scales of ``calib``,
+    at the rows a stream that each path gives its kernels. At 456
+    (``"flat"`` and ``"int8"``): the plain layer 1, K10 with int8 and bf16
+    feats on it, and K6 and K7 (K11 and K10's head) on K10's feats. At 480
+    (``"pm"``): K1, K9, K9 against layer 1 + K10 and against K5, and K6 and
+    K7 on K9's feats. Then K16."""
+    import torch
+    import torch.nn.functional as F
+
+    from planar_optical_flow_tpu_torch.infer.streaming import int8_weights
+    from planar_optical_flow_tpu_torch.ops.kernels import conv_stack as cs
+    from planar_optical_flow_tpu_torch.ops.kernels import fold, quant
+    from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
+        cutout, cutout_plain,
+    )
+
+    det = model.dr_spaam
+    b = scans.shape[1]
+    c = CUTOUT_KW["num_cutout_pts"]
+    d = c // 4 * 256
+    ckw = dict(num_cutout_pts=c, window_width=CUTOUT_KW["window_width"],
+               window_depth=CUTOUT_KW["window_depth"],
+               padding_val=CUTOUT_KW["padding_val"], centered=True,
+               area_mode=True, p_valid=NUM_PTS)
+    w = int8_weights(det, calib, device, "int8c")
+    w8 = int8_weights(det, calib, device, "int8")
+    head_w = fold.head_linear_weights(det.head)
+    gp = fold.fold_gate_params(det.gate)
+    results = {}
+    conv_ops = 2.0 * (c * 3 * (64 * 64 + 64 * 128)
+                      + (c // 2) * 3 * (2 * 128 * 128 + 128 * 256))
+
+    def tail_ops(n):
+        return [(n * conv_ops, H100_INT8_OPS),
+                (n * 2.0 * d * 128, H100_BF16_FLOPS)]
+
+    def weight_bytes(weights):
+        return sum(t.numel() * t.element_size()
+                   for layer in weights for t in layer)
+
+    def pad(scan, p_pad):
+        return F.pad(scan, (0, p_pad - NUM_PTS))
+
+    def layer1(flat):
+        return cs.backbone_layer1(flat, w.layer1_div, out_scale=w.in_scale)
+
+    with torch.inference_mode():
+        # 456 rows a stream: "flat" and "int8"
+        p_pad = -(-NUM_PTS // 8) * 8
+        n = b * p_pad
+        flat = cutout(pad(scans[0], p_pad), **ckw)
+        act1 = layer1(flat)
         torch.cuda.synchronize()
-        cls_p, reg_p = head_int8_plain(t7, w.head, head_w, l4=l4)
-        conv7 = 2.0 * (l4 * 3 * (256 * 256 * 2 + 256 * 512)
-                       + (l4 // 2) * 3 * (512 * 256 + 256 * 128))
-        bytes7 = (n * d + n * 3 * 4 + sum(t.numel() * t.element_size()
-                                          for layer in w.head for t in layer))
-        record("head_int8", [], [(cls, cls_p), (reg, reg_p)],
-               time_ms(lambda: head_int8(t7, w.head, head_w, num_classes=1,
-                                         l4=l4), iters),
-               time_ms(lambda: head_int8_plain(t7, w.head, head_w, l4=l4), 3,
-                       1),
-               bound([(n * conv7, H100_INT8_OPS),
-                      (n * 2.0 * 128 * 3, H100_BF16_FLOPS)], None, bytes7))
+        l1_ms = time_ms(lambda: layer1(flat), iters)
+        print(f"[layer1] plain-torch layer 1 to int8 (N={n}, part of the "
+              f"flat and int8 steps outside the kernels): {l1_ms:.3f} ms",
+              flush=True)
+
+        # K10, int8 feats (int8c "flat") and bf16 feats ("int8")
+        for name, wts, dtype in (("backbone_int8_tail", w, torch.int8),
+                                 ("backbone_int8_tail_bf16", w8,
+                                  torch.bfloat16)):
+            args = (act1, wts.backbone, wts.embed)
+            got = cs.backbone_int8_tail(*args, l=c, out_dtype=dtype)
+            torch.cuda.synchronize()
+            ref = cs.backbone_int8_tail_plain(*args, l=c, out_dtype=dtype)
+            pairs = [(got[0], ref[0])] if dtype == torch.int8 else []
+            floats = [(got[1], ref[1])] + (
+                [] if dtype == torch.int8 else [(got[0], ref[0])])
+            feat_bytes = 1 if dtype == torch.int8 else 2
+            nbytes = (n * c * 64 + n * d * feat_bytes + n * 128 * 2
+                      + wts.embed[0].numel() * 2 + weight_bytes(wts.backbone))
+            record_int8(
+                results, name, pairs, floats,
+                time_ms(lambda: cs.backbone_int8_tail(*args, l=c,
+                                                      out_dtype=dtype), iters),
+                time_ms(lambda: cs.backbone_int8_tail_plain(
+                    *args, l=c, out_dtype=dtype), 3, 1),
+                bound(tail_ops(n), None, nbytes))
+            if dtype == torch.int8:
+                feats10, zx10 = got
+            else:
+                tq_ms = time_ms(lambda: quant.quantize_int8(
+                    got[0], w8.tmpl_scale), iters)
+                print(f"[requant] the int8 step's bf16 template to int8 for "
+                      f"K7 (plain torch): {tq_ms:.3f} ms", flush=True)
+            del got, ref
+        del act1, flat
+
+        # K11 and K10's head: K6 and K7 on the flat path's own rows, with
+        # scan 1's features as the template
+        feats_t, zx_t = cs.backbone_int8_tail(
+            layer1(cutout(pad(scans[1], p_pad), **ckw)), w.backbone, w.embed,
+            l=c)
+        gate_head_int8(results, ("gate_int8_as_gate_fused_int8",
+                                 "head_int8_as_fused_head_int8"),
+                       feats10, zx10, feats_t, zx_t, w, head_w, gp, p_pad, b,
+                       iters)
+        del feats10, zx10, feats_t, zx_t
+
+        # 480 rows a stream: "pm"
+        p_pad = -(-NUM_PTS // PM_TILE) * PM_TILE
+        n = b * p_pad
+        flat = cutout(pad(scans[0], p_pad), **ckw)
+        torch.cuda.synchronize()
+        err = max_err(flat, cutout_plain(pad(scans[0], p_pad), **ckw))
+        print(f"[kernel] cutout at {p_pad} rows a stream: max_abs_err="
+              f"{err:.3e} (limit {TOL_CUTOUT})", flush=True)
+        check(err <= TOL_CUTOUT, f"cutout at {p_pad} rows disagrees with its "
+              "plain version")
+
+        # K9; layer 1 + K10 (same f32 order) to the bit; K5 (1/in_scale
+        # folded into layer 1) to JAX's bar
+        k9 = (flat, w.layer1_div, w.backbone, w.embed)
+        feats9, zx9 = cs.backbone_int8_pm(*k9, l=c, in_scale=w.in_scale)
+        torch.cuda.synchronize()
+        ref = cs.backbone_int8_pm_plain(*k9, l=c, in_scale=w.in_scale)
+        nbytes9 = (n * c * 4 + n * d + n * 128 * 2 + w.embed[0].numel() * 2
+                   + weight_bytes(w.backbone))
+        record_int8(
+            results, "backbone_int8_pm", [(feats9, ref[0])],
+            [(zx9, ref[1])],
+            time_ms(lambda: cs.backbone_int8_pm(*k9, l=c,
+                                                in_scale=w.in_scale), iters),
+            time_ms(lambda: cs.backbone_int8_pm_plain(
+                *k9, l=c, in_scale=w.in_scale), 3, 1),
+            bound(tail_ops(n) + [(n * c * 64 * 8.0, H100_F32_FLOPS)], None,
+                  nbytes9))
+        del ref
+        feats10, zx10 = cs.backbone_int8_tail(layer1(flat), w.backbone,
+                                              w.embed, l=c)
+        same = torch.equal(feats9, feats10) and torch.equal(zx9, zx10)
+        print(f"[kernel] K9 vs layer 1 + K10 at {p_pad} rows a stream: feats "
+              f"and zx {'bit-identical' if same else 'DIFFER'}", flush=True)
+        check(same, "K9 differs from plain layer 1 + K10")
+        del feats10, zx10
+        feats5, _ = cs.backbone_int8(flat, w.layer1, w.backbone, w.embed, l=c)
+        err, share = int8_diff(feats9, feats5)
+        print(f"[kernel] K9 vs K5 (divide vs fold): max {err:.0f} LSB, "
+              f"share {share:.4e} (bar: <= {FOLD_LSB} LSB, share < "
+              f"{FOLD_SHARE})", flush=True)
+        check(err <= FOLD_LSB and share < FOLD_SHARE,
+              f"K9 vs K5: {err} LSB, share {share}")
+        del feats5, flat
+
+        # K6 and K7 on the pm path's rows (30 dead rows a stream)
+        feats_t, zx_t = cs.backbone_int8_pm(
+            cutout(pad(scans[1], p_pad), **ckw), w.layer1_div, w.backbone,
+            w.embed, l=c, in_scale=w.in_scale)
+        gate_head_int8(results, ("gate_int8_pm", "head_int8_pm"), feats9,
+                       zx9, feats_t, zx_t, w, head_w, gp, p_pad, b, iters)
+        del feats9, zx9, feats_t, zx_t
+
+        # K16 on the JAX check's pattern
+        x_np, l, exp_left, exp_right = cs.row_shift_pattern()
+        x = torch.from_numpy(x_np).to(device)
+        left, right = cs.row_shift(x, l=l)
+        torch.cuda.synchronize()
+        ok = (np.array_equal(left.cpu().numpy(), exp_left)
+              and np.array_equal(right.cpu().numpy(), exp_right))
+        print(f"[kernel] row_shift (K16) on the 8 x 128 pattern: "
+              f"{'expected rows' if ok else 'WRONG ROWS'}", flush=True)
+        check(ok, "K16 row-shift check failed on the card")
+
+        def taps_plain():
+            return cs._taps_plain(x.reshape(-1, l, 128))
+
+        record_int8(results, "row_shift",
+                    [(left, taps_plain()[0].reshape(x.shape)),
+                     (right, taps_plain()[1].reshape(x.shape))], [],
+                    time_ms(lambda: cs.row_shift(x, l=l), iters),
+                    time_ms(taps_plain, iters),
+                    bound(0.0, H100_INT8_OPS, 3.0 * x.numel()))
     return results
 
 
@@ -441,21 +705,21 @@ def compare_engines(got, ref, step):
               f"step {step} {k}: v3 vs module corr {corr} diff {diff}")
 
 
-def compare_int8c(got, ref, step):
-    """The JAX int8c-vs-f32 bar (tests/test_fast_gate.py): corr > 0.95 on
-    cls and flow; every float output finite."""
+def compare_int8c(got, ref, step, bar=CORR_INT8, label="int8c"):
+    """The JAX int8-vs-f32 bars (tests/test_fast_gate.py): corr > ``bar``
+    on cls and flow; every float output finite."""
     import torch
 
     for k in ("pred_cls", "pred_reg", "pred_flow"):
         a, r = got[k].float(), ref[k].float()
-        check(a.shape == r.shape, f"int8c step {step} {k} shape")
-        check(bool(torch.isfinite(a).all()), f"int8c step {step} {k} not "
+        check(a.shape == r.shape, f"{label} step {step} {k} shape")
+        check(bool(torch.isfinite(a).all()), f"{label} step {step} {k} not "
               "finite")
         corr = float(torch.corrcoef(torch.stack([a.ravel(), r.ravel()]))[0, 1])
-        print(f"[slice-int8c] step {step} {k}: corr={corr:.5f} "
+        print(f"[slice-{label}] step {step} {k}: corr={corr:.5f} "
               f"max_diff={float((a - r).abs().max()):.4g}", flush=True)
         if k != "pred_reg":
-            check(corr > CORR_INT8, f"int8c step {step} {k}: corr {corr}")
+            check(corr > bar, f"{label} step {step} {k}: corr {corr}")
 
 
 def drive(runner, scans, reset_step, reset_stream, keep_carries=0):
@@ -563,6 +827,87 @@ def slice_phase(model, scans, device, calib, reset_step, reset_stream):
     return launches, ms_v3, ms_int8c
 
 
+def layouts_slice_phase(model, scans, device, calib):
+    """Phase 5, the unfused int8 configurations through
+    ``make_serve_step_v3``, each built and run (1 bootstrap + 5 carried
+    steps) with every launch counter set to 0 just before and read just
+    after, against the f32 module step on the same scans. int8c ``"flat"``
+    and ``"pm"`` must agree to the bit on the valid rows. Returns
+    ({config: launches}, {config: step ms})."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.infer.streaming import (
+        make_serve_step_v3, make_stream_step,
+    )
+    from planar_optical_flow_tpu_torch.ops.kernels import conv_stack
+
+    b = scans.shape[1]
+    ref_step = make_stream_step(model, CUTOUT_KW, NUM_PTS, with_nms=False,
+                                device=device)
+    refs, tmpl = [], None
+    for scan in scans:
+        tmpl, out = ref_step(tmpl, scan)
+        refs.append({k: out[k] for k in ("pred_cls", "pred_reg",
+                                         "pred_flow")})
+    del tmpl, ref_step
+    torch.cuda.empty_cache()
+
+    def valid(carry, p_pad):
+        return {k: v.reshape(b, p_pad, -1)[:, :NUM_PTS].clone()
+                for k, v in carry.items()}
+
+    all_launches, all_ms, flat_steps = {}, {}, []
+    for name, (opts, launched, idle) in LAYOUTS.items():
+        for wr in wrappers().values():
+            wr.launches = 0
+        # the K16 check runs once per device and process: forget that it
+        # ran, so that each configuration's build runs it again
+        conv_stack._ROW_SHIFT_OK.clear()
+        step = make_serve_step_v3(model, CUTOUT_KW, calib=calib,
+                                  num_pts=NUM_PTS, device=device, **opts)
+        p_pad = (-(-NUM_PTS // PM_TILE) * PM_TILE if name == "pm"
+                 else -(-NUM_PTS // 8) * 8)
+        carry, step_ms = None, []
+        for i, scan in enumerate(scans):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, out = step(carry, scan)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_outputs(out, b, f"{name} step {i}")
+            check(carry["template"].shape[0] == b * p_pad,
+                  f"{name} carry rows {carry['template'].shape[0]}")
+            compare_int8c(out, refs[i], i, CORR_INT8_STACKS if name == "int8"
+                          else CORR_INT8, name)
+            if name == "flat":
+                flat_steps.append((valid(carry, p_pad), out))
+            elif name == "pm":
+                ref_carry, ref_out = flat_steps[i]
+                got = valid(carry, p_pad)
+                same = (all(torch.equal(got[k], ref_carry[k])
+                            for k in ref_carry)
+                        and all(torch.equal(out[k], ref_out[k])
+                                for k in ref_out))
+                check(same, f"pm and flat differ at step {i}")
+                flat_steps[i] = None
+        launches = {k: wr.launches for k, wr in wrappers().items()}
+        print(f"[slice-{name}] launches during the {name} run: "
+              f"{json.dumps(launches)}", flush=True)
+        for k in launched:
+            check(launches[k] > 0, f"kernel {k} was not launched on the "
+                  f"{name} path")
+        for k in idle:
+            check(launches[k] == 0, f"kernel {k} ran on the {name} path")
+        want = torch.bfloat16 if name == "int8" else torch.int8
+        check(carry["template"].dtype == want, f"{name} carry dtype")
+        all_launches[name], all_ms[name] = launches, step_ms
+        del step, carry, out
+        torch.cuda.empty_cache()
+    print("[slice-pm] int8c pm and flat: carries and outputs bit-identical "
+          f"on the valid rows for {len(scans)} steps", flush=True)
+    return all_launches, all_ms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -599,21 +944,30 @@ def main(argv=None):
                 print(f"[ptxas {name}] {line.strip()}")
 
     p_pad = -(-NUM_PTS // 8) * 8
+    p_pm = -(-NUM_PTS // PM_TILE) * PM_TILE
     c = CUTOUT_KW["num_cutout_pts"]
-    for lib, fn, arg in (("cutout", "cutout_smem_bytes", (p_pad,)),
-                         ("conv_stack", "backbone_tail_smem_bytes", (c,)),
-                         ("gate", "gate_smem_bytes", (p_pad, WINDOW)),
-                         ("conv_stack", "head_smem_bytes", (c // 4,)),
-                         ("conv_stack_int8", "backbone_int8_smem_bytes",
-                          (c,)),
-                         ("conv_stack_int8", "head_int8_smem_bytes",
-                          (c // 4,))):
+    for lib, fn, arg, note in (
+            ("cutout", "cutout_smem_bytes", (p_pad,), ""),
+            ("conv_stack", "backbone_tail_smem_bytes", (c,), ""),
+            ("gate", "gate_smem_bytes", (p_pad, WINDOW),
+             " (gate_int8 the same)"),
+            ("gate", "gate_smem_bytes", (p_pm, WINDOW),
+             f" at {p_pm} rows a stream (pm)"),
+            ("conv_stack", "head_smem_bytes", (c // 4,), ""),
+            ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 0, 0),
+             " (K5)"),
+            ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 1, 0),
+             " (K9)"),
+            ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 2, 0),
+             " (K10, int8 feats)"),
+            ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 2, 1),
+             " (K10, bf16 feats)"),
+            ("conv_stack_int8", "head_int8_smem_bytes", (c // 4,), "")):
         f = getattr(_build.load(lib), fn)
         f.restype = ctypes.c_longlong
         f.argtypes = [ctypes.c_int] * len(arg)
         print(f"[smem] {fn[:-len('_smem_bytes')]}: {f(*arg)} bytes of "
-              "dynamic shared memory per block"
-              + (" (gate_int8 the same)" if lib == "gate" else ""))
+              f"dynamic shared memory per block{note}")
 
     model = build_model(args.seed, device)
     rng = np.random.default_rng(args.seed)
@@ -631,21 +985,28 @@ def main(argv=None):
     results.update(int8_kernel_phase(model, scans, calib, device,
                                      TIMED_ITERS))
     torch.cuda.empty_cache()
+    results.update(layouts_kernel_phase(model, scans, calib, device,
+                                        TIMED_ITERS))
+    torch.cuda.empty_cache()
     launches, ms_v3, ms_int8c = slice_phase(
         model, scans, device, calib, reset_step=3, reset_stream=BATCH // 2)
-    for name, step_ms in (("v3", ms_v3), ("int8c", ms_int8c)):
-        carried = float(np.median(step_ms[1:]))
+    torch.cuda.empty_cache()
+    runs, step_ms = layouts_slice_phase(model, scans, device, calib)
+    runs.update(v3=launches, int8c=launches)
+    step_ms.update(v3=ms_v3, int8c=ms_int8c)
+    for name in ("v3", "int8c", "int8", "flat", "pm"):
+        carried = float(np.median(step_ms[name][1:]))
         print(f"[slice] {name} B={BATCH} step_ms="
-              f"{json.dumps([round(t, 3) for t in step_ms])} carried median "
-              f"{carried:.3f} ms = {BATCH / carried * 1e3:.1f} scans/s on "
-              f"{card}", flush=True)
+              f"{json.dumps([round(t, 3) for t in step_ms[name]])} carried "
+              f"median {carried:.3f} ms = {BATCH / carried * 1e3:.1f} "
+              f"scans/s on {card}", flush=True)
 
     kernels = []
-    for name, (src, replaces) in SOURCES.items():
+    for name, (src, replaces, wrapper, run) in KERNELS.items():
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": runs[run][wrapper],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

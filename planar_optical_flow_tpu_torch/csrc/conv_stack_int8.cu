@@ -1,11 +1,19 @@
-// K5 (int8 backbone + gate embed) and K7 (int8 detection head) for Hopper
-// (sm_90a).
+// The int8 conv stacks for Hopper (sm_90a): K5, K9 and K10 (int8 backbone +
+// gate embed), K7 (int8 detection head) and K16 (the tap-row check).
 //
-// K5 replaces planar_optical_flow_tpu/ops/pallas/conv_stack.py
-// fused_backbone_int8_p2 (l1_mode="mm", int8 output, with embed_weights;
-// body _layer1_p2_mm, _run_plan_int8_p2, _run_plan_int8_pm, _embed_acc_pm).
-// K7 replaces fused_head_int8_pm (_head_int8_pm_kernel, _HEAD_PLAN,
-// _head_cls_reg).
+// Each replaces a kernel of planar_optical_flow_tpu/ops/pallas/conv_stack.py:
+//   K5  fused_backbone_int8_p2 (l1_mode="mm", int8 output, with
+//       embed_weights; body _layer1_p2_mm, _run_plan_int8_p2,
+//       _run_plan_int8_pm, _embed_acc_pm);
+//   K9  fused_backbone_int8_pm with layer1_weights (_layer1_pm), and
+//       fused_backbone_int8_p2 with l1_mode="repack"/"blend" (_layer1_p2),
+//       which JAX makes bit-identical to it;
+//   K10 fused_backbone_int8 (_backbone_int8_kernel, _run_plan_int8,
+//       _conv_int8_cat / _conv_int8, _embed_epilogue);
+//   K7  fused_head_int8_pm (_head_int8_pm_kernel, _HEAD_PLAN,
+//       _head_cls_reg); K10's head, fused_head_int8, computes the same
+//       function and runs on this kernel;
+//   K16 check_byte_shift (_shift_rows_int8).
 //
 // What they compute, per cutout:
 //   K5: layer 1 from the f32 cutout (3 taps in f32 with 1/in_scale folded
@@ -16,10 +24,21 @@
 //       int8 feats (L/4 positions x 256) at the last layer's scale, and
 //       zx = bf16(feats @ (W * feat_scale) + b) on bf16 operands with f32
 //       accumulation.
+//   K9: K5 with the other layer-1 rounding: the unscaled taps, leaky, then
+//       one true division by in_scale, rint, clip.
+//   K10: layers 2-6 and the embed on the int8 layer-1 activation read from
+//       device memory ((N*L, 64), made by plain torch with K9's layer-1
+//       rounding). Either int8 feats as K5/K9, or (the int8-conv, bf16-
+//       carry configuration) the last layer dequantized: feats are the
+//       bf16 of its f32 post-leaky value and zx = bf16(bf16(feats) @ W + b)
+//       with the unscaled W.
 //   K7: head convs (conv, conv, conv, pool/2, conv, conv) on the int8
 //       template; the last conv is dequantized (no requant); the f32 mean
 //       over positions (a sequential sum, then one division); cls and reg
 //       from bf16(mean) and bf16 weights with f32 accumulation.
+//   K16: left[r] = x[r - 1] and right[r] = x[r + 1] of an int8 (rows, 128)
+//       array, zero at the ends of each length-L cutout, read with the
+//       tile loader K10 uses and the tap address of every int8 conv.
 // Every f32 step is spelled with __f*_rn intrinsics in the JAX order, so no
 // multiply-add is contracted; rint is round-half-to-even. Max-pool is taken
 // on the int32 sums before the epilogue: the epilogue is monotone, so this
@@ -41,11 +60,18 @@
 // are TPU layout devices and are not carried over: the int32 sums are the
 // same in any layout.
 //
+// K10 fills the tile from its int8 input rows instead of computing layer 1,
+// and with bf16 feats its last conv writes bf16 values over the free buffer
+// (the embed reads them there). K16 is one small launch of the same loader
+// and tap addressing on a known pattern.
+//
 // Bound: tensor-core operations at the int8 peak: about 16.1 M operations
-// per cutout for K5 at L=56 (the bf16 embed included) and 28.9 M for K7 at
-// L/4=14, against ~0.4 KB and ~3.6 KB of device-memory traffic. Positions
-// are padded to 16 per MMA tile, which wastes 12% of K5's and up to 56% of
-// K7's last two convs (7 positions in a 16-row tile).
+// per cutout for K5/K9 at L=56 (the bf16 embed included), 16.0 M for K10,
+// and 28.9 M for K7 at L/4=14, against ~0.4 KB (K5/K9), ~7.2 KB (K10: 3.6
+// KB of act1 in, 3.5 KB of int8 or 7 KB of bf16 feats out) and ~3.6 KB
+// (K7) of device-memory traffic. Positions are padded to 16 per MMA tile,
+// which wastes 12% of the backbone's and up to 56% of K7's last two convs
+// (7 positions in a 16-row tile). K16 is bound by its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +91,9 @@ static_assert(kTile % kMTiles == 0,
               "a warp task's tiles must not run past the block's cutouts");
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Epilogue { kStore = 0, kPool = 1, kMean = 2 };
+enum Epilogue { kStore = 0, kPool = 1, kMean = 2, kPoolBf16 = 3 };
+// how a backbone block gets its layer-1 activation
+enum Layer1 { kFold = 0, kDivide = 1, kRead = 2 };
 
 __host__ __device__ constexpr int ld_of(int c) { return c + kPad; }
 __host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
@@ -123,16 +151,44 @@ __device__ void zero_smem(int8_t* p, int n_bytes) {
   for (int i = threadIdx.x; i < n_bytes / 16; i += blockDim.x) q[i] = z;
 }
 
+// The row that tap t (0 left, 1 centre, 2 right) of position p0 + r of
+// cutout c reads in a zero-padded tile of rows of LD bytes: position p sits
+// in row p + 1, so the tap reads row p0 + t + r; rows 0 and L + 1 stay
+// zero, which is the SAME padding at both ends of the cutout. K16 checks
+// this addressing. (A macro: as an inline function the same expression
+// compiled to a slower inner loop in conv_s8.)
+#define TAP_ROW(tile, c, S, LD, p0, t, r) \
+  ((tile) + (size_t)(c) * (S) + (size_t)((p0) + (t) + (r)) * (LD))
+
+// Rows (n * L, C) int8 of cutouts c0 .. c0 + nv - 1 from device memory into
+// a zeroed tile: position p of cutout c at row p + 1.
+template <int C>
+__device__ void load_rows(const int8_t* __restrict__ src, int8_t* tile,
+                          int c0, int nv, int L, int S) {
+  constexpr int V = C / 16;  // 16-byte vectors per row
+  constexpr int kShift = C == 64 ? 2 : C == 128 ? 3 : 4;
+  static_assert(V == 1 << kShift, "C must be 64, 128 or 256");
+  for (int idx = threadIdx.x; idx < nv * L * V; idx += kThreads) {
+    const int c = idx / (L * V);
+    const int rem = idx - c * L * V;
+    const int p = rem >> kShift, v = rem & (V - 1);
+    reinterpret_cast<uint4*>(tile + (size_t)c * S +
+                             (size_t)(p + 1) * ld_of(C))[v] =
+        reinterpret_cast<const uint4*>(src + ((size_t)(c0 + c) * L + p) * C)[v];
+  }
+}
+
 // One k=3 SAME int8 conv over the block's kTile cutouts: `in` (CIN channels,
 // L positions, per-cutout stride S bytes) -> `out` (COUT channels, int8
-// requantized; pooled to L/2 positions for kPool) or, for kMean, the f32
-// activation into `fout` (kTile x L x COUT). W: (COUT, 3*CIN) int8.
+// requantized; pooled to L/2 positions for kPool) or, into `fout`, the f32
+// activation (kMean: kTile x L x COUT) or the bf16 of the pooled f32
+// activation (kPoolBf16: kTile x L/2 x COUT). W: (COUT, 3*CIN) int8.
 // Fragment layouts (PTX ISA, mma.m16n8k32 .s8): lane = 4 * g + tq; A
 // registers hold rows g / g+8 at k = 4tq.. and 16+4tq..; B registers hold
 // column g at k = 4tq.. and 16+4tq..; D holds rows g / g+8 at columns 2tq,
 // 2tq+1.
 template <int CIN, int COUT, int EPI>
-__device__ void conv_s8(const int8_t* in, int8_t* out, float* fout, int S,
+__device__ void conv_s8(const int8_t* in, int8_t* out, void* fout, int S,
                         int L, const int8_t* __restrict__ W,
                         const float* __restrict__ s_eff,
                         const float* __restrict__ b_eff) {
@@ -168,8 +224,7 @@ __device__ void conv_s8(const int8_t* in, int8_t* out, float* fout, int S,
 #pragma unroll
         for (int i = 0; i < kMTiles; ++i) {
           const int u = u0 + i, c = u / mt, m = u - c * mt;
-          const int8_t* ap = in + (size_t)c * S +
-                             (size_t)(16 * m + t + g) * LDI + kk + 4 * tq;
+          const int8_t* ap = TAP_ROW(in, c, S, LDI, 16 * m, t, g) + kk + 4 * tq;
           const uint32_t a[4] = {lds32(ap), lds32(ap + 8 * LDI),
                                  lds32(ap + 16), lds32(ap + 8 * LDI + 16)};
 #pragma unroll
@@ -185,7 +240,7 @@ __device__ void conv_s8(const int8_t* in, int8_t* out, float* fout, int S,
         const int n = (ng * kNTiles + j) * 8 + 2 * tq;
         const float s0 = s_eff[n], s1 = s_eff[n + 1];
         const float b0 = b_eff[n], b1 = b_eff[n + 1];
-        if (EPI == kPool) {
+        if (EPI == kPool || EPI == kPoolBf16) {
           // positions 2r, 2r+1 are rows g, g^1: lanes `lane`, `lane ^ 4`
           int v[4];
 #pragma unroll
@@ -195,11 +250,18 @@ __device__ void conv_s8(const int8_t* in, int8_t* out, float* fout, int S,
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int pos = 16 * m + g + 8 * h;
-              if (pos < L) {
+              if (pos >= L) continue;
+              const float y0 = scale_leaky(v[2 * h], s0, b0);
+              const float y1 = scale_leaky(v[2 * h + 1], s1, b1);
+              if (EPI == kPool) {
                 *reinterpret_cast<char2*>(
                     out + (size_t)c * S + (size_t)(pos / 2 + 1) * LDO + n) =
-                    make_char2((char)requant(scale_leaky(v[2 * h], s0, b0)),
-                               (char)requant(scale_leaky(v[2 * h + 1], s1, b1)));
+                    make_char2((char)requant(y0), (char)requant(y1));
+              } else {
+                *reinterpret_cast<__nv_bfloat162*>(
+                    static_cast<bf16*>(fout) +
+                    ((size_t)c * (L / 2) + pos / 2) * COUT + n) =
+                    __floats2bfloat162_rn(y0, y1);
               }
             }
           }
@@ -215,7 +277,8 @@ __device__ void conv_s8(const int8_t* in, int8_t* out, float* fout, int S,
                                         (size_t)(pos + 1) * LDO + n) =
                   make_char2((char)requant(y0), (char)requant(y1));
             } else {
-              float* f = fout + ((size_t)c * L + pos) * COUT + n;
+              float* f = static_cast<float*>(fout) +
+                         ((size_t)c * L + pos) * COUT + n;
               f[0] = y0;
               f[1] = y1;
             }
@@ -226,26 +289,31 @@ __device__ void conv_s8(const int8_t* in, int8_t* out, float* fout, int S,
   }
 }
 
+// the backbone's five int8 tail convs (layers 2-6), as
+// quant.kernel_stack_weights lays them out
+struct TailWeights {
+  const int8_t* w[5];
+  const float* s[5];
+  const float* b[5];
+};
+
+// K5 (L1 = kFold), K9 (kDivide) and K10 (kRead). Shared memory: two tile
+// buffers of kTile * S bytes, then the f32 cutouts (kFold/kDivide). With
+// F_OUT the last conv writes bf16 feats (kTile x L/4 x 256) from the start
+// of buf1, which is free by then, into the space after it.
+template <int L1, bool F_OUT>
 __global__ void __launch_bounds__(kThreads)
-    backbone_int8_kernel(const float* __restrict__ cut,
-                         const float* __restrict__ w1, const float* __restrict__ b1,
-                         const int8_t* __restrict__ w2, const float* __restrict__ s2,
-                         const float* __restrict__ c2,
-                         const int8_t* __restrict__ w3, const float* __restrict__ s3,
-                         const float* __restrict__ c3,
-                         const int8_t* __restrict__ w4, const float* __restrict__ s4,
-                         const float* __restrict__ c4,
-                         const int8_t* __restrict__ w5, const float* __restrict__ s5,
-                         const float* __restrict__ c5,
-                         const int8_t* __restrict__ w6, const float* __restrict__ s6,
-                         const float* __restrict__ c6,
-                         const bf16* __restrict__ we_t, const bf16* __restrict__ be,
-                         int8_t* __restrict__ feats, bf16* __restrict__ zx,
-                         int n, int L, int S) {
+    backbone_int8_kernel(const void* __restrict__ in,
+                         const float* __restrict__ w1,
+                         const float* __restrict__ b1, float in_scale,
+                         const TailWeights tw, const bf16* __restrict__ we_t,
+                         const bf16* __restrict__ be, void* __restrict__ feats,
+                         bf16* __restrict__ zx, int n, int L, int S) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   int8_t* buf0 = reinterpret_cast<int8_t*>(smem_raw);
   int8_t* buf1 = buf0 + (size_t)kTile * S;
   float* cut_s = reinterpret_cast<float*>(buf1 + (size_t)kTile * S);
+  bf16* fb = reinterpret_cast<bf16*>(buf1);
   const int c0 = blockIdx.x * kTile;
   const int nv = min(kTile, n - c0);
   const int L2 = L / 2, L4 = L / 4;
@@ -254,70 +322,104 @@ __global__ void __launch_bounds__(kThreads)
 
   zero_smem(buf0, kTile * S);
   zero_smem(buf1, kTile * S);
-  for (int idx = threadIdx.x; idx < nv * L; idx += kThreads)
-    cut_s[idx] = cut[(size_t)c0 * L + idx];
-  __syncthreads();
-
-  // layer 1: ((xl * w0 + x * w1) + xr * w2) + b, 1/in_scale folded in
-  for (int idx = threadIdx.x; idx < nv * L * 64; idx += kThreads) {
-    const int c = idx / (L * 64);
-    const int rem = idx - c * L * 64;
-    const int p = rem >> 6, ch = rem & 63;
-    const float* x = cut_s + c * L;
-    const float xl = p > 0 ? x[p - 1] : 0.0f;
-    const float xr = p < L - 1 ? x[p + 1] : 0.0f;
-    const float a = __fadd_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(xl, w1[ch]), __fmul_rn(x[p], w1[64 + ch])),
-                  __fmul_rn(xr, w1[128 + ch])),
-        b1[ch]);
-    buf0[(size_t)c * S + (size_t)(p + 1) * ld_of(64) + ch] =
-        (int8_t)requant(leaky(a));
+  if (L1 != kRead) {
+    const float* cut = static_cast<const float*>(in);
+    for (int idx = threadIdx.x; idx < nv * L; idx += kThreads)
+      cut_s[idx] = cut[(size_t)c0 * L + idx];
   }
   __syncthreads();
-  conv_s8<64, 64, kStore>(buf0, buf1, nullptr, S, L, w2, s2, c2);
+
+  if (L1 == kRead) {
+    load_rows<64>(static_cast<const int8_t*>(in), buf0, c0, nv, L, S);
+  } else {
+    // layer 1: ((xl * w0 + x * w1) + xr * w2) + b, leaky; kFold has
+    // 1/in_scale folded into w and b, kDivide divides after the leaky
+    for (int idx = threadIdx.x; idx < nv * L * 64; idx += kThreads) {
+      const int c = idx / (L * 64);
+      const int rem = idx - c * L * 64;
+      const int p = rem >> 6, ch = rem & 63;
+      const float* x = cut_s + c * L;
+      const float xl = p > 0 ? x[p - 1] : 0.0f;
+      const float xr = p < L - 1 ? x[p + 1] : 0.0f;
+      const float a = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(xl, w1[ch]), __fmul_rn(x[p], w1[64 + ch])),
+                    __fmul_rn(xr, w1[128 + ch])),
+          b1[ch]);
+      const float y = L1 == kDivide ? __fdiv_rn(leaky(a), in_scale) : leaky(a);
+      buf0[(size_t)c * S + (size_t)(p + 1) * ld_of(64) + ch] =
+          (int8_t)requant(y);
+    }
+  }
+  __syncthreads();
+  conv_s8<64, 64, kStore>(buf0, buf1, nullptr, S, L, tw.w[0], tw.s[0], tw.b[0]);
   __syncthreads();
   zero_smem(buf0, kTile * S);
   __syncthreads();
-  conv_s8<64, 128, kPool>(buf1, buf0, nullptr, S, L, w3, s3, c3);
+  conv_s8<64, 128, kPool>(buf1, buf0, nullptr, S, L, tw.w[1], tw.s[1], tw.b[1]);
   __syncthreads();
   zero_smem(buf1, kTile * S);
   __syncthreads();
-  conv_s8<128, 128, kStore>(buf0, buf1, nullptr, S, L2, w4, s4, c4);
+  conv_s8<128, 128, kStore>(buf0, buf1, nullptr, S, L2, tw.w[2], tw.s[2], tw.b[2]);
   __syncthreads();
   zero_smem(buf0, kTile * S);
   __syncthreads();
-  conv_s8<128, 128, kStore>(buf1, buf0, nullptr, S, L2, w5, s5, c5);
+  conv_s8<128, 128, kStore>(buf1, buf0, nullptr, S, L2, tw.w[3], tw.s[3], tw.b[3]);
   __syncthreads();
-  zero_smem(buf1, kTile * S);
-  __syncthreads();
-  conv_s8<128, 256, kPool>(buf0, buf1, nullptr, S, L2, w6, s6, c6);
+  if (F_OUT) {
+    conv_s8<128, 256, kPoolBf16>(buf0, nullptr, fb, S, L2, tw.w[4], tw.s[4],
+                                 tw.b[4]);
+  } else {
+    zero_smem(buf1, kTile * S);
+    __syncthreads();
+    conv_s8<128, 256, kPool>(buf0, buf1, nullptr, S, L2, tw.w[4], tw.s[4],
+                             tw.b[4]);
+  }
   __syncthreads();
 
-  // feats: rows 1..L4 of buf1 -> (N * L4, 256) int8
-  for (int idx = threadIdx.x; idx < nv * L4 * 16; idx += kThreads) {
-    const int c = idx / (L4 * 16);
-    const int rem = idx - c * L4 * 16;
-    const int p = rem >> 4, v = rem & 15;
-    reinterpret_cast<uint4*>(feats + ((size_t)(c0 + c) * L4 + p) * 256)[v] =
-        reinterpret_cast<const uint4*>(buf1 + (size_t)c * S +
-                                       (size_t)(p + 1) * ld_of(256))[v];
+  if (F_OUT) {
+    // feats: the block's rows of fb are contiguous, as in device memory
+    const int nvec = nv * L4 * 32;  // 16-byte vectors
+    uint4* dst = reinterpret_cast<uint4*>(static_cast<bf16*>(feats) +
+                                          (size_t)c0 * L4 * 256);
+    for (int idx = threadIdx.x; idx < nvec; idx += kThreads)
+      dst[idx] = reinterpret_cast<const uint4*>(fb)[idx];
+  } else {
+    // feats: rows 1..L4 of buf1 -> (N * L4, 256) int8
+    int8_t* f8 = static_cast<int8_t*>(feats);
+    for (int idx = threadIdx.x; idx < nv * L4 * 16; idx += kThreads) {
+      const int c = idx / (L4 * 16);
+      const int rem = idx - c * L4 * 16;
+      const int p = rem >> 4, v = rem & 15;
+      reinterpret_cast<uint4*>(f8 + ((size_t)(c0 + c) * L4 + p) * 256)[v] =
+          reinterpret_cast<const uint4*>(buf1 + (size_t)c * S +
+                                         (size_t)(p + 1) * ld_of(256))[v];
+    }
   }
 
   // gate embed zx = feats_flat @ We + be on bf16 operands (int8 values are
   // exact in bf16): m16n8k16 products with the block's 8 cutouts as rows g
   // (rows g+8 are zero); contraction index k = p * 256 + ch. Warp w owns
-  // output columns 16w .. 16w+15 over the whole contraction.
+  // output columns 16w .. 16w+15 over the whole contraction. Rows g >= nv
+  // (past the last cutout) only feed outputs that are not stored.
   {
     const int K = L4 * 256;
     float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     const int8_t* arow = buf1 + (size_t)g * S;
+    const bf16* frow = fb + (size_t)g * K + 2 * tq;
     const bf16* wrow0 = we_t + (size_t)((2 * warp) * 8 + g) * K + 2 * tq;
     const bf16* wrow1 = wrow0 + (size_t)8 * K;
     for (int k0 = 0; k0 < K; k0 += 16) {
-      const int8_t* ap = arow + (size_t)((k0 >> 8) + 1) * ld_of(256) +
-                         (k0 & 255) + 2 * tq;
-      const uint32_t a[4] = {bf16x2_of(ap[0], ap[1]), 0u,
-                             bf16x2_of(ap[8], ap[9]), 0u};
+      uint32_t a[4];
+      if (F_OUT) {
+        a[0] = *reinterpret_cast<const uint32_t*>(frow + k0);
+        a[2] = *reinterpret_cast<const uint32_t*>(frow + k0 + 8);
+      } else {
+        const int8_t* ap = arow + (size_t)((k0 >> 8) + 1) * ld_of(256) +
+                           (k0 & 255) + 2 * tq;
+        a[0] = bf16x2_of(ap[0], ap[1]);
+        a[2] = bf16x2_of(ap[8], ap[9]);
+      }
+      a[1] = a[3] = 0u;
       const uint32_t bw0[2] = {ldg32(wrow0 + k0), ldg32(wrow0 + k0 + 8)};
       const uint32_t bw1[2] = {ldg32(wrow1 + k0), ldg32(wrow1 + k0 + 8)};
       mma_bf16(acc[0], a, bw0);
@@ -333,6 +435,31 @@ __global__ void __launch_bounds__(kThreads)
             __fadd_rn(acc[j][1], __bfloat162float(be[col + 1])));
       }
     }
+  }
+}
+
+// K16: x (n * L, 128) int8 -> left[r] = x[r - 1], right[r] = x[r + 1]
+// within each length-L cutout (zero at its ends), through load_rows and
+// TAP_ROW as the convs read their taps.
+__global__ void __launch_bounds__(kThreads)
+    row_shift_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ left,
+                     int8_t* __restrict__ right, int n, int L, int S) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int8_t* tile = reinterpret_cast<int8_t*>(smem_raw);
+  const int c0 = blockIdx.x * kTile;
+  const int nv = min(kTile, n - c0);
+  constexpr int LD = ld_of(128);
+  zero_smem(tile, kTile * S);
+  __syncthreads();
+  load_rows<128>(x, tile, c0, nv, L, S);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < nv * L * 128; idx += kThreads) {
+    const int c = idx / (L * 128);
+    const int rem = idx - c * L * 128;
+    const int p = rem >> 7, ch = rem & 127;
+    const size_t o = ((size_t)(c0 + c) * L + p) * 128 + ch;
+    left[o] = TAP_ROW(tile, c, S, LD, 0, 0, p)[ch];
+    right[o] = TAP_ROW(tile, c, S, LD, 0, 2, p)[ch];
   }
 }
 
@@ -363,14 +490,7 @@ __global__ void __launch_bounds__(kThreads)
   zero_smem(buf0, kTile * S);
   zero_smem(buf1, kTile * S);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nv * L4 * 16; idx += kThreads) {
-    const int c = idx / (L4 * 16);
-    const int rem = idx - c * L4 * 16;
-    const int p = rem >> 4, v = rem & 15;
-    reinterpret_cast<uint4*>(buf0 + (size_t)c * S +
-                             (size_t)(p + 1) * ld_of(256))[v] =
-        reinterpret_cast<const uint4*>(tmpl + ((size_t)(c0 + c) * L4 + p) * 256)[v];
-  }
+  load_rows<256>(tmpl, buf0, c0, nv, L4, S);
   __syncthreads();
   conv_s8<256, 256, kStore>(buf0, buf1, nullptr, S, L4, w1, s1, c1);
   __syncthreads();
@@ -427,11 +547,19 @@ int set_smem(const void* kernel, size_t bytes) {
 
 int round16(int x) { return (x + 15) / 16 * 16; }
 
-size_t backbone_int8_smem(int l, int* S) {
+// tile stride S and dynamic shared memory of a backbone launch
+size_t backbone_int8_smem(int l, int L1, bool f_out, int* S) {
   *S = round16(imax(imax((pad16(l) + 2) * ld_of(64),
                          (pad16(l / 2) + 2) * ld_of(128)),
                     (pad16(l / 4) + 2) * ld_of(256)));
-  return 2 * (size_t)kTile * *S + (size_t)kTile * l * sizeof(float);
+  size_t bytes = 2 * (size_t)kTile * *S;
+  if (L1 != kRead) bytes += (size_t)kTile * l * sizeof(float);
+  if (f_out) {
+    const size_t fb_end =
+        (size_t)kTile * *S + (size_t)kTile * (l / 4) * 256 * sizeof(bf16);
+    bytes = bytes > fb_end ? bytes : fb_end;
+  }
+  return bytes;
 }
 
 size_t head_int8_smem(int l4, int* S) {
@@ -440,12 +568,45 @@ size_t head_int8_smem(int l4, int* S) {
   return 2 * (size_t)kTile * *S + (size_t)kTile * 128 * sizeof(float);
 }
 
+size_t row_shift_smem(int l, int* S) {
+  *S = round16((pad16(l) + 2) * ld_of(128));
+  return (size_t)kTile * *S;
+}
+
+TailWeights tail_weights(const void* const* p) {
+  TailWeights tw;
+  for (int i = 0; i < 5; ++i) {
+    tw.w[i] = static_cast<const int8_t*>(p[3 * i]);
+    tw.s[i] = static_cast<const float*>(p[3 * i + 1]);
+    tw.b[i] = static_cast<const float*>(p[3 * i + 2]);
+  }
+  return tw;
+}
+
+template <int L1, bool F_OUT>
+int launch_backbone(const void* in, const void* w1, const void* b1,
+                    float in_scale, const TailWeights& tw, const void* we_t,
+                    const void* be, void* feats, void* zx, int n, int l,
+                    cudaStream_t stream) {
+  int S;
+  const size_t smem = backbone_int8_smem(l, L1, F_OUT, &S);
+  int err = set_smem((const void*)backbone_int8_kernel<L1, F_OUT>, smem);
+  if (err) return err;
+  const int grid = (n + kTile - 1) / kTile;
+  backbone_int8_kernel<L1, F_OUT><<<grid, kThreads, smem, stream>>>(
+      in, (const float*)w1, (const float*)b1, in_scale, tw, (const bf16*)we_t,
+      (const bf16*)be, feats, (bf16*)zx, n, l, S);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dynamic shared memory a launch at these lengths asks for (bytes)
-extern "C" long long backbone_int8_smem_bytes(int l) {
+// dynamic shared memory a launch at these lengths asks for (bytes); l1_mode
+// and bf16_out as for backbone_int8_launch
+extern "C" long long backbone_int8_smem_bytes(int l, int l1_mode,
+                                              int bf16_out) {
   int S;
-  return (long long)backbone_int8_smem(l, &S);
+  return (long long)backbone_int8_smem(l, l1_mode, bf16_out != 0, &S);
 }
 
 extern "C" long long head_int8_smem_bytes(int l4) {
@@ -453,27 +614,48 @@ extern "C" long long head_int8_smem_bytes(int l4) {
   return (long long)head_int8_smem(l4, &S);
 }
 
-extern "C" int backbone_int8_launch(
-    const void* cut, const void* w1, const void* b1, const void* w2,
-    const void* s2, const void* c2, const void* w3, const void* s3,
-    const void* c3, const void* w4, const void* s4, const void* c4,
-    const void* w5, const void* s5, const void* c5, const void* w6,
-    const void* s6, const void* c6, const void* we_t, const void* be,
-    void* feats, void* zx, int n, int l, void* stream) {
+// K5 (l1_mode 0: f32 cutouts, 1/in_scale folded into (w1, b1)), K9
+// (l1_mode 1: f32 cutouts, unscaled (w1, b1), one division by in_scale after
+// the leaky) and K10 (l1_mode 2: int8 act1 (n * l, 64); w1, b1 unused).
+// tail: the 15 pointers (w, s_eff, b_eff) of layers 2-6. bf16_out (K10
+// only): bf16 feats of the dequantized last layer instead of int8 feats.
+extern "C" int backbone_int8_launch(const void* in, const void* w1,
+                                    const void* b1, float in_scale,
+                                    const void* const* tail, const void* we_t,
+                                    const void* be, void* feats, void* zx,
+                                    int n, int l, int l1_mode, int bf16_out,
+                                    void* stream) {
+  if (n == 0) return (int)cudaSuccess;
+  const TailWeights tw = tail_weights(tail);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (l1_mode == kFold && !bf16_out)
+    return launch_backbone<kFold, false>(in, w1, b1, 1.0f, tw, we_t, be,
+                                         feats, zx, n, l, st);
+  if (l1_mode == kDivide && !bf16_out)
+    return launch_backbone<kDivide, false>(in, w1, b1, in_scale, tw, we_t,
+                                           be, feats, zx, n, l, st);
+  if (l1_mode == kRead)
+    return bf16_out ? launch_backbone<kRead, true>(in, nullptr, nullptr, 1.0f,
+                                                   tw, we_t, be, feats, zx, n,
+                                                   l, st)
+                    : launch_backbone<kRead, false>(in, nullptr, nullptr,
+                                                    1.0f, tw, we_t, be, feats,
+                                                    zx, n, l, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K16: x (rows, 128) int8, rows a multiple of l
+extern "C" int row_shift_launch(const void* x, void* left, void* right,
+                                int rows, int l, void* stream) {
+  const int n = rows / l;
   if (n == 0) return (int)cudaSuccess;
   int S;
-  const size_t smem = backbone_int8_smem(l, &S);
-  int err = set_smem((const void*)backbone_int8_kernel, smem);
+  const size_t smem = row_shift_smem(l, &S);
+  int err = set_smem((const void*)row_shift_kernel, smem);
   if (err) return err;
   const int grid = (n + kTile - 1) / kTile;
-  backbone_int8_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)cut, (const float*)w1, (const float*)b1,
-      (const int8_t*)w2, (const float*)s2, (const float*)c2,
-      (const int8_t*)w3, (const float*)s3, (const float*)c3,
-      (const int8_t*)w4, (const float*)s4, (const float*)c4,
-      (const int8_t*)w5, (const float*)s5, (const float*)c5,
-      (const int8_t*)w6, (const float*)s6, (const float*)c6,
-      (const bf16*)we_t, (const bf16*)be, (int8_t*)feats, (bf16*)zx, n, l, S);
+  row_shift_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (int8_t*)left, (int8_t*)right, n, l, S);
   return (int)cudaGetLastError();
 }
 

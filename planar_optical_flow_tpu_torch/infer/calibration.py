@@ -98,7 +98,9 @@ def calibrate_serve_v3(model, cutout_kwargs, calib_scans,
     the persistable scales. Builds a throw-away serve step on the runtime
     encode path, so the observed distributions match serving.
     ``serve_kwargs`` go to ``make_serve_step_v3`` (``device``,
-    ``calib_steps``, ``calib_percentile``, ...)."""
+    ``calib_steps``, ``calib_percentile``, ``precision``, ``layout``,
+    ``pm_tile``, ...): the scales depend on the layout's beam padding, as
+    in JAX."""
     from planar_optical_flow_tpu_torch.infer.streaming import (
         make_serve_step_v3,
     )

@@ -18,6 +18,12 @@ engines:
   scale; the scales come from a ``ServeCalibration``
   (``infer/calibration.py``).
 
+:func:`make_serve_step_v3` also runs the JAX builder's other unfused int8
+configurations, which ``StreamingRunner`` does not offer (as in JAX):
+``precision="int8"`` (int8 conv stacks, K10 and K7, bf16 carry through
+K3) and int8c ``layout="pm"`` (K9) or ``"flat"`` (layer 1 in plain torch,
+K10).
+
 All return ``step(carry, scan) -> (carry', outputs)`` with ``carry=None``
 for a stream's first scan; :class:`StreamingRunner` holds the carry and
 resets streams. Inference only: every step runs under
@@ -47,8 +53,11 @@ from planar_optical_flow_tpu_torch.ops.geometry import (
 from planar_optical_flow_tpu_torch.ops.kernels import fold, quant
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     backbone_int8,
+    backbone_int8_pm,
+    backbone_int8_tail,
     backbone_layer1,
     backbone_tail,
+    check_row_shift,
     head,
     head_int8,
 )
@@ -289,78 +298,109 @@ def _check_calibration(calib, det, num_pts, ct_len):
                 "calibration.json")
 
 
-class Int8cWeights(NamedTuple):
-    """What the int8c kernels read, quantized at one calibration."""
+class Int8Weights(NamedTuple):
+    """What the int8 kernels read, quantized at one calibration."""
     layer1: tuple      # K5 layer 1: (w (3, 64), b (64,)) f32 / in_scale
-    backbone: list     # K5 convs: (w (Cout, 3*Cin) int8, s_eff, b_eff)
-    embed: tuple       # K5 embed: ((W * feat_scale)^T (128, D) bf16, b)
+    layer1_div: tuple  # K9 and the plain layer 1: (w (3, 64), b (64,)) f32
+    in_scale: float    # scale of the int8 layer-1 activation
+    backbone: list     # convs 2-6: (w (Cout, 3*Cin) int8, s_eff, b_eff)
+    embed: tuple       # gate embed: (W^T (128, D) bf16, b); W * feat_scale
+    #                    for int8 feats
     head: list         # K7 convs, the last one dequantized
-    feat_scale: float  # scale of the int8 feats
-    tmpl_scale: float  # scale of the int8 template carry (head input)
+    feat_scale: float | None  # scale of the int8 feats (None: bf16 feats)
+    tmpl_scale: float  # the head's input scale (the int8 template's)
 
 
-def int8c_weights(detector, calib: ServeCalibration, device) -> Int8cWeights:
+def int8_weights(detector, calib: ServeCalibration, device,
+                 precision: str = "int8c") -> Int8Weights:
     """Quantize ``detector``'s f32 folded weights at ``calib``'s scales, as
-    the JAX int8c step does (``streaming.py:744-769``): the backbone's last
-    layer requantizes too, so feats are int8 at ``feat_scale`` and the
-    template carry at the head's input scale."""
+    the JAX int8 steps do (``streaming.py:744-769``). ``"int8c"``: the
+    backbone's last layer requantizes too, so feats are int8 at
+    ``feat_scale`` and the embed weight absorbs that scale. ``"int8"``: the
+    last layer is dequantized (feats in f32 units, carried as bf16) and the
+    embed weight is unscaled."""
+    int8_feats = precision == "int8c"
     bb_blocks = fold.backbone_blocks(detector.backbone)
     bb_q, bb_in_scale, feat_scale = quant.quantize_stack_int8(
         bb_blocks[1:], None, pool_after={1, 4},
         in_scale=calib.bb_in_scale, act_scales=calib.bb_act_scales,
-        dequant_last=False)
+        dequant_last=not int8_feats)
     hd_q, tmpl_scale, _ = quant.quantize_stack_int8(
         fold.head_conv_blocks(detector.head), None, pool_after={2},
         in_scale=calib.hd_in_scale, act_scales=calib.hd_act_scales)
     gp = fold.fold_gate_params(detector.gate, dtype=torch.bfloat16)
-    # bf16 W times the scale rounded to bf16, rounded to bf16 (the JAX
-    # weakly typed product embed_w * feat_scale)
-    we = gp.w.to(device) * torch.tensor(float(feat_scale),
-                                        dtype=torch.bfloat16, device=device)
-    return Int8cWeights(
+    we = gp.w.to(device)
+    if int8_feats:
+        # bf16 W times the scale rounded to bf16, rounded to bf16 (the JAX
+        # weakly typed product embed_w * feat_scale)
+        we = we * torch.tensor(float(feat_scale), dtype=torch.bfloat16,
+                               device=device)
+    w1, b1 = bb_blocks[0]
+    return Int8Weights(
         layer1=quant.layer1_int8_weights(bb_blocks[0], bb_in_scale, device),
+        layer1_div=(w1.reshape(3, -1).contiguous().to(device),
+                    b1.contiguous().to(device)),
+        in_scale=float(bb_in_scale),
         backbone=quant.kernel_stack_weights(bb_q, device),
         embed=(we.t().contiguous(), gp.b.to(device)),
         head=quant.kernel_stack_weights(hd_q, device),
-        feat_scale=float(feat_scale), tmpl_scale=float(tmpl_scale))
+        feat_scale=None if feat_scale is None else float(feat_scale),
+        tmpl_scale=float(tmpl_scale))
 
 
-def _check_v3_options(precision, layout, fuse_gate_head, pm_tile):
-    """The JAX builder's options that this port does not run yet raise
-    ``NotImplementedError`` naming the ROADMAP kernel they wait for."""
+def _check_v3_options(precision, layout, fuse_gate_head, gate_per_stream,
+                      pm_tile, conv_mode, int8_conv_mode, p2_l1_mode) -> bool:
+    """The JAX builder's checks (``streaming.py:567-605``), then the
+    options that this port does not run yet, which raise
+    ``NotImplementedError`` naming the ROADMAP kernel they wait for.
+    Returns whether the layout is one of JAX's position-major family (its
+    calibration pads to a ``pm_tile`` multiple)."""
     if precision not in ("bf16", "int8", "int8c"):
         raise ValueError(f"unknown precision {precision!r}")
     if layout not in ("flat", "pm", "cell", "p2", "p2c"):
         raise ValueError(f"unknown layout {layout!r}")
-    if precision == "int8":
-        raise NotImplementedError(
-            "precision='int8' (int8 conv stacks, bf16 carry) runs the "
-            "cutout-major int8 stacks K10 (ROADMAP queue 2); use 'int8c'")
-    if precision == "bf16" and layout not in ("flat", "p2"):
+    if layout not in ("flat", "p2") and precision != "int8c":
         raise ValueError(
-            f"layout={layout!r} requires precision='int8c' (got 'bf16'); "
-            "bf16 runs the cutout-major kernels (layout 'flat' or 'p2')")
-    waits = {"pm": "K9 (the pm backbone)", "cell": "K13 (serve_cell_int8)",
-             "p2c": "K8 (cutout + backbone in one kernel)",
-             "flat": "K10/K11 (the cutout-major int8 stacks and gate)"}
+            f"layout={layout!r} requires precision='int8c' (got "
+            f"{precision!r}); bf16/int8 use the cutout-major kernels (pass "
+            "layout='flat' or the default, or switch precision)")
+    pm = precision == "int8c" and layout != "flat"
+    if fuse_gate_head and not (pm and gate_per_stream and layout != "cell"):
+        raise ValueError(
+            "fuse_gate_head=True requires precision='int8c', a pm-family "
+            f"layout (not 'cell') and gate_per_stream=True (got "
+            f"precision={precision!r}, layout={layout!r}, "
+            f"gate_per_stream={gate_per_stream})")
+    if pm and layout != "cell" and pm_tile % 32:
+        raise ValueError("pm_tile must be a multiple of 32")
+    for name, value, known in (("conv_mode", conv_mode, ("3mm", "concat")),
+                               ("int8_conv_mode", int8_conv_mode,
+                                ("3mm", "cat")),
+                               ("p2_l1_mode", p2_l1_mode,
+                                ("mm", "repack", "blend"))):
+        if value not in known:
+            raise ValueError(f"unknown {name} {value!r}; one of {known}")
+    waits = {"cell": "K13 (serve_cell_int8, the whole cell in one kernel)",
+             "p2c": "K8 (cutout + backbone in one kernel)"}
     if precision == "int8c" and layout in waits:
         raise NotImplementedError(
             f"int8c layout={layout!r} waits for kernel {waits[layout]}, "
-            "ROADMAP queue 2; this port runs int8c with layout='p2'")
+            "ROADMAP queue 2; this port runs int8c with layout 'p2', 'pm' "
+            "or 'flat'")
     if fuse_gate_head:
         raise NotImplementedError(
             "fuse_gate_head=True waits for kernel K12 (gate + head in one "
             "program), ROADMAP queue 2")
-    if pm_tile % 32:
-        raise ValueError("pm_tile must be a multiple of 32")
+    return pm
 
 
 def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
                        num_pts: int = 450, nms_min_dist: float = 0.5,
                        with_nms: bool = True, nms_top_k: int | None = 64,
-                       precision: str = "bf16", layout: str = "p2",
-                       pm_tile: int = 160, calib=None,
-                       gate_per_stream: bool = True,
+                       precision: str = "bf16", conv_mode: str = "3mm",
+                       int8_conv_mode: str = "cat", layout: str = "p2",
+                       pm_tile: int = 160, tile: int = 64, calib=None,
+                       gate_per_stream: bool = True, p2_l1_mode: str = "mm",
                        fuse_gate_head: bool = False,
                        calib_percentile: float | None = None,
                        calib_steps: int = 2, output_fields=None,
@@ -370,32 +410,61 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     * ``precision="bf16"``: K1 cutout, backbone layer 1 (plain torch), K2
       backbone tail + gate embed, K3 gate, K4 head; the carry is
       ``{"template": (N, D) bf16, "z": (N, 128) bf16}``.
-    * ``precision="int8c"`` (``layout="p2"``, the JAX serving default): K1
-      cutout, K5 layer 1 + int8 backbone + gate embed, K6 int8-carry gate,
-      K7 int8 head; the template carry is int8 at the head's input scale.
-      The scales come from ``calib`` (a ``ServeCalibration``, checked
-      against the geometry and the weights checksum) or are calibrated here
-      on ``calib_scans`` ``(B0, num_pts)`` (sanitized first when
-      ``sanitize_inputs``; ``calib_steps`` f32 module steps feed the head;
-      ``calib_percentile`` clips at that abs-percentile). ``pm_tile`` only
-      sets the beam padding of the calibration sample, ``ceil(num_pts /
-      pm_tile) * pm_tile`` as the JAX p2 path pads, so that both packages
-      calibrate on the same cutouts; the step itself pads to a multiple of
-      8. ``gate_per_stream`` selects between two JAX kernel forms with the
-      same result; K6 computes that result either way.
+    * ``precision="int8"`` (the int8 conv stacks with a bf16 carry; layout
+      ``"flat"`` or the default, both cutout-major as in JAX): K1, layer 1
+      in plain torch to int8 at the backbone's input scale, K10 int8
+      backbone with bf16 feats (the last layer dequantized) and the
+      unscaled embed, K3 gate on the bf16 template, the template quantized
+      to int8 at the head's input scale, K7 int8 head.
+    * ``precision="int8c"`` (int8 feats and an int8 template carry at the
+      head's input scale), by ``layout``:
 
-    Both then run the bf16 flow head (plain torch), sigmoid,
-    canonical->global flow and the top-64 vote NMS. ``output_fields``
-    restricts the outputs dict to the named keys. Returns ``step(carry,
-    scan) -> (carry', outputs)``; ``step.calibration`` holds the int8
-    scales in effect (None for bf16).
+      - ``"p2"`` (the JAX serving default): K1, K5 (layer 1 with
+        ``1/in_scale`` folded into its weights) + int8 backbone + embed, K6
+        int8-carry gate, K7 int8 head. With ``p2_l1_mode="repack"`` or
+        ``"blend"`` the backbone is K9 instead, as for ``"pm"`` (JAX makes
+        those modes bit-identical to pm).
+      - ``"pm"``: K1, K9 (layer 1 rounded as ``rint(leaky(acc) /
+        in_scale)``, then K5's tail and embed), K6, K7. Streams are padded
+        to a multiple of ``pm_tile`` beams, as JAX pads them.
+      - ``"flat"``: K1, that layer 1 in plain torch to int8, K10 int8
+        backbone + embed, K6 (K11: the JAX cutout-major gate computes K6's
+        function), K7 (K10's head). Its results equal ``"pm"``'s on the
+        valid rows.
+
+    The int8 scales come from ``calib`` (a ``ServeCalibration``, checked
+    against the geometry and the weights checksum) or are calibrated here
+    on ``calib_scans`` ``(B0, num_pts)`` (sanitized first when
+    ``sanitize_inputs``; ``calib_steps`` f32 module steps feed the head;
+    ``calib_percentile`` clips at that abs-percentile), on the cutouts of
+    the scans padded as the JAX step pads them: ``ceil(num_pts / pm_tile)
+    * pm_tile`` beams for int8c ``"p2"``/``"pm"``, ``ceil(num_pts / 8) *
+    8`` for ``"flat"`` and ``"int8"``. Every int8 configuration first runs
+    the known-answer check of the tap rows that all int8 convs read (K16),
+    once per device and process. The steps themselves pad to a multiple of
+    8 beams, except ``"pm"``.
+
+    ``conv_mode``, ``int8_conv_mode`` and ``tile`` are accepted for API
+    parity with the JAX builder only: they choose between JAX kernel forms
+    with the same results, and the CUDA kernels compute those results
+    whichever is passed (unknown modes raise). ``gate_per_stream`` likewise
+    changes nothing here beyond the JAX builder's checks.
+    ``cell``, ``p2c`` and ``fuse_gate_head=True`` wait for kernels K13, K8
+    and K12 and raise ``NotImplementedError``.
+
+    Every configuration then runs the bf16 flow head (plain torch),
+    sigmoid, canonical->global flow and the top-64 vote NMS.
+    ``output_fields`` restricts the outputs dict to the named keys. Returns
+    ``step(carry, scan) -> (carry', outputs)``; ``step.calibration`` holds
+    the int8 scales in effect (None for bf16).
     """
-    _check_v3_options(precision, layout, fuse_gate_head, pm_tile)
+    pm = _check_v3_options(precision, layout, fuse_gate_head, gate_per_stream,
+                           pm_tile, conv_mode, int8_conv_mode, p2_l1_mode)
     if not cutout_kwargs.get("fixed") or cutout_kwargs.get("stride", 1) != 1:
         raise NotImplementedError(
             "the v3 engine's cutout kernel covers fixed=True, stride=1 (the "
             "serving configuration)")
-    del gate_per_stream  # both JAX forms compute the same result
+    del tile  # the CUDA kernels choose their own blocks
     dev, model, _, phi_t = _prepare(model, device, num_pts)
     is_flow = isinstance(model, FlowDrow)
     det = model.dr_spaam if is_flow else model
@@ -403,7 +472,9 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     san_max = float(cutout_kwargs.get("padding_val", 29.99))
     ct_len = cutout_kwargs.get("num_cutout_pts", 48)
     l4 = ct_len // 4
-    p_pad = -(-num_pts // 8) * 8
+    pad8 = -(-num_pts // 8) * 8
+    pad_pm = -(-num_pts // pm_tile) * pm_tile
+    p_pad = pad_pm if precision == "int8c" and layout == "pm" else pad8
     cut_kw = dict(num_cutout_pts=ct_len,
                   window_width=cutout_kwargs.get("window_width", 1.66),
                   window_depth=cutout_kwargs.get("window_depth", 1.0),
@@ -464,7 +535,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         step.calibration = None
         return step
 
-    # ---- int8c: quantized from the f32 folded weights ----
+    # ---- int8 / int8c: quantized from the f32 folded weights ----
     if calib is not None:
         _check_calibration(calib, det, num_pts, ct_len)
     elif calib_scans is None:
@@ -472,10 +543,51 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     else:
         calib = _calibrate(
             model, det, cutout_kwargs, calib_scans, num_pts=num_pts,
-            cut_kw=cut_kw, calib_pad=-(-num_pts // pm_tile) * pm_tile,
+            cut_kw=cut_kw, calib_pad=pad_pm if pm else pad8,
             percentile=calib_percentile, steps=calib_steps,
             sanitize=sanitize_inputs, san_max=san_max, dev=dev)
-    w = int8c_weights(det, calib, dev)
+    w = int8_weights(det, calib, dev, precision)
+    check_row_shift(dev)
+
+    def head_of(template):
+        """int8 ``(N*l4, 256)`` template -> (cls, reg): K7."""
+        return head_int8(template, w.head, hd_head_w,
+                         num_classes=num_classes, l4=l4)
+
+    def backbone(flat):
+        """-> (feats (N*l4, 256), zx (N, 128) bf16)."""
+        if pm and (layout == "pm" or p2_l1_mode != "mm"):
+            return backbone_int8_pm(flat, w.layer1_div, w.backbone, w.embed,
+                                    l=ct_len, in_scale=w.in_scale)
+        if pm:
+            return backbone_int8(flat, w.layer1, w.backbone, w.embed,
+                                 l=ct_len)
+        act1 = backbone_layer1(flat, w.layer1_div, out_scale=w.in_scale)
+        return backbone_int8_tail(
+            act1, w.backbone, w.embed, l=ct_len,
+            out_dtype=torch.int8 if precision == "int8c" else torch.bfloat16)
+
+    if precision == "int8":
+        @torch.inference_mode()
+        def step(carry, scan):
+            scan, flat = encode(scan)
+            b = scan.shape[0]
+            feats, zx = backbone(flat)
+            feats = feats.reshape(b * p_pad, l4 * FEAT_CHANNELS)  # bf16
+            if carry is None:
+                template, z = feats, zx
+                _, _, sim = gate(zx, zx, feats, feats, **gate_kw)
+            else:
+                template, z, sim = gate(zx, carry["z"], feats,
+                                        carry["template"], **gate_kw)
+            # the bf16 template, quantized through f32 for the int8 head
+            cls, reg = head_of(quant.quantize_int8(
+                template.reshape(-1, FEAT_CHANNELS), w.tmpl_scale))
+            return finish(scan, b, template, z, sim, cls, reg)
+
+        step.calibration = calib
+        return step
+
     feat_scale, tmpl_scale = w.feat_scale, w.tmpl_scale
     gate_kw.update(s_x=feat_scale, s_out=tmpl_scale)
 
@@ -483,8 +595,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     def step(carry, scan):
         scan, flat = encode(scan)
         b = scan.shape[0]
-        feats, zx = backbone_int8(flat, w.layer1, w.backbone, w.embed,
-                                  l=ct_len)
+        feats, zx = backbone(flat)
         feats = feats.reshape(b * p_pad, l4 * FEAT_CHANNELS)
         if carry is None:
             # bootstrap: the features, rescaled to the carry's scale
@@ -498,8 +609,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             template, z, sim = gate_int8(zx, carry["z"], feats,
                                          carry["template"], s_t=tmpl_scale,
                                          **gate_kw)
-        cls, reg = head_int8(template.reshape(-1, FEAT_CHANNELS), w.head,
-                             hd_head_w, num_classes=num_classes, l4=l4)
+        cls, reg = head_of(template.reshape(-1, FEAT_CHANNELS))
         return finish(scan, b, template, z, sim, cls, reg)
 
     step.calibration = calib

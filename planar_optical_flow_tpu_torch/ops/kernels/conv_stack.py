@@ -1,5 +1,6 @@
-"""K2, K4 (bf16) and K5, K7 (int8): the fused DROW conv stacks
-(``csrc/conv_stack.cu``, ``csrc/conv_stack_int8.cu``).
+"""K2, K4 (bf16) and K5, K7, K9, K10 (int8): the fused DROW conv stacks
+(``csrc/conv_stack.cu``, ``csrc/conv_stack_int8.cu``), and K16, the check
+of the int8 kernels' tap rows.
 
 * K2 :func:`backbone_tail` replaces
   ``planar_optical_flow_tpu/ops/pallas/conv_stack.py`` ``fused_backbone_v2``
@@ -26,7 +27,7 @@ shared memory across all layers (HBM sees only the input and the outputs,
 which is what the TPU kernels bought) and run each conv as three shifted
 bf16 tensor-core products (``nvcuda::wmma`` 16x16x16, f32 accumulate).
 
-The int8c engine's stacks, weights from ``quant.kernel_stack_weights``:
+The int8 stacks, weights from ``quant.kernel_stack_weights``:
 
 * K5 :func:`backbone_int8` replaces ``fused_backbone_int8_p2``
   (``l1_mode="mm"``, int8 output, with ``embed_weights``): layer 1 from the
@@ -34,20 +35,35 @@ The int8c engine's stacks, weights from ``quant.kernel_stack_weights``:
   as s8 x s8 -> s32 products with the f32 epilogue ``clip(rint(leaky(
   f32(acc) * s_eff + b_eff)))``, int8 feats ``(N*L/4, 256)`` and zx ``(N,
   128)`` bf16 through ``W * feat_scale``.
+* K9 :func:`backbone_int8_pm` replaces ``fused_backbone_int8_pm`` with
+  ``layer1_weights`` (and ``fused_backbone_int8_p2`` with ``l1_mode=
+  "repack"``/``"blend"``, bit-identical to it in JAX): K5 with layer 1
+  rounded as ``clip(rint(leaky(acc) / in_scale))``, one true division, on
+  the unscaled weights.
+* K10 :func:`backbone_int8_tail` replaces ``fused_backbone_int8`` (both
+  ``conv_mode``s, which JAX makes bit-identical): K5's tail convs and embed
+  on the int8 layer-1 activation ``(N*L, 64)`` from
+  :func:`backbone_layer1` with ``out_scale``; int8 feats, or bf16 feats
+  (the last layer dequantized) with the unscaled embed weight.
 * K7 :func:`head_int8` replaces ``fused_head_int8_pm``: the head convs on
   the int8 template (the last one dequantized), the f32 position mean (a
-  sequential sum, then one division) and the bf16 cls/reg products.
+  sequential sum, then one division) and the bf16 cls/reg products. K10's
+  head, ``fused_head_int8``, computes the same function on the same
+  cutout-major rows, and runs on K7.
+* K16 :func:`row_shift` / :func:`check_row_shift` replace
+  ``check_byte_shift``: the known-answer check of the k=3 tap rows.
 
-Both run on ``mma.sync`` int8 tensor-core products (~15.1 M and 28.9 M int8
-operations per cutout). Their plain versions sum the int8 products in
-float64, which is exact (the 512-channel conv reaches 1536 * 127^2 > 2^24,
-beyond f32's exact integers).
+K5, K7, K9 and K10 run on ``mma.sync`` int8 tensor-core products (~15.1 M
+and 28.9 M int8 operations per cutout). Their plain versions sum the int8
+products in float64, which is exact (the 512-channel conv reaches 1536 *
+127^2 > 2^24, beyond f32's exact integers).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -61,19 +77,26 @@ _BACKBONE_POOL_AFTER = (1, 4)  # pool after tail layers 3 and 6
 _HEAD_POOL_AFTER = (2,)
 
 
-def backbone_layer1(cutouts, layer1, compute_dtype=torch.bfloat16):
+def backbone_layer1(cutouts, layer1, compute_dtype=torch.bfloat16,
+                    out_scale=None):
     """Backbone layer 1 (Cin=1), plain PyTorch as XLA ran it in JAX:
-    ``(N, L)`` cutouts -> ``(N*L, 64)`` activation in ``compute_dtype``."""
-    w, b = layer1  # (3, 1, 64), (64,)
+    ``(N, L)`` cutouts -> ``(N*L, 64)`` activation in ``compute_dtype``.
+
+    ``layer1``: ``(w (3, 1, 64) or (3, 64), b (64,))`` f32. With
+    ``out_scale`` the activation is requantized for the int8 stacks:
+    ``clip(rint(leaky(acc) / out_scale))`` int8, one f32 division."""
+    w, b = layer1
     x = cutouts.float()
     z = torch.zeros_like(x[:, :1])
     left = torch.cat([z, x[:, :-1]], dim=1)
     right = torch.cat([x[:, 1:], z], dim=1)
-    wc = w[:, 0, :]
+    wc = w.reshape(3, -1)
     acc = (left[..., None] * wc[0] + x[..., None] * wc[1]
            + right[..., None] * wc[2]) + b
-    act = torch.where(acc > 0, acc, _LEAKY_SLOPE * acc)
-    return act.reshape(-1, w.shape[-1]).to(compute_dtype)
+    act = torch.where(acc > 0, acc, _LEAKY_SLOPE * acc).reshape(-1, 64)
+    if out_scale is not None:
+        return _requant(div_f32(act, out_scale))
+    return act.to(compute_dtype)
 
 
 def _bf16(t):
@@ -218,7 +241,7 @@ head.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K5 and K7: the int8 stacks of the int8c engine (csrc/conv_stack_int8.cu).
+# K5, K7, K9, K10 and K16: the int8 stacks (csrc/conv_stack_int8.cu).
 # Weights from quant.kernel_stack_weights: per conv (w (Cout, 3*Cin) int8,
 # s_eff (Cout,) f32, b_eff (Cout,) f32).
 # --------------------------------------------------------------------------
@@ -232,16 +255,22 @@ def _requant(y):
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
 
 
+def _taps_plain(x):
+    """The k=3 taps of ``(n, L, C)`` rows: (left, right) with ``left[:, p] =
+    x[:, p - 1]`` and ``right[:, p] = x[:, p + 1]``, zero at the ends of
+    each cutout (SAME padding)."""
+    z = torch.zeros_like(x[:, :1])
+    return torch.cat([z, x[:, :-1]], 1), torch.cat([x[:, 1:], z], 1)
+
+
 def _conv_int8_acc(xq, w):
     """Exact int32 sums of a k=3 SAME conv of int8 ``(n, L, Cin)`` with
     ``w (Cout, 3*Cin)`` int8, as float64 (every partial sum is an integer
     below 2^53, so float64 is exact where f32 is not: the 512-channel conv
     reaches 1536 * 127^2 > 2^24)."""
     x = xq.double()
-    z = torch.zeros_like(x[:, :1])
-    xc = torch.cat([torch.cat([z, x[:, :-1]], 1), x,
-                    torch.cat([x[:, 1:], z], 1)], dim=-1)
-    return xc @ w.double().t()
+    left, right = _taps_plain(x)
+    return torch.cat([left, x, right], dim=-1) @ w.double().t()
 
 
 def _run_int8_plain(xq, weights, pool_after, requant_last):
@@ -274,17 +303,51 @@ def backbone_int8_layer1_plain(cutouts, layer1):
     return _requant(torch.where(acc > 0, acc, _LEAKY_SLOPE * acc))
 
 
+def _backbone_int8_rest(x, weights, embed_weights, out_dtype):
+    """Layers 2-6 and the embed on int8 act1 ``(n, L, 64)`` -> (feats ``(n *
+    L/4, 256)`` in ``out_dtype``, zx ``(n, 128)`` bf16). int8 feats
+    requantize the last layer; bf16 feats are the bf16 of its f32 output,
+    and the embed reads those bf16 values."""
+    we_t, be = embed_weights
+    f = _run_int8_plain(x, weights, _BACKBONE_POOL_AFTER,
+                        out_dtype == torch.int8).to(out_dtype)
+    z = f.float().reshape(f.shape[0], -1) @ we_t.float().t() + be.float()
+    return f.reshape(-1, 256), z.to(torch.bfloat16)
+
+
+def _cat_pairs(pairs):
+    feats, zx = zip(*pairs)
+    return torch.cat(feats), torch.cat(zx)
+
+
 def backbone_int8_plain(cutouts, layer1, weights, embed_weights, *, l: int):
     """Plain PyTorch version of :func:`backbone_int8` (same arguments)."""
-    we_t, be = embed_weights
-    feats, zx = [], []
-    for cut in cutouts.split(_PLAIN_CHUNK):
-        x = backbone_int8_layer1_plain(cut, layer1)
-        f = _run_int8_plain(x, weights, _BACKBONE_POOL_AFTER, True)
-        z = f.float().reshape(f.shape[0], -1) @ we_t.float().t() + be.float()
-        feats.append(f.reshape(-1, 256))
-        zx.append(z.to(torch.bfloat16))
-    return torch.cat(feats), torch.cat(zx)
+    return _cat_pairs(
+        _backbone_int8_rest(backbone_int8_layer1_plain(cut, layer1), weights,
+                            embed_weights, torch.int8)
+        for cut in cutouts.split(_PLAIN_CHUNK))
+
+
+def backbone_int8_pm_plain(cutouts, layer1, weights, embed_weights, *,
+                           l: int, in_scale: float):
+    """Plain PyTorch version of :func:`backbone_int8_pm` (same
+    arguments): :func:`backbone_layer1` with ``out_scale=in_scale``, then
+    the tail of :func:`backbone_int8_tail_plain`."""
+    return _cat_pairs(
+        _backbone_int8_rest(
+            backbone_layer1(cut, layer1, out_scale=in_scale).reshape(
+                -1, l, 64), weights, embed_weights, torch.int8)
+        for cut in cutouts.split(_PLAIN_CHUNK))
+
+
+def backbone_int8_tail_plain(act1, weights, embed_weights, *, l: int,
+                             out_dtype=torch.int8):
+    """Plain PyTorch version of :func:`backbone_int8_tail` (same
+    arguments)."""
+    return _cat_pairs(
+        _backbone_int8_rest(a.reshape(-1, l, 64), weights, embed_weights,
+                            out_dtype)
+        for a in act1.split(_PLAIN_CHUNK * l))
 
 
 def head_int8_plain(template, conv_weights, head_weights, *, l4: int):
@@ -297,9 +360,12 @@ def head_int8_plain(template, conv_weights, head_weights, *, l4: int):
         acc = y[:, 0]
         for i in range(1, y.shape[1]):
             acc = acc + y[:, i]
-        pooled = _bf16(div_f32(acc, float(y.shape[1])))
-        cls.append(pooled @ wc.float() + bc.float())
-        reg.append(pooled @ wr.float() + br.float())
+        pooled = _bf16(div_f32(acc, float(y.shape[1]))).double()
+        # the bf16 products are exact and their float64 sum is in practice
+        # too, so each row's result does not depend on how many rows the
+        # product has (f32 BLAS sums in an order that can)
+        cls.append((pooled @ wc.double()).float() + bc.float())
+        reg.append((pooled @ wr.double()).float() + br.float())
     return torch.cat(cls), torch.cat(reg)
 
 
@@ -318,6 +384,57 @@ def _int8_ptrs(weights):
     return [t.data_ptr() for layer in weights for t in layer]
 
 
+def _check_backbone_int8_args(what, inp, layer1, weights, embed_weights, l):
+    """Check the arguments K5, K9 and K10 share; ``layer1`` None for K10,
+    whose input is the int8 act1 ``(N*l, 64)``, else f32 cutouts ``(N, l)``
+    and ``(w (3, 64), b (64,))`` f32. Returns the input, the layer-1
+    weights (if any) and the embed weights, contiguous."""
+    if l % 4 or l < 4:
+        raise ValueError(f"{what}: l={l} must be a positive multiple of 4")
+    if layer1 is None:
+        _check_cuda(inp, torch.int8, (inp.shape[0] // l * l, 64),
+                    f"{what} act1")
+        layer1 = ()
+    else:
+        _check_cuda(inp, torch.float32, (inp.shape[0], l), f"{what} cutouts")
+        _check_cuda(layer1[0], torch.float32, (3, 64), f"{what} layer-1 w")
+        _check_cuda(layer1[1], torch.float32, (64,), f"{what} layer-1 b")
+    _check_int8_weights(weights, BACKBONE_CHANNELS, what)
+    we_t, be = embed_weights
+    _check_cuda(we_t, torch.bfloat16, (128, (l // 4) * 256), f"{what} W^T")
+    _check_cuda(be, torch.bfloat16, (128,), f"{what} b")
+    return tuple(t.contiguous() for t in (inp, *layer1, we_t, be))
+
+
+# layer-1 modes of the int8 backbone kernel (csrc/conv_stack_int8.cu)
+_L1_FOLD, _L1_DIVIDE, _L1_READ = 0, 1, 2
+
+
+def _launch_backbone_int8(what, inp, layer1, weights, embed_weights, l,
+                          l1_mode, in_scale=1.0, out_dtype=torch.int8):
+    """Launch the int8 backbone kernel in ``l1_mode`` (K5 fold, K9 divide,
+    K10 read) on CUDA tensors; arguments as :func:`_check_backbone_int8_args`
+    checks them. Returns (feats ``(N*l/4, 256)`` ``out_dtype``, zx ``(N,
+    128)`` bf16)."""
+    inp, *layer1, we_t, be = _check_backbone_int8_args(
+        what, inp, layer1, weights, embed_weights, l)
+    w1, b1 = [t.data_ptr() for t in layer1] or [None, None]
+    n = inp.shape[0] // l if l1_mode == _L1_READ else inp.shape[0]
+    feats = torch.empty(n * (l // 4), 256, dtype=out_dtype, device=inp.device)
+    zx = torch.empty(n, 128, dtype=torch.bfloat16, device=inp.device)
+    tail = (ctypes.c_void_p * 15)(*_int8_ptrs(weights))
+    fn = _build.load("conv_stack_int8").backbone_int8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float] \
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    _build.check(fn(inp.data_ptr(), w1, b1, float(in_scale), tail,
+                    we_t.data_ptr(), be.data_ptr(), feats.data_ptr(),
+                    zx.data_ptr(), n, l, l1_mode,
+                    int(out_dtype == torch.bfloat16),
+                    _build.stream_ptr(inp.device)), what)
+    return feats, zx
+
+
 def backbone_int8(cutouts, layer1, weights, embed_weights, *, l: int):
     """K5: layer 1 + int8 backbone tail + gate embed. ``cutouts (N, l)``
     f32 -> (feats ``(N*l/4, 256)`` int8 at the last layer's scale, zx
@@ -332,34 +449,118 @@ def backbone_int8(cutouts, layer1, weights, embed_weights, *, l: int):
     if cutouts.device.type == "cpu":
         return backbone_int8_plain(cutouts, layer1, weights, embed_weights,
                                    l=l)
-    if l % 4 or l < 4:
-        raise ValueError(f"backbone_int8: l={l} must be a positive multiple "
-                         "of 4")
-    n = cutouts.shape[0]
-    _check_cuda(cutouts, torch.float32, (n, l), "backbone_int8 cutouts")
-    w1, b1 = layer1
-    _check_cuda(w1, torch.float32, (3, 64), "backbone_int8 layer-1 w")
-    _check_cuda(b1, torch.float32, (64,), "backbone_int8 layer-1 b")
-    _check_int8_weights(weights, BACKBONE_CHANNELS, "backbone_int8")
-    we_t, be = embed_weights
-    _check_cuda(we_t, torch.bfloat16, (128, (l // 4) * 256),
-                "backbone_int8 W^T")
-    _check_cuda(be, torch.bfloat16, (128,), "backbone_int8 b")
-    cutouts, w1, b1, we_t, be = (t.contiguous()
-                                 for t in (cutouts, w1, b1, we_t, be))
-    feats = torch.empty(n * (l // 4), 256, dtype=torch.int8,
-                        device=cutouts.device)
-    zx = torch.empty(n, 128, dtype=torch.bfloat16, device=cutouts.device)
-    fn = _build.load("conv_stack_int8").backbone_int8_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
-    _build.check(fn(cutouts.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    *_int8_ptrs(weights), we_t.data_ptr(), be.data_ptr(),
-                    feats.data_ptr(), zx.data_ptr(), n, l,
-                    _build.stream_ptr(cutouts.device)), "backbone_int8")
+    out = _launch_backbone_int8("backbone_int8", cutouts, layer1, weights,
+                                embed_weights, l, _L1_FOLD)
     backbone_int8.launches += 1
-    return feats, zx
+    return out
+
+
+def backbone_int8_pm(cutouts, layer1, weights, embed_weights, *, l: int,
+                     in_scale: float):
+    """K9: :func:`backbone_int8` with layer 1 rounded as the JAX pm kernel
+    rounds it, ``clip(rint(leaky(acc) / in_scale))`` with one true
+    division, on the unscaled layer-1 weights ``layer1 = (w (3, 64), b
+    (64,))`` f32 (``Int8Weights.layer1_div``). Same other arguments and
+    outputs; rows stay cutout-major (the JAX kernel's position-major rows
+    are a TPU layout device). A CUDA tensor launches K9; a CPU tensor runs
+    :func:`backbone_int8_pm_plain`.
+    """
+    if cutouts.device.type == "cpu":
+        return backbone_int8_pm_plain(cutouts, layer1, weights, embed_weights,
+                                      l=l, in_scale=in_scale)
+    out = _launch_backbone_int8("backbone_int8_pm", cutouts, layer1, weights,
+                                embed_weights, l, _L1_DIVIDE, in_scale)
+    backbone_int8_pm.launches += 1
+    return out
+
+
+def backbone_int8_tail(act1, weights, embed_weights, *, l: int,
+                       out_dtype=torch.int8):
+    """K10: the int8 backbone tail + gate embed on the int8 layer-1
+    activation ``act1 (N*l, 64)`` (:func:`backbone_layer1` with
+    ``out_scale``) -> (feats ``(N*l/4, 256)``, zx ``(N, 128)`` bf16).
+
+    ``out_dtype=torch.int8``: feats requantized at the last layer's scale,
+    ``embed_weights`` with the feats scale folded into ``W`` (as for
+    :func:`backbone_int8`). ``torch.bfloat16``: ``weights`` from
+    ``quantize_stack_int8(dequant_last=True)``, feats the bf16 of the last
+    layer's f32 output, ``embed_weights`` the unscaled ``(W^T (128,
+    l/4*256) bf16, b (128,) bf16)``. A CUDA tensor launches K10; a CPU
+    tensor runs :func:`backbone_int8_tail_plain`.
+    """
+    if out_dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"backbone_int8_tail: out_dtype {out_dtype} is not "
+                         "torch.int8 or torch.bfloat16")
+    if act1.device.type == "cpu":
+        return backbone_int8_tail_plain(act1, weights, embed_weights, l=l,
+                                        out_dtype=out_dtype)
+    out = _launch_backbone_int8("backbone_int8_tail", act1, None, weights,
+                                embed_weights, l, _L1_READ,
+                                out_dtype=out_dtype)
+    backbone_int8_tail.launches += 1
+    return out
+
+
+def row_shift(x, *, l: int):
+    """K16: the k=3 tap rows of int8 ``x (rows, 128)``, rows grouped in
+    cutouts of ``l`` -> (left, right), ``left[r] = x[r - 1]`` and
+    ``right[r] = x[r + 1]``, zero at each cutout's ends. A CUDA tensor
+    launches K16, which reads the rows through K10's tile loader and the
+    tap address of every int8 conv; a CPU tensor runs the plain versions'
+    tap construction."""
+    rows = x.shape[0]
+    if rows % l:
+        raise ValueError(f"row_shift: {rows} rows is not a multiple of l={l}")
+    if x.device.type == "cpu":
+        left, right = _taps_plain(x.reshape(-1, l, x.shape[1]))
+        return left.reshape(x.shape), right.reshape(x.shape)
+    _check_cuda(x, torch.int8, (rows, 128), "row_shift x")
+    x = x.contiguous()
+    left, right = torch.empty_like(x), torch.empty_like(x)
+    fn = _build.load("conv_stack_int8").row_shift_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    _build.check(fn(x.data_ptr(), left.data_ptr(), right.data_ptr(), rows, l,
+                    _build.stream_ptr(x.device)), "row_shift")
+    row_shift.launches += 1
+    return left, right
+
+
+_ROW_SHIFT_OK: set = set()
+
+
+def row_shift_pattern():
+    """The JAX ``check_byte_shift`` pattern: 8 rows x 128 channels, cutouts
+    of 4, ``x = ((i * 37 + 11) mod 251) - 125`` as int8, with the expected
+    (left, right) as numpy arrays."""
+    rows, c, l = 8, 128, 4
+    x = np.arange(rows * c, dtype=np.int64).reshape(rows, c)
+    x = ((x * 37 + 11) % 251 - 125).astype(np.int8)
+    pos = (np.arange(rows) % l)[:, None]
+    left = np.where(pos == 0, 0, np.roll(x, 1, axis=0)).astype(np.int8)
+    right = np.where(pos == l - 1, 0, np.roll(x, -1, axis=0)).astype(np.int8)
+    return x, l, left, right
+
+
+def check_row_shift(device) -> None:
+    """Known-answer check of the tap rows on ``device`` (K16, the
+    counterpart of the JAX ``check_byte_shift``), once per device and
+    process; raises ``RuntimeError`` on a mismatch. The serving step runs
+    it before every int8 configuration: every int8 conv (K5, K7, K9, K10)
+    reads its taps through the address this checks."""
+    device = torch.device(device)
+    key = str(device)
+    if key in _ROW_SHIFT_OK:
+        return
+    x, l, exp_left, exp_right = row_shift_pattern()
+    left, right = row_shift(torch.from_numpy(x).to(device), l=l)
+    if not (np.array_equal(left.cpu().numpy(), exp_left)
+            and np.array_equal(right.cpu().numpy(), exp_right)):
+        raise RuntimeError(
+            f"int8 row-shift self-check failed on {key}: the taps that the "
+            "int8 conv kernels read are not the neighbouring positions")
+    _ROW_SHIFT_OK.add(key)
 
 
 def head_int8(template, conv_weights, head_weights, *, num_classes: int,
@@ -406,4 +607,7 @@ def head_int8(template, conv_weights, head_weights, *, num_classes: int,
 
 
 backbone_int8.launches = 0
+backbone_int8_pm.launches = 0
+backbone_int8_tail.launches = 0
+row_shift.launches = 0
 head_int8.launches = 0

@@ -129,6 +129,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
     for engine in ("module", "v3", "int8c"):
         with pytest.raises(RuntimeError, match="cuda"):
             StreamingRunner(port, CUTOUT_KW, num_pts=NUM_PTS, engine=engine)
+    from planar_optical_flow_tpu_torch.infer.streaming import (
+        make_serve_step_v3,
+    )
+
+    for opts in (dict(precision="int8"), dict(precision="int8c",
+                                              layout="flat"),
+                 dict(precision="int8c", layout="pm")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS,
+                               calib_scans=np.zeros((1, NUM_PTS)), **opts)
 
 
 @pytest.mark.gpu

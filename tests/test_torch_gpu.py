@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1-K7) against their plain PyTorch versions, on the
-card.
+"""The CUDA kernels (K1-K7, K9, K10, K16) against their plain PyTorch
+versions, on the card.
 
 Marked ``gpu``: they skip without a card and run on one with
 ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``. Shapes
@@ -21,10 +21,14 @@ from planar_optical_flow_tpu_torch.infer.fast_gate import (
     gate_plain,
 )
 from planar_optical_flow_tpu_torch.models import FlowDrow
-from planar_optical_flow_tpu_torch.ops.kernels import fold, quant
+from planar_optical_flow_tpu_torch.ops.kernels import conv_stack, fold, quant
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     backbone_int8,
     backbone_int8_plain,
+    backbone_int8_pm,
+    backbone_int8_pm_plain,
+    backbone_int8_tail,
+    backbone_int8_tail_plain,
     backbone_layer1,
     backbone_tail,
     backbone_tail_plain,
@@ -196,3 +200,77 @@ def test_gate_int8_kernel(cuda, ct, ct_valid, window, d):
     _int8_close(got[0], ref[0])
     _close(got[1], ref[1], BF16_REL)
     _close(got[2], ref[2], 1e-5)
+
+
+@pytest.mark.parametrize("ct_len,window", [(16, 5), (56, 11)])
+def test_int8_backbone_layer1_forms(cuda, ct_len, window):
+    """K9 and K10 (int8 and bf16 feats) against their plain versions; K9
+    equal to the bit to plain layer 1 + K10 (the same f32 order)."""
+    det = _model(ct_len, window, cuda).dr_spaam
+    rng = np.random.default_rng(5)
+    n = 37  # not a multiple of the kernels' tile
+    cut = torch.tensor(rng.uniform(-1.0, 1.0, (n, ct_len)),
+                       dtype=torch.float32, device=cuda)
+    blocks = fold.backbone_blocks(det.backbone)
+    act1 = backbone_layer1(cut, blocks[0], compute_dtype=torch.float32)
+    in_scale, scales = quant.stack_act_scales(
+        blocks[1:], act1.reshape(n, ct_len, 64), {1, 4})
+    layer1 = (blocks[0][0].reshape(3, -1).contiguous(), blocks[0][1])
+    gp = fold.fold_gate_params(det.gate, dtype=torch.bfloat16)
+    act1_q = backbone_layer1(cut, layer1, out_scale=in_scale)
+    for dequant_last in (False, True):
+        q, _, feat_scale = quant.quantize_stack_int8(
+            blocks[1:], None, {1, 4}, in_scale=in_scale, act_scales=scales,
+            dequant_last=dequant_last)
+        we = gp.w if dequant_last else gp.w * torch.tensor(
+            feat_scale, dtype=torch.bfloat16, device=cuda)
+        args = (quant.kernel_stack_weights(q, cuda), (we.t().contiguous(),
+                                                      gp.b))
+        out_dtype = torch.bfloat16 if dequant_last else torch.int8
+        n0 = backbone_int8_tail.launches
+        feats, zx = backbone_int8_tail(act1_q, *args, l=ct_len,
+                                       out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert backbone_int8_tail.launches == n0 + 1
+        assert feats.dtype == out_dtype
+        feats_p, zx_p = backbone_int8_tail_plain(act1_q, *args, l=ct_len,
+                                                 out_dtype=out_dtype)
+        if dequant_last:
+            _close(feats, feats_p, BF16_REL)
+        else:
+            _int8_close(feats, feats_p)
+        _close(zx, zx_p, BF16_REL)
+        if dequant_last:
+            continue
+        n0 = backbone_int8_pm.launches
+        feats9, zx9 = backbone_int8_pm(cut, layer1, *args, l=ct_len,
+                                       in_scale=in_scale)
+        torch.cuda.synchronize()
+        assert backbone_int8_pm.launches == n0 + 1
+        feats9_p, zx9_p = backbone_int8_pm_plain(cut, layer1, *args,
+                                                 l=ct_len, in_scale=in_scale)
+        _int8_close(feats9, feats9_p)
+        _close(zx9, zx9_p, BF16_REL)
+        assert torch.equal(feats9, feats) and torch.equal(zx9, zx)
+
+
+def test_row_shift_kernel(cuda, monkeypatch):
+    """K16 on the JAX pattern and on a longer random input against the
+    plain tap construction; the check passes on the card."""
+    x, l, exp_left, exp_right = conv_stack.row_shift_pattern()
+    n0 = conv_stack.row_shift.launches
+    left, right = conv_stack.row_shift(torch.from_numpy(x).to(cuda), l=l)
+    torch.cuda.synchronize()
+    assert conv_stack.row_shift.launches == n0 + 1
+    assert np.array_equal(left.cpu().numpy(), exp_left)
+    assert np.array_equal(right.cpu().numpy(), exp_right)
+    rng = np.random.default_rng(6)
+    big = torch.tensor(rng.integers(-127, 128, (37 * 56, 128)),
+                       dtype=torch.int8)
+    got = conv_stack.row_shift(big.to(cuda), l=56)
+    ref = conv_stack.row_shift(big, l=56)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    monkeypatch.setattr(conv_stack, "_ROW_SHIFT_OK", set())
+    conv_stack.check_row_shift(cuda)
+    assert str(cuda) in conv_stack._ROW_SHIFT_OK

@@ -49,7 +49,7 @@ from planar_optical_flow_tpu_torch.infer.calibration import (
 )
 from planar_optical_flow_tpu_torch.infer.fast_gate import gate_int8
 from planar_optical_flow_tpu_torch.infer.streaming import (
-    int8c_weights,
+    int8_weights,
     make_serve_step_v3,
     weights_checksum,
 )
@@ -220,11 +220,11 @@ def test_quantized_weights_match_jax(setup):
 
 
 def test_step_weights_match_jax(setup):
-    """The step's own weight preparation (``int8c_weights``): the layer-1
+    """The step's own weight preparation (``int8_weights``): the layer-1
     fold and the embed weight, bf16 W times the scale rounded to bf16
     (the JAX weakly typed ``embed_w[0] * feat_scale``), to the bit."""
     jc, v_np, det = setup["calib"], setup["v_np"], setup["port"].dr_spaam
-    w = int8c_weights(det, ServeCalibration.from_dict(jc.to_dict()), "cpu")
+    w = int8_weights(det, ServeCalibration.from_dict(jc.to_dict()), "cpu")
     bb = _det_vars(v_np, "backbone")
     _, _, feat_scale = jcs.quantize_stack_int8(
         (_block_params(bb, "block1", 3) + _block_params(bb, "block2", 3))[1:],

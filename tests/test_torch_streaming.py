@@ -237,14 +237,12 @@ def test_lazy_int8c_runner_calibrates_on_a_nan_batch(pair):
 
 def test_v3_guards(pair):
     """The options the port does not run yet raise, naming the ROADMAP
-    kernel they wait for; int8c with the default layout builds."""
+    kernel they wait for; int8c with the default layout, ``"pm"`` and
+    ``"flat"``, and ``precision="int8"``, build; unknown modes raise."""
     _, _, port = pair
     kw = dict(num_pts=NUM_PTS, device="cpu")
-    for extra, kernel in ((dict(precision="int8"), "K10"),
-                          (dict(precision="int8c", layout="pm"), "K9"),
-                          (dict(precision="int8c", layout="cell"), "K13"),
+    for extra, kernel in ((dict(precision="int8c", layout="cell"), "K13"),
                           (dict(precision="int8c", layout="p2c"), "K8"),
-                          (dict(precision="int8c", layout="flat"), "K10"),
                           (dict(precision="int8c", fuse_gate_head=True),
                            "K12")):
         with pytest.raises(NotImplementedError, match=kernel):
@@ -254,9 +252,25 @@ def test_v3_guards(pair):
         make_serve_step_v3(port, CUTOUT_KW, layout="pm", **kw)
     with pytest.raises(ValueError, match="unknown precision"):
         make_serve_step_v3(port, CUTOUT_KW, precision="fp8", **kw)
+    with pytest.raises(ValueError, match="unknown p2_l1_mode"):
+        make_serve_step_v3(port, CUTOUT_KW, precision="int8c",
+                           p2_l1_mode="pairs", calib_scans=_scans(34)[0],
+                           **kw)
+    with pytest.raises(ValueError, match="fuse_gate_head=True requires"):
+        make_serve_step_v3(port, CUTOUT_KW, precision="int8c",
+                           layout="flat", fuse_gate_head=True, **kw)
     step = make_serve_step_v3(port, CUTOUT_KW, calib_scans=_scans(34)[0],
                               precision="int8c", **kw)
     assert step.calibration is not None
+    for extra in (dict(precision="int8"), dict(precision="int8", layout="flat"),
+                  dict(precision="int8c", layout="pm"),
+                  dict(precision="int8c", layout="flat")):
+        step = make_serve_step_v3(port, CUTOUT_KW, calib=step.calibration,
+                                  **extra, **kw)
+        carry, out = step(None, torch.from_numpy(_scans(34)[0]))
+        assert out["pred_cls"].shape == (2, NUM_PTS, 1), extra
+        assert carry["template"].dtype == (
+            torch.bfloat16 if extra["precision"] == "int8" else torch.int8)
     with pytest.raises(ValueError, match="unknown engine"):
         StreamingRunner(port, CUTOUT_KW, num_pts=NUM_PTS, engine="int8",
                         device="cpu")
