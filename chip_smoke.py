@@ -3,10 +3,11 @@
 
 Drives the port's main paths, streaming FlowDROW serving on the int8c
 engine (the JAX package's serving default) and on the bf16 ``v3`` engine,
-and the unfused int8 configurations of ``make_serve_step_v3``
-(``precision="int8"``, int8c ``layout="flat"`` and ``"pm"``), at the
-flagship working point (window 11, 56 cutout points, area mode, 450 beams,
-B=384 streams) with random weights made from ``--seed``.
+the unfused int8 configurations of ``make_serve_step_v3``
+(``precision="int8"``, int8c ``layout="flat"`` and ``"pm"``) and its fused
+int8c programs (``layout="p2c"``, ``fuse_gate_head=True``, ``layout=
+"cell"``), at the flagship working point (window 11, 56 cutout points, area
+mode, 450 beams, B=384 streams) with random weights made from ``--seed``.
 
 Phases:
 1. the card's name and power limit, CUDA version and capability; TF32 off
@@ -28,7 +29,13 @@ Phases:
    5e-3 of them off by one, float outputs within 2e-2 x max|plain|); K9
    equal to the bit to layer 1 + K10, and within JAX's fold-vs-divide bar
    of K5 (at most 4 LSB, under 2% of the feats;
-   ``tests/test_conv_stack_v2.py:292-299``);
+   ``tests/test_conv_stack_v2.py:292-299``); then the fused kernels, each
+   against its plain version (K13 at JAX's cell-vs-pm bars: its plain zx,
+   summed in float64, differs from the kernel's in a bf16 last bit on some
+   rows, which moves their attention) and to the bit against the unfused
+   kernels on the same inputs: K8 against K1 -> K5 at 456 rows a stream,
+   K12 against K6 -> K7 on p2's feats and a carried template, K13 against
+   K9 -> K6 -> K7 at 480 rows with a carried template;
 5. the slices, each for 1 bootstrap + 5 carried steps, every launch
    counter set to 0 just before and read just after:
    ``StreamingRunner(engine="v3")`` (K1-K4 launched, one per-stream reset)
@@ -39,9 +46,14 @@ Phases:
    ``calibration.json`` gives bit-identical carries for two steps; then
    ``make_serve_step_v3`` with ``precision="int8"`` (K1, K10, K3, K7;
    corr > 0.96 against the module step), int8c ``"flat"`` (K1, K10, K6,
-   K7) and int8c ``"pm"`` (K1, K9, K6, K7; both corr > 0.95), each built
-   inside the counted window with its K16 check, with ``"flat"`` and
-   ``"pm"`` equal to the bit on the valid rows of every carry and output;
+   K7), ``"pm"`` (K1, K9, K6, K7), ``"cell"`` (K1 6 times, K13 5, K9, K6
+   and K7 once, for the bootstrap), ``"p2"`` (K1, K5, K6, K7), ``"p2c"``
+   (K8, K6, K7) and ``"p2"`` with ``fuse_gate_head=True`` (K1, K5, K12 5
+   times, K6 and K7 once), every int8c run at corr > 0.95, each built
+   inside the counted window with its K16 check and held to its exact
+   launch counts; ``"flat"`` and ``"cell"`` equal to ``"pm"``, and
+   ``"p2c"`` and the fused run equal to ``"p2"``, to the bit on the valid
+   rows of every carry and output;
 6. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -84,6 +96,9 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 CORR_INT8_STACKS = 0.96  # precision="int8" vs module (test_fast_gate.py)
 FOLD_LSB, FOLD_SHARE = 4, 0.02  # K9 vs K5 (tests/test_conv_stack_v2.py)
 PM_TILE = 160           # make_serve_step_v3's pm_tile: "pm" pads to 480
+# K13 vs its plain version: z, sim, cls, reg (tests/test_int8_serving_gate.py
+# cell vs pm: z 2e-2, outputs 5e-2)
+CELL_TOLS = (2e-2, 5e-2, 5e-2, 5e-2)
 # the kernels line: name -> (source, the TPU kernel it replaces, wrapper,
 # the phase-5 run whose launches it reports)
 _CS = "planar_optical_flow_tpu/ops/pallas/conv_stack.py"
@@ -121,27 +136,37 @@ KERNELS = {
                                      "gate_int8", "flat"),
     "row_shift": (_SRC + "conv_stack_int8.cu", _CS + ":533", "row_shift",
                   "int8"),
+    "backbone_int8_cut": (_SRC + "conv_stack_int8.cu", _CS + ":1212",
+                          "backbone_int8_cut", "p2c"),
+    "gate_head_int8": (_SRC + "serve_cell.cu", _FG + ":567", "gate_head_int8",
+                       "p2_fused"),
+    "serve_cell_int8": (_SRC + "serve_cell.cu",
+                        "planar_optical_flow_tpu/ops/pallas/serve_cell.py:170",
+                        "serve_cell_int8", "cell"),
 }
 V3_KERNELS = ("cutout", "backbone_tail", "gate", "head")
 INT8C_KERNELS = ("cutout", "backbone_int8", "gate_int8", "head_int8")
-# the unfused int8 configurations: (make_serve_step_v3 options, wrappers
-# launched, wrappers not launched)
+# the make_serve_step_v3 runs: (options, the launches of each wrapper in 1
+# bootstrap + 5 carried steps (every other wrapper 0; K16 once, at the
+# build), the run whose valid rows it must equal to the bit)
 LAYOUTS = {
     "int8": (dict(precision="int8"),
-             ("cutout", "backbone_int8_tail", "gate", "head_int8",
-              "row_shift"),
-             ("backbone_tail", "head", "backbone_int8", "gate_int8",
-              "backbone_int8_pm")),
-    "flat": (dict(precision="int8c", layout="flat"),
-             ("cutout", "backbone_int8_tail", "gate_int8", "head_int8",
-              "row_shift"),
-             ("backbone_tail", "gate", "head", "backbone_int8",
-              "backbone_int8_pm")),
+             dict(cutout=6, backbone_int8_tail=6, gate=6, head_int8=6), None),
     "pm": (dict(precision="int8c", layout="pm"),
-           ("cutout", "backbone_int8_pm", "gate_int8", "head_int8",
-            "row_shift"),
-           ("backbone_tail", "gate", "head", "backbone_int8",
-            "backbone_int8_tail")),
+           dict(cutout=6, backbone_int8_pm=6, gate_int8=6, head_int8=6), None),
+    "flat": (dict(precision="int8c", layout="flat"),
+             dict(cutout=6, backbone_int8_tail=6, gate_int8=6, head_int8=6),
+             "pm"),
+    "cell": (dict(precision="int8c", layout="cell"),
+             dict(cutout=6, serve_cell_int8=5, backbone_int8_pm=1,
+                  gate_int8=1, head_int8=1), "pm"),
+    "p2": (dict(precision="int8c", layout="p2"),
+           dict(cutout=6, backbone_int8=6, gate_int8=6, head_int8=6), None),
+    "p2c": (dict(precision="int8c", layout="p2c"),
+            dict(backbone_int8_cut=6, gate_int8=6, head_int8=6), "p2"),
+    "p2_fused": (dict(precision="int8c", layout="p2", fuse_gate_head=True),
+                 dict(cutout=6, backbone_int8=6, gate_head_int8=5,
+                      gate_int8=1, head_int8=1), "p2"),
 }
 
 
@@ -188,19 +213,26 @@ def bound(flops, flop_rate, nbytes):
 
 def wrappers():
     """Every kernel wrapper by name (each carries a ``launches`` count)."""
-    from planar_optical_flow_tpu_torch.infer.fast_gate import gate, gate_int8
+    from planar_optical_flow_tpu_torch.infer.fast_gate import (
+        gate, gate_head_int8, gate_int8,
+    )
     from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
-        backbone_int8, backbone_int8_pm, backbone_int8_tail, backbone_tail,
-        head, head_int8, row_shift,
+        backbone_int8, backbone_int8_cut, backbone_int8_pm,
+        backbone_int8_tail, backbone_tail, head, head_int8, row_shift,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
+    from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import (
+        serve_cell_int8,
+    )
 
     return {"cutout": cutout, "backbone_tail": backbone_tail, "gate": gate,
             "head": head, "backbone_int8": backbone_int8,
             "gate_int8": gate_int8, "head_int8": head_int8,
             "backbone_int8_pm": backbone_int8_pm,
             "backbone_int8_tail": backbone_int8_tail,
-            "row_shift": row_shift}
+            "row_shift": row_shift, "backbone_int8_cut": backbone_int8_cut,
+            "gate_head_int8": gate_head_int8,
+            "serve_cell_int8": serve_cell_int8}
 
 
 def build_model(seed, device):
@@ -369,20 +401,27 @@ def int8_diff(got, ref):
 
 
 def record_int8(results, name, int8_pairs, float_pairs, ms, plain_ms,
-                bound_pair):
+                bound_pair, float_tols=None):
     """int8 outputs within 1 LSB with under TOL_INT8_SHARE of them off by
-    one; float outputs within TOL_BF16 * max|plain|."""
+    one; float outputs within TOL_BF16 * max|plain|, or, with
+    ``float_tols``, elementwise within tol + tol * |plain| (one tol per
+    float output)."""
     errs, ok, notes = [], True, []
     for g, r in int8_pairs:
         err, share = int8_diff(g, r)
         errs.append(err)
         ok &= err <= 1 and share < TOL_INT8_SHARE
         notes.append(f"int8 max={err:.0f} share={share:.3e}")
-    for g, r in float_pairs:
+    for k, (g, r) in enumerate(float_pairs):
         errs.append(max_err(g, r))
-        lim = TOL_BF16 * max(float(r.float().abs().max()), 1e-6)
-        ok &= errs[-1] <= lim
-        notes.append(f"err={errs[-1]:.3e} lim={lim:.3e}")
+        if float_tols is None:
+            lim = TOL_BF16 * max(float(r.float().abs().max()), 1e-6)
+            ok &= errs[-1] <= lim
+            notes.append(f"err={errs[-1]:.3e} lim={lim:.3e}")
+        else:
+            tol = float_tols[k]
+            ok &= bool(torch_allclose(g, r, tol))
+            notes.append(f"err={errs[-1]:.3e} tol={tol:g}")
     print(f"[kernel] {name}: {'; '.join(notes)} ms={ms:.4f} "
           f"plain_ms={plain_ms:.3f} bound_ms={bound_pair[0]:.6f} "
           f"({bound_pair[1]}) {'ok' if ok else 'MISMATCH'}", flush=True)
@@ -391,8 +430,26 @@ def record_int8(results, name, int8_pairs, float_pairs, ms, plain_ms,
                          bound_ms=bound_pair[0], bound_by=bound_pair[1])
 
 
-def gate_head_int8(results, names, feats, zx, feats2, zx2, w, head_w, gp,
-                   p_pad, b, iters):
+def torch_allclose(got, ref, tol):
+    """|got - ref| <= tol + tol * |ref| elementwise (numpy's allclose with
+    rtol = atol = tol)."""
+    import torch
+
+    return torch.allclose(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def gate_ops(b, n, d):
+    """f32 operations of the int8 gate on the n rows of b streams of
+    NUM_PTS valid rows: the band's dot products and z mix, and ~5 per
+    template element."""
+    hw = WINDOW // 2
+    valid_pairs = sum(min(i + hw, NUM_PTS - 1) - max(i - hw, 0) + 1
+                      for i in range(NUM_PTS)) * b
+    return 2.0 * valid_pairs * (d + 2 * 128) + 5.0 * n * d
+
+
+def gate_and_head_int8(results, names, feats, zx, feats2, zx2, w, head_w,
+                       gp, p_pad, b, iters):
     """K6 on ``(feats, zx)`` with the template made from ``(feats2, zx2)``
     as the bootstrap makes it, then K7 on the gate's new template, each
     against its plain version and timed, at ``p_pad`` rows a stream;
@@ -419,10 +476,7 @@ def gate_head_int8(results, names, feats, zx, feats2, zx2, w, head_w, gp,
     got6 = gate_int8(zx, zx2, x, tmpl, **gkw)
     torch.cuda.synchronize()
     ref6 = gate_int8_plain(zx, zx2, x, tmpl, **gkw)
-    hw = WINDOW // 2
-    valid_pairs = sum(min(i + hw, NUM_PTS - 1) - max(i - hw, 0) + 1
-                      for i in range(NUM_PTS)) * b
-    ops6 = 2.0 * valid_pairs * (d + 2 * 128) + 5.0 * n * d
+    ops6 = gate_ops(b, n, d)
     bytes6 = 3.0 * n * d + 3.0 * n * 128 * 2 + n * WINDOW * 4
     record_int8(
         results, names[0], [(got6[0], ref6[0])],
@@ -505,7 +559,7 @@ def int8_kernel_phase(model, scans, calib, device, iters):
 
         # K6 and K7, with scan 1's features as the template
         _, (feats2, zx2) = feats_of(scans[1])
-        gate_head_int8(results, ("gate_int8", "head_int8"), feats, zx,
+        gate_and_head_int8(results, ("gate_int8", "head_int8"), feats, zx,
                        feats2, zx2, w, head_w, gp, p_pad, b, iters)
     return results
 
@@ -605,7 +659,7 @@ def layouts_kernel_phase(model, scans, calib, device, iters):
         feats_t, zx_t = cs.backbone_int8_tail(
             layer1(cutout(pad(scans[1], p_pad), **ckw)), w.backbone, w.embed,
             l=c)
-        gate_head_int8(results, ("gate_int8_as_gate_fused_int8",
+        gate_and_head_int8(results, ("gate_int8_as_gate_fused_int8",
                                  "head_int8_as_fused_head_int8"),
                        feats10, zx10, feats_t, zx_t, w, head_w, gp, p_pad, b,
                        iters)
@@ -660,7 +714,7 @@ def layouts_kernel_phase(model, scans, calib, device, iters):
         feats_t, zx_t = cs.backbone_int8_pm(
             cutout(pad(scans[1], p_pad), **ckw), w.layer1_div, w.backbone,
             w.embed, l=c, in_scale=w.in_scale)
-        gate_head_int8(results, ("gate_int8_pm", "head_int8_pm"), feats9,
+        gate_and_head_int8(results, ("gate_int8_pm", "head_int8_pm"), feats9,
                        zx9, feats_t, zx_t, w, head_w, gp, p_pad, b, iters)
         del feats9, zx9, feats_t, zx_t
 
@@ -684,6 +738,163 @@ def layouts_kernel_phase(model, scans, calib, device, iters):
                     time_ms(lambda: cs.row_shift(x, l=l), iters),
                     time_ms(taps_plain, iters),
                     bound(0.0, H100_INT8_OPS, 3.0 * x.numel()))
+    return results
+
+
+
+
+def fused_kernel_phase(model, scans, calib, device, iters):
+    """Phase 4, the fused int8c kernels on the scales of ``calib``: K8 at
+    456 rows a stream against its plain version and, to the bit, against K1
+    -> K5; K12 on p2's feats with scan 1's features as the carried template
+    against its plain version and K6 -> K7; K13 at 480 rows with a carry
+    made by K9 from scan 0, against its plain version and K9 -> K6 -> K7.
+    Each timed beside its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from planar_optical_flow_tpu_torch.infer.fast_gate import (
+        gate_head_int8, gate_head_int8_plain, gate_int8,
+    )
+    from planar_optical_flow_tpu_torch.infer.streaming import int8_weights
+    from planar_optical_flow_tpu_torch.ops.kernels import conv_stack as cs
+    from planar_optical_flow_tpu_torch.ops.kernels import fold
+    from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
+    from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import (
+        serve_cell_int8, serve_cell_int8_plain,
+    )
+
+    det = model.dr_spaam
+    b = scans.shape[1]
+    c = CUTOUT_KW["num_cutout_pts"]
+    l4 = c // 4
+    d = l4 * 256
+    ckw = dict(num_cutout_pts=c, window_width=CUTOUT_KW["window_width"],
+               window_depth=CUTOUT_KW["window_depth"],
+               padding_val=CUTOUT_KW["padding_val"], centered=True,
+               area_mode=True, p_valid=NUM_PTS)
+    w = int8_weights(det, calib, device)
+    head_w = fold.head_linear_weights(det.head)
+    gp = fold.fold_gate_params(det.gate)
+    results = {}
+    backbone_ops = 2.0 * (c * 3 * (64 * 64 + 64 * 128)
+                          + (c // 2) * 3 * (2 * 128 * 128 + 128 * 256))
+    head_ops = 2.0 * (l4 * 3 * (256 * 256 * 2 + 256 * 512)
+                      + (l4 // 2) * 3 * (512 * 256 + 256 * 128))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for layer in w.backbone + w.head for t in layer)
+
+    def same(name, got, chain):
+        ok = all(torch.equal(g, r) for g, r in zip(got, chain))
+        print(f"[kernel] {name}: outputs "
+              f"{'bit-identical' if ok else 'DIFFER'}", flush=True)
+        check(ok, f"{name}: the fused kernel differs from the unfused ones")
+
+    def gkw(p_pad):
+        return dict(ct=p_pad, ct_valid=NUM_PTS, alpha=gp.alpha,
+                    window_size=gp.window_size, s_x=w.feat_scale,
+                    s_t=w.tmpl_scale, s_out=w.tmpl_scale)
+
+    def carried(feats, n):
+        # a carried template: features rescaled to the carry's scale, as
+        # the bootstrap makes it
+        return torch.clamp(torch.round(feats.float().reshape(n, d)
+                                       * (w.feat_scale / w.tmpl_scale)),
+                           -127, 127).to(torch.int8)
+
+    with torch.inference_mode():
+        # K8 at 456 rows a stream
+        p_pad = -(-NUM_PTS // 8) * 8
+        n = b * p_pad
+        scan_p = F.pad(scans[0], (0, p_pad - NUM_PTS))
+        k8 = (scan_p, w.layer1, w.backbone, w.embed)
+        got = cs.backbone_int8_cut(*k8, **ckw)
+        torch.cuda.synchronize()
+        ref = cs.backbone_int8_cut_plain(*k8, **ckw)
+        record_int8(
+            results, "backbone_int8_cut", [(got[0], ref[0])],
+            [(got[1], ref[1])],
+            time_ms(lambda: cs.backbone_int8_cut(*k8, **ckw), iters),
+            time_ms(lambda: cs.backbone_int8_cut_plain(*k8, **ckw), 3, 1),
+            bound([(n * backbone_ops, H100_INT8_OPS),
+                   (n * 2.0 * d * 128, H100_BF16_FLOPS),
+                   (n * c * 64 * 7.0 + cutout_ops(scan_p, c, NUM_PTS),
+                    H100_F32_FLOPS)], None,
+                  n * 4.0 + n * d + n * 128 * 2 + w.embed[0].numel() * 2
+                  + weight_bytes))
+        del ref
+        same(f"K8 vs K1 -> K5 at {p_pad} rows a stream", got,
+             cs.backbone_int8(cutout(scan_p, **ckw), w.layer1, w.backbone,
+                              w.embed, l=c))
+
+        # K12 on p2's feats (scan 0) and scan 1's features as the template
+        x, zx = got[0].reshape(n, d), got[1]
+        feats2, zx2 = cs.backbone_int8_cut(
+            F.pad(scans[1], (0, p_pad - NUM_PTS)), w.layer1, w.backbone,
+            w.embed, **ckw)
+        tmpl = carried(feats2, n)
+        del feats2, got
+        k12 = (zx, zx2, x, tmpl, w.head, head_w)
+        kw12 = dict(gkw(p_pad), num_classes=1, l4=l4)
+        got = gate_head_int8(*k12, **kw12)
+        torch.cuda.synchronize()
+        ref = gate_head_int8_plain(*k12, **kw12)
+        record_int8(
+            results, "gate_head_int8", [(got[0], ref[0])],
+            list(zip(got[1:], ref[1:])),
+            time_ms(lambda: gate_head_int8(*k12, **kw12), iters),
+            time_ms(lambda: gate_head_int8_plain(*k12, **kw12), 3, 1),
+            bound([(n * head_ops, H100_INT8_OPS),
+                   (n * 2.0 * 128 * 3, H100_BF16_FLOPS),
+                   (gate_ops(b, n, d), H100_F32_FLOPS)], None,
+                  3.0 * n * d + 3.0 * n * 128 * 2 + n * WINDOW * 4
+                  + n * 3 * 4 + weight_bytes))
+        del ref
+        chain = gate_int8(zx, zx2, x, tmpl, **gkw(p_pad))
+        chain += cs.head_int8(chain[0].reshape(-1, 256), w.head, head_w,
+                              num_classes=1, l4=l4)
+        same(f"K12 vs K6 -> K7 at {p_pad} rows a stream", got, chain)
+        del got, chain, x, zx, zx2, tmpl
+
+        # K13 at 480 rows a stream, the carry from K9 on scan 0
+        p_pad = -(-NUM_PTS // 32) * 32
+        n = b * p_pad
+        feats0, zt = cs.backbone_int8_pm(
+            cutout(F.pad(scans[0], (0, p_pad - NUM_PTS)), **ckw),
+            w.layer1_div, w.backbone, w.embed, l=c, in_scale=w.in_scale)
+        tmpl = carried(feats0, n)
+        del feats0
+        cut = cutout(F.pad(scans[1], (0, p_pad - NUM_PTS)), **ckw)
+        k13 = (cut, zt, tmpl, w.layer1_div, w.backbone, w.embed, w.head,
+               head_w)
+        kw13 = dict(gkw(p_pad), l=c, in_scale=w.in_scale, num_classes=1)
+        got = serve_cell_int8(*k13, **kw13)
+        torch.cuda.synchronize()
+        ref = serve_cell_int8_plain(*k13, **kw13)
+        # the plain zx (float64 sums) and the kernel's (the MMA's f32 sums)
+        # differ in a bf16 last bit on some rows, and inside the cell that
+        # moves those rows' attention: K13 is held to its plain version at
+        # JAX's own cell-vs-pm bars (z 2e-2, sim, cls and reg 5e-2), and to
+        # the bit to the unfused kernels below
+        record_int8(
+            results, "serve_cell_int8", [(got[0], ref[0])],
+            list(zip(got[1:], ref[1:])),
+            time_ms(lambda: serve_cell_int8(*k13, **kw13), iters),
+            time_ms(lambda: serve_cell_int8_plain(*k13, **kw13), 3, 1),
+            bound([(n * (backbone_ops + head_ops), H100_INT8_OPS),
+                   (n * 2.0 * (d * 128 + 128 * 3), H100_BF16_FLOPS),
+                   (n * c * 64 * 8.0 + gate_ops(b, n, d),
+                    H100_F32_FLOPS)], None,
+                  n * c * 4.0 + 3.0 * n * d + 3.0 * n * 128 * 2
+                  + n * WINDOW * 4 + n * 3 * 4 + w.embed[0].numel() * 2
+                  + weight_bytes), float_tols=CELL_TOLS)
+        del ref
+        x, zx = cs.backbone_int8_pm(cut, w.layer1_div, w.backbone, w.embed,
+                                    l=c, in_scale=w.in_scale)
+        chain = gate_int8(zx, zt, x.reshape(n, d), tmpl, **gkw(p_pad))
+        chain += cs.head_int8(chain[0].reshape(-1, 256), w.head, head_w,
+                              num_classes=1, l4=l4)
+        same(f"K13 vs K9 -> K6 -> K7 at {p_pad} rows a stream", got, chain)
     return results
 
 
@@ -828,12 +1039,12 @@ def slice_phase(model, scans, device, calib, reset_step, reset_stream):
 
 
 def layouts_slice_phase(model, scans, device, calib):
-    """Phase 5, the unfused int8 configurations through
-    ``make_serve_step_v3``, each built and run (1 bootstrap + 5 carried
-    steps) with every launch counter set to 0 just before and read just
-    after, against the f32 module step on the same scans. int8c ``"flat"``
-    and ``"pm"`` must agree to the bit on the valid rows. Returns
-    ({config: launches}, {config: step ms})."""
+    """Phase 5, the configurations of ``make_serve_step_v3`` in
+    ``LAYOUTS``, each built and run (1 bootstrap + 5 carried steps) with
+    every launch counter set to 0 just before and read just after, against
+    the f32 module step on the same scans, and held to its exact launch
+    counts and, where ``LAYOUTS`` names one, to the bit to an earlier run's
+    valid rows. Returns ({config: launches}, {config: step ms})."""
     import torch
 
     from planar_optical_flow_tpu_torch.infer.streaming import (
@@ -852,12 +1063,13 @@ def layouts_slice_phase(model, scans, device, calib):
     del tmpl, ref_step
     torch.cuda.empty_cache()
 
-    def valid(carry, p_pad):
-        return {k: v.reshape(b, p_pad, -1)[:, :NUM_PTS].clone()
+    def valid(carry):
+        return {k: v.reshape(b, -1, v.shape[-1])[:, :NUM_PTS].clone()
                 for k, v in carry.items()}
 
-    all_launches, all_ms, flat_steps = {}, {}, []
-    for name, (opts, launched, idle) in LAYOUTS.items():
+    references = {ref for _, _, ref in LAYOUTS.values() if ref}
+    all_launches, all_ms, kept = {}, {}, {}
+    for name, (opts, counts, ref) in LAYOUTS.items():
         for wr in wrappers().values():
             wr.launches = 0
         # the K16 check runs once per device and process: forget that it
@@ -865,9 +1077,7 @@ def layouts_slice_phase(model, scans, device, calib):
         conv_stack._ROW_SHIFT_OK.clear()
         step = make_serve_step_v3(model, CUTOUT_KW, calib=calib,
                                   num_pts=NUM_PTS, device=device, **opts)
-        p_pad = (-(-NUM_PTS // PM_TILE) * PM_TILE if name == "pm"
-                 else -(-NUM_PTS // 8) * 8)
-        carry, step_ms = None, []
+        carry, step_ms, steps = None, [], []
         for i, scan in enumerate(scans):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -875,36 +1085,36 @@ def layouts_slice_phase(model, scans, device, calib):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             check_outputs(out, b, f"{name} step {i}")
-            check(carry["template"].shape[0] == b * p_pad,
-                  f"{name} carry rows {carry['template'].shape[0]}")
             compare_int8c(out, refs[i], i, CORR_INT8_STACKS if name == "int8"
                           else CORR_INT8, name)
-            if name == "flat":
-                flat_steps.append((valid(carry, p_pad), out))
-            elif name == "pm":
-                ref_carry, ref_out = flat_steps[i]
-                got = valid(carry, p_pad)
-                same = (all(torch.equal(got[k], ref_carry[k])
+            if name in references or ref:
+                steps.append((valid(carry), out))
+            if ref:
+                ref_carry, ref_out = kept[ref][i]
+                got_carry, got_out = steps[-1]
+                same = (all(torch.equal(got_carry[k], ref_carry[k])
                             for k in ref_carry)
-                        and all(torch.equal(out[k], ref_out[k])
+                        and all(torch.equal(got_out[k], ref_out[k])
                                 for k in ref_out))
-                check(same, f"pm and flat differ at step {i}")
-                flat_steps[i] = None
+                check(same, f"{name} and {ref} differ at step {i}")
         launches = {k: wr.launches for k, wr in wrappers().items()}
         print(f"[slice-{name}] launches during the {name} run: "
               f"{json.dumps(launches)}", flush=True)
-        for k in launched:
-            check(launches[k] > 0, f"kernel {k} was not launched on the "
-                  f"{name} path")
-        for k in idle:
-            check(launches[k] == 0, f"kernel {k} ran on the {name} path")
-        want = torch.bfloat16 if name == "int8" else torch.int8
-        check(carry["template"].dtype == want, f"{name} carry dtype")
+        want = dict.fromkeys(launches, 0)
+        want.update(counts, row_shift=1)
+        check(launches == want, f"{name} launches {launches}, expected "
+              f"{want}")
+        want_dtype = torch.bfloat16 if name == "int8" else torch.int8
+        check(carry["template"].dtype == want_dtype, f"{name} carry dtype")
+        if ref:
+            print(f"[slice-{name}] int8c {name} and {ref}: carries and "
+                  f"outputs bit-identical on the valid rows for "
+                  f"{len(scans)} steps", flush=True)
+        if name in references:
+            kept[name] = steps
         all_launches[name], all_ms[name] = launches, step_ms
-        del step, carry, out
+        del step, carry, out, steps
         torch.cuda.empty_cache()
-    print("[slice-pm] int8c pm and flat: carries and outputs bit-identical "
-          f"on the valid rows for {len(scans)} steps", flush=True)
     return all_launches, all_ms
 
 
@@ -962,7 +1172,11 @@ def main(argv=None):
              " (K10, int8 feats)"),
             ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 2, 1),
              " (K10, bf16 feats)"),
-            ("conv_stack_int8", "head_int8_smem_bytes", (c // 4,), "")):
+            ("conv_stack_int8", "head_int8_smem_bytes", (c // 4,), ""),
+            ("conv_stack_int8", "backbone_int8_cut_smem_bytes", (c, p_pad),
+             " (K8)"),
+            ("serve_cell", "gate_head_int8_smem_bytes", (c // 4,), " (K12)"),
+            ("serve_cell", "serve_cell_int8_smem_bytes", (c,), " (K13)")):
         f = getattr(_build.load(lib), fn)
         f.restype = ctypes.c_longlong
         f.argtypes = [ctypes.c_int] * len(arg)
@@ -988,13 +1202,16 @@ def main(argv=None):
     results.update(layouts_kernel_phase(model, scans, calib, device,
                                         TIMED_ITERS))
     torch.cuda.empty_cache()
+    results.update(fused_kernel_phase(model, scans, calib, device,
+                                      TIMED_ITERS))
+    torch.cuda.empty_cache()
     launches, ms_v3, ms_int8c = slice_phase(
         model, scans, device, calib, reset_step=3, reset_stream=BATCH // 2)
     torch.cuda.empty_cache()
     runs, step_ms = layouts_slice_phase(model, scans, device, calib)
     runs.update(v3=launches, int8c=launches)
     step_ms.update(v3=ms_v3, int8c=ms_int8c)
-    for name in ("v3", "int8c", "int8", "flat", "pm"):
+    for name in ("v3", "int8c", *LAYOUTS):
         carried = float(np.median(step_ms[name][1:]))
         print(f"[slice] {name} B={BATCH} step_ms="
               f"{json.dumps([round(t, 3) for t in step_ms[name]])} carried "

@@ -1,0 +1,194 @@
+// The band gate's device code, shared by gate.cu (K3, K6) and serve_cell.cu
+// (K12, K13): the banded attention of one row (the JAX _attention_body), the
+// z-carry mix and similarity band, and the int8 template mix with its
+// requant. Every row reads only its own current embedding and the CARRIED
+// embedding and template rows i + o, |o| <= window / 2, of its stream, so a
+// block may own any rows, provided it writes new rows to fresh buffers.
+//
+//   ex = leaky(zx), et = leaky(zt)
+//   valid = 0 <= i + o < ct_valid and i < ct_valid,  o in [-hw, hw]
+//   s[i, o] = ex[i] . et[i + o] where valid, else ex[i] . et[0] for
+//             i + o < 0 and ex[i] . et[ct_valid - 1] otherwise
+//   attn = validity-masked softmax over o (f32)
+//   new_z[i] = alpha * zx[i] + beta * sum_o bf16(attn[i, o]) * zt[i + o]
+//   sim[i, o] = s[i, o] (the edge rows reproduce the reference's
+//               edge-clamped duplicates exactly)
+// The int8 mix (K6, K12, K13; int8 x at s_x, template at s_t, output at
+// s_out):
+//   q[i, o] = clip(rint(127 * attn[i, o]))           (from the f32 attn)
+//   m[i] = sum_o q[i, o] * t[i + o]                   (exact, int32)
+//   new_t[i] = clip(rint((alpha * (s_x * x[i]) + beta * ((s_t / 127) * m[i]))
+//                        / s_out))
+//   every f32 step rounded once in the JAX order (__f*_rn, a true division).
+// beta = 1 - alpha and s_t / 127 are computed in double on the host and
+// rounded once to f32, as the JAX kernels' Python constants are. Rows >=
+// ct_valid have no valid offset: attn = 0, the template mix is 0.
+
+#pragma once
+
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+// bf16 vectors move as one 8- or 16-byte access; the lanes are read and
+// written through __nv_bfloat162 views of the register copy
+__device__ __forceinline__ void load4(const bf16* p, float* f) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float2 a = __bfloat1622float2(h[q]);
+    f[2 * q] = a.x;
+    f[2 * q + 1] = a.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 a = __bfloat1622float2(h[q]);
+    f[2 * q] = a.x;
+    f[2 * q + 1] = a.y;
+  }
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float* f) {
+  uint2 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) h[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float* f) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ int sbyte(unsigned w, int b) {
+  return (int)(signed char)(w >> (8 * b));
+}
+
+// Row i's banded attention, one warp (the JAX _attention_body): lane
+// k < window ends with offset k's raw similarity, its validity and its f32
+// attention; the other lanes hold attention 0. zx_row: the row's (128,)
+// embedding (device or shared memory); zt: the stream's carried (ct, 128)
+// embeddings.
+struct BandLane {
+  float s;
+  bool valid;
+  float attn;
+};
+
+__device__ __forceinline__ BandLane band_attention(const bf16* zx_row,
+                                                   const bf16* __restrict__ zt,
+                                                   int i, int ct_valid,
+                                                   int window, int lane) {
+  const int hw = window / 2;
+  float ex[4];
+  load4(zx_row + lane * 4, ex);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) ex[q] = leaky(ex[q]);
+  BandLane r = {0.0f, false, 0.0f};
+  for (int k = 0; k < window; ++k) {
+    const int j = i + k - hw;
+    const bool valid = j >= 0 && j < ct_valid && i < ct_valid;
+    // an invalid offset reads row 0 below the stream, else row ct_valid-1
+    const int jc = valid ? j : (j < 0 ? 0 : ct_valid - 1);
+    float et[4];
+    load4(zt + (size_t)jc * 128 + lane * 4, et);
+    float part = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) part += ex[q] * leaky(et[q]);
+    part = warp_sum(part);
+    if (lane == k) {
+      r.s = part;
+      r.valid = valid;
+    }
+  }
+  const float masked = lane < window ? (r.valid ? r.s : -1e10f) : -INFINITY;
+  const float m = warp_max(masked);
+  const float e = (lane < window && r.valid) ? expf(masked - m) : 0.0f;
+  const float denom = fmaxf(warp_sum(e), 1e-20f);
+  r.attn = e / denom;
+  return r;
+}
+
+// Row i's sim band and z-carry mix, one warp: `a` is lane k's bf16-rounded
+// attention, the JAX z-mix operand. zt: the stream's carried embeddings;
+// new_z_row / sim_row: the row's outputs.
+__device__ __forceinline__ void z_mix_and_sim(
+    const bf16* zx_row, const bf16* __restrict__ zt, bf16* __restrict__ new_z_row,
+    float* __restrict__ sim_row, int i, int window, const BandLane& r,
+    float a, float alpha, float beta, int lane) {
+  const int hw = window / 2;
+  if (lane < window) sim_row[lane] = r.s;
+  float zm[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < window; ++k) {
+    const float ak = __shfl_sync(kFull, a, k);
+    if (ak != 0.0f) {  // nonzero only at valid, in-range offsets
+      float z4[4];
+      load4(zt + (long long)(i + k - hw) * 128 + lane * 4, z4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) zm[q] += ak * z4[q];
+    }
+  }
+  float zx4[4];
+  load4(zx_row + lane * 4, zx4);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) zx4[q] = alpha * zx4[q] + beta * zm[q];
+  store4(new_z_row + lane * 4, zx4);
+}
+
+// The int8 attention weight of one band lane: clip(rint(127 * attn))
+__device__ __forceinline__ int quantize_attn(float attn) {
+  return requant(__fmul_rn(attn, 127.0f));
+}
+
+// new_t[i] at columns col .. col + 15: the 2*hw+1 products of q (row i's
+// quantized attention, window entries) with the carried template rows i + o
+// of the stream (t: its row 0, rows of d int8) summed exactly in int32,
+// then blended with x[i] (xraw: its 16 int8 values) and requantized.
+__device__ __forceinline__ uint4 mix_requant16(
+    const int* q, const int8_t* __restrict__ t, int i, int window, size_t d,
+    size_t col, uint4 xraw, float alpha, float beta, float s_x, float s_t127,
+    float s_out) {
+  const int hw = window / 2;
+  int acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0;
+  for (int k = 0; k < window; ++k) {
+    const int qk = q[k];
+    if (qk != 0) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          t + (long long)(i + k - hw) * d + col);
+      const unsigned w4[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[e] += qk * sbyte(w4[e >> 2], e & 3);
+    }
+  }
+  const unsigned xw[4] = {xraw.x, xraw.y, xraw.z, xraw.w};
+  unsigned ow[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const float mixed = __fmul_rn(__int2float_rn(acc[e]), s_t127);
+    const float xf = __fmul_rn((float)sbyte(xw[e >> 2], e & 3), s_x);
+    const float v = __fadd_rn(__fmul_rn(alpha, xf), __fmul_rn(beta, mixed));
+    ow[e >> 2] |= ((unsigned)requant(__fdiv_rn(v, s_out)) & 0xffu)
+                  << (8 * (e & 3));
+  }
+  return make_uint4(ow[0], ow[1], ow[2], ow[3]);
+}
+
+}  // namespace

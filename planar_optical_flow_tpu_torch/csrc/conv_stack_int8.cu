@@ -1,10 +1,13 @@
-// The int8 conv stacks for Hopper (sm_90a): K5, K9 and K10 (int8 backbone +
-// gate embed), K7 (int8 detection head) and K16 (the tap-row check).
+// The int8 conv stacks for Hopper (sm_90a): K5, K8, K9 and K10 (int8
+// backbone + gate embed), K7 (int8 detection head) and K16 (the tap-row
+// check).
 //
 // Each replaces a kernel of planar_optical_flow_tpu/ops/pallas/conv_stack.py:
 //   K5  fused_backbone_int8_p2 (l1_mode="mm", int8 output, with
 //       embed_weights; body _layer1_p2_mm, _run_plan_int8_p2,
 //       _run_plan_int8_pm, _embed_acc_pm);
+//   K8  fused_backbone_int8_p2cut (_backbone_int8_p2cut_kernel: the cutout
+//       block, cutout_kernel.cutout_block, feeding K5's body);
 //   K9  fused_backbone_int8_pm with layer1_weights (_layer1_pm), and
 //       fused_backbone_int8_p2 with l1_mode="repack"/"blend" (_layer1_p2),
 //       which JAX makes bit-identical to it;
@@ -24,6 +27,8 @@
 //       int8 feats (L/4 positions x 256) at the last layer's scale, and
 //       zx = bf16(feats @ (W * feat_scale) + b) on bf16 operands with f32
 //       accumulation.
+//   K8: K1's cutouts of the block's beams (cutout.cuh, the same arithmetic
+//       as K1), then K5: bit-identical to K1 followed by K5.
 //   K9: K5 with the other layer-1 rounding: the unscaled taps, leaky, then
 //       one true division by in_scale, rint, clip.
 //   K10: layers 2-6 and the embed on the int8 layer-1 activation read from
@@ -39,263 +44,38 @@
 //   K16: left[r] = x[r - 1] and right[r] = x[r + 1] of an int8 (rows, 128)
 //       array, zero at the ends of each length-L cutout, read with the
 //       tile loader K10 uses and the tap address of every int8 conv.
-// Every f32 step is spelled with __f*_rn intrinsics in the JAX order, so no
-// multiply-add is contracted; rint is round-half-to-even. Max-pool is taken
-// on the int32 sums before the epilogue: the epilogue is monotone, so this
-// gives the same bits as pooling after it (conv_stack.py _scale_leaky).
 //
-// Design. A block owns kTile cutouts and keeps their activations in shared
-// memory across every layer, as K2/K4 do: device memory sees the f32 cutouts
-// (or the int8 template) in and the outputs only. Per cutout, rows of C int8
-// channels padded to C + 16 bytes (the eight rows an MMA fragment load
-// touches then fall in different banks); row 0 and the rows past the last
-// position are zero, position p sits in row p + 1. A k=3 SAME conv is then
-// one product over K = 3 * Cin, the A row of output position p reading rows
-// p, p + 1, p + 2 of the buffer. The products run on the int8 tensor cores
-// with mma.sync.m16n8k32 (s8 x s8 -> s32, exact); a warp task is eight
-// 16-position tiles x 16 output channels, so each weight fragment, read from
-// global memory (L2 resident), feeds eight products. The weights come as
-// (Cout, 3 * Cin): each output channel's taps are contiguous, the column
-// operand's layout. The TPU kernels' position-major rows and pack-2 lanes
-// are TPU layout devices and are not carried over: the int32 sums are the
-// same in any layout.
+// Design (int8_stack.cuh has the conv, layer 1, the backbone tail and the
+// head, shared with serve_cell.cu): a block owns kTile cutouts and keeps
+// their activations in shared memory across every layer, as K2/K4 do:
+// device memory sees the f32 cutouts (or the int8 template) in and the
+// outputs only. The TPU kernels' position-major rows and pack-2 lanes are
+// TPU layout devices and are not carried over: the int32 sums are the same
+// in any layout.
 //
 // K10 fills the tile from its int8 input rows instead of computing layer 1,
 // and with bf16 feats its last conv writes bf16 values over the free buffer
-// (the embed reads them there). K16 is one small launch of the same loader
-// and tap addressing on a known pattern.
+// (the embed reads them there). K8's block loads its stream's whole scan
+// (the taps of a close beam reach ~180 beams away), computes the scan's
+// prefix sum in area mode, and the cutouts of its own 8 beams into the f32
+// cutout buffer K5 reads: the (N, L) cutout tensor never exists in device
+// memory. Its blocks never straddle two streams (the padded scan length is
+// a multiple of kTile). K16 is one small launch of the same loader and tap
+// addressing on a known pattern.
 //
 // Bound: tensor-core operations at the int8 peak: about 16.1 M operations
-// per cutout for K5/K9 at L=56 (the bf16 embed included), 16.0 M for K10,
-// and 28.9 M for K7 at L/4=14, against ~0.4 KB (K5/K9), ~7.2 KB (K10: 3.6
-// KB of act1 in, 3.5 KB of int8 or 7 KB of bf16 feats out) and ~3.6 KB
-// (K7) of device-memory traffic. Positions are padded to 16 per MMA tile,
-// which wastes 12% of the backbone's and up to 56% of K7's last two convs
-// (7 positions in a 16-row tile). K16 is bound by its launch.
+// per cutout for K5/K8/K9 at L=56 (the bf16 embed included), 16.0 M for
+// K10, and 28.9 M for K7 at L/4=14, against ~0.4 KB (K5/K9; K8 reads the
+// 4-byte range instead of the 224-byte cutout), ~7.2 KB (K10: 3.6 KB of act1
+// in, 3.5 KB of int8 or 7 KB of bf16 feats out) and ~3.6 KB (K7) of
+// device-memory traffic. Positions are padded to 16 per MMA tile, which
+// wastes 12% of the backbone's and up to 56% of K7's last two convs (7
+// positions in a 16-row tile). K16 is bound by its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "cutout.cuh"
+#include "int8_stack.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 8;    // cutouts per block (= the embed MMA's rows)
-constexpr int kPad = 16;    // shared-memory row padding (bytes)
-constexpr int kMTiles = 8;  // 16-position tiles per warp task
-constexpr int kNTiles = 2;  // 8-channel tiles per warp task
-static_assert(kTile % kMTiles == 0,
-              "a warp task's tiles must not run past the block's cutouts");
-constexpr unsigned kFull = 0xffffffffu;
-
-enum Epilogue { kStore = 0, kPool = 1, kMean = 2, kPoolBf16 = 3 };
-// how a backbone block gets its layer-1 activation
-enum Layer1 { kFold = 0, kDivide = 1, kRead = 2 };
-
-__host__ __device__ constexpr int ld_of(int c) { return c + kPad; }
-__host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
-inline int imax(int a, int b) { return a > b ? a : b; }
-
-__device__ __forceinline__ float leaky(float v) {
-  return v > 0.0f ? v : __fmul_rn(0.1f, v);
-}
-
-// f32(acc) * s_eff + b_eff with two roundings, then leaky
-__device__ __forceinline__ float scale_leaky(int acc, float s, float b) {
-  return leaky(__fadd_rn(__fmul_rn(__int2float_rn(acc), s), b));
-}
-
-__device__ __forceinline__ int requant(float v) {
-  return (int)fminf(fmaxf(rintf(v), -127.0f), 127.0f);
-}
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const void* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_of(int8_t lo, int8_t hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn((float)lo, (float)hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// D += A (16x32 s8, row) * B (32x8 s8, col), s32 accumulate
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// D += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ void zero_smem(int8_t* p, int n_bytes) {
-  const uint4 z = make_uint4(0, 0, 0, 0);
-  uint4* q = reinterpret_cast<uint4*>(p);
-  for (int i = threadIdx.x; i < n_bytes / 16; i += blockDim.x) q[i] = z;
-}
-
-// The row that tap t (0 left, 1 centre, 2 right) of position p0 + r of
-// cutout c reads in a zero-padded tile of rows of LD bytes: position p sits
-// in row p + 1, so the tap reads row p0 + t + r; rows 0 and L + 1 stay
-// zero, which is the SAME padding at both ends of the cutout. K16 checks
-// this addressing. (A macro: as an inline function the same expression
-// compiled to a slower inner loop in conv_s8.)
-#define TAP_ROW(tile, c, S, LD, p0, t, r) \
-  ((tile) + (size_t)(c) * (S) + (size_t)((p0) + (t) + (r)) * (LD))
-
-// Rows (n * L, C) int8 of cutouts c0 .. c0 + nv - 1 from device memory into
-// a zeroed tile: position p of cutout c at row p + 1.
-template <int C>
-__device__ void load_rows(const int8_t* __restrict__ src, int8_t* tile,
-                          int c0, int nv, int L, int S) {
-  constexpr int V = C / 16;  // 16-byte vectors per row
-  constexpr int kShift = C == 64 ? 2 : C == 128 ? 3 : 4;
-  static_assert(V == 1 << kShift, "C must be 64, 128 or 256");
-  for (int idx = threadIdx.x; idx < nv * L * V; idx += kThreads) {
-    const int c = idx / (L * V);
-    const int rem = idx - c * L * V;
-    const int p = rem >> kShift, v = rem & (V - 1);
-    reinterpret_cast<uint4*>(tile + (size_t)c * S +
-                             (size_t)(p + 1) * ld_of(C))[v] =
-        reinterpret_cast<const uint4*>(src + ((size_t)(c0 + c) * L + p) * C)[v];
-  }
-}
-
-// One k=3 SAME int8 conv over the block's kTile cutouts: `in` (CIN channels,
-// L positions, per-cutout stride S bytes) -> `out` (COUT channels, int8
-// requantized; pooled to L/2 positions for kPool) or, into `fout`, the f32
-// activation (kMean: kTile x L x COUT) or the bf16 of the pooled f32
-// activation (kPoolBf16: kTile x L/2 x COUT). W: (COUT, 3*CIN) int8.
-// Fragment layouts (PTX ISA, mma.m16n8k32 .s8): lane = 4 * g + tq; A
-// registers hold rows g / g+8 at k = 4tq.. and 16+4tq..; B registers hold
-// column g at k = 4tq.. and 16+4tq..; D holds rows g / g+8 at columns 2tq,
-// 2tq+1.
-template <int CIN, int COUT, int EPI>
-__device__ void conv_s8(const int8_t* in, int8_t* out, void* fout, int S,
-                        int L, const int8_t* __restrict__ W,
-                        const float* __restrict__ s_eff,
-                        const float* __restrict__ b_eff) {
-  constexpr int LDI = ld_of(CIN), LDO = ld_of(COUT), K = 3 * CIN;
-  constexpr int NG = COUT / (8 * kNTiles);
-  static_assert(CIN % 32 == 0 && COUT % (8 * kNTiles) == 0, "shape");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int mt = pad16(L) / 16;  // tiles per cutout
-  const int tasks = (kTile * mt / kMTiles) * NG;
-  for (int task = warp; task < tasks; task += kWarps) {
-    const int ng = task % NG;
-    const int u0 = (task / NG) * kMTiles;  // first tile of this task
-    int acc[kMTiles][kNTiles][4];
-#pragma unroll
-    for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-    const int8_t* wrow[kNTiles];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-      wrow[j] = W + (size_t)((ng * kNTiles + j) * 8 + g) * K + 4 * tq;
-    for (int t = 0; t < 3; ++t) {
-      for (int kk = 0; kk < CIN; kk += 32) {
-        uint32_t b[kNTiles][2];
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j) {
-          b[j][0] = ldg32(wrow[j] + t * CIN + kk);
-          b[j][1] = ldg32(wrow[j] + t * CIN + kk + 16);
-        }
-#pragma unroll
-        for (int i = 0; i < kMTiles; ++i) {
-          const int u = u0 + i, c = u / mt, m = u - c * mt;
-          const int8_t* ap = TAP_ROW(in, c, S, LDI, 16 * m, t, g) + kk + 4 * tq;
-          const uint32_t a[4] = {lds32(ap), lds32(ap + 8 * LDI),
-                                 lds32(ap + 16), lds32(ap + 8 * LDI + 16)};
-#pragma unroll
-          for (int j = 0; j < kNTiles; ++j) mma_s8(acc[i][j], a, b[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMTiles; ++i) {
-      const int u = u0 + i, c = u / mt, m = u - c * mt;
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        const int n = (ng * kNTiles + j) * 8 + 2 * tq;
-        const float s0 = s_eff[n], s1 = s_eff[n + 1];
-        const float b0 = b_eff[n], b1 = b_eff[n + 1];
-        if (EPI == kPool || EPI == kPoolBf16) {
-          // positions 2r, 2r+1 are rows g, g^1: lanes `lane`, `lane ^ 4`
-          int v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            v[e] = max(acc[i][j][e], __shfl_xor_sync(kFull, acc[i][j][e], 4));
-          if ((g & 1) == 0) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int pos = 16 * m + g + 8 * h;
-              if (pos >= L) continue;
-              const float y0 = scale_leaky(v[2 * h], s0, b0);
-              const float y1 = scale_leaky(v[2 * h + 1], s1, b1);
-              if (EPI == kPool) {
-                *reinterpret_cast<char2*>(
-                    out + (size_t)c * S + (size_t)(pos / 2 + 1) * LDO + n) =
-                    make_char2((char)requant(y0), (char)requant(y1));
-              } else {
-                *reinterpret_cast<__nv_bfloat162*>(
-                    static_cast<bf16*>(fout) +
-                    ((size_t)c * (L / 2) + pos / 2) * COUT + n) =
-                    __floats2bfloat162_rn(y0, y1);
-              }
-            }
-          }
-        } else {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int pos = 16 * m + g + 8 * h;
-            if (pos >= L) continue;
-            const float y0 = scale_leaky(acc[i][j][2 * h], s0, b0);
-            const float y1 = scale_leaky(acc[i][j][2 * h + 1], s1, b1);
-            if (EPI == kStore) {
-              *reinterpret_cast<char2*>(out + (size_t)c * S +
-                                        (size_t)(pos + 1) * LDO + n) =
-                  make_char2((char)requant(y0), (char)requant(y1));
-            } else {
-              float* f = static_cast<float*>(fout) +
-                         ((size_t)c * L + pos) * COUT + n;
-              f[0] = y0;
-              f[1] = y1;
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-// the backbone's five int8 tail convs (layers 2-6), as
-// quant.kernel_stack_weights lays them out
-struct TailWeights {
-  const int8_t* w[5];
-  const float* s[5];
-  const float* b[5];
-};
 
 // K5 (L1 = kFold), K9 (kDivide) and K10 (kRead). Shared memory: two tile
 // buffers of kTile * S bytes, then the f32 cutouts (kFold/kDivide). With
@@ -313,12 +93,8 @@ __global__ void __launch_bounds__(kThreads)
   int8_t* buf0 = reinterpret_cast<int8_t*>(smem_raw);
   int8_t* buf1 = buf0 + (size_t)kTile * S;
   float* cut_s = reinterpret_cast<float*>(buf1 + (size_t)kTile * S);
-  bf16* fb = reinterpret_cast<bf16*>(buf1);
   const int c0 = blockIdx.x * kTile;
   const int nv = min(kTile, n - c0);
-  const int L2 = L / 2, L4 = L / 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
 
   zero_smem(buf0, kTile * S);
   zero_smem(buf1, kTile * S);
@@ -332,110 +108,64 @@ __global__ void __launch_bounds__(kThreads)
   if (L1 == kRead) {
     load_rows<64>(static_cast<const int8_t*>(in), buf0, c0, nv, L, S);
   } else {
-    // layer 1: ((xl * w0 + x * w1) + xr * w2) + b, leaky; kFold has
-    // 1/in_scale folded into w and b, kDivide divides after the leaky
-    for (int idx = threadIdx.x; idx < nv * L * 64; idx += kThreads) {
-      const int c = idx / (L * 64);
-      const int rem = idx - c * L * 64;
-      const int p = rem >> 6, ch = rem & 63;
-      const float* x = cut_s + c * L;
-      const float xl = p > 0 ? x[p - 1] : 0.0f;
-      const float xr = p < L - 1 ? x[p + 1] : 0.0f;
-      const float a = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(xl, w1[ch]), __fmul_rn(x[p], w1[64 + ch])),
-                    __fmul_rn(xr, w1[128 + ch])),
-          b1[ch]);
-      const float y = L1 == kDivide ? __fdiv_rn(leaky(a), in_scale) : leaky(a);
-      buf0[(size_t)c * S + (size_t)(p + 1) * ld_of(64) + ch] =
-          (int8_t)requant(y);
-    }
+    layer1_tile<L1>(cut_s, w1, b1, in_scale, buf0, nv, L, S);
   }
   __syncthreads();
-  conv_s8<64, 64, kStore>(buf0, buf1, nullptr, S, L, tw.w[0], tw.s[0], tw.b[0]);
-  __syncthreads();
+  backbone_tail<F_OUT, true>(buf0, buf1, tw, we_t, be, feats,
+                             zx + (size_t)c0 * 128, c0, nv, L, S);
+}
+
+// K8: (B, p) f32 scans (p a multiple of kTile) -> K5's outputs for the B * p
+// beams. Shared memory: K5's two tiles and f32 cutouts, then the stream's
+// ranges (p), prefix sums (p + 1), the prefix sum's row totals and the
+// block's half-window angles (kTile).
+__global__ void __launch_bounds__(kThreads)
+    backbone_int8_cut_kernel(const float* __restrict__ scans,
+                             const CutoutCfg cfg, int p,
+                             const float* __restrict__ w1,
+                             const float* __restrict__ b1,
+                             const TailWeights tw,
+                             const bf16* __restrict__ we_t,
+                             const bf16* __restrict__ be,
+                             int8_t* __restrict__ feats,
+                             bf16* __restrict__ zx, int n, int S) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int L = cfg.c;
+  int8_t* buf0 = reinterpret_cast<int8_t*>(smem_raw);
+  int8_t* buf1 = buf0 + (size_t)kTile * S;
+  float* cut_s = reinterpret_cast<float*>(buf1 + (size_t)kTile * S);
+  float* r_s = cut_s + kTile * L;
+  float* cs_s = r_s + p;  // cs_s[i] = sum of beams < i
+  float* scratch = cs_s + p + 1;
+  float* ha_s = scratch + scan_scratch_floats(p);
+  const int c0 = blockIdx.x * kTile;
+  const int nv = min(kTile, n - c0);
+  const int beam0 = c0 % p;
+  const float* scan = scans + (size_t)(c0 / p) * p;
+
   zero_smem(buf0, kTile * S);
-  __syncthreads();
-  conv_s8<64, 128, kPool>(buf1, buf0, nullptr, S, L, tw.w[1], tw.s[1], tw.b[1]);
-  __syncthreads();
   zero_smem(buf1, kTile * S);
-  __syncthreads();
-  conv_s8<128, 128, kStore>(buf0, buf1, nullptr, S, L2, tw.w[2], tw.s[2], tw.b[2]);
-  __syncthreads();
-  zero_smem(buf0, kTile * S);
-  __syncthreads();
-  conv_s8<128, 128, kStore>(buf1, buf0, nullptr, S, L2, tw.w[3], tw.s[3], tw.b[3]);
-  __syncthreads();
-  if (F_OUT) {
-    conv_s8<128, 256, kPoolBf16>(buf0, nullptr, fb, S, L2, tw.w[4], tw.s[4],
-                                 tw.b[4]);
-  } else {
-    zero_smem(buf1, kTile * S);
-    __syncthreads();
-    conv_s8<128, 256, kPool>(buf0, buf1, nullptr, S, L2, tw.w[4], tw.s[4],
-                             tw.b[4]);
+  for (int i = threadIdx.x; i < p; i += kThreads) {
+    const float r = scan[i];
+    r_s[i] = r;
+    cs_s[i + 1] = r;
   }
+  if (threadIdx.x < nv)
+    ha_s[threadIdx.x] = half_alpha_of(scan[beam0 + threadIdx.x],
+                                      cfg.half_width);
+  if (threadIdx.x == 0) cs_s[0] = 0.0f;
   __syncthreads();
+  if (cfg.area_mode) scan_xla(cs_s + 1, p, scratch);
 
-  if (F_OUT) {
-    // feats: the block's rows of fb are contiguous, as in device memory
-    const int nvec = nv * L4 * 32;  // 16-byte vectors
-    uint4* dst = reinterpret_cast<uint4*>(static_cast<bf16*>(feats) +
-                                          (size_t)c0 * L4 * 256);
-    for (int idx = threadIdx.x; idx < nvec; idx += kThreads)
-      dst[idx] = reinterpret_cast<const uint4*>(fb)[idx];
-  } else {
-    // feats: rows 1..L4 of buf1 -> (N * L4, 256) int8
-    int8_t* f8 = static_cast<int8_t*>(feats);
-    for (int idx = threadIdx.x; idx < nv * L4 * 16; idx += kThreads) {
-      const int c = idx / (L4 * 16);
-      const int rem = idx - c * L4 * 16;
-      const int p = rem >> 4, v = rem & 15;
-      reinterpret_cast<uint4*>(f8 + ((size_t)(c0 + c) * L4 + p) * 256)[v] =
-          reinterpret_cast<const uint4*>(buf1 + (size_t)c * S +
-                                         (size_t)(p + 1) * ld_of(256))[v];
-    }
+  for (int idx = threadIdx.x; idx < nv * L; idx += kThreads) {
+    const int c = idx / L;
+    cut_s[idx] = cutout_tap(r_s, cs_s, beam0 + c, idx - c * L, ha_s[c], cfg);
   }
-
-  // gate embed zx = feats_flat @ We + be on bf16 operands (int8 values are
-  // exact in bf16): m16n8k16 products with the block's 8 cutouts as rows g
-  // (rows g+8 are zero); contraction index k = p * 256 + ch. Warp w owns
-  // output columns 16w .. 16w+15 over the whole contraction. Rows g >= nv
-  // (past the last cutout) only feed outputs that are not stored.
-  {
-    const int K = L4 * 256;
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    const int8_t* arow = buf1 + (size_t)g * S;
-    const bf16* frow = fb + (size_t)g * K + 2 * tq;
-    const bf16* wrow0 = we_t + (size_t)((2 * warp) * 8 + g) * K + 2 * tq;
-    const bf16* wrow1 = wrow0 + (size_t)8 * K;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t a[4];
-      if (F_OUT) {
-        a[0] = *reinterpret_cast<const uint32_t*>(frow + k0);
-        a[2] = *reinterpret_cast<const uint32_t*>(frow + k0 + 8);
-      } else {
-        const int8_t* ap = arow + (size_t)((k0 >> 8) + 1) * ld_of(256) +
-                           (k0 & 255) + 2 * tq;
-        a[0] = bf16x2_of(ap[0], ap[1]);
-        a[2] = bf16x2_of(ap[8], ap[9]);
-      }
-      a[1] = a[3] = 0u;
-      const uint32_t bw0[2] = {ldg32(wrow0 + k0), ldg32(wrow0 + k0 + 8)};
-      const uint32_t bw1[2] = {ldg32(wrow1 + k0), ldg32(wrow1 + k0 + 8)};
-      mma_bf16(acc[0], a, bw0);
-      mma_bf16(acc[1], a, bw1);
-    }
-    if (g < nv) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = (2 * warp + j) * 8 + 2 * tq;
-        bf16* z = zx + (size_t)(c0 + g) * 128 + col;
-        z[0] = __float2bfloat16(__fadd_rn(acc[j][0], __bfloat162float(be[col])));
-        z[1] = __float2bfloat16(
-            __fadd_rn(acc[j][1], __bfloat162float(be[col + 1])));
-      }
-    }
-  }
+  __syncthreads();
+  layer1_tile<kFold>(cut_s, w1, b1, 1.0f, buf0, nv, L, S);
+  __syncthreads();
+  backbone_tail<false, true>(buf0, buf1, tw, we_t, be, feats,
+                             zx + (size_t)c0 * 128, c0, nv, L, S);
 }
 
 // K16: x (n * L, 128) int8 -> left[r] = x[r - 1], right[r] = x[r + 1]
@@ -463,20 +193,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K7. Shared memory: two tile buffers of kTile * S bytes, then the means.
 __global__ void __launch_bounds__(kThreads)
-    head_int8_kernel(const int8_t* __restrict__ tmpl,
-                     const int8_t* __restrict__ w1, const float* __restrict__ s1,
-                     const float* __restrict__ c1,
-                     const int8_t* __restrict__ w2, const float* __restrict__ s2,
-                     const float* __restrict__ c2,
-                     const int8_t* __restrict__ w3, const float* __restrict__ s3,
-                     const float* __restrict__ c3,
-                     const int8_t* __restrict__ w4, const float* __restrict__ s4,
-                     const float* __restrict__ c4,
-                     const int8_t* __restrict__ w5, const float* __restrict__ s5,
-                     const float* __restrict__ c5,
-                     const bf16* __restrict__ wc, const float* __restrict__ bc,
-                     const bf16* __restrict__ wr, const float* __restrict__ br,
+    head_int8_kernel(const int8_t* __restrict__ tmpl, const HeadWeights hw,
                      float* __restrict__ cls, float* __restrict__ reg, int n,
                      int L4, int nc, int S) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -485,73 +204,18 @@ __global__ void __launch_bounds__(kThreads)
   float* means = reinterpret_cast<float*>(buf1 + (size_t)kTile * S);  // T x 128
   const int c0 = blockIdx.x * kTile;
   const int nv = min(kTile, n - c0);
-  const int L8 = L4 / 2;
 
   zero_smem(buf0, kTile * S);
   zero_smem(buf1, kTile * S);
   __syncthreads();
   load_rows<256>(tmpl, buf0, c0, nv, L4, S);
   __syncthreads();
-  conv_s8<256, 256, kStore>(buf0, buf1, nullptr, S, L4, w1, s1, c1);
-  __syncthreads();
-  zero_smem(buf0, kTile * S);
-  __syncthreads();
-  conv_s8<256, 256, kStore>(buf1, buf0, nullptr, S, L4, w2, s2, c2);
-  __syncthreads();
-  zero_smem(buf1, kTile * S);
-  __syncthreads();
-  conv_s8<256, 512, kPool>(buf0, buf1, nullptr, S, L4, w3, s3, c3);
-  __syncthreads();
-  zero_smem(buf0, kTile * S);
-  __syncthreads();
-  conv_s8<512, 256, kStore>(buf1, buf0, nullptr, S, L8, w4, s4, c4);
-  __syncthreads();
-  // the last conv is dequantized: f32 activations into the free buffer
-  float* fout = reinterpret_cast<float*>(buf1);
-  conv_s8<256, 128, kMean>(buf0, nullptr, fout, S, L8, w5, s5, c5);
-  __syncthreads();
-
-  // mean over positions: sequential f32 sum, then one division
-  for (int idx = threadIdx.x; idx < nv * 128; idx += kThreads) {
-    const int c = idx >> 7, ch = idx & 127;
-    const float* f = fout + (size_t)c * L8 * 128 + ch;
-    float s = f[0];
-    for (int p = 1; p < L8; ++p) s = __fadd_rn(s, f[p * 128]);
-    means[idx] = __fdiv_rn(s, (float)L8);
-  }
-  __syncthreads();
-
-  // cls / reg: bf16(mean) @ bf16 weights, f32 accumulate, + f32 bias (the
-  // products of two bf16 values are exact in f32)
-  for (int idx = threadIdx.x; idx < nv * (nc + 2); idx += kThreads) {
-    const int c = idx / (nc + 2), j = idx - c * (nc + 2);
-    const bool is_cls = j < nc;
-    const bf16* w = is_cls ? wc + j : wr + (j - nc);
-    const int ldw = is_cls ? nc : 2;
-    float acc = 0.0f;
-    for (int k = 0; k < 128; ++k)
-      acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(__float2bfloat16(
-                                         means[c * 128 + k])),
-                                     __bfloat162float(w[k * ldw])));
-    if (is_cls)
-      cls[(size_t)(c0 + c) * nc + j] = __fadd_rn(acc, bc[j]);
-    else
-      reg[(size_t)(c0 + c) * 2 + (j - nc)] = __fadd_rn(acc, br[j - nc]);
-  }
+  head_body(buf0, buf1, means, hw, cls, reg, c0, nv, L4, nc, S);
 }
-
-int set_smem(const void* kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-int round16(int x) { return (x + 15) / 16 * 16; }
 
 // tile stride S and dynamic shared memory of a backbone launch
 size_t backbone_int8_smem(int l, int L1, bool f_out, int* S) {
-  *S = round16(imax(imax((pad16(l) + 2) * ld_of(64),
-                         (pad16(l / 2) + 2) * ld_of(128)),
-                    (pad16(l / 4) + 2) * ld_of(256)));
+  *S = backbone_stride(l);
   size_t bytes = 2 * (size_t)kTile * *S;
   if (L1 != kRead) bytes += (size_t)kTile * l * sizeof(float);
   if (f_out) {
@@ -562,9 +226,14 @@ size_t backbone_int8_smem(int l, int L1, bool f_out, int* S) {
   return bytes;
 }
 
+// K8: K5's shared memory and the scan's, at p beams a stream
+size_t backbone_int8_cut_smem(int l, int p, int* S) {
+  return backbone_int8_smem(l, kFold, false, S) +
+         ((size_t)2 * p + 1 + scan_scratch_floats(p) + kTile) * sizeof(float);
+}
+
 size_t head_int8_smem(int l4, int* S) {
-  *S = round16(imax((pad16(l4) + 2) * ld_of(256),
-                    (pad16(l4 / 2) + 2) * ld_of(512)));
+  *S = head_stride(l4);
   return 2 * (size_t)kTile * *S + (size_t)kTile * 128 * sizeof(float);
 }
 
@@ -575,11 +244,7 @@ size_t row_shift_smem(int l, int* S) {
 
 TailWeights tail_weights(const void* const* p) {
   TailWeights tw;
-  for (int i = 0; i < 5; ++i) {
-    tw.w[i] = static_cast<const int8_t*>(p[3 * i]);
-    tw.s[i] = static_cast<const float*>(p[3 * i + 1]);
-    tw.b[i] = static_cast<const float*>(p[3 * i + 2]);
-  }
+  fill_convs(tw, p);
   return tw;
 }
 
@@ -607,6 +272,11 @@ extern "C" long long backbone_int8_smem_bytes(int l, int l1_mode,
                                               int bf16_out) {
   int S;
   return (long long)backbone_int8_smem(l, l1_mode, bf16_out != 0, &S);
+}
+
+extern "C" long long backbone_int8_cut_smem_bytes(int l, int p) {
+  int S;
+  return (long long)backbone_int8_cut_smem(l, p, &S);
 }
 
 extern "C" long long head_int8_smem_bytes(int l4) {
@@ -644,6 +314,34 @@ extern "C" int backbone_int8_launch(const void* in, const void* w1,
   return (int)cudaErrorInvalidValue;
 }
 
+// K8: scans (b, p) f32 with p a multiple of 8 -> feats (b * p * l/4, 256)
+// int8 and zx (b * p, 128) bf16, as K1 (the cutout arguments as for
+// cutout_launch, with c = l) followed by K5 (w1, b1, tail, we_t, be as for
+// backbone_int8_launch in l1_mode 0).
+extern "C" int backbone_int8_cut_launch(
+    const void* scans, int b, int p, int p_valid, int l, float window_width,
+    float window_depth, float padding_val, float inv_c1, float inv_angle,
+    float inv_depth, int centered, int area_mode, const void* w1,
+    const void* b1, const void* const* tail, const void* we_t, const void* be,
+    void* feats, void* zx, void* stream) {
+  const int n = b * p;
+  if (n == 0) return (int)cudaSuccess;
+  if (p % kTile) return (int)cudaErrorInvalidValue;
+  int S;
+  const size_t smem = backbone_int8_cut_smem(l, p, &S);
+  int err = set_smem((const void*)backbone_int8_cut_kernel, smem);
+  if (err) return err;
+  const CutoutCfg cfg = {p_valid, l, 0.5f * window_width, window_depth,
+                         padding_val, inv_c1, inv_angle, inv_depth,
+                         centered, area_mode};
+  backbone_int8_cut_kernel<<<n / kTile, kThreads, smem,
+                             (cudaStream_t)stream>>>(
+      (const float*)scans, cfg, p, (const float*)w1, (const float*)b1,
+      tail_weights(tail), (const bf16*)we_t, (const bf16*)be, (int8_t*)feats,
+      (bf16*)zx, n, S);
+  return (int)cudaGetLastError();
+}
+
 // K16: x (rows, 128) int8, rows a multiple of l
 extern "C" int row_shift_launch(const void* x, void* left, void* right,
                                 int rows, int l, void* stream) {
@@ -659,13 +357,11 @@ extern "C" int row_shift_launch(const void* x, void* left, void* right,
   return (int)cudaGetLastError();
 }
 
-extern "C" int head_int8_launch(
-    const void* tmpl, const void* w1, const void* s1, const void* c1,
-    const void* w2, const void* s2, const void* c2, const void* w3,
-    const void* s3, const void* c3, const void* w4, const void* s4,
-    const void* c4, const void* w5, const void* s5, const void* c5,
-    const void* wc, const void* bc, const void* wr, const void* br, void* cls,
-    void* reg, int n, int l4, int nc, void* stream) {
+// K7: head: the 15 pointers (w, s_eff, b_eff) of the five head convs
+extern "C" int head_int8_launch(const void* tmpl, const void* const* head,
+                                const void* wc, const void* bc, const void* wr,
+                                const void* br, void* cls, void* reg, int n,
+                                int l4, int nc, void* stream) {
   if (n == 0) return (int)cudaSuccess;
   int S;
   const size_t smem = head_int8_smem(l4, &S);
@@ -673,12 +369,7 @@ extern "C" int head_int8_launch(
   if (err) return err;
   const int grid = (n + kTile - 1) / kTile;
   head_int8_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)tmpl, (const int8_t*)w1, (const float*)s1,
-      (const float*)c1, (const int8_t*)w2, (const float*)s2, (const float*)c2,
-      (const int8_t*)w3, (const float*)s3, (const float*)c3,
-      (const int8_t*)w4, (const float*)s4, (const float*)c4,
-      (const int8_t*)w5, (const float*)s5, (const float*)c5, (const bf16*)wc,
-      (const float*)bc, (const bf16*)wr, (const float*)br, (float*)cls,
+      (const int8_t*)tmpl, head_weights(head, wc, bc, wr, br), (float*)cls,
       (float*)reg, n, l4, nc, S);
   return (int)cudaGetLastError();
 }

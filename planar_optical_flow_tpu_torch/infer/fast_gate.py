@@ -1,5 +1,5 @@
-"""K3 and K6: the serving spatial-attention gate in band form
-(``csrc/gate.cu``).
+"""K3, K6 and K12: the serving spatial-attention gate in band form
+(``csrc/gate.cu``, ``csrc/serve_cell.cu``).
 
 * K3 :func:`gate` replaces ``planar_optical_flow_tpu/infer/fast_gate.py``
   ``gate_fused_flat`` (kernel ``_gate_fused_kernel``): bf16 features and
@@ -7,6 +7,11 @@
 * K6 :func:`gate_int8` replaces ``gate_fused_int8_pm`` with
   ``per_stream=True`` (kernel ``_gate_int8_pm_stream_kernel``,
   ``_quantize_attn``, ``_mix_requant``): int8 features and template carry.
+* K12 :func:`gate_head_int8` replaces ``gate_head_fused_int8_pm`` (kernel
+  ``_gate_head_int8_pm_stream_kernel``): K6, then the int8 head (K7,
+  ``conv_stack.head_int8``) on the fresh template in the same kernel,
+  byte-identical to the two. Each block of 8 rows reads its neighbours'
+  carried rows and keeps its new template in shared memory for the head.
 
 Both share the front half, as the JAX kernels share ``_attention_body``
 (:func:`_attention` here, ``band_attention`` in the source). The module gate
@@ -43,13 +48,20 @@ import ctypes
 import torch
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build
+from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+    check_head_int8_weights,
+    head_int8_plain,
+    head_ptrs,
+    int8_ptr_array,
+)
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import div_f32
 from planar_optical_flow_tpu_torch.ops.kernels.fold import GateParams
 
 _LEAKY_SLOPE = 0.1
 EMBED_DIM = 128
 
-__all__ = ["GateParams", "gate", "gate_int8", "gate_int8_plain", "gate_plain"]
+__all__ = ["GateParams", "gate", "gate_head_int8", "gate_head_int8_plain",
+           "gate_int8", "gate_int8_plain", "gate_plain"]
 
 
 def _leaky(v):
@@ -226,5 +238,72 @@ def gate_int8(zx, zt, x, template, *, ct: int, alpha: float,
     return new_t, new_z, sim
 
 
+def gate_head_int8_plain(zx, zt, x, template, head_conv_weights,
+                         head_weights, *, ct: int, alpha: float,
+                         window_size: int, s_x: float, s_t: float,
+                         s_out: float, num_classes: int, l4: int,
+                         ct_valid: int | None = None):
+    """Plain PyTorch version of :func:`gate_head_int8` (same arguments):
+    :func:`gate_int8_plain`, then ``conv_stack.head_int8_plain``."""
+    del num_classes  # the head's weights carry it
+    new_t, new_z, sim = gate_int8_plain(
+        zx, zt, x, template, ct=ct, alpha=alpha, window_size=window_size,
+        s_x=s_x, s_t=s_t, s_out=s_out, ct_valid=ct_valid)
+    cls, reg = head_int8_plain(new_t.reshape(-1, 256), head_conv_weights,
+                               head_weights, l4=l4)
+    return new_t, new_z, sim, cls, reg
+
+
+def gate_head_int8(zx, zt, x, template, head_conv_weights, head_weights, *,
+                   ct: int, alpha: float, window_size: int, s_x: float,
+                   s_t: float, s_out: float, num_classes: int, l4: int,
+                   ct_valid: int | None = None):
+    """:func:`gate_int8`, then the int8 head on its new template ->
+    (new_template, new_z, sim, cls ``(N, num_classes)`` f32, reg ``(N, 2)``
+    f32).
+
+    Gate arguments as for :func:`gate_int8` (``D = l4 * 256``; ``s_out``
+    is the head's input scale); ``head_conv_weights``/``head_weights`` as
+    for ``conv_stack.head_int8``. A CUDA tensor launches K12; a CPU tensor
+    runs :func:`gate_head_int8_plain`.
+    """
+    kw = dict(ct=ct, alpha=alpha, window_size=window_size, s_x=s_x, s_t=s_t,
+              s_out=s_out, ct_valid=ct_valid)
+    if zx.device.type == "cpu":
+        return gate_head_int8_plain(zx, zt, x, template, head_conv_weights,
+                                    head_weights, num_classes=num_classes,
+                                    l4=l4, **kw)
+    ct_valid = ct_valid or ct
+    n, d, _ = _check_gate_args("gate_head_int8", zx, zt, x, template, ct,
+                               ct_valid, window_size, torch.int8, 16)
+    if d != l4 * 256:
+        raise ValueError(f"gate_head_int8: D={d} is not l4 * 256 = "
+                         f"{l4 * 256}")
+    head_weights = check_head_int8_weights("gate_head_int8",
+                                           head_conv_weights, head_weights,
+                                           num_classes, l4)
+    zx, zt, x, template = (t.contiguous() for t in (zx, zt, x, template))
+    new_t = torch.empty_like(template)
+    new_z = torch.empty_like(zx)
+    sim = torch.empty(n, window_size, dtype=torch.float32, device=zx.device)
+    cls = torch.empty(n, num_classes, dtype=torch.float32, device=zx.device)
+    reg = torch.empty(n, 2, dtype=torch.float32, device=zx.device)
+    fn = _build.load("serve_cell").gate_head_int8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+    _build.check(fn(zx.data_ptr(), zt.data_ptr(), x.data_ptr(),
+                    template.data_ptr(), new_t.data_ptr(), new_z.data_ptr(),
+                    sim.data_ptr(), int8_ptr_array(head_conv_weights),
+                    *head_ptrs(head_weights), cls.data_ptr(), reg.data_ptr(),
+                    n, ct, ct_valid, window_size, l4, num_classes,
+                    float(alpha), 1.0 - alpha, float(s_x), s_t / 127.0,
+                    float(s_out), _build.stream_ptr(zx.device)),
+                 "gate_head_int8")
+    gate_head_int8.launches += 1
+    return new_t, new_z, sim, cls, reg
+
+
 gate.launches = 0
 gate_int8.launches = 0
+gate_head_int8.launches = 0

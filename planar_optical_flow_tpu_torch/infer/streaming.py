@@ -18,11 +18,14 @@ engines:
   scale; the scales come from a ``ServeCalibration``
   (``infer/calibration.py``).
 
-:func:`make_serve_step_v3` also runs the JAX builder's other unfused int8
-configurations, which ``StreamingRunner`` does not offer (as in JAX):
+:func:`make_serve_step_v3` also runs every other configuration of the JAX
+builder, which ``StreamingRunner`` does not offer (as in JAX):
 ``precision="int8"`` (int8 conv stacks, K10 and K7, bf16 carry through
-K3) and int8c ``layout="pm"`` (K9) or ``"flat"`` (layer 1 in plain torch,
-K10).
+K3); int8c ``layout="pm"`` (K9) or ``"flat"`` (layer 1 in plain torch,
+K10); and the fused int8c programs: ``layout="p2c"`` (K8, cutout and
+backbone in one kernel), ``fuse_gate_head=True`` (K12, gate and head in one
+kernel on carried steps) and ``layout="cell"`` (K13, the whole carried
+cell in one kernel).
 
 All return ``step(carry, scan) -> (carry', outputs)`` with ``carry=None``
 for a stream's first scan; :class:`StreamingRunner` holds the carry and
@@ -42,7 +45,11 @@ import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch import resolve_device
 from planar_optical_flow_tpu_torch.infer.calibration import ServeCalibration
-from planar_optical_flow_tpu_torch.infer.fast_gate import gate, gate_int8
+from planar_optical_flow_tpu_torch.infer.fast_gate import (
+    gate,
+    gate_head_int8,
+    gate_int8,
+)
 from planar_optical_flow_tpu_torch.models.flow_drow import FlowDrow
 from planar_optical_flow_tpu_torch.models.spatial_drow import FEAT_CHANNELS
 from planar_optical_flow_tpu_torch.ops.cutout import area_s_for, scans_to_cutout
@@ -53,6 +60,7 @@ from planar_optical_flow_tpu_torch.ops.geometry import (
 from planar_optical_flow_tpu_torch.ops.kernels import fold, quant
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     backbone_int8,
+    backbone_int8_cut,
     backbone_int8_pm,
     backbone_int8_tail,
     backbone_layer1,
@@ -62,6 +70,7 @@ from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     head_int8,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
+from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import serve_cell_int8
 from planar_optical_flow_tpu_torch.ops.nms import (
     nms_predicted_center,
     nms_predicted_center_topk,
@@ -350,11 +359,10 @@ def int8_weights(detector, calib: ServeCalibration, device,
 
 def _check_v3_options(precision, layout, fuse_gate_head, gate_per_stream,
                       pm_tile, conv_mode, int8_conv_mode, p2_l1_mode) -> bool:
-    """The JAX builder's checks (``streaming.py:567-605``), then the
-    options that this port does not run yet, which raise
-    ``NotImplementedError`` naming the ROADMAP kernel they wait for.
-    Returns whether the layout is one of JAX's position-major family (its
-    calibration pads to a ``pm_tile`` multiple)."""
+    """The JAX builder's checks (``streaming.py:567-605``). Returns
+    whether the layout is one of JAX's position-major family (its
+    calibration pads to a ``pm_tile`` multiple, ``"cell"`` to a multiple
+    of 32)."""
     if precision not in ("bf16", "int8", "int8c"):
         raise ValueError(f"unknown precision {precision!r}")
     if layout not in ("flat", "pm", "cell", "p2", "p2c"):
@@ -380,17 +388,6 @@ def _check_v3_options(precision, layout, fuse_gate_head, gate_per_stream,
                                 ("mm", "repack", "blend"))):
         if value not in known:
             raise ValueError(f"unknown {name} {value!r}; one of {known}")
-    waits = {"cell": "K13 (serve_cell_int8, the whole cell in one kernel)",
-             "p2c": "K8 (cutout + backbone in one kernel)"}
-    if precision == "int8c" and layout in waits:
-        raise NotImplementedError(
-            f"int8c layout={layout!r} waits for kernel {waits[layout]}, "
-            "ROADMAP queue 2; this port runs int8c with layout 'p2', 'pm' "
-            "or 'flat'")
-    if fuse_gate_head:
-        raise NotImplementedError(
-            "fuse_gate_head=True waits for kernel K12 (gate + head in one "
-            "program), ROADMAP queue 2")
     return pm
 
 
@@ -431,6 +428,17 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         backbone + embed, K6 (K11: the JAX cutout-major gate computes K6's
         function), K7 (K10's head). Its results equal ``"pm"``'s on the
         valid rows.
+      - ``"p2c"``: K8 (K1's cutouts and K5 in one kernel, on the padded
+        scans) on every step, then K6 and K7: bit-identical to ``"p2"``.
+      - ``"cell"``: streams padded to ``ceil(num_pts / 32) * 32`` beams; the
+        bootstrap runs ``"pm"``'s kernels (K1, K9, K6, K7), each carried
+        step K1 and then K13 (K9's backbone, K6 and K7 in one kernel).
+        Its valid rows equal ``"pm"``'s bit for bit.
+
+      With ``fuse_gate_head=True`` (``"p2"``, ``"pm"``, ``"p2c"``) the
+      carried steps run K12 (K6 and K7 in one kernel) in place of K6 and
+      K7, with the same results; the bootstrap keeps K6 and K7, as its
+      template is the rescaled features, not the gate's mix.
 
     The int8 scales come from ``calib`` (a ``ServeCalibration``, checked
     against the geometry and the weights checksum) or are calibrated here
@@ -438,19 +446,18 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     ``sanitize_inputs``; ``calib_steps`` f32 module steps feed the head;
     ``calib_percentile`` clips at that abs-percentile), on the cutouts of
     the scans padded as the JAX step pads them: ``ceil(num_pts / pm_tile)
-    * pm_tile`` beams for int8c ``"p2"``/``"pm"``, ``ceil(num_pts / 8) *
-    8`` for ``"flat"`` and ``"int8"``. Every int8 configuration first runs
-    the known-answer check of the tap rows that all int8 convs read (K16),
-    once per device and process. The steps themselves pad to a multiple of
-    8 beams, except ``"pm"``.
+    * pm_tile`` beams for int8c ``"p2"``/``"p2c"``/``"pm"``, ``ceil(num_pts
+    / 32) * 32`` for ``"cell"``, ``ceil(num_pts / 8) * 8`` for ``"flat"``
+    and ``"int8"``. Every int8 configuration first runs the known-answer
+    check of the tap rows that all int8 convs read (K16), once per device
+    and process. The steps themselves pad to a multiple of 8 beams, except
+    ``"pm"`` and ``"cell"``.
 
     ``conv_mode``, ``int8_conv_mode`` and ``tile`` are accepted for API
     parity with the JAX builder only: they choose between JAX kernel forms
     with the same results, and the CUDA kernels compute those results
     whichever is passed (unknown modes raise). ``gate_per_stream`` likewise
     changes nothing here beyond the JAX builder's checks.
-    ``cell``, ``p2c`` and ``fuse_gate_head=True`` wait for kernels K13, K8
-    and K12 and raise ``NotImplementedError``.
 
     Every configuration then runs the bf16 flow head (plain torch),
     sigmoid, canonical->global flow and the top-64 vote NMS.
@@ -472,9 +479,13 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     san_max = float(cutout_kwargs.get("padding_val", 29.99))
     ct_len = cutout_kwargs.get("num_cutout_pts", 48)
     l4 = ct_len // 4
+    int8c = precision == "int8c"
+    p2c, cell = int8c and layout == "p2c", int8c and layout == "cell"
     pad8 = -(-num_pts // 8) * 8
     pad_pm = -(-num_pts // pm_tile) * pm_tile
-    p_pad = pad_pm if precision == "int8c" and layout == "pm" else pad8
+    pad_cell = -(-num_pts // 32) * 32
+    p_pad = (pad_cell if cell else pad_pm if int8c and layout == "pm"
+             else pad8)
     cut_kw = dict(num_cutout_pts=ct_len,
                   window_width=cutout_kwargs.get("window_width", 1.66),
                   window_depth=cutout_kwargs.get("window_depth", 1.0),
@@ -503,11 +514,16 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             out = {k: out[k] for k in output_fields}
         return {"template": template, "z": z}, out
 
-    def encode(scan):
+    def prepare(scan):
+        """-> (the sanitized scan (B, num_pts), padded to (B, p_pad))."""
         scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
         if sanitize_inputs:
             scan = _sanitize_scan(scan, san_max)
-        return scan, cutout(F.pad(scan, (0, p_pad - num_pts)), **cut_kw)
+        return scan, F.pad(scan, (0, p_pad - num_pts))
+
+    def encode(scan):
+        scan, padded = prepare(scan)
+        return scan, cutout(padded, **cut_kw)
 
     if precision == "bf16":
         layer1, tail_w = fold.backbone_stack_weights(det.backbone)
@@ -543,7 +559,8 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     else:
         calib = _calibrate(
             model, det, cutout_kwargs, calib_scans, num_pts=num_pts,
-            cut_kw=cut_kw, calib_pad=pad_pm if pm else pad8,
+            cut_kw=cut_kw, calib_pad=pad_cell if cell else pad_pm if pm
+            else pad8,
             percentile=calib_percentile, steps=calib_steps,
             sanitize=sanitize_inputs, san_max=san_max, dev=dev)
     w = int8_weights(det, calib, dev, precision)
@@ -556,7 +573,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
 
     def backbone(flat):
         """-> (feats (N*l4, 256), zx (N, 128) bf16)."""
-        if pm and (layout == "pm" or p2_l1_mode != "mm"):
+        if pm and (layout in ("pm", "cell") or p2_l1_mode != "mm"):
             return backbone_int8_pm(flat, w.layer1_div, w.backbone, w.embed,
                                     l=ct_len, in_scale=w.in_scale)
         if pm:
@@ -591,25 +608,46 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     feat_scale, tmpl_scale = w.feat_scale, w.tmpl_scale
     gate_kw.update(s_x=feat_scale, s_out=tmpl_scale)
 
+    def features(padded):
+        """(B, p_pad) scans -> (feats (N, D) int8, zx (N, 128) bf16)."""
+        if p2c:
+            feats, zx = backbone_int8_cut(padded, w.layer1, w.backbone,
+                                          w.embed, **cut_kw)
+        else:
+            feats, zx = backbone(cutout(padded, **cut_kw))
+        return feats.reshape(zx.shape[0], l4 * FEAT_CHANNELS), zx
+
     @torch.inference_mode()
     def step(carry, scan):
-        scan, flat = encode(scan)
+        scan, padded = prepare(scan)
         b = scan.shape[0]
-        feats, zx = backbone(flat)
-        feats = feats.reshape(b * p_pad, l4 * FEAT_CHANNELS)
         if carry is None:
             # bootstrap: the features, rescaled to the carry's scale
+            feats, zx = features(padded)
             template = torch.clamp(torch.round(
                 feats.float() * (feat_scale / tmpl_scale)), -127, 127).to(
                     torch.int8)
             z = zx
             _, _, sim = gate_int8(zx, zx, feats, feats, s_t=feat_scale,
                                   **gate_kw)
+            cls, reg = head_of(template.reshape(-1, FEAT_CHANNELS))
+        elif cell:
+            template, z, sim, cls, reg = serve_cell_int8(
+                cutout(padded, **cut_kw), carry["z"], carry["template"],
+                w.layer1_div, w.backbone, w.embed, w.head, hd_head_w,
+                l=ct_len, in_scale=w.in_scale, s_t=tmpl_scale,
+                num_classes=num_classes, **gate_kw)
+        elif fuse_gate_head:
+            feats, zx = features(padded)
+            template, z, sim, cls, reg = gate_head_int8(
+                zx, carry["z"], feats, carry["template"], w.head, hd_head_w,
+                s_t=tmpl_scale, num_classes=num_classes, l4=l4, **gate_kw)
         else:
+            feats, zx = features(padded)
             template, z, sim = gate_int8(zx, carry["z"], feats,
                                          carry["template"], s_t=tmpl_scale,
                                          **gate_kw)
-        cls, reg = head_of(template.reshape(-1, FEAT_CHANNELS))
+            cls, reg = head_of(template.reshape(-1, FEAT_CHANNELS))
         return finish(scan, b, template, z, sim, cls, reg)
 
     step.calibration = calib

@@ -8,8 +8,9 @@ the stream are passed as ``c_void_p``; every entry returns
 * The build runs at first use, into ``build/torch_kernels/`` beside the
   package (listed in ``.gitignore``). Only the sources in the checkout are
   used.
-* A library is named after the hash of its source and the flags, so a
-  changed source is rebuilt and an unchanged one is not.
+* A library is named after the hash of its source, every header in
+  ``csrc/`` (``*.cuh``, which the sources include) and the flags, so a
+  changed source or header is rebuilt and an unchanged one is not.
 * :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
   for every one of them.
 * ``-Xptxas -v`` is always on; its report (registers, shared memory,
@@ -30,7 +31,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("cutout", "conv_stack", "conv_stack_int8", "gate")
+SOURCES = ("cutout", "conv_stack", "conv_stack_int8", "gate", "serve_cell")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,9 +56,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` is built: named after the hash of the
+    source, of every ``csrc/*.cuh`` header (name and bytes) and of the
+    flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict:

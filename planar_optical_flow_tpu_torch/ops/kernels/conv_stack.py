@@ -40,6 +40,10 @@ The int8 stacks, weights from ``quant.kernel_stack_weights``:
   "repack"``/``"blend"``, bit-identical to it in JAX): K5 with layer 1
   rounded as ``clip(rint(leaky(acc) / in_scale))``, one true division, on
   the unscaled weights.
+* K8 :func:`backbone_int8_cut` replaces ``fused_backbone_int8_p2cut``: K1's
+  cutouts of the padded scans (``cutout_kernel.cutout``) and K5 in one
+  kernel, bit-identical to the two; the ``(N, L)`` cutouts never reach
+  device memory.
 * K10 :func:`backbone_int8_tail` replaces ``fused_backbone_int8`` (both
   ``conv_mode``s, which JAX makes bit-identical): K5's tail convs and embed
   on the int8 layer-1 activation ``(N*L, 64)`` from
@@ -53,7 +57,7 @@ The int8 stacks, weights from ``quant.kernel_stack_weights``:
 * K16 :func:`row_shift` / :func:`check_row_shift` replace
   ``check_byte_shift``: the known-answer check of the k=3 tap rows.
 
-K5, K7, K9 and K10 run on ``mma.sync`` int8 tensor-core products (~15.1 M
+K5, K7, K8, K9 and K10 run on ``mma.sync`` int8 tensor-core products (~15.1 M
 and 28.9 M int8 operations per cutout). Their plain versions sum the int8
 products in float64, which is exact (the 512-channel conv reaches 1536 *
 127^2 > 2^24, beyond f32's exact integers).
@@ -62,13 +66,18 @@ products in float64, which is exact (the 512-channel conv reaches 1536 *
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build
-from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import div_f32
+from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
+    cutout_plain,
+    div_f32,
+    recip,
+)
 
 _LEAKY_SLOPE = 0.1
 BACKBONE_CHANNELS = (64, 64, 128, 128, 128, 256)  # layer-1 out, then 2..6
@@ -241,7 +250,7 @@ head.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K5, K7, K9, K10 and K16: the int8 stacks (csrc/conv_stack_int8.cu).
+# K5, K7, K8, K9, K10 and K16: the int8 stacks (csrc/conv_stack_int8.cu).
 # Weights from quant.kernel_stack_weights: per conv (w (Cout, 3*Cin) int8,
 # s_eff (Cout,) f32, b_eff (Cout,) f32).
 # --------------------------------------------------------------------------
@@ -311,7 +320,12 @@ def _backbone_int8_rest(x, weights, embed_weights, out_dtype):
     we_t, be = embed_weights
     f = _run_int8_plain(x, weights, _BACKBONE_POOL_AFTER,
                         out_dtype == torch.int8).to(out_dtype)
-    z = f.float().reshape(f.shape[0], -1) @ we_t.float().t() + be.float()
+    # the products of the int8 or bf16 feats with the bf16 weight are exact
+    # and their float64 sum is in practice too, so each row's zx does not
+    # depend on how many rows the product has (f32 BLAS sums in an order
+    # that can)
+    z = ((f.double().reshape(f.shape[0], -1) @ we_t.double().t()).float()
+         + be.float())
     return f.reshape(-1, 256), z.to(torch.bfloat16)
 
 
@@ -380,30 +394,65 @@ def _check_int8_weights(weights, chans, what):
             raise ValueError(f"{what}: layer weights must be contiguous")
 
 
-def _int8_ptrs(weights):
-    return [t.data_ptr() for layer in weights for t in layer]
+def int8_ptr_array(weights):
+    """The (w, s_eff, b_eff) pointers of ``weights`` as a C array (the
+    kernels' ``const void* const*`` argument)."""
+    ptrs = [t.data_ptr() for layer in weights for t in layer]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _check_backbone_int8_args(what, inp, layer1, weights, embed_weights, l):
-    """Check the arguments K5, K9 and K10 share; ``layer1`` None for K10,
-    whose input is the int8 act1 ``(N*l, 64)``, else f32 cutouts ``(N, l)``
-    and ``(w (3, 64), b (64,))`` f32. Returns the input, the layer-1
-    weights (if any) and the embed weights, contiguous."""
+def check_head_int8_weights(what, conv_weights, head_weights, num_classes,
+                            l4):
+    """Check the int8 head's shapes and weights (K7, K12, K13); returns the
+    cls/reg weights, contiguous."""
+    if l4 % 2 or not 2 <= l4 <= 32:
+        raise ValueError(f"{what}: l4={l4} must be even and in [2, 32]")
+    if not 1 <= num_classes <= 8:
+        raise ValueError(f"{what}: num_classes={num_classes} not in [1, 8]")
+    _check_int8_weights(conv_weights, HEAD_CHANNELS, what)
+    wc, bc, wr, br = head_weights
+    _check_cuda(wc, torch.bfloat16, (128, num_classes), f"{what} wc")
+    _check_cuda(bc, torch.float32, (num_classes,), f"{what} bc")
+    _check_cuda(wr, torch.bfloat16, (128, 2), f"{what} wr")
+    _check_cuda(br, torch.float32, (2,), f"{what} br")
+    return tuple(t.contiguous() for t in head_weights)
+
+
+def head_ptrs(head_weights):
+    """The cls/reg weights' pointers (wc, bc, wr, br)."""
+    return [t.data_ptr() for t in head_weights]
+
+
+def _check_backbone_weights(what, layer1, weights, embed_weights, l):
+    """Check the weights of the int8 backbone kernels: ``layer1`` (``(w (3,
+    64), b (64,))`` f32, or None for K10), the tail and the embed. Returns
+    the layer-1 weights (if any) and the embed weights, contiguous."""
     if l % 4 or l < 4:
         raise ValueError(f"{what}: l={l} must be a positive multiple of 4")
     if layer1 is None:
-        _check_cuda(inp, torch.int8, (inp.shape[0] // l * l, 64),
-                    f"{what} act1")
         layer1 = ()
     else:
-        _check_cuda(inp, torch.float32, (inp.shape[0], l), f"{what} cutouts")
         _check_cuda(layer1[0], torch.float32, (3, 64), f"{what} layer-1 w")
         _check_cuda(layer1[1], torch.float32, (64,), f"{what} layer-1 b")
     _check_int8_weights(weights, BACKBONE_CHANNELS, what)
     we_t, be = embed_weights
     _check_cuda(we_t, torch.bfloat16, (128, (l // 4) * 256), f"{what} W^T")
     _check_cuda(be, torch.bfloat16, (128,), f"{what} b")
-    return tuple(t.contiguous() for t in (inp, *layer1, we_t, be))
+    return tuple(t.contiguous() for t in (*layer1, we_t, be))
+
+
+def _check_backbone_int8_args(what, inp, layer1, weights, embed_weights, l):
+    """Check the arguments K5, K9 and K10 share; ``layer1`` None for K10,
+    whose input is the int8 act1 ``(N*l, 64)``, else f32 cutouts ``(N, l)``.
+    Returns the input, the layer-1 weights (if any) and the embed weights,
+    contiguous."""
+    if layer1 is None:
+        _check_cuda(inp, torch.int8, (inp.shape[0] // l * l, 64),
+                    f"{what} act1")
+    else:
+        _check_cuda(inp, torch.float32, (inp.shape[0], l), f"{what} cutouts")
+    return (inp.contiguous(),
+            *_check_backbone_weights(what, layer1, weights, embed_weights, l))
 
 
 # layer-1 modes of the int8 backbone kernel (csrc/conv_stack_int8.cu)
@@ -422,7 +471,7 @@ def _launch_backbone_int8(what, inp, layer1, weights, embed_weights, l,
     n = inp.shape[0] // l if l1_mode == _L1_READ else inp.shape[0]
     feats = torch.empty(n * (l // 4), 256, dtype=out_dtype, device=inp.device)
     zx = torch.empty(n, 128, dtype=torch.bfloat16, device=inp.device)
-    tail = (ctypes.c_void_p * 15)(*_int8_ptrs(weights))
+    tail = int8_ptr_array(weights)
     fn = _build.load("conv_stack_int8").backbone_int8_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float] \
@@ -472,6 +521,78 @@ def backbone_int8_pm(cutouts, layer1, weights, embed_weights, *, l: int,
                                 embed_weights, l, _L1_DIVIDE, in_scale)
     backbone_int8_pm.launches += 1
     return out
+
+
+def backbone_int8_cut_plain(scans, layer1, weights, embed_weights, *,
+                            num_cutout_pts: int, window_width: float,
+                            window_depth: float, padding_val: float,
+                            centered: bool, area_mode: bool,
+                            p_valid: int | None = None,
+                            angle_inc: float = math.radians(0.5)):
+    """Plain PyTorch version of :func:`backbone_int8_cut` (same
+    arguments): :func:`cutout_kernel.cutout_plain`, then
+    :func:`backbone_int8_plain`."""
+    cut = cutout_plain(scans, num_cutout_pts=num_cutout_pts,
+                       window_width=window_width, window_depth=window_depth,
+                       padding_val=padding_val, centered=centered,
+                       area_mode=area_mode, angle_inc=angle_inc,
+                       p_valid=p_valid)
+    return backbone_int8_plain(cut, layer1, weights, embed_weights,
+                               l=num_cutout_pts)
+
+
+def backbone_int8_cut(scans, layer1, weights, embed_weights, *,
+                      num_cutout_pts: int, window_width: float,
+                      window_depth: float, padding_val: float,
+                      centered: bool, area_mode: bool,
+                      p_valid: int | None = None,
+                      angle_inc: float = math.radians(0.5)):
+    """K8: the cutouts of ``(B, P)`` f32 scans (``P`` a multiple of 8; beams
+    from ``p_valid`` on are padding, as for :func:`cutout_kernel.cutout`)
+    and :func:`backbone_int8` on them, in one kernel -> (feats ``(B*P*l/4,
+    256)`` int8, zx ``(B*P, 128)`` bf16), ``l = num_cutout_pts``.
+
+    The cutout arguments are :func:`cutout_kernel.cutout`'s, the weights
+    :func:`backbone_int8`'s (layer 1 with ``1/in_scale`` folded in). A
+    CUDA tensor launches K8; a CPU tensor runs
+    :func:`backbone_int8_cut_plain`.
+    """
+    kw = dict(num_cutout_pts=num_cutout_pts, window_width=window_width,
+              window_depth=window_depth, padding_val=padding_val,
+              centered=centered, area_mode=area_mode, p_valid=p_valid,
+              angle_inc=angle_inc)
+    if scans.device.type == "cpu":
+        return backbone_int8_cut_plain(scans, layer1, weights, embed_weights,
+                                       **kw)
+    l = num_cutout_pts
+    if scans.ndim != 2:
+        raise ValueError(f"backbone_int8_cut: need (B, P) scans, got "
+                         f"{tuple(scans.shape)}")
+    b, p = scans.shape
+    p_valid = p_valid or p
+    _check_cuda(scans, torch.float32, (b, p), "backbone_int8_cut scans")
+    if p % 8 or not 0 < p_valid <= p:
+        raise ValueError(f"backbone_int8_cut: P={p} must be a multiple of 8 "
+                         f"and p_valid={p_valid} in (0, P]")
+    w1, b1, we_t, be = _check_backbone_weights(
+        "backbone_int8_cut", layer1, weights, embed_weights, l)
+    scans = scans.contiguous()
+    feats = torch.empty(b * p * (l // 4), 256, dtype=torch.int8,
+                        device=scans.device)
+    zx = torch.empty(b * p, 128, dtype=torch.bfloat16, device=scans.device)
+    tail = int8_ptr_array(weights)
+    fn = _build.load("conv_stack_int8").backbone_int8_cut_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        + [ctypes.c_float] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+    _build.check(fn(scans.data_ptr(), b, p, p_valid, l, window_width,
+                    window_depth, padding_val, recip(l - 1), recip(angle_inc),
+                    recip(window_depth), int(centered), int(area_mode),
+                    w1.data_ptr(), b1.data_ptr(), tail, we_t.data_ptr(),
+                    be.data_ptr(), feats.data_ptr(), zx.data_ptr(),
+                    _build.stream_ptr(scans.device)), "backbone_int8_cut")
+    backbone_int8_cut.launches += 1
+    return feats, zx
 
 
 def backbone_int8_tail(act1, weights, embed_weights, *, l: int,
@@ -576,37 +697,28 @@ def head_int8(template, conv_weights, head_weights, *, num_classes: int,
     """
     if template.device.type == "cpu":
         return head_int8_plain(template, conv_weights, head_weights, l4=l4)
-    if l4 % 2 or not 2 <= l4 <= 32:
-        raise ValueError(f"head_int8: l4={l4} must be even and in [2, 32]")
-    if not 1 <= num_classes <= 8:
-        raise ValueError(f"head_int8: num_classes={num_classes} not in [1, 8]")
     n = template.shape[0] // l4
     _check_cuda(template, torch.int8, (n * l4, 256), "head_int8 template")
-    _check_int8_weights(conv_weights, HEAD_CHANNELS, "head_int8")
-    wc, bc, wr, br = head_weights
-    _check_cuda(wc, torch.bfloat16, (128, num_classes), "head_int8 wc")
-    _check_cuda(bc, torch.float32, (num_classes,), "head_int8 bc")
-    _check_cuda(wr, torch.bfloat16, (128, 2), "head_int8 wr")
-    _check_cuda(br, torch.float32, (2,), "head_int8 br")
+    head_weights = check_head_int8_weights("head_int8", conv_weights,
+                                           head_weights, num_classes, l4)
     template = template.contiguous()
-    wc, bc, wr, br = (t.contiguous() for t in head_weights)
     cls = torch.empty(n, num_classes, dtype=torch.float32,
                       device=template.device)
     reg = torch.empty(n, 2, dtype=torch.float32, device=template.device)
     fn = _build.load("conv_stack_int8").head_int8_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
-    _build.check(fn(template.data_ptr(), *_int8_ptrs(conv_weights),
-                    wc.data_ptr(), bc.data_ptr(), wr.data_ptr(),
-                    br.data_ptr(), cls.data_ptr(), reg.data_ptr(), n, l4,
-                    num_classes, _build.stream_ptr(template.device)),
+    _build.check(fn(template.data_ptr(), int8_ptr_array(conv_weights),
+                    *head_ptrs(head_weights), cls.data_ptr(), reg.data_ptr(),
+                    n, l4, num_classes, _build.stream_ptr(template.device)),
                  "head_int8")
     head_int8.launches += 1
     return cls, reg
 
 
 backbone_int8.launches = 0
+backbone_int8_cut.launches = 0
 backbone_int8_pm.launches = 0
 backbone_int8_tail.launches = 0
 row_shift.launches = 0

@@ -135,7 +135,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
     for opts in (dict(precision="int8"), dict(precision="int8c",
                                               layout="flat"),
-                 dict(precision="int8c", layout="pm")):
+                 dict(precision="int8c", layout="pm"),
+                 dict(precision="int8c", layout="p2c"),
+                 dict(precision="int8c", layout="cell"),
+                 dict(precision="int8c", fuse_gate_head=True)):
         with pytest.raises(RuntimeError, match="cuda"):
             make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS,
                                calib_scans=np.zeros((1, NUM_PTS)), **opts)

@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1-K7, K9, K10, K16) against their plain PyTorch
-versions, on the card.
+"""The CUDA kernels (K1-K10, K12, K13, K16) against their plain PyTorch
+versions, on the card, and the fused kernels (K8, K12, K13) to the bit
+against the unfused kernels they fuse.
 
 Marked ``gpu``: they skip without a card and run on one with
 ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``. Shapes
@@ -14,12 +15,18 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
+from planar_optical_flow_tpu_torch.infer.calibration import calibrate_serve_v3
 from planar_optical_flow_tpu_torch.infer.fast_gate import (
     gate,
+    gate_head_int8,
+    gate_head_int8_plain,
     gate_int8,
     gate_int8_plain,
     gate_plain,
 )
+from planar_optical_flow_tpu_torch.infer.streaming import int8_weights
 from planar_optical_flow_tpu_torch.models import FlowDrow
 from planar_optical_flow_tpu_torch.ops.kernels import conv_stack, fold, quant
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
@@ -40,6 +47,10 @@ from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
     cutout,
     cutout_plain,
+)
+from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import (
+    serve_cell_int8,
+    serve_cell_int8_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -274,3 +285,117 @@ def test_row_shift_kernel(cuda, monkeypatch):
     monkeypatch.setattr(conv_stack, "_ROW_SHIFT_OK", set())
     conv_stack.check_row_shift(cuda)
     assert str(cuda) in conv_stack._ROW_SHIFT_OK
+
+
+# the fused int8c kernels, at the tests' geometry (64 beams of which 60 are
+# real, 16 points, window 5) and the flagship one (450 beams, 56, 11)
+FUSED_GEOMETRY = [(60, 16, 5), (450, 56, 11)]
+
+
+def _fused_setup(cuda, num_pts, ct_len, window):
+    """(weights and scales of the int8c step, head cls/reg weights, gate
+    params, cutout arguments, 3 streams x 2 scans), calibrated on the
+    scans."""
+    model = _model(ct_len, window, cuda)
+    cut_kw = dict(num_cutout_pts=ct_len, window_width=1.0, window_depth=0.5,
+                  padding_val=29.99, centered=True, area_mode=True)
+    rng = np.random.default_rng(7)
+    scans = torch.tensor(rng.uniform(0.5, 20.0, (2, 3, num_pts)),
+                         dtype=torch.float32, device=cuda)
+    calib = calibrate_serve_v3(model, dict(cut_kw, fixed=True), scans[0],
+                               num_pts=num_pts, device=cuda)
+    det = model.dr_spaam
+    return (int8_weights(det, calib, cuda), fold.head_linear_weights(det.head),
+            fold.fold_gate_params(det.gate), dict(cut_kw, p_valid=num_pts),
+            scans)
+
+
+def _pad(scan, p):
+    return F.pad(scan, (0, p - scan.shape[-1]))
+
+
+def _gate_kw(w, gp, ct, num_pts):
+    return dict(ct=ct, ct_valid=num_pts, alpha=gp.alpha,
+                window_size=gp.window_size, s_x=w.feat_scale,
+                s_t=w.tmpl_scale, s_out=w.tmpl_scale)
+
+
+@pytest.mark.parametrize("num_pts,ct_len,window", FUSED_GEOMETRY)
+def test_backbone_int8_cut_kernel(cuda, num_pts, ct_len, window):
+    """K8 against its plain version, and equal to K1 then K5."""
+    w, _, _, cut_kw, scans = _fused_setup(cuda, num_pts, ct_len, window)
+    padded = _pad(scans[0], -(-num_pts // 8) * 8)
+    args = (padded, w.layer1, w.backbone, w.embed)
+    n0 = conv_stack.backbone_int8_cut.launches
+    feats, zx = conv_stack.backbone_int8_cut(*args, **cut_kw)
+    torch.cuda.synchronize()
+    assert conv_stack.backbone_int8_cut.launches == n0 + 1
+    feats_p, zx_p = conv_stack.backbone_int8_cut_plain(*args, **cut_kw)
+    _int8_close(feats, feats_p)
+    _close(zx, zx_p, BF16_REL)
+    feats5, zx5 = backbone_int8(cutout(padded, **cut_kw), w.layer1,
+                                w.backbone, w.embed, l=ct_len)
+    assert torch.equal(feats, feats5) and torch.equal(zx, zx5)
+
+
+@pytest.mark.parametrize("num_pts,ct_len,window", FUSED_GEOMETRY)
+def test_gate_head_int8_kernel(cuda, num_pts, ct_len, window):
+    """K12 on a carried step against its plain version, and equal to K6
+    then K7."""
+    w, head_w, gp, cut_kw, scans = _fused_setup(cuda, num_pts, ct_len,
+                                                 window)
+    ct, l4 = -(-num_pts // 8) * 8, ct_len // 4
+    (f0, z0), (f1, z1) = (backbone_int8(cutout(_pad(s, ct), **cut_kw),
+                                        w.layer1, w.backbone, w.embed,
+                                        l=ct_len) for s in scans)
+    x = f0.reshape(z0.shape[0], -1)
+    tmpl = quant.quantize_int8(f1.float().reshape(x.shape) * w.feat_scale,
+                               w.tmpl_scale)
+    args = (z0, z1, x, tmpl, w.head, head_w)
+    kw = dict(_gate_kw(w, gp, ct, num_pts), num_classes=1, l4=l4)
+    n0 = gate_head_int8.launches
+    got = gate_head_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert gate_head_int8.launches == n0 + 1
+    ref = gate_head_int8_plain(*args, **kw)
+    _int8_close(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        _close(g, r, BF16_REL)
+    chain = gate_int8(z0, z1, x, tmpl, **_gate_kw(w, gp, ct, num_pts))
+    chain += head_int8(chain[0].reshape(-1, 256), w.head, head_w,
+                       num_classes=1, l4=l4)
+    for g, c in zip(got, chain):
+        assert torch.equal(g, c)
+
+
+@pytest.mark.parametrize("num_pts,ct_len,window", FUSED_GEOMETRY)
+def test_serve_cell_int8_kernel(cuda, num_pts, ct_len, window):
+    """K13 on a carried step against its plain version, and equal to K9,
+    K6 then K7."""
+    w, head_w, gp, cut_kw, scans = _fused_setup(cuda, num_pts, ct_len,
+                                                 window)
+    ct, l4 = -(-num_pts // 32) * 32, ct_len // 4
+    cuts = [cutout(_pad(s, ct), **cut_kw) for s in scans]
+    feats, zt = backbone_int8_pm(cuts[0], w.layer1_div, w.backbone, w.embed,
+                                 l=ct_len, in_scale=w.in_scale)
+    tmpl = quant.quantize_int8(feats.float().reshape(zt.shape[0], -1)
+                               * w.feat_scale, w.tmpl_scale)
+    args = (cuts[1], zt, tmpl, w.layer1_div, w.backbone, w.embed, w.head,
+            head_w)
+    gkw = _gate_kw(w, gp, ct, num_pts)
+    kw = dict(gkw, l=ct_len, in_scale=w.in_scale, num_classes=1)
+    n0 = serve_cell_int8.launches
+    got = serve_cell_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert serve_cell_int8.launches == n0 + 1
+    ref = serve_cell_int8_plain(*args, **kw)
+    _int8_close(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        _close(g, r, BF16_REL)
+    x, zx = backbone_int8_pm(cuts[1], w.layer1_div, w.backbone, w.embed,
+                             l=ct_len, in_scale=w.in_scale)
+    chain = gate_int8(zx, zt, x.reshape(zx.shape[0], -1), tmpl, **gkw)
+    chain += head_int8(chain[0].reshape(-1, 256), w.head, head_w,
+                       num_classes=1, l4=l4)
+    for g, c in zip(got, chain):
+        assert torch.equal(g, c)

@@ -236,18 +236,19 @@ def test_lazy_int8c_runner_calibrates_on_a_nan_batch(pair):
 
 
 def test_v3_guards(pair):
-    """The options the port does not run yet raise, naming the ROADMAP
-    kernel they wait for; int8c with the default layout, ``"pm"`` and
-    ``"flat"``, and ``precision="int8"``, build; unknown modes raise."""
+    """Every option of the JAX builder builds: int8c with the default
+    layout, ``"pm"``, ``"flat"``, ``"p2c"`` and ``"cell"``, with
+    ``fuse_gate_head=True``, and ``precision="int8"``, each running a
+    bootstrap and a carried step; the JAX builder's checks and unknown
+    modes raise."""
     _, _, port = pair
     kw = dict(num_pts=NUM_PTS, device="cpu")
-    for extra, kernel in ((dict(precision="int8c", layout="cell"), "K13"),
-                          (dict(precision="int8c", layout="p2c"), "K8"),
-                          (dict(precision="int8c", fuse_gate_head=True),
-                           "K12")):
-        with pytest.raises(NotImplementedError, match=kernel):
-            make_serve_step_v3(port, CUTOUT_KW, calib_scans=_scans(34)[0],
-                               **extra, **kw)
+    with pytest.raises(ValueError, match="fuse_gate_head=True requires"):
+        make_serve_step_v3(port, CUTOUT_KW, precision="int8c", layout="cell",
+                           fuse_gate_head=True, **kw)
+    with pytest.raises(ValueError, match="fuse_gate_head=True requires"):
+        make_serve_step_v3(port, CUTOUT_KW, precision="int8c",
+                           gate_per_stream=False, fuse_gate_head=True, **kw)
     with pytest.raises(ValueError, match="requires precision='int8c'"):
         make_serve_step_v3(port, CUTOUT_KW, layout="pm", **kw)
     with pytest.raises(ValueError, match="unknown precision"):
@@ -262,13 +263,22 @@ def test_v3_guards(pair):
     step = make_serve_step_v3(port, CUTOUT_KW, calib_scans=_scans(34)[0],
                               precision="int8c", **kw)
     assert step.calibration is not None
+    calib = step.calibration
     for extra in (dict(precision="int8"), dict(precision="int8", layout="flat"),
                   dict(precision="int8c", layout="pm"),
-                  dict(precision="int8c", layout="flat")):
-        step = make_serve_step_v3(port, CUTOUT_KW, calib=step.calibration,
-                                  **extra, **kw)
-        carry, out = step(None, torch.from_numpy(_scans(34)[0]))
-        assert out["pred_cls"].shape == (2, NUM_PTS, 1), extra
+                  dict(precision="int8c", layout="flat"),
+                  dict(precision="int8c", layout="p2c"),
+                  dict(precision="int8c", layout="cell"),
+                  dict(precision="int8c", fuse_gate_head=True),
+                  dict(precision="int8c", layout="pm", fuse_gate_head=True),
+                  dict(precision="int8c", layout="p2c",
+                       fuse_gate_head=True)):
+        step = make_serve_step_v3(port, CUTOUT_KW, calib=calib, **extra,
+                                  **kw)
+        carry = None
+        for scan in _scans(34):
+            carry, out = step(carry, torch.from_numpy(scan))
+            assert out["pred_cls"].shape == (2, NUM_PTS, 1), extra
         assert carry["template"].dtype == (
             torch.bfloat16 if extra["precision"] == "int8" else torch.int8)
     with pytest.raises(ValueError, match="unknown engine"):
