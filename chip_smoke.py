@@ -4,10 +4,13 @@
 Drives the port's main paths, streaming FlowDROW serving on the int8c
 engine (the JAX package's serving default) and on the bf16 ``v3`` engine,
 the unfused int8 configurations of ``make_serve_step_v3``
-(``precision="int8"``, int8c ``layout="flat"`` and ``"pm"``) and its fused
+(``precision="int8"``, int8c ``layout="flat"`` and ``"pm"``), its fused
 int8c programs (``layout="p2c"``, ``fuse_gate_head=True``, ``layout=
-"cell"``), at the flagship working point (window 11, 56 cutout points, area
-mode, 450 beams, B=384 streams) with random weights made from ``--seed``.
+"cell"``) and the other step builders (``make_fused_stream_step`` in f32
+and bf16, ``make_serve_step`` in bf16 and f32, ``make_quantized_stream_step``,
+``make_serve_sequence_processor``), at the flagship working point (window
+11, 56 cutout points, area mode, 450 beams, B=384 streams) with random
+weights made from ``--seed``.
 
 Phases:
 1. the card's name and power limit, CUDA version and capability; TF32 off
@@ -35,7 +38,13 @@ Phases:
    rows, which moves their attention) and to the bit against the unfused
    kernels on the same inputs: K8 against K1 -> K5 at 456 rows a stream,
    K12 against K6 -> K7 on p2's feats and a carried template, K13 against
-   K9 -> K6 -> K7 at 480 rows with a carried template;
+   K9 -> K6 -> K7 at 480 rows with a carried template; then K14's backbone
+   and head in f32 (at rtol 1e-3 + 1e-4 x max|plain|, fewer timed launches)
+   and in bf16 on the module cutouts of the 450-beam streams, K3's f32 mode
+   at ct=450 (template 2e-5, z and sim 2e-4, ``tests/test_fast_gate.py``),
+   and K15 in bf16 against its plain version and against K3's new template
+   on K3's own attention (read back through K3 with a probe template), each
+   within one bf16 ulp (or 2^-17 x max where the f32 sum cancels);
 5. the slices, each for 1 bootstrap + 5 carried steps, every launch
    counter set to 0 just before and read just after:
    ``StreamingRunner(engine="v3")`` (K1-K4 launched, one per-stream reset)
@@ -53,7 +62,14 @@ Phases:
    inside the counted window with its K16 check and held to its exact
    launch counts; ``"flat"`` and ``"cell"`` equal to ``"pm"``, and
    ``"p2c"`` and the fused run equal to ``"p2"``, to the bit on the valid
-   rows of every carry and output;
+   rows of every carry and output; then, against the f32 module step on the
+   sanitized scans: ``make_fused_stream_step`` in f32 (K14 backbone and
+   head 6 times each; atol 3e-3 and ``det_keep`` agreeing on > 98% of the
+   slots, ``tests/test_pallas_fused.py``) and in bf16 (the bf16 bar),
+   ``make_serve_step`` in bf16 (the bf16 bar) and f32 (2e-4), K3 5 times
+   each, ``make_quantized_stream_step`` (no kernel; mean |pred_cls - module|
+   < 0.05, ``tests/test_quantized.py``), and ``make_serve_sequence_processor``
+   over the int8c p2 step, equal to the bit to the per-step run;
 6. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -99,10 +115,18 @@ PM_TILE = 160           # make_serve_step_v3's pm_tile: "pm" pads to 480
 # K13 vs its plain version: z, sim, cls, reg (tests/test_int8_serving_gate.py
 # cell vs pm: z 2e-2, outputs 5e-2)
 CELL_TOLS = (2e-2, 5e-2, 5e-2, 5e-2)
+F32_ITERS = 3            # timed launches of the f32 K14 kernels
+TOL_K14_F32 = (1e-3, 1e-4)  # rtol, atol x max|plain| (tests/test_pallas_fused)
+K3_F32_TOLS = (2e-5, 2e-4, 2e-4)  # new_t, new_z, sim (tests/test_fast_gate.py)
+TOL_FUSED_F32 = 3e-3     # fused vs module, absolute (tests/test_pallas_fused)
+KEEP_AGREE = 0.98        # det_keep slots that agree (tests/test_pallas_fused)
+TOL_SERVE_F32 = 2e-4     # make_serve_step f32 vs module (test_fast_gate.py)
+QUANT_MEAN = 0.05        # mean |pred_cls| difference (tests/test_quantized.py)
 # the kernels line: name -> (source, the TPU kernel it replaces, wrapper,
 # the phase-5 run whose launches it reports)
 _CS = "planar_optical_flow_tpu/ops/pallas/conv_stack.py"
 _FG = "planar_optical_flow_tpu/infer/fast_gate.py"
+_FD = "planar_optical_flow_tpu/ops/pallas/fused_drow.py"
 _SRC = "planar_optical_flow_tpu_torch/csrc/"
 KERNELS = {
     "cutout": (_SRC + "cutout.cu",
@@ -143,6 +167,18 @@ KERNELS = {
     "serve_cell_int8": (_SRC + "serve_cell.cu",
                         "planar_optical_flow_tpu/ops/pallas/serve_cell.py:170",
                         "serve_cell_int8", "cell"),
+    "fused_backbone": (_SRC + "fused_drow.cu", _FD + ":172", "fused_backbone",
+                       "fused"),
+    "fused_backbone_bf16": (_SRC + "fused_drow.cu", _FD + ":172",
+                            "fused_backbone", "fused_bf16"),
+    "fused_head": (_SRC + "fused_drow.cu", _FD + ":198", "fused_head",
+                   "fused"),
+    "fused_head_bf16": (_SRC + "fused_drow.cu", _FD + ":198", "fused_head",
+                        "fused_bf16"),
+    "gate_f32": (_SRC + "gate.cu", _FG + ":274", "gate", "serve_f32"),
+    # on no serving path, as in JAX: the launches of its phase-4 checks
+    "banded_mix": (_SRC + "banded_mix.cu", _FG + ":191", "banded_mix_update",
+                   "phase4"),
 }
 V3_KERNELS = ("cutout", "backbone_tail", "gate", "head")
 INT8C_KERNELS = ("cutout", "backbone_int8", "gate_int8", "head_int8")
@@ -214,13 +250,16 @@ def bound(flops, flop_rate, nbytes):
 def wrappers():
     """Every kernel wrapper by name (each carries a ``launches`` count)."""
     from planar_optical_flow_tpu_torch.infer.fast_gate import (
-        gate, gate_head_int8, gate_int8,
+        banded_mix_update, gate, gate_head_int8, gate_int8,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
         backbone_int8, backbone_int8_cut, backbone_int8_pm,
         backbone_int8_tail, backbone_tail, head, head_int8, row_shift,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
+    from planar_optical_flow_tpu_torch.ops.kernels.fused_drow import (
+        fused_backbone, fused_head,
+    )
     from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import (
         serve_cell_int8,
     )
@@ -232,7 +271,9 @@ def wrappers():
             "backbone_int8_tail": backbone_int8_tail,
             "row_shift": row_shift, "backbone_int8_cut": backbone_int8_cut,
             "gate_head_int8": gate_head_int8,
-            "serve_cell_int8": serve_cell_int8}
+            "serve_cell_int8": serve_cell_int8,
+            "fused_backbone": fused_backbone, "fused_head": fused_head,
+            "banded_mix_update": banded_mix_update}
 
 
 def build_model(seed, device):
@@ -898,7 +939,195 @@ def fused_kernel_phase(model, scans, calib, device, iters):
     return results
 
 
-def compare_engines(got, ref, step):
+def within_bf16_ulp(got, ref):
+    """``|got - ref|`` within one bf16 spacing at the larger of the two,
+    elementwise, or within 2^-17 x max|ref| where the f32 sum cancels to
+    near zero (its own rounding error, not bf16's, then decides)."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    top = torch.maximum(got.abs(), ref.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(top, min=2.0 ** -126)))
+                     - 7)
+    floor = 2.0 ** -17 * float(ref.abs().max())
+    return bool(((got - ref).abs() <= torch.clamp(ulp, min=floor)).all())
+
+
+def k14_k15_kernel_phase(model, scans, device):
+    """Phase 4, the kernels of the other step builders: K14 (backbone and
+    head, f32 and bf16) on the module cutouts of the sanitized 450-beam
+    streams, K3's f32 mode at ct=450 on K14's f32 feats, and K15 in bf16
+    on those feats rounded, against its plain version and against K3's new
+    template on K3's own attention. Returns (results, K15's launches)."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.infer import fast_gate as fg
+    from planar_optical_flow_tpu_torch.infer.streaming import (
+        _encode_single, _sanitize_scan,
+    )
+    from planar_optical_flow_tpu_torch.ops.geometry import get_laser_phi
+    from planar_optical_flow_tpu_torch.ops.kernels import fold
+    from planar_optical_flow_tpu_torch.ops.kernels import fused_drow as fd
+
+    det = model.dr_spaam
+    b = scans.shape[1]
+    c = CUTOUT_KW["num_cutout_pts"]
+    l4 = c // 4
+    n, d = b * NUM_PTS, l4 * 256
+    phi = get_laser_phi(num_pts=NUM_PTS)
+    w_bb = fd.backbone_weights(det.backbone)
+    w_hd = fd.head_weights(det.head)
+    results = {}
+    bb_ops = 2.0 * n * (c * 3 * (64 + 64 * 64 + 64 * 128)
+                        + (c // 2) * 3 * (2 * 128 * 128 + 128 * 256))
+    hd_ops = 2.0 * n * (l4 * 3 * (2 * 256 * 256 + 256 * 512)
+                        + (l4 // 2) * 3 * (512 * 256 + 256 * 128) + 128 * 3)
+
+    def w_bytes(weights, dt_bytes):
+        return sum(w.numel() * dt_bytes + bb.numel() * 4 for w, bb in weights)
+
+    def record_f32(name, pairs, ms, plain_ms, bound_pair):
+        """Each output within rtol * |plain| + atol * max|plain|."""
+        rtol, atol = TOL_K14_F32
+        errs = [max_err(g, r) for g, r in pairs]
+        ok = all(bool(((g - r).abs() <= rtol * r.abs()
+                       + atol * float(r.abs().max())).all())
+                 for g, r in pairs)
+        print(f"[kernel] {name}: max_abs_err={max(errs):.3e} (rtol {rtol}, "
+              f"atol {atol} x max) ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={bound_pair[0]:.4f} ({bound_pair[1]}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        check(ok, f"{name} kernel disagrees with its plain version")
+        results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_pair[0], bound_by=bound_pair[1])
+
+    with torch.inference_mode():
+        cut = _encode_single(_sanitize_scan(scans[0], CUTOUT_KW["padding_val"]),
+                             phi, CUTOUT_KW).reshape(n, c)
+        feats = {}
+        for name, dt, iters in (("fused_backbone", torch.float32, F32_ITERS),
+                                ("fused_backbone_bf16", torch.bfloat16,
+                                 TIMED_ITERS)):
+            got = fd.fused_backbone(cut, w_bb, compute_dtype=dt)
+            torch.cuda.synchronize()
+            ref = fd.fused_backbone_plain(cut, w_bb, compute_dtype=dt)
+            rate = H100_F32_FLOPS if dt == torch.float32 else H100_BF16_FLOPS
+            args = (time_ms(lambda: fd.fused_backbone(cut, w_bb,
+                                                      compute_dtype=dt),
+                            iters, 1),
+                    time_ms(lambda: fd.fused_backbone_plain(
+                        cut, w_bb, compute_dtype=dt), 1, 1),
+                    bound(bb_ops, rate, n * c * 4.0 + n * d * 4.0
+                          + w_bytes(w_bb, dt.itemsize)))
+            if dt == torch.float32:
+                record_f32(name, [(got, ref)], *args)
+            else:
+                record_int8(results, name, [], [(got, ref)], *args)
+            feats[dt] = got
+            del ref
+
+        for name, dt, iters in (("fused_head", torch.float32, F32_ITERS),
+                                ("fused_head_bf16", torch.bfloat16,
+                                 TIMED_ITERS)):
+            f = feats[dt]
+            got = fd.fused_head(f, w_hd, compute_dtype=dt)
+            torch.cuda.synchronize()
+            ref = fd.fused_head_plain(f, w_hd, compute_dtype=dt)
+            rate = H100_F32_FLOPS if dt == torch.float32 else H100_BF16_FLOPS
+            args = (time_ms(lambda: fd.fused_head(f, w_hd, compute_dtype=dt),
+                            iters, 1),
+                    time_ms(lambda: fd.fused_head_plain(f, w_hd,
+                                                        compute_dtype=dt),
+                            1, 1),
+                    bound(hd_ops, rate, n * d * 4.0 + n * 3 * 4.0
+                          + w_bytes(w_hd, dt.itemsize)))
+            pairs = list(zip(got, ref))
+            if dt == torch.float32:
+                record_f32(name, pairs, *args)
+            else:
+                record_int8(results, name, [], pairs, *args)
+        del feats[torch.bfloat16]
+
+        # K3 f32 at ct=450: scan 0's f32 feats, scan 1's as the template
+        gp = fold.fold_gate_params(det.gate)
+        x = feats[torch.float32].reshape(n, d)
+        cut1 = _encode_single(_sanitize_scan(scans[1],
+                                             CUTOUT_KW["padding_val"]),
+                              phi, CUTOUT_KW).reshape(n, c)
+        t = fd.fused_backbone(cut1, w_bb, compute_dtype=None).reshape(n, d)
+        del cut1, feats
+        zx, zt = fg.embed(gp, x), fg.embed(gp, t)
+        gkw = dict(ct=NUM_PTS, alpha=gp.alpha, window_size=gp.window_size)
+        got = fg.gate(zx, zt, x, t, **gkw)
+        torch.cuda.synchronize()
+        ref = fg.gate_plain(zx, zt, x, t, **gkw)
+        ok = all(bool(torch.allclose(g, r, rtol=tol, atol=tol))
+                 for g, r, tol in zip(got, ref, K3_F32_TOLS))
+        errs = [max_err(g, r) for g, r in zip(got, ref)]
+        k3 = (time_ms(lambda: fg.gate(zx, zt, x, t, **gkw), TIMED_ITERS),
+              time_ms(lambda: fg.gate_plain(zx, zt, x, t, **gkw), 1, 1),
+              bound(gate_ops(b, n, d), H100_F32_FLOPS,
+                    3.0 * n * d * 4 + 3.0 * n * 128 * 4 + n * WINDOW * 4))
+        print(f"[kernel] gate_f32 at ct={NUM_PTS}: max_abs_err="
+              f"{[float(f'{e:.3e}') for e in errs]} tols={K3_F32_TOLS} "
+              f"ms={k3[0]:.4f} plain_ms={k3[1]:.3f} bound_ms={k3[2][0]:.4f} "
+              f"({k3[2][1]}) {'ok' if ok else 'MISMATCH'}", flush=True)
+        check(ok, "gate_f32 kernel disagrees with its plain version")
+        results["gate_f32"] = dict(max_abs_err=max(errs), ms=k3[0],
+                                   plain_ms=k3[1], bound_ms=k3[2][0],
+                                   bound_by=k3[2][1])
+        del got, ref
+
+        # K15 in bf16 on the same rows; K3 in bf16 at ct=450 gives the
+        # attention: with x = 0, alpha = 0.5 and a template whose row j is 1
+        # at the columns c = j mod window, new_t[i, c] = 0.5 * a[i, o] for
+        # the offset o with i + o = c mod window, exactly in bf16
+        gp16 = fold.fold_gate_params(det.gate, dtype=torch.bfloat16)
+        x16, t16 = x.to(torch.bfloat16), t.to(torch.bfloat16)
+        del x, t, zx, zt
+        zx16, zt16 = fg.embed(gp16, x16), fg.embed(gp16, t16)
+        hw = WINDOW // 2
+        rows = torch.arange(n, device=device) % NUM_PTS
+        probe = torch.zeros(n, d, dtype=torch.bfloat16, device=device)
+        probe[torch.arange(n, device=device), rows % WINDOW] = 1.0
+        probe_out = fg.gate(zx16, zt16, torch.zeros_like(x16), probe,
+                            ct=NUM_PTS, alpha=0.5, window_size=WINDOW)[0]
+        cols = (rows[:, None] + torch.arange(-hw, hw + 1, device=device)) \
+            % WINDOW
+        attn = (2.0 * torch.gather(probe_out[:, :WINDOW].float(), 1, cols))
+        del probe, probe_out
+        attn = attn.reshape(b, NUM_PTS, WINDOW)
+        x3, t3 = x16.reshape(b, NUM_PTS, d), t16.reshape(b, NUM_PTS, d)
+        fg.banded_mix_update.launches = 0
+        got = fg.banded_mix_update(attn, x3, t3, gp.alpha, WINDOW)
+        torch.cuda.synchronize()
+        ref = fg.banded_mix_update_plain(attn, x3, t3, gp.alpha, WINDOW)
+        k3_t = fg.gate(zx16, zt16, x16, t16, ct=NUM_PTS, alpha=gp.alpha,
+                       window_size=WINDOW)[0].reshape(b, NUM_PTS, d)
+        launches = fg.banded_mix_update.launches
+        ok_plain, ok_k3 = within_bf16_ulp(got, ref), within_bf16_ulp(got, k3_t)
+        err = max_err(got, ref)
+        k15 = (time_ms(lambda: fg.banded_mix_update(attn, x3, t3, gp.alpha,
+                                                    WINDOW), TIMED_ITERS),
+               time_ms(lambda: fg.banded_mix_update_plain(
+                   attn, x3, t3, gp.alpha, WINDOW), 1, 1),
+               bound(2.0 * WINDOW * n * d + 3.0 * n * d, H100_F32_FLOPS,
+                     3.0 * n * d * 2 + n * WINDOW * 4))
+        print(f"[kernel] banded_mix (K15) at ({b}, {NUM_PTS}, {d}) bf16: "
+              f"max_abs_err={err:.3e} within 1 bf16 ulp of its plain version: "
+              f"{ok_plain}; of K3's new template on K3's attention: {ok_k3} "
+              f"(max diff {max_err(got, k3_t):.3e}) ms={k15[0]:.4f} "
+              f"plain_ms={k15[1]:.3f} bound_ms={k15[2][0]:.4f} "
+              f"({k15[2][1]})", flush=True)
+        check(ok_plain, "K15 disagrees with its plain version")
+        check(ok_k3, "K15 disagrees with K3's mix on the same attention")
+        results["banded_mix"] = dict(max_abs_err=err, ms=k15[0],
+                                     plain_ms=k15[1], bound_ms=k15[2][0],
+                                     bound_by=k15[2][1])
+    return results, launches
+
+
+def compare_engines(got, ref, step, label="slice"):
     """The JAX package's bf16-vs-f32 tolerance (tests/test_fast_gate.py):
     correlation > 0.99 and max|v3 - module| < 0.15 * max(|module|, 1)."""
     import torch
@@ -910,10 +1139,10 @@ def compare_engines(got, ref, step):
         corr = float(torch.corrcoef(torch.stack([a.ravel(), r.ravel()]))[0, 1])
         diff = float((a - r).abs().max())
         lim = 0.15 * max(float(r.abs().max()), 1.0)
-        print(f"[slice] step {step} {k}: corr={corr:.5f} "
+        print(f"[{label}] step {step} {k}: corr={corr:.5f} "
               f"max_diff={diff:.4g} lim={lim:.4g}", flush=True)
         check(corr > 0.99 and diff < lim,
-              f"step {step} {k}: v3 vs module corr {corr} diff {diff}")
+              f"{label} step {step} {k}: vs module corr {corr} diff {diff}")
 
 
 def compare_int8c(got, ref, step, bar=CORR_INT8, label="int8c"):
@@ -956,14 +1185,15 @@ def drive(runner, scans, reset_step, reset_stream, keep_carries=0):
     return launches, step_ms, outs, carries
 
 
-def check_outputs(out, b, what):
-    """Every output of the serving contract, of its shape; float ones
-    finite."""
+def check_outputs(out, b, what, slots=64):
+    """Every output of the serving contract, of its shape (``slots``
+    detection slots: 64 for the top-64 NMS, NUM_PTS for the full one);
+    float ones finite."""
     import torch
 
     shapes = {"pred_cls": (b, NUM_PTS, 1), "pred_reg": (b, NUM_PTS, 2),
-              "pred_flow": (b, NUM_PTS, 2), "det_xys": (b, 64, 2),
-              "det_cls": (b, 64, 1), "det_keep": (b, 64),
+              "pred_flow": (b, NUM_PTS, 2), "det_xys": (b, slots, 2),
+              "det_cls": (b, slots, 1), "det_keep": (b, slots),
               "instance_mask": (b, NUM_PTS)}
     check(set(out) == set(shapes), f"{what} outputs {sorted(out)}")
     for k, shape in shapes.items():
@@ -1118,6 +1348,136 @@ def layouts_slice_phase(model, scans, device, calib):
     return all_launches, all_ms
 
 
+def engines_slice_phase(model, scans, device, calib):
+    """Phase 5, the other step builders on the sanitized scans (the fused
+    step does not sanitize, as in JAX), each built and run (1 bootstrap + 5
+    carried steps) with every launch counter set to 0 just before and read
+    just after, held to its exact launch counts and to the f32 module step.
+    Returns ({run: launches}, {run: step ms})."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.infer import streaming as st
+    from planar_optical_flow_tpu_torch.ops.kernels import conv_stack
+
+    clean = st._sanitize_scan(scans, CUTOUT_KW["padding_val"])
+    b = scans.shape[1]
+    ref_step = st.make_stream_step(model, CUTOUT_KW, NUM_PTS, device=device)
+    refs, tmpl = [], None
+    for scan in clean:
+        tmpl, out = ref_step(tmpl, scan)
+        refs.append({k: out[k] for k in ("pred_cls", "pred_reg", "pred_flow",
+                                         "det_keep")})
+    del tmpl, ref_step
+    torch.cuda.empty_cache()
+
+    def fused_f32(out, ref, i, name):
+        for k in ("pred_cls", "pred_reg", "pred_flow"):
+            diff = float((out[k] - ref[k]).abs().max())
+            print(f"[slice-{name}] step {i} {k}: max_diff={diff:.4g} "
+                  f"(atol {TOL_FUSED_F32})", flush=True)
+            check(diff <= TOL_FUSED_F32, f"{name} step {i} {k}: {diff}")
+        agree = float((out["det_keep"] == ref["det_keep"]).float().mean())
+        print(f"[slice-{name}] step {i} det_keep agreement {agree:.5f}",
+              flush=True)
+        check(agree > KEEP_AGREE, f"{name} step {i} det_keep {agree}")
+
+    def serve_f32(out, ref, i, name):
+        for k in ("pred_cls", "pred_reg", "pred_flow"):
+            ok = bool(torch.allclose(out[k], ref[k], rtol=TOL_SERVE_F32,
+                                     atol=TOL_SERVE_F32))
+            print(f"[slice-{name}] step {i} {k}: max_diff="
+                  f"{float((out[k] - ref[k]).abs().max()):.4g} "
+                  f"(rtol = atol = {TOL_SERVE_F32}) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"{name} step {i} {k} beyond {TOL_SERVE_F32}")
+
+    def quantized(out, ref, i, name):
+        for k in ("pred_cls", "pred_reg", "pred_flow"):
+            check(bool(torch.isfinite(out[k]).all()), f"{name} {k} finite")
+        mean = float((out["pred_cls"] - ref["pred_cls"]).abs().mean())
+        print(f"[slice-{name}] step {i} mean |pred_cls - module| = "
+              f"{mean:.4g} (bar {QUANT_MEAN})", flush=True)
+        check(mean < QUANT_MEAN, f"{name} step {i} mean diff {mean}")
+
+    def bf16(out, ref, i, name):
+        compare_engines(out, ref, i, f"slice-{name}")
+
+    kw = dict(num_pts=NUM_PTS, device=device)
+    runs = {
+        "fused": (lambda: st.make_fused_stream_step(model, CUTOUT_KW, **kw),
+                  dict(fused_backbone=6, fused_head=6), fused_f32),
+        "fused_bf16": (lambda: st.make_fused_stream_step(
+            model, CUTOUT_KW, compute_dtype=torch.bfloat16, **kw),
+            dict(fused_backbone=6, fused_head=6), bf16),
+        "serve_bf16": (lambda: st.make_serve_step(model, CUTOUT_KW, **kw),
+                       dict(gate=5), bf16),
+        "serve_f32": (lambda: st.make_serve_step(
+            model, CUTOUT_KW, compute_dtype=None, **kw), dict(gate=5),
+            serve_f32),
+        "quantized": (lambda: st.make_quantized_stream_step(
+            model, CUTOUT_KW, clean[0][:CALIB_SCANS], **kw), {}, quantized),
+    }
+    all_launches, all_ms = {}, {}
+    for name, (build, counts, compare) in runs.items():
+        for wr in wrappers().values():
+            wr.launches = 0
+        step = build()
+        carry, step_ms = None, []
+        for i, scan in enumerate(clean):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, out = step(carry, scan)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_outputs(out, b, f"{name} step {i}", slots=NUM_PTS)
+            compare(out, refs[i], i, name)
+        launches = {k: wr.launches for k, wr in wrappers().items()}
+        print(f"[slice-{name}] launches during the {name} run: "
+              f"{json.dumps(launches)}", flush=True)
+        want = dict.fromkeys(launches, 0)
+        want.update(counts)
+        check(launches == want, f"{name} launches {launches}, expected "
+              f"{want}")
+        all_launches[name], all_ms[name] = launches, step_ms
+        del step, carry, out
+        torch.cuda.empty_cache()
+
+    # the int8c p2 step as a sequence processor: equal to the bit to the
+    # per-step run, carry and every output
+    step = st.make_serve_step_v3(model, CUTOUT_KW, calib=calib,
+                                 precision="int8c", **kw)
+    carry, outs = None, []
+    for scan in scans:
+        carry, out = step(carry, scan)
+        outs.append(out)
+    for wr in wrappers().values():
+        wr.launches = 0
+    conv_stack._ROW_SHIFT_OK.clear()  # the build runs the K16 check again
+    process = st.make_serve_sequence_processor(
+        model, CUTOUT_KW, output_fields=None, calib=calib, precision="int8c",
+        **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    end, stacked = process(scans)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: wr.launches for k, wr in wrappers().items()}
+    same = (all(torch.equal(end[k], carry[k]) for k in carry)
+            and all(torch.equal(stacked[k][t], o[k])
+                    for t, o in enumerate(outs) for k in o))
+    print(f"[slice-sequence] make_serve_sequence_processor (int8c p2) over "
+          f"{len(scans)} scans: {seq_ms:.1f} ms, launches "
+          f"{json.dumps(launches)}; equal to the per-step run: {same}",
+          flush=True)
+    check(same, "the sequence processor differs from the per-step run")
+    want = dict.fromkeys(launches, 0)
+    want.update(cutout=6, backbone_int8=6, gate_int8=6, head_int8=6,
+                row_shift=1)
+    check(launches == want, f"sequence launches {launches}")
+    all_launches["sequence"] = launches
+    return all_launches, all_ms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1176,7 +1536,16 @@ def main(argv=None):
             ("conv_stack_int8", "backbone_int8_cut_smem_bytes", (c, p_pad),
              " (K8)"),
             ("serve_cell", "gate_head_int8_smem_bytes", (c // 4,), " (K12)"),
-            ("serve_cell", "serve_cell_int8_smem_bytes", (c,), " (K13)")):
+            ("serve_cell", "serve_cell_int8_smem_bytes", (c,), " (K13)"),
+            ("gate", "gate_smem_bytes", (NUM_PTS, WINDOW),
+             f" at {NUM_PTS} rows a stream (K3 f32, make_serve_step; K15 "
+             "the same)"),
+            ("fused_drow", "fused_backbone_smem_bytes", (c, 1), " (K14 f32)"),
+            ("fused_drow", "fused_backbone_smem_bytes", (c, 0),
+             " (K14 bf16)"),
+            ("fused_drow", "fused_head_smem_bytes", (c // 4, 1), " (K14 f32)"),
+            ("fused_drow", "fused_head_smem_bytes", (c // 4, 0),
+             " (K14 bf16)")):
         f = getattr(_build.load(lib), fn)
         f.restype = ctypes.c_longlong
         f.argtypes = [ctypes.c_int] * len(arg)
@@ -1205,13 +1574,19 @@ def main(argv=None):
     results.update(fused_kernel_phase(model, scans, calib, device,
                                       TIMED_ITERS))
     torch.cuda.empty_cache()
+    k14_results, k15_launches = k14_k15_kernel_phase(model, scans, device)
+    results.update(k14_results)
+    torch.cuda.empty_cache()
     launches, ms_v3, ms_int8c = slice_phase(
         model, scans, device, calib, reset_step=3, reset_stream=BATCH // 2)
     torch.cuda.empty_cache()
     runs, step_ms = layouts_slice_phase(model, scans, device, calib)
-    runs.update(v3=launches, int8c=launches)
-    step_ms.update(v3=ms_v3, int8c=ms_int8c)
-    for name in ("v3", "int8c", *LAYOUTS):
+    torch.cuda.empty_cache()
+    engine_runs, engine_ms = engines_slice_phase(model, scans, device, calib)
+    runs.update(engine_runs, v3=launches, int8c=launches,
+                phase4={"banded_mix_update": k15_launches})
+    step_ms.update(engine_ms, v3=ms_v3, int8c=ms_int8c)
+    for name in ("v3", "int8c", *LAYOUTS, *engine_ms):
         carried = float(np.median(step_ms[name][1:]))
         print(f"[slice] {name} B={BATCH} step_ms="
               f"{json.dumps([round(t, 3) for t in step_ms[name]])} carried "

@@ -1,7 +1,8 @@
-// The band gate's device code, shared by gate.cu (K3, K6) and serve_cell.cu
-// (K12, K13): the banded attention of one row (the JAX _attention_body), the
-// z-carry mix and similarity band, and the int8 template mix with its
-// requant. Every row reads only its own current embedding and the CARRIED
+// The band gate's device code, shared by gate.cu (K3, K6), serve_cell.cu
+// (K12, K13) and banded_mix.cu (K15): the banded attention of one row (the
+// JAX _attention_body), the z-carry mix and similarity band, and the int8
+// template mix with its requant. The attention and z mix take bf16 or f32
+// embeddings (K3's two modes). Every row reads only its own current embedding and the CARRIED
 // embedding and template rows i + o, |o| <= window / 2, of its stream, so a
 // block may own any rows, provided it writes new rows to fresh buffers.
 //
@@ -10,7 +11,8 @@
 //   s[i, o] = ex[i] . et[i + o] where valid, else ex[i] . et[0] for
 //             i + o < 0 and ex[i] . et[ct_valid - 1] otherwise
 //   attn = validity-masked softmax over o (f32)
-//   new_z[i] = alpha * zx[i] + beta * sum_o bf16(attn[i, o]) * zt[i + o]
+//   new_z[i] = alpha * zx[i] + beta * sum_o a[i, o] * zt[i + o], with
+//              a = bf16(attn) (f32 attn in K3's f32 mode)
 //   sim[i, o] = s[i, o] (the edge rows reproduce the reference's
 //               edge-clamped duplicates exactly)
 // The int8 mix (K6, K12, K13; int8 x at s_x, template at s_t, output at
@@ -56,6 +58,28 @@ __device__ __forceinline__ void load8(const bf16* p, float* f) {
   }
 }
 
+__device__ __forceinline__ void load4(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  load4(p, f);
+  load4(p + 4, f + 4);
+}
+
+__device__ __forceinline__ void store4(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+__device__ __forceinline__ void store8(float* p, const float* f) {
+  store4(p, f);
+  store4(p + 4, f + 4);
+}
+
 __device__ __forceinline__ void store4(bf16* p, const float* f) {
   uint2 raw;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
@@ -84,15 +108,16 @@ __device__ __forceinline__ int sbyte(unsigned w, int b) {
 // k < window ends with offset k's raw similarity, its validity and its f32
 // attention; the other lanes hold attention 0. zx_row: the row's (128,)
 // embedding (device or shared memory); zt: the stream's carried (ct, 128)
-// embeddings.
+// embeddings; both bf16 or both f32.
 struct BandLane {
   float s;
   bool valid;
   float attn;
 };
 
-__device__ __forceinline__ BandLane band_attention(const bf16* zx_row,
-                                                   const bf16* __restrict__ zt,
+template <typename Z>
+__device__ __forceinline__ BandLane band_attention(const Z* zx_row,
+                                                   const Z* __restrict__ zt,
                                                    int i, int ct_valid,
                                                    int window, int lane) {
   const int hw = window / 2;
@@ -125,11 +150,12 @@ __device__ __forceinline__ BandLane band_attention(const bf16* zx_row,
   return r;
 }
 
-// Row i's sim band and z-carry mix, one warp: `a` is lane k's bf16-rounded
-// attention, the JAX z-mix operand. zt: the stream's carried embeddings;
-// new_z_row / sim_row: the row's outputs.
+// Row i's sim band and z-carry mix, one warp: `a` is lane k's attention as
+// the JAX z mix takes it (bf16-rounded; f32 in K3's f32 mode). zt: the
+// stream's carried embeddings; new_z_row / sim_row: the row's outputs.
+template <typename Z>
 __device__ __forceinline__ void z_mix_and_sim(
-    const bf16* zx_row, const bf16* __restrict__ zt, bf16* __restrict__ new_z_row,
+    const Z* zx_row, const Z* __restrict__ zt, Z* __restrict__ new_z_row,
     float* __restrict__ sim_row, int i, int window, const BandLane& r,
     float a, float alpha, float beta, int lane) {
   const int hw = window / 2;

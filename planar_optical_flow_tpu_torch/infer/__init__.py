@@ -1,5 +1,6 @@
 """Streaming inference of the port: the module, bf16 v3 and int8c engines,
-and the int8 serving calibration."""
+the int8 serving calibration, and the other step builders of the JAX
+module (fused K14, band-gate, quantized, sequence processors)."""
 
 from planar_optical_flow_tpu_torch.infer.calibration import (
     ServeCalibration,
@@ -7,9 +8,18 @@ from planar_optical_flow_tpu_torch.infer.calibration import (
 )
 from planar_optical_flow_tpu_torch.infer.streaming import (
     StreamingRunner,
+    cast_model,
+    make_fused_stream_step,
+    make_quantized_stream_step,
+    make_sequence_processor,
+    make_serve_sequence_processor,
+    make_serve_step,
     make_serve_step_v3,
     make_stream_step,
 )
 
 __all__ = ["ServeCalibration", "StreamingRunner", "calibrate_serve_v3",
+           "cast_model", "make_fused_stream_step",
+           "make_quantized_stream_step", "make_sequence_processor",
+           "make_serve_sequence_processor", "make_serve_step",
            "make_serve_step_v3", "make_stream_step"]

@@ -1,9 +1,10 @@
-"""K3, K6 and K12: the serving spatial-attention gate in band form
-(``csrc/gate.cu``, ``csrc/serve_cell.cu``).
+"""K3, K6, K12 and K15: the serving spatial-attention gate in band form
+(``csrc/gate.cu``, ``csrc/serve_cell.cu``, ``csrc/banded_mix.cu``), and the
+gate API of the module-backbone serving step.
 
 * K3 :func:`gate` replaces ``planar_optical_flow_tpu/infer/fast_gate.py``
   ``gate_fused_flat`` (kernel ``_gate_fused_kernel``): bf16 features and
-  template.
+  template, or f32 ones (the kernel computes in the features' dtype).
 * K6 :func:`gate_int8` replaces ``gate_fused_int8_pm`` with
   ``per_stream=True`` (kernel ``_gate_int8_pm_stream_kernel``,
   ``_quantize_attn``, ``_mix_requant``): int8 features and template carry.
@@ -12,6 +13,14 @@
   ``conv_stack.head_int8``) on the fresh template in the same kernel,
   byte-identical to the two. Each block of 8 rows reads its neighbours'
   carried rows and keeps its new template in shared memory for the head.
+* K15 :func:`banded_mix_update` replaces ``banded_mix_update`` (kernel
+  ``_mix_kernel``): the standalone mix ``alpha * x + (1 - alpha) * sum_o
+  attn[i, o] * template[(i + o) mod ct]``. On no serving path, as in JAX.
+
+The gate API of ``make_serve_step`` (``infer/streaming.py``), as in JAX:
+:func:`embed`, :func:`gate_bootstrap`, :func:`gate_step` (K3 through
+:func:`gate_fused`, or ``use_pallas=False``: :func:`_band_attention` and
+:func:`_banded_mix_xla` in plain torch, in the features' dtype).
 
 Both share the front half, as the JAX kernels share ``_attention_body``
 (:func:`_attention` here, ``band_attention`` in the source). The module gate
@@ -25,8 +34,9 @@ stream-major:
 * the z carry ``new_z = alpha * zx + (1 - alpha) * sum_o bf16(attn[o]) *
   zt[i + o]`` (Dense + eval BatchNorm is affine, so it commutes with the
   mix),
-* K3: ``new_t = alpha * x + (1 - alpha) * sum_o bf16(attn[o]) *
-  template[i + o]`` (bf16 is the JAX kernel's MXU operand),
+* K3: ``new_t = alpha * x + (1 - alpha) * sum_o a[o] * template[i + o]``
+  with ``a = bf16(attn)`` (bf16 is the JAX kernel's MXU operand), or the
+  f32 ``attn`` in f32 mode, where the z mix takes it too,
 * K6: ``q = clip(rint(127 * attn))`` from the f32 attention, the exact
   int32 sum ``m = sum_o q[o] * t[i + o]``, and ``new_t = clip(rint((alpha *
   (s_x * x) + (1 - alpha) * ((s_t / 127) * m)) / s_out))``,
@@ -36,9 +46,9 @@ stream-major:
 Rows ``>= ct_valid`` have no valid offset: their attention is 0.
 
 Bound on the H100: bytes: per cutout at D=3584, ~22.3 KB for K3 (x and
-template read, new_t written, bf16) and ~10.8 KB for K6 (the same in int8).
-The kernels write ``new_t``/``new_z`` to fresh buffers instead of over the
-carry as the TPU kernels do.
+template read, new_t written, bf16; twice that in f32), ~10.8 KB for K6
+(the same in int8) and ~21.5 KB for K15 in bf16. The kernels write their
+outputs to fresh buffers instead of over the carry as the TPU kernels do.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import ctypes
 
 import torch
 
+from planar_optical_flow_tpu_torch.models.blocks import rounded
 from planar_optical_flow_tpu_torch.ops.kernels import _build
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     check_head_int8_weights,
@@ -60,12 +71,125 @@ from planar_optical_flow_tpu_torch.ops.kernels.fold import GateParams
 _LEAKY_SLOPE = 0.1
 EMBED_DIM = 128
 
-__all__ = ["GateParams", "gate", "gate_head_int8", "gate_head_int8_plain",
-           "gate_int8", "gate_int8_plain", "gate_plain"]
+_EMBED_CHUNK = 16384  # rows per product of embed (bounds f32 copies)
+
+__all__ = ["GateParams", "banded_mix_update", "banded_mix_update_plain",
+           "embed", "gate", "gate_bootstrap", "gate_fused", "gate_head_int8",
+           "gate_head_int8_plain", "gate_int8", "gate_int8_plain",
+           "gate_plain", "gate_step"]
 
 
 def _leaky(v):
     return torch.where(v > 0, v, _LEAKY_SLOPE * v)
+
+
+# ------------------------------------------------------- the gate API
+
+
+def embed(params: GateParams, x):
+    """Pre-activation embedding ``zx = x @ W + b`` with f32 sums, in
+    ``x``'s dtype; ``(B, ct, D)`` or flat ``(N, D)``. A plain product (XLA
+    in JAX), taken in row chunks of f32 copies."""
+    d = x.shape[-1]
+    flat = x.reshape(-1, d)
+    w, b = params.w.float(), params.b.float()
+    z = torch.cat([flat[i:i + _EMBED_CHUNK].float() @ w + b
+                   for i in range(0, flat.shape[0], _EMBED_CHUNK)])
+    return z.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+
+def _shift_rows(a, o):
+    """``shifted[:, i] = a[:, i + o]``, zero-padded (the JAX
+    ``_shift_rows``)."""
+    if o == 0:
+        return a
+    z = torch.zeros_like(a[:, :abs(o)])
+    if o > 0:
+        return torch.cat([a[:, o:], z], dim=1)
+    return torch.cat([z, a[:, :o]], dim=1)
+
+
+def _band_attention(params: GateParams, zx, zt):
+    """Banded logits, masked softmax and the exact similarity band on
+    ``(B, ct, 128)`` embeddings, op by op as the JAX ``_band_attention`` in
+    the embeddings' dtype (bf16 rounds after every op). Returns (attn
+    ``(B, ct, window)`` with zeros at invalid offsets, sim_band with the
+    reference's edge-clamped duplicates)."""
+    ct = zx.shape[1]
+    hw = params.window_size // 2
+    slope = rounded(_LEAKY_SLOPE, zx.dtype)
+    ex = torch.where(zx > 0, zx, slope * zx)
+    et = torch.where(zt > 0, zt, slope * zt)
+    s = torch.stack([(ex * _shift_rows(et, o)).sum(-1)
+                     for o in range(-hw, hw + 1)], dim=-1)
+    i = torch.arange(ct, device=zx.device)[:, None]
+    o = torch.arange(-hw, hw + 1, device=zx.device)[None, :]
+    valid = (i + o >= 0) & (i + o < ct)
+    masked = torch.where(valid, s, rounded(-1e10, s.dtype))
+    e = torch.exp(masked - masked.amax(-1, keepdim=True))
+    attn = e / e.sum(-1, keepdim=True)
+    attn = torch.where(valid, attn, 0.0)
+    attn = attn / torch.clamp(attn.sum(-1, keepdim=True),
+                              min=rounded(1e-20, s.dtype))
+    idx = (torch.clamp(i + o, 0, ct - 1) - i + hw).expand(s.shape)
+    return attn, torch.gather(s, -1, idx)
+
+
+def _banded_mix_xla(attn, template, hw):
+    """``mixed[i] = sum_o attn[i, o] * template[i + o]``, zero-padded
+    shifted multiply-adds in the template's dtype (the JAX
+    ``_banded_mix_xla``)."""
+    mixed = None
+    for k, o in enumerate(range(-hw, hw + 1)):
+        term = attn[..., k:k + 1] * _shift_rows(template, o)
+        mixed = term if mixed is None else mixed + term
+    return mixed
+
+
+def gate_fused(zx, zt, x, template, alpha: float, window_size: int,
+               d_chunk: int = 896):
+    """``(B, ct, D)`` wrapper over :func:`gate` (K3): (new_template, new_z,
+    sim_band), each ``(B, ct, .)``. ``d_chunk`` is accepted for API parity
+    only."""
+    del d_chunk
+    b, ct, d = template.shape
+    new_t, new_z, sim = gate(
+        zx.reshape(b * ct, -1), zt.reshape(b * ct, -1), x.reshape(b * ct, d),
+        template.reshape(b * ct, d), ct=ct, alpha=alpha,
+        window_size=window_size)
+    return (new_t.reshape(b, ct, d), new_z.reshape(b, ct, -1),
+            sim.reshape(b, ct, -1))
+
+
+def gate_step(params: GateParams, x, template, z_t, *,
+              use_pallas: bool = True):
+    """One gate update on ``(B, ct, D)`` features ``x``, the carried
+    ``template`` and its carried pre-activation embedding ``z_t (B, ct,
+    128)``: -> (new_template, new_z, sim_band). ``use_pallas``: K3 (bf16
+    or f32, the features' dtype); else the banded attention and shifted
+    multiply-adds in plain torch."""
+    hw = params.window_size // 2
+    zx = embed(params, x)
+    if use_pallas:
+        return gate_fused(zx, z_t, x, template, params.alpha,
+                          params.window_size)
+    attn, sim_band = _band_attention(params, zx, z_t)
+    alpha = rounded(params.alpha, x.dtype)
+    beta = rounded(1.0 - params.alpha, x.dtype)
+    new_template = alpha * x + beta * _banded_mix_xla(attn, template, hw)
+    new_z = alpha * zx + beta * _banded_mix_xla(attn, z_t, hw)
+    return new_template, new_z, sim_band
+
+
+def gate_bootstrap(params: GateParams, x):
+    """First scan of a stream: the template is ``x`` and the gate only
+    supplies the self-similarity band -> (template, z, sim_band)."""
+    zx = embed(params, x)
+    _, sim_band = _band_attention(params, zx, zx)
+    return x, zx, sim_band
+
+
+# ------------------------------------------------- the band-form kernels
 
 
 def _band_rows(ct: int, ct_valid: int, window_size: int, device):
@@ -117,7 +241,7 @@ def gate_plain(zx, zt, x, template, *, ct: int, alpha: float,
     n, d = template.shape
     attn, s, rows = _attention(zx, zt, ct=ct, ct_valid=ct_valid,
                                window_size=window_size)
-    attn = attn.to(torch.bfloat16).float()
+    attn = attn.to(template.dtype).float()  # the mix operand: bf16 or f32
     b = attn.shape[0]
     new_t = (alpha * x.float().reshape(b, ct, d)
              + (1.0 - alpha) * _band_mix(attn, template, rows, ct))
@@ -126,7 +250,7 @@ def gate_plain(zx, zt, x, template, *, ct: int, alpha: float,
 
 
 def _check_gate_args(what, zx, zt, x, template, ct, ct_valid, window_size,
-                     dtype, d_mult):
+                     dtype, d_mult, z_dtype=torch.bfloat16):
     n, d = template.shape
     if n % ct or not 0 < ct_valid <= ct or d % d_mult:
         raise ValueError(f"{what}: N={n} must be a multiple of ct={ct}, "
@@ -135,8 +259,8 @@ def _check_gate_args(what, zx, zt, x, template, ct, ct_valid, window_size,
     if not 1 <= window_size <= 32 or window_size % 2 == 0:
         raise ValueError(f"{what}: window_size={window_size} must be odd, "
                          "<= 32")
-    for name, t, shape, dt in (("zx", zx, (n, EMBED_DIM), torch.bfloat16),
-                               ("zt", zt, (n, EMBED_DIM), torch.bfloat16),
+    for name, t, shape, dt in (("zx", zx, (n, EMBED_DIM), z_dtype),
+                               ("zt", zt, (n, EMBED_DIM), z_dtype),
                                ("x", x, (n, d), dtype),
                                ("template", template, (n, d), dtype)):
         if t.device.type != "cuda" or t.dtype != dt or tuple(t.shape) != shape:
@@ -149,18 +273,22 @@ def gate(zx, zt, x, template, *, ct: int, alpha: float, window_size: int,
          ct_valid: int | None = None):
     """Post-embed gate on flat arrays -> (new_template, new_z, sim).
 
-    ``zx``/``zt``: ``(N, 128)`` bf16 pre-activation embeddings of the
-    current features and of the template; ``x``/``template``: ``(N, D)``
-    bf16. Returns new_template ``(N, D)`` bf16, new_z ``(N, 128)`` bf16,
-    sim ``(N, window)`` f32. A CUDA tensor launches K3; a CPU tensor runs
-    :func:`gate_plain`.
+    ``zx``/``zt``: ``(N, 128)`` pre-activation embeddings of the current
+    features and of the template; ``x``/``template``: ``(N, D)``; all bf16,
+    or all f32 (K3's f32 mode: f32 attention in both mixes). Returns
+    new_template ``(N, D)`` and new_z ``(N, 128)`` in that dtype, sim ``(N,
+    window)`` f32. ``ct`` need not be a multiple of 8. A CUDA tensor
+    launches K3; a CPU tensor runs :func:`gate_plain`.
     """
     kw = dict(ct=ct, alpha=alpha, window_size=window_size, ct_valid=ct_valid)
     if zx.device.type == "cpu":
         return gate_plain(zx, zt, x, template, **kw)
     ct_valid = ct_valid or ct
+    dtype = template.dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gate: template must be bf16 or f32, got {dtype}")
     n, d, d_chunk = _check_gate_args("gate", zx, zt, x, template, ct,
-                                     ct_valid, window_size, torch.bfloat16, 8)
+                                     ct_valid, window_size, dtype, 8, dtype)
     zx, zt, x, template = (t.contiguous() for t in (zx, zt, x, template))
     new_t = torch.empty_like(template)
     new_z = torch.empty_like(zx)
@@ -168,11 +296,11 @@ def gate(zx, zt, x, template, *, ct: int, alpha: float, window_size: int,
     fn = _build.load("gate").gate_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     _build.check(fn(zx.data_ptr(), zt.data_ptr(), x.data_ptr(),
                     template.data_ptr(), new_t.data_ptr(), new_z.data_ptr(),
                     sim.data_ptr(), n, d, ct, ct_valid, window_size, d_chunk,
-                    float(alpha), 1.0 - alpha,
+                    float(alpha), 1.0 - alpha, int(dtype == torch.float32),
                     _build.stream_ptr(zx.device)), "gate")
     gate.launches += 1
     return new_t, new_z, sim
@@ -304,6 +432,66 @@ def gate_head_int8(zx, zt, x, template, head_conv_weights, head_weights, *,
     return new_t, new_z, sim, cls, reg
 
 
+def banded_mix_update_plain(attn, x, template, alpha: float,
+                            window_size: int, d_chunk: int = 896):
+    """Plain PyTorch version of :func:`banded_mix_update` (same
+    arguments), in the TPU kernel's order: the o = 0 term, then o = -hw ..
+    hw, rows rolled circularly within each stream."""
+    del d_chunk
+    b, ct, d = template.shape
+    hw = window_size // 2
+    t = template.float()
+    a = attn.float().reshape(b, ct, 2 * hw + 1)
+    acc = a[..., hw:hw + 1] * t
+    for k, o in enumerate(range(-hw, hw + 1)):
+        if o:
+            acc = acc + a[..., k:k + 1] * torch.roll(t, -o, dims=1)
+    return (alpha * x.float() + (1.0 - alpha) * acc).to(x.dtype)
+
+
+def banded_mix_update(attn, x, template, alpha: float, window_size: int,
+                      d_chunk: int = 896):
+    """``alpha * x + (1 - alpha) * sum_o attn[i, o] * template[(i + o) mod
+    ct]`` in f32, in ``x``'s dtype.
+
+    ``attn``: ``(B, ct, window)``; ``x``, ``template``: ``(B, ct, D)``, bf16
+    or f32 (the same). The roll is circular within each stream, as in the
+    TPU kernel: equal to the zero-padded band wherever ``attn`` is 0 at the
+    offsets that leave the stream. ``d_chunk`` is accepted for API parity
+    only. A CUDA tensor launches K15; a CPU tensor runs
+    :func:`banded_mix_update_plain`.
+    """
+    if x.device.type == "cpu":
+        return banded_mix_update_plain(attn, x, template, alpha, window_size)
+    b, ct, d = template.shape
+    window = window_size // 2 * 2 + 1
+    if x.dtype not in (torch.bfloat16, torch.float32) or d % 8:
+        raise ValueError(f"banded_mix_update: x/template bf16 or f32 with D "
+                         f"% 8 == 0, got {x.dtype} D={d}")
+    for name, t, shape, dt in (("x", x, (b, ct, d), x.dtype),
+                               ("template", template, (b, ct, d), x.dtype),
+                               ("attn", attn, (b, ct, window), attn.dtype)):
+        if t.device.type != "cuda" or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"banded_mix_update {name}: need {dt} {shape} on "
+                             f"cuda, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    attn = attn.float().contiguous()
+    x, template = x.contiguous(), template.contiguous()
+    out = torch.empty_like(x)
+    fn = _build.load("banded_mix").banded_mix_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    _build.check(fn(attn.data_ptr(), x.data_ptr(), template.data_ptr(),
+                    out.data_ptr(), b * ct, d, ct, window,
+                    512 if d % 512 == 0 else d, float(alpha), 1.0 - alpha,
+                    int(x.dtype == torch.float32),
+                    _build.stream_ptr(x.device)), "banded_mix_update")
+    banded_mix_update.launches += 1
+    return out
+
+
 gate.launches = 0
 gate_int8.launches = 0
 gate_head_int8.launches = 0
+banded_mix_update.launches = 0

@@ -1,10 +1,10 @@
 """Stateful streaming inference: one step per incoming batch of scans.
 
-Counterpart of ``planar_optical_flow_tpu/infer/streaming.py`` for three
-engines:
+Counterpart of ``planar_optical_flow_tpu/infer/streaming.py``: every step
+builder of the JAX module, and its three runner engines:
 
-* ``"module"`` (:func:`make_stream_step`): the f32 module path, the
-  reference;
+* ``"module"`` (:func:`make_stream_step`): the module path, the reference
+  in f32 (``compute_dtype`` runs a cast copy of the model);
 * ``"v3"`` (:func:`make_serve_step_v3`, ``precision="bf16"``): sanitize ->
   pad to ``p_pad = ceil(P/8)*8`` beams -> K1 cutout -> backbone layer 1
   (plain torch) -> K2 backbone tail + gate embed -> K3 gate -> K4 head ->
@@ -27,6 +27,21 @@ backbone in one kernel), ``fuse_gate_head=True`` (K12, gate and head in one
 kernel on carried steps) and ``layout="cell"`` (K13, the whole carried
 cell in one kernel).
 
+The other builders of the JAX module, which ``StreamingRunner`` does not
+offer (as in JAX):
+
+* :func:`make_fused_stream_step`: the module cutout, K14's backbone and
+  head (``ops/kernels/fused_drow.py``, f32 or bf16) around the dense module
+  gate and flow head; it does not sanitize its scans, as in JAX;
+* :func:`make_serve_step`: the module backbone and head (cast to
+  ``compute_dtype``), the band gate carrying the embedding ``z``
+  (``gate_mix="pallas"``: K3, bf16 or f32; ``"xla"``: plain torch);
+* :func:`make_quantized_stream_step`: the int8 conv stacks of
+  ``ops/quantized_drow.py`` in plain torch (XLA in JAX: no kernel),
+  calibrated on two f32 module steps, gate and flow head in ``gate_dtype``;
+* :func:`make_serve_sequence_processor` and :func:`make_sequence_processor`:
+  a loop over time of :func:`make_serve_step_v3`'s and of the module step.
+
 All return ``step(carry, scan) -> (carry', outputs)`` with ``carry=None``
 for a stream's first scan; :class:`StreamingRunner` holds the carry and
 resets streams. Inference only: every step runs under
@@ -36,6 +51,7 @@ resets streams. Inference only: every step runs under
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 from typing import NamedTuple
 
@@ -47,8 +63,10 @@ from planar_optical_flow_tpu_torch import resolve_device
 from planar_optical_flow_tpu_torch.infer.calibration import ServeCalibration
 from planar_optical_flow_tpu_torch.infer.fast_gate import (
     gate,
+    gate_bootstrap,
     gate_head_int8,
     gate_int8,
+    gate_step,
 )
 from planar_optical_flow_tpu_torch.models.flow_drow import FlowDrow
 from planar_optical_flow_tpu_torch.models.spatial_drow import FEAT_CHANNELS
@@ -57,7 +75,9 @@ from planar_optical_flow_tpu_torch.ops.geometry import (
     canonical_to_global_flow,
     get_laser_phi,
 )
+from planar_optical_flow_tpu_torch.ops import quantized_drow as qd
 from planar_optical_flow_tpu_torch.ops.kernels import fold, quant
+from planar_optical_flow_tpu_torch.ops.kernels import fused_drow as fd
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     backbone_int8,
     backbone_int8_cut,
@@ -182,25 +202,57 @@ def _prepare(model, device, num_pts):
                                             device=dev)
 
 
+def cast_model(model, dtype):
+    """A copy of ``model`` with every float parameter and buffer (the
+    BatchNorm statistics included) cast to ``dtype``: the counterpart of
+    the JAX ``cast_variables``. The model itself is left as it is."""
+    return copy.deepcopy(model).to(dtype)
+
+
+def _parts(model):
+    """(is FlowDrow, the detector: ``model.dr_spaam`` or the model)."""
+    is_flow = isinstance(model, FlowDrow)
+    return is_flow, model.dr_spaam if is_flow else model
+
+
+def _module_gate(det, feats, template):
+    """The dense module gate: (new template, sim band); on a stream's first
+    scan (``template=None``) the features are the template."""
+    if template is None:
+        return feats, det.gate(feats, feats)[1]
+    return det.gate(feats, template)
+
+
 def make_stream_step(model, cutout_kwargs, num_pts: int = 450,
                      nms_min_dist: float = 0.5, with_nms: bool = True,
+                     compute_dtype=None, sanitize_inputs: bool = True,
                      device="cuda"):
-    """The f32 module step: ``step(template, scan) -> (new_template,
-    outputs)``; ``scan (B, num_pts)``, ``template (B, P, D)`` f32 or None
-    to bootstrap. Scans are sanitized (non-finite -> ``padding_val``, clip
-    to ``[0, padding_val]``) as in the v3 step. Outputs: ``pred_cls``
-    (sigmoided), ``pred_reg``, ``pred_flow`` (global frame; FlowDrow only)
-    and, with ``with_nms``, ``det_xys, det_cls, det_keep, instance_mask``.
+    """The module step: ``step(template, scan) -> (new_template,
+    outputs)``; ``scan (B, num_pts)``, ``template (B, P, D)`` or None to
+    bootstrap. With ``sanitize_inputs`` the scans are sanitized (non-finite
+    -> ``padding_val``, clip to ``[0, padding_val]``) as in the v3 step.
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) runs a copy of the model
+    cast to it (:func:`cast_model`; the JAX caller passes
+    ``cast_variables``) on cutouts and scans in that dtype; the cutout
+    index math and the NMS stay f32 (on the rounded scan, as in JAX).
+    Outputs: ``pred_cls`` (sigmoided), ``pred_reg``, ``pred_flow`` (global
+    frame; FlowDrow only) and, with ``with_nms``, ``det_xys, det_cls,
+    det_keep, instance_mask``.
     """
     dev, model, phi, phi_t = _prepare(model, device, num_pts)
+    if compute_dtype is not None:
+        model = cast_model(model, compute_dtype)
     is_flow = isinstance(model, FlowDrow)
     san_max = float(cutout_kwargs.get("padding_val", 29.99))
 
     @torch.inference_mode()
     def step(template, scan):
-        scan = _sanitize_scan(
-            torch.as_tensor(scan, dtype=torch.float32, device=dev), san_max)
+        scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
+        if sanitize_inputs:
+            scan = _sanitize_scan(scan, san_max)
         cutouts = _encode_single(scan, phi, cutout_kwargs)
+        if compute_dtype is not None:
+            cutouts, scan = cutouts.to(compute_dtype), scan.to(compute_dtype)
         if is_flow:
             pred_cls, pred_reg, pred_flow, new_template = model.stream_step(
                 cutouts, scan, template)
@@ -208,11 +260,224 @@ def make_stream_step(model, cutout_kwargs, num_pts: int = 450,
             pred_cls, pred_reg, new_template, _ = model.stream_step(
                 cutouts, template)
             pred_flow = None
+        if compute_dtype is not None:
+            pred_cls, pred_reg, scan = (pred_cls.float(), pred_reg.float(),
+                                        scan.float())
+            if pred_flow is not None:
+                pred_flow = pred_flow.float()
         return new_template, _detection_epilogue(
             scan, pred_cls, pred_reg, pred_flow, phi_t, with_nms=with_nms,
             nms_min_dist=nms_min_dist)
 
     return step
+
+
+def make_fused_stream_step(model, cutout_kwargs, num_pts: int = 450,
+                           nms_min_dist: float = 0.5, with_nms: bool = True,
+                           compute_dtype=None, tile: int = 64,
+                           device="cuda"):
+    """The module step with K14's fused backbone and head
+    (``ops/kernels/fused_drow.py``): ``step(template, scan) ->
+    (new_template, outputs)``, ``template=None`` to bootstrap.
+
+    The module cutout, K14's backbone in ``compute_dtype`` (None: f32, the
+    default; or ``torch.bfloat16``) from the BN-folded f32 weights, the
+    dense module gate (on a copy of the model cast to ``compute_dtype``,
+    with the features in it), K14's head on the new template, the module
+    flow head, sigmoid, canonical->global flow and the full vote NMS. The
+    scans are not sanitized, as in JAX. ``tile`` is accepted for API parity
+    only. The template is ``(B, num_pts, D)`` in ``compute_dtype``.
+    """
+    dev, model, phi, phi_t = _prepare(model, device, num_pts)
+    is_flow, det = _parts(model)
+    w_bb = fd.backbone_weights(det.backbone)
+    w_hd = fd.head_weights(det.head)
+    num_classes = w_hd[5][0].shape[-1]
+    cdt = compute_dtype or torch.float32
+    cast = cast_model(model, compute_dtype) if compute_dtype else model
+    _, cast_det = _parts(cast)
+
+    @torch.inference_mode()
+    def step(template, scan):
+        scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
+        b = scan.shape[0]
+        cutouts = _encode_single(scan, phi, cutout_kwargs)  # (B, P, C)
+        feats = fd.fused_backbone(cutouts.reshape(b * num_pts, -1), w_bb,
+                                  tile=tile, compute_dtype=cdt)
+        l4 = feats.shape[1]
+        feats = feats.reshape(b, num_pts, l4 * FEAT_CHANNELS).to(cdt)
+        new_template, sim = _module_gate(cast_det, feats, template)
+        cls, reg = fd.fused_head(
+            new_template.float().reshape(b * num_pts, l4, FEAT_CHANNELS),
+            w_hd, num_classes=num_classes, tile=tile, compute_dtype=cdt)
+        flow = (cast.flow_head(sim, scan.to(cdt)).float() if is_flow
+                else None)
+        return new_template, _detection_epilogue(
+            scan, cls.reshape(b, num_pts, -1), reg.reshape(b, num_pts, 2),
+            flow, phi_t, with_nms=with_nms, nms_min_dist=nms_min_dist)
+
+    return step
+
+
+def make_quantized_stream_step(model, cutout_kwargs, calib_scans,
+                               num_pts: int = 450, nms_min_dist: float = 0.5,
+                               with_nms: bool = True,
+                               gate_dtype=torch.bfloat16,
+                               sanitize_inputs: bool = True, device="cuda"):
+    """The module step with int8 conv stacks (``ops/quantized_drow.py``,
+    plain torch: XLA in JAX): ``step(template, scan) -> (new_template,
+    outputs)``.
+
+    BatchNorm folded, per-channel int8 weights, activation scales
+    calibrated on ``calib_scans (B0, num_pts)`` (sanitized first when
+    ``sanitize_inputs``): the backbone's on the first 4096 of their module
+    cutouts, the head's on the first 4096 rows of the template after two
+    f32 module steps. The int8 backbone's f32 feats go to the dense module
+    gate and the template to the int8 head in ``gate_dtype``; the flow head
+    runs in ``gate_dtype``, the NMS and the flow rotation in f32.
+    """
+    dev, model, phi, phi_t = _prepare(model, device, num_pts)
+    is_flow, det = _parts(model)
+    w_bb = fd.backbone_weights(det.backbone)
+    w_hd = fd.head_weights(det.head)
+    san_max = float(cutout_kwargs.get("padding_val", 29.99))
+    with torch.inference_mode(), _full_f32():
+        ref_step = make_stream_step(model, cutout_kwargs, num_pts,
+                                    with_nms=False, device=dev)
+        calib = torch.as_tensor(calib_scans, dtype=torch.float32, device=dev)
+        if sanitize_inputs:
+            calib = _sanitize_scan(calib, san_max)
+        tmpl, _ = ref_step(None, calib)
+        tmpl, _ = ref_step(tmpl, calib)
+        cutouts_c = _encode_single(calib, phi, cutout_kwargs)
+    q_bb = qd.build_quantized_backbone(
+        w_bb, cutouts_c.reshape(-1, cutouts_c.shape[-1])[:_CALIB_ROWS],
+        device=dev)
+    q_hd, heads = qd.build_quantized_head_convs(
+        w_hd, tmpl.reshape(-1, tmpl.shape[-1] // FEAT_CHANNELS,
+                           FEAT_CHANNELS)[:_CALIB_ROWS], device=dev)
+    cast = cast_model(model, gate_dtype)
+    _, cast_det = _parts(cast)
+
+    @torch.inference_mode()
+    def step(template, scan):
+        scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
+        if sanitize_inputs:
+            scan = _sanitize_scan(scan, san_max)
+        b = scan.shape[0]
+        cutouts = _encode_single(scan, phi, cutout_kwargs)
+        feats = q_bb(q_bb.quantize_input(
+            cutouts.reshape(b * num_pts, -1)[..., None]))  # (N, L4, 256) f32
+        l4 = feats.shape[1]
+        feats = feats.reshape(b, num_pts, l4 * FEAT_CHANNELS).to(gate_dtype)
+        new_template, sim = _module_gate(cast_det, feats, template)
+        cls, reg = qd.quantized_head_apply(q_hd, heads, q_hd.quantize_input(
+            new_template.float().reshape(b * num_pts, l4, FEAT_CHANNELS)))
+        flow = (cast.flow_head(sim, scan.to(gate_dtype)).float() if is_flow
+                else None)
+        return new_template, _detection_epilogue(
+            scan, cls.reshape(b, num_pts, -1), reg.reshape(b, num_pts, 2),
+            flow, phi_t, with_nms=with_nms, nms_min_dist=nms_min_dist)
+
+    return step
+
+
+def make_serve_step(model, cutout_kwargs, num_pts: int = 450,
+                    nms_min_dist: float = 0.5, with_nms: bool = True,
+                    nms_top_k: int | None = None,
+                    compute_dtype=torch.bfloat16, gate_mix: str = "pallas",
+                    sanitize_inputs: bool = True, device="cuda"):
+    """The band-gate serving step on the module backbone and head:
+    ``step(carry, scan) -> (carry', outputs)``, ``carry=None`` to bootstrap;
+    the carry is ``{"template": (B, P, D), "z": (B, P, 128)}`` in
+    ``compute_dtype``.
+
+    Sanitize (``sanitize_inputs``), the module cutout, the module backbone
+    and head on a copy of the model cast to ``compute_dtype`` (default
+    bf16; None runs f32), and the band gate (``infer/fast_gate.py``)
+    carrying the template's pre-activation embedding: ``gate_bootstrap``
+    on the first scan, then ``gate_step`` with ``gate_mix="pallas"`` (K3,
+    in the features' dtype) or ``"xla"`` (the same math in plain torch).
+    Then the module flow head, sigmoid, canonical->global flow and the vote
+    NMS (``nms_top_k``: the top-k form; None: the full one).
+    """
+    if gate_mix not in ("pallas", "xla"):
+        raise ValueError(f"unknown gate_mix {gate_mix!r}; 'pallas' or 'xla'")
+    dev, model, phi, phi_t = _prepare(model, device, num_pts)
+    is_flow, det = _parts(model)
+    cdt = compute_dtype or torch.float32
+    gate_params = fold.fold_gate_params(det.gate, dtype=cdt)
+    cast = cast_model(model, compute_dtype) if compute_dtype else model
+    _, cast_det = _parts(cast)
+    san_max = float(cutout_kwargs.get("padding_val", 29.99))
+
+    @torch.inference_mode()
+    def step(carry, scan):
+        scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
+        if sanitize_inputs:
+            scan = _sanitize_scan(scan, san_max)
+        cutouts = _encode_single(scan, phi, cutout_kwargs).to(cdt)
+        b, p, c = cutouts.shape
+        feats = cast_det.backbone(cutouts.reshape(b * p, c, 1)).reshape(
+            b, p, -1)
+        if carry is None:
+            template, z, sim = gate_bootstrap(gate_params, feats)
+        else:
+            template, z, sim = gate_step(gate_params, feats,
+                                         carry["template"], carry["z"],
+                                         use_pallas=gate_mix == "pallas")
+        cls, reg = cast_det.head(template.reshape(
+            b * p, -1, FEAT_CHANNELS))
+        flow = (cast.flow_head(sim, scan.to(cdt)).float() if is_flow
+                else None)
+        return {"template": template, "z": z}, _detection_epilogue(
+            scan, cls.reshape(b, p, -1).float(),
+            reg.reshape(b, p, 2).float(), flow, phi_t, with_nms=with_nms,
+            nms_min_dist=nms_min_dist, nms_top_k=nms_top_k)
+
+    return step
+
+
+def make_sequence_processor(model, cutout_kwargs, num_pts: int = 450,
+                            nms_min_dist: float = 0.5, with_nms: bool = True,
+                            compute_dtype=None, output_fields=None,
+                            device="cuda"):
+    """Offline replay on the module step: ``process(scans (T, B, P),
+    template=None) -> (final template, outputs stacked over T)``.
+    ``output_fields`` names the outputs to stack (None: all)."""
+    inner = make_stream_step(model, cutout_kwargs, num_pts, nms_min_dist,
+                             with_nms, compute_dtype=compute_dtype,
+                             device=device)
+    return _sequence(inner, output_fields)
+
+
+def make_serve_sequence_processor(model, cutout_kwargs,
+                                  output_fields=("pred_cls", "pred_reg"),
+                                  **serve_kwargs):
+    """Offline replay on :func:`make_serve_step_v3` (``serve_kwargs`` go to
+    it: precision, calib_scans, device, ...): ``process(scans (T, B, P),
+    carry=None) -> (carry', outputs stacked over T)``, stacking only
+    ``output_fields`` (None: all). ``process.calibration`` holds the int8
+    scales in effect."""
+    step = make_serve_step_v3(model, cutout_kwargs, **serve_kwargs)
+    process = _sequence(step, output_fields)
+    process.calibration = step.calibration
+    return process
+
+
+def _sequence(step, output_fields):
+    """``process(scans, carry=None)``: ``step`` over the time axis of
+    ``scans``, the selected outputs stacked."""
+    fields = tuple(output_fields) if output_fields is not None else None
+
+    def process(scans, carry=None):
+        outs = []
+        for scan in scans:
+            carry, out = step(carry, scan)
+            outs.append(out if fields is None else {k: out[k] for k in fields})
+        return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    return process
 
 
 def weights_checksum(detector) -> float:
@@ -473,8 +738,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             "serving configuration)")
     del tile  # the CUDA kernels choose their own blocks
     dev, model, _, phi_t = _prepare(model, device, num_pts)
-    is_flow = isinstance(model, FlowDrow)
-    det = model.dr_spaam if is_flow else model
+    is_flow, det = _parts(model)
     output_fields = _check_output_fields(output_fields, is_flow, with_nms)
     san_max = float(cutout_kwargs.get("padding_val", 29.99))
     ct_len = cutout_kwargs.get("num_cutout_pts", 48)

@@ -54,13 +54,41 @@ def make_batch_norm(features: int) -> nn.BatchNorm1d:
     return bn
 
 
+def rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: the value a
+    Python scalar takes in JAX when it meets an array of that dtype. (A
+    product of two bf16 values is exact in the f32 that PyTorch computes it
+    in, so multiplying by this float rounds as JAX's bf16 product does.)
+    A host value: no device tensor, no synchronisation."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU 0.1 as JAX computes it: ``where(x >= 0, x, slope * x)``
+    with the slope rounded to ``x``'s dtype first; ``F.leaky_relu``
+    multiplies by the f32 slope, which rounds a bf16 result differently on
+    about a fifth of the negatives."""
+    return torch.where(x >= 0, x, x * rounded(NEGATIVE_SLOPE, x.dtype))
+
+
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """flax ``Dense`` in ``x``'s dtype: the product, rounded, then the
+    bias (bf16 rounds twice, as flax does)."""
+    return (F.linear(x, lin.weight.to(x.dtype))
+            + lin.bias.to(x.dtype))
+
+
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d,
                     channel_dim: int) -> torch.Tensor:
-    """Eval-mode BatchNorm in the order flax computes it, in ``x``'s dtype:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """Eval-mode BatchNorm in the order flax computes it: ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``. The statistics term runs in the
+    parameters' dtype and the rest in the promoted one, as flax does; f32
+    parameters stand for parameters cast to ``x``'s dtype (the port's f32
+    model serving bf16 inputs)."""
     shape = [1] * x.ndim
     shape[channel_dim] = -1
-    dt = x.dtype
+    dt = (x.dtype if bn.running_var.dtype == torch.float32
+          else bn.running_var.dtype)
     mean = bn.running_mean.to(dt).view(shape)
     mul = torch.rsqrt(bn.running_var.to(dt) + bn.eps) * bn.weight.to(dt)
     return (x - mean) * mul.view(shape) + bn.bias.to(dt).view(shape)
@@ -88,9 +116,10 @@ class ConvBlock(nn.Module):
         k = self.kernel_size
         if k > 1:
             x = F.pad(x, ((k - 1) // 2, k // 2))
-        y = F.conv1d(x, self.conv.weight.to(x.dtype),
-                     self.conv.bias.to(x.dtype), stride=self.stride)
-        return F.leaky_relu(batch_norm_eval(y, self.bn, 1), NEGATIVE_SLOPE)
+        # the bias after the rounded product, as flax's Conv adds it
+        y = (F.conv1d(x, self.conv.weight.to(x.dtype), stride=self.stride)
+             + self.conv.bias.to(x.dtype)[:, None])
+        return leaky_relu(batch_norm_eval(y, self.bn, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, L, Cin)`` -> ``(B, L', Cout)``."""
@@ -126,6 +155,14 @@ def max_pool1d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     return x[:, :lw * window].reshape(b, lw, window, c).amax(dim=2)
 
 
+def mean_over(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.mean`` as XLA computes it: the f32 sum times the f32
+    reciprocal of the count, in ``x``'s dtype."""
+    recip = rounded(1.0 / rounded(x.shape[dim], torch.float32),
+                    torch.float32)
+    return (x.float().sum(dim=dim) * recip).to(x.dtype)
+
+
 def avg_pool_full(x: torch.Tensor) -> torch.Tensor:
     """Average over the entire length axis: ``(B, L, C) -> (B, C)``."""
-    return x.mean(dim=-2)
+    return mean_over(x, -2)

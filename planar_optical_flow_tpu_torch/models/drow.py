@@ -12,7 +12,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from planar_optical_flow_tpu_torch.models.blocks import ConvStack, make_linear
+from planar_optical_flow_tpu_torch.models.blocks import (
+    ConvStack,
+    linear,
+    make_linear,
+    mean_over,
+)
 
 
 class DrowBackbone(nn.Module):
@@ -46,5 +51,5 @@ class DrowHead(nn.Module):
         y = self.block3.forward_ncl(x.transpose(1, 2))
         y = F.max_pool1d(y, 2)
         y = self.block4.forward_ncl(y)
-        y = y.mean(dim=-1)  # (N, 128)
-        return self.cls(y), self.reg(y)
+        y = mean_over(y, -1)  # (N, 128)
+        return linear(y, self.cls), linear(y, self.reg)

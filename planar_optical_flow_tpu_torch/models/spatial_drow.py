@@ -19,12 +19,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from planar_optical_flow_tpu_torch.models.blocks import (
-    NEGATIVE_SLOPE,
     batch_norm_eval,
+    leaky_relu,
+    linear,
     make_batch_norm,
     make_linear,
 )
@@ -63,8 +63,9 @@ class SpatialAttentionGate(nn.Module):
     def embedding(self, f: torch.Tensor) -> torch.Tensor:
         """``(B, ct, D)`` -> leaky-ReLU embedding ``(B, ct, 128)``."""
         b, ct, d = f.shape
-        e = batch_norm_eval(self.embed(f.reshape(b * ct, d)), self.embed_bn, 1)
-        return F.leaky_relu(e, NEGATIVE_SLOPE).reshape(b, ct, EMBED_DIM)
+        e = batch_norm_eval(linear(f.reshape(b * ct, d), self.embed),
+                            self.embed_bn, 1)
+        return leaky_relu(e).reshape(b, ct, EMBED_DIM)
 
     def forward(self, x: torch.Tensor, template: torch.Tensor):
         """Returns (new_template ``(B, ct, D)``, sim_band ``(B, ct, window)``)."""
@@ -77,7 +78,10 @@ class SpatialAttentionGate(nn.Module):
         sim_band = torch.gather(sim, 2, band[None].expand(b, -1, -1))
         mask = torch.as_tensor(band_mask(ct, self.window_size),
                                dtype=sim.dtype, device=x.device)
-        attn = torch.softmax(sim - 1e10 * (1.0 - mask), dim=-1) * mask
+        # the softmax op by op, as jax.nn.softmax (bf16 rounds each step)
+        masked = sim - 1e10 * (1.0 - mask)
+        e = torch.exp(masked - masked.amax(dim=-1, keepdim=True))
+        attn = e / e.sum(dim=-1, keepdim=True) * mask
         attn = attn / torch.clamp(attn.sum(dim=-1, keepdim=True), min=1e-20)
         mixed = torch.einsum("bij,bjd->bid", attn, template)
         return self.alpha * x + (1.0 - self.alpha) * mixed, sim_band

@@ -1,0 +1,234 @@
+"""K14: the fused DROW backbone and head of ``make_fused_stream_step``
+(``csrc/fused_drow.cu``), f32 and bf16.
+
+* :func:`fused_backbone` replaces ``planar_optical_flow_tpu/ops/pallas/
+  fused_drow.py`` ``fused_backbone`` (kernel ``_backbone_kernel``): the
+  six backbone convs, layer 1 included, ``(N, L)`` f32 cutouts -> ``(N,
+  L/4, 256)`` f32 feats.
+* :func:`fused_head` replaces ``fused_head`` (``_head_kernel``): the five
+  head convs, the mean over positions and the cls/reg linears, ``(N, L4,
+  256)`` f32 feats -> cls ``(N, classes)`` f32, reg ``(N, 2)`` f32.
+
+Weights are the BN-folded f32 layers (:func:`backbone_weights`,
+:func:`head_weights`: per conv ``(w (3, Cin, Cout), b (Cout,))``, as the
+JAX ``fold_conv_bn``), cast to ``compute_dtype`` where the JAX kernel casts
+them. Every conv is k=3 SAME with LeakyReLU 0.1, rounded as the JAX
+``_conv3`` rounds in ``compute_dtype``:
+
+* ``torch.float32`` (or None, the builder's default): f32 throughout;
+* ``torch.bfloat16``: each conv's input (the cutouts and the head's f32
+  feats included) and weights rounded to bf16, f32 sums + bias + leaky,
+  each activation stored in bf16; the feats leave as f32 holding bf16
+  values; the head averages its last activation (bf16) in f32, rounds the
+  mean to bf16, and the cls/reg products take bf16 operands with f32 sums.
+
+Bound on the H100: operations, ~15.2 MFLOP a cutout (backbone) and ~28.9
+MFLOP (head) at L=56: f32 at 67 TFLOP/s outside the tensor cores, bf16 on
+them at 989 TFLOP/s. The kernels keep a tile of cutouts in shared memory
+across every layer (what the TPU kernels kept in VMEM); f32 runs
+register-tiled FFMA products, bf16 the tensor-core conv layer of K2/K4.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from planar_optical_flow_tpu_torch.ops.kernels import _build, fold
+from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import recip
+
+_LEAKY_SLOPE = 0.1
+_PLAIN_CHUNK = 16384  # cutouts per pass of the plain versions (bounds memory)
+BACKBONE_CHANNELS = (1, 64, 64, 128, 128, 128, 256)
+HEAD_CHANNELS = (256, 256, 256, 512, 256, 128)
+
+__all__ = ["backbone_weights", "fused_backbone", "fused_backbone_plain",
+           "fused_head", "fused_head_plain", "head_weights"]
+
+
+def backbone_weights(backbone) -> list:
+    """The six folded backbone convs ``[(w (3, Cin, Cout) f32, b (Cout,)
+    f32), ...]`` (the JAX ``backbone_weights``, as pairs)."""
+    return fold.backbone_blocks(backbone)
+
+
+@torch.no_grad()
+def head_weights(head) -> list:
+    """The five folded head convs, then ``(wc (128, classes), bc)`` and
+    ``(wr (128, 2), br)``, all f32 (the JAX ``head_weights``, as
+    pairs)."""
+    return fold.head_conv_blocks(head) + [
+        (lin.weight.t().float().contiguous(), lin.bias.float().contiguous())
+        for lin in (head.cls, head.reg)]
+
+
+def _dtype(compute_dtype):
+    dt = torch.float32 if compute_dtype is None else compute_dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{compute_dtype}")
+    return dt
+
+
+def _conv3(x, w, b, dt):
+    """The JAX ``_conv3`` on ``(N, Cin, L)``: operands rounded to ``dt``,
+    f32 sums + bias, leaky, the activation stored in ``dt`` (returned as
+    f32 holding those values)."""
+    wk = w.to(dt).float().permute(2, 1, 0)  # (Cout, Cin, 3)
+    acc = F.conv1d(x.to(dt).float(), wk, padding=1) + b.float()[:, None]
+    return torch.where(acc > 0, acc, _LEAKY_SLOPE * acc).to(dt).float()
+
+
+def _chunks(n):
+    return range(0, n, _PLAIN_CHUNK)
+
+
+def fused_backbone_plain(cutouts, weights, tile: int = 64,
+                         compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`fused_backbone` (same arguments)."""
+    del tile
+    dt = _dtype(compute_dtype)
+    outs = []
+    for i in _chunks(cutouts.shape[0]):
+        x = cutouts[i:i + _PLAIN_CHUNK].float()[:, None, :]  # (n, 1, L)
+        for k, (w, b) in enumerate(weights):
+            x = _conv3(x, w, b, dt)
+            if k in (2, 5):
+                x = F.max_pool1d(x, 2)
+        outs.append(x.transpose(1, 2))
+    return torch.cat(outs).to(cutouts.dtype)
+
+
+def fused_head_plain(feats, weights, num_classes: int = 1, tile: int = 64,
+                     compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of :func:`fused_head` (same arguments)."""
+    del tile, num_classes  # the weights carry the classes
+    dt = _dtype(compute_dtype)
+    (wc, bc), (wr, br) = weights[5:]
+    cls, reg = [], []
+    for i in _chunks(feats.shape[0]):
+        x = feats[i:i + _PLAIN_CHUNK].float().transpose(1, 2)
+        for k, (w, b) in enumerate(weights[:5]):
+            x = _conv3(x, w, b, dt)
+            if k == 2:
+                x = F.max_pool1d(x, 2)
+        # the mean over positions: a running sum times the f32 reciprocal
+        # of the count (XLA's form of jnp.mean's division), rounded to dt
+        acc = x[..., 0]
+        for p in range(1, x.shape[-1]):
+            acc = acc + x[..., p]
+        mean = (acc * recip(x.shape[-1])).to(dt).float()
+        cls.append(mean @ wc.to(dt).float() + bc.float())
+        reg.append(mean @ wr.to(dt).float() + br.float())
+    return torch.cat(cls), torch.cat(reg)
+
+
+def _kernel_weights(weights, chans, dt, what):
+    """``[(w (3, Cin, Cout), b), ...]`` -> contiguous ``(3*Cin, Cout)``
+    weights in ``dt`` and f32 biases on the card, checked against the
+    stack's channels."""
+    ws, bs = [], []
+    for (w, b), cin, cout in zip(weights, chans[:-1], chans[1:]):
+        if tuple(w.shape) != (3, cin, cout) or tuple(b.shape) != (cout,):
+            raise ValueError(f"{what}: layer ({cin}->{cout}) needs w (3, "
+                             f"{cin}, {cout}) and b ({cout},), got "
+                             f"{tuple(w.shape)} and {tuple(b.shape)}")
+        ws.append(w.reshape(3 * cin, cout).to(dt).contiguous())
+        bs.append(b.float().contiguous())
+    return ws, bs
+
+
+def _ptr_array(tensors, device):
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"weights on {t.device}, input on {device}")
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def fused_backbone(cutouts, weights, tile: int = 64,
+                   compute_dtype=torch.bfloat16):
+    """``(N, L)`` f32 cutouts -> ``(N, L/4, 256)`` f32 features.
+
+    ``weights``: :func:`backbone_weights`. ``tile`` is accepted for API
+    parity with the JAX function (the kernel picks its own tile). A CUDA
+    tensor launches K14's backbone; a CPU tensor runs
+    :func:`fused_backbone_plain`.
+    """
+    if cutouts.device.type == "cpu":
+        return fused_backbone_plain(cutouts, weights, tile, compute_dtype)
+    dt = _dtype(compute_dtype)
+    n, l = cutouts.shape
+    if l % 4 or l < 4:
+        raise ValueError(f"fused_backbone: L={l} must be a positive multiple "
+                         "of 4")
+    if cutouts.dtype != torch.float32:
+        raise ValueError(f"fused_backbone: cutouts must be float32, got "
+                         f"{cutouts.dtype}")
+    if len(weights) != 6:
+        raise ValueError("fused_backbone: need the six backbone convs")
+    ws, bs = _kernel_weights(weights, BACKBONE_CHANNELS, dt, "fused_backbone")
+    cutouts = cutouts.contiguous()
+    feats = torch.empty(n, l // 4, 256, dtype=torch.float32,
+                        device=cutouts.device)
+    fn = _build.load("fused_drow").fused_backbone_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    _build.check(fn(cutouts.data_ptr(), _ptr_array(ws, cutouts.device),
+                    _ptr_array(bs, cutouts.device), feats.data_ptr(), n, l,
+                    int(dt == torch.float32),
+                    _build.stream_ptr(cutouts.device)), "fused_backbone")
+    fused_backbone.launches += 1
+    return feats
+
+
+def fused_head(feats, weights, num_classes: int = 1, tile: int = 64,
+               compute_dtype=torch.bfloat16):
+    """``(N, L4, 256)`` f32 features -> (cls ``(N, num_classes)`` f32, reg
+    ``(N, 2)`` f32).
+
+    ``weights``: :func:`head_weights`; ``tile`` as for
+    :func:`fused_backbone`. A CUDA tensor launches K14's head; a CPU tensor
+    runs :func:`fused_head_plain`.
+    """
+    if feats.device.type == "cpu":
+        return fused_head_plain(feats, weights, num_classes, tile,
+                                compute_dtype)
+    dt = _dtype(compute_dtype)
+    n, l4, c = feats.shape
+    if c != 256 or l4 % 2 or not 2 <= l4 <= 32:
+        raise ValueError(f"fused_head: feats (N, L4, 256) with L4 even in "
+                         f"[2, 32], got {tuple(feats.shape)}")
+    if feats.dtype != torch.float32:
+        raise ValueError(f"fused_head: feats must be float32, got "
+                         f"{feats.dtype}")
+    if not 1 <= num_classes <= 8 or len(weights) != 7:
+        raise ValueError("fused_head: need 1 <= num_classes <= 8 and the "
+                         "five convs, cls and reg")
+    ws, bs = _kernel_weights(weights[:5], HEAD_CHANNELS, dt, "fused_head")
+    for (w, b), cout in zip(weights[5:], (num_classes, 2)):
+        if tuple(w.shape) != (128, cout) or tuple(b.shape) != (cout,):
+            raise ValueError(f"fused_head: linear needs w (128, {cout}) and "
+                             f"b ({cout},), got {tuple(w.shape)}")
+        ws.append(w.to(dt).contiguous())
+        bs.append(b.float().contiguous())
+    feats = feats.contiguous()
+    cls = torch.empty(n, num_classes, dtype=torch.float32, device=feats.device)
+    reg = torch.empty(n, 2, dtype=torch.float32, device=feats.device)
+    fn = _build.load("fused_drow").fused_head_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    _build.check(fn(feats.data_ptr(), _ptr_array(ws, feats.device),
+                    _ptr_array(bs, feats.device), cls.data_ptr(),
+                    reg.data_ptr(), n, l4, num_classes,
+                    int(dt == torch.float32), _build.stream_ptr(feats.device)),
+                 "fused_head")
+    fused_head.launches += 1
+    return cls, reg
+
+
+fused_backbone.launches = 0
+fused_head.launches = 0

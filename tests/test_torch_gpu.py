@@ -1,12 +1,15 @@
-"""The CUDA kernels (K1-K10, K12, K13, K16) against their plain PyTorch
-versions, on the card, and the fused kernels (K8, K12, K13) to the bit
-against the unfused kernels they fuse.
+"""The CUDA kernels (K1-K16) against their plain PyTorch versions, on the
+card, and the fused kernels (K8, K12, K13) to the bit against the unfused
+kernels they fuse.
 
 Marked ``gpu``: they skip without a card and run on one with
 ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``. Shapes
 are the test geometry (16 cutout points, window 5) and the flagship one
 (56 points, window 11), at a few streams. bf16 outputs within 2e-2 x
-max|plain|; int8 outputs within 1 LSB with under 5e-3 of them off by one.
+max|plain|; int8 outputs within 1 LSB with under 5e-3 of them off by one;
+K14's f32 outputs within 1e-3 x |plain| + 1e-4 x max|plain|, K3's f32 mode
+at 2e-5 (template) and 2e-4 (z, sim), K15 within one bf16 ulp (or 2^-17 x
+max where its f32 sum cancels) and within 1e-5 in f32.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch.infer.calibration import calibrate_serve_v3
 from planar_optical_flow_tpu_torch.infer.fast_gate import (
+    banded_mix_update,
+    banded_mix_update_plain,
     gate,
     gate_head_int8,
     gate_head_int8_plain,
@@ -28,7 +33,9 @@ from planar_optical_flow_tpu_torch.infer.fast_gate import (
 )
 from planar_optical_flow_tpu_torch.infer.streaming import int8_weights
 from planar_optical_flow_tpu_torch.models import FlowDrow
+from planar_optical_flow_tpu_torch.ops import quantized_drow as qd
 from planar_optical_flow_tpu_torch.ops.kernels import conv_stack, fold, quant
+from planar_optical_flow_tpu_torch.ops.kernels import fused_drow as fd
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     backbone_int8,
     backbone_int8_plain,
@@ -399,3 +406,87 @@ def test_serve_cell_int8_kernel(cuda, num_pts, ct_len, window):
                        num_classes=1, l4=l4)
     for g, c in zip(got, chain):
         assert torch.equal(g, c)
+
+
+@pytest.mark.parametrize("ct_len,window", [(16, 5), (56, 11)])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_fused_drow_kernels(cuda, ct_len, window, mode):
+    """K14's backbone and head against their plain versions, at a row count
+    that is a multiple of neither tile."""
+    det = _model(ct_len, window, cuda).dr_spaam
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    rng = np.random.default_rng(8)
+    cut = torch.tensor(rng.normal(0.0, 0.6, (37, ct_len)),
+                       dtype=torch.float32, device=cuda)
+    w_bb, w_hd = fd.backbone_weights(det.backbone), fd.head_weights(det.head)
+    n0 = (fd.fused_backbone.launches, fd.fused_head.launches)
+    feats = fd.fused_backbone(cut, w_bb, compute_dtype=dt)
+    cls, reg = fd.fused_head(feats, w_hd, compute_dtype=dt)
+    torch.cuda.synchronize()
+    assert (fd.fused_backbone.launches, fd.fused_head.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    pairs = [(feats, fd.fused_backbone_plain(cut, w_bb, compute_dtype=dt))]
+    pairs += list(zip((cls, reg), fd.fused_head_plain(feats, w_hd,
+                                                      compute_dtype=dt)))
+    for got, ref in pairs:
+        if mode == "f32":
+            lim = 1e-3 * ref.abs() + 1e-4 * ref.abs().max()
+            assert bool(((got - ref).abs() <= lim).all())
+        else:
+            _close(got, ref, BF16_REL)
+
+
+def test_gate_f32_kernel(cuda):
+    """K3's f32 mode at an unpadded ct (450 rows a stream, and 64)."""
+    rng = np.random.default_rng(9)
+    for ct, window, d in ((64, 5, 1024), (450, 11, 3584)):
+        n = 2 * ct
+        args = [torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                             device=cuda)
+                for shape in ((n, 128), (n, 128), (n, d), (n, d))]
+        kw = dict(ct=ct, alpha=0.5, window_size=window)
+        got = gate(*args, **kw)
+        torch.cuda.synchronize()
+        ref = gate_plain(*args, **kw)
+        for g, r, tol in zip(got, ref, (2e-5, 2e-4, 2e-4)):
+            assert g.dtype == torch.float32
+            assert torch.allclose(g, r, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_banded_mix_kernel(cuda, dtype):
+    rng = np.random.default_rng(10)
+    b, ct, window, d = 3, 450, 11, 3584
+    attn = torch.tensor(rng.uniform(0.0, 1.0, (b, ct, window)),
+                        dtype=torch.float32, device=cuda)
+    x, t = (torch.tensor(rng.normal(size=(b, ct, d)), dtype=dtype,
+                         device=cuda) for _ in range(2))
+    n0 = banded_mix_update.launches
+    got = banded_mix_update(attn, x, t, 0.5, window)
+    torch.cuda.synchronize()
+    assert banded_mix_update.launches == n0 + 1 and got.dtype == dtype
+    ref = banded_mix_update_plain(attn, x, t, 0.5, window)
+    if dtype == torch.float32:
+        assert torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        got, ref = got.float(), ref.float()
+        top = torch.maximum(got.abs(), ref.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(
+            top, min=2.0 ** -126))) - 7)
+        lim = torch.clamp(ulp, min=2.0 ** -17 * float(ref.abs().max()))
+        assert bool(((got - ref).abs() <= lim).all())
+
+
+def test_quantized_stack_on_the_card(cuda):
+    """The int8 stacks' torch._int_mm sums on the card equal the float64
+    sums of the CPU, so the card and the CPU give the same activations."""
+    det = _model(16, 5, cuda).dr_spaam
+    rng = np.random.default_rng(11)
+    cut = rng.normal(0.0, 0.5, (40, 16)).astype(np.float32)
+    w_bb = [(w.cpu(), b.cpu()) for w, b in fd.backbone_weights(det.backbone)]
+    cpu = qd.build_quantized_backbone(w_bb, cut)
+    card = qd.build_quantized_backbone(w_bb, cut, device=cuda)
+    x = torch.from_numpy(cut[..., None])
+    q = cpu.quantize_input(x)
+    assert torch.equal(card.quantize_input(x.to(cuda)).cpu(), q)
+    assert torch.equal(card(q.to(cuda)).cpu(), cpu(q))
