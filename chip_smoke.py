@@ -17,7 +17,9 @@ Phases:
    for the f32 reference;
 2. build every kernel from ``planar_optical_flow_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` report and
-   each kernel's dynamic shared memory;
+   each kernel's dynamic shared memory; the launch geometry of K5, K9, K10
+   and K7 (cutouts a block, rows a cutout, shared memory) equal to
+   ``int8_tiles``' and within the card's 232,448 bytes;
 3. the model, from a seeded ``torch.Generator``, with seeded BN stats, and
    the int8 calibration on ``scans[0][:8]`` (as ``bench.py`` calibrates);
 4. each kernel at the flagship shapes against its plain PyTorch version on
@@ -70,7 +72,11 @@ Phases:
    each, ``make_quantized_stream_step`` (no kernel; mean |pred_cls - module|
    < 0.05, ``tests/test_quantized.py``), and ``make_serve_sequence_processor``
    over the int8c p2 step, equal to the bit to the per-step run;
-6. the kernels line, the card line and the result line.
+6. ``[trace]``: ``torch.profiler`` over 3 carried steps of the int8c
+   runner (the JAX serving default): the device busy share, the top device
+   operations and the time a step spends outside K1/K5/K6/K7 ("not
+   measured" where the profiler records no device time);
+7. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
@@ -1478,6 +1484,74 @@ def engines_slice_phase(model, scans, device, calib):
     return all_launches, all_ms
 
 
+def trace_phase(model, scans, device, calib, steps=3, top=12):
+    """The ``[trace]`` phase: ``torch.profiler`` (CPU + CUDA activities)
+    over ``steps`` carried steps of ``StreamingRunner(engine="int8c")``
+    (after its bootstrap and one carried step); prints the device busy
+    share of the window, the top device operations by time and the time a
+    step spends outside K1/K5/K6/K7, or "not measured" where the profiler
+    recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from planar_optical_flow_tpu_torch.infer.streaming import StreamingRunner
+
+    runner = StreamingRunner(model, CUTOUT_KW, engine="int8c", calib=calib,
+                             num_pts=NUM_PTS, device=device)
+    runner(scans[0])
+    runner(scans[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for scan in scans[2:2 + steps]:
+            runner(scan)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        tot, cnt = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (tot + (end - start) / 1e3, cnt + 1)
+    print(f"[trace] {steps} carried int8c p2 steps at B={scans.shape[1]}: "
+          f"{wall_ms:.3f} ms a step (host clock)", flush=True)
+    if not spans:
+        print("[trace] device busy share: not measured (the profiler "
+              "recorded no device time); top device operations: not "
+              "measured; time outside K1/K5/K6/K7: not measured", flush=True)
+        return
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy + cur_e - cur_s) / 1e3 / steps
+    print(f"[trace] device busy {busy:.3f} ms a step = share "
+          f"{busy / wall_ms:.4f} of the host-clock step", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (tot, cnt) in ranked[:top]:
+        print(f"[trace] device op {tot / steps:.4f} ms a step, "
+              f"{cnt / steps:g} a step: {name[:150]}", flush=True)
+    ours = {"K1": ("cutout_kernel",), "K5": ("backbone_int8", "embed_kernel"),
+            "K6": ("gate_int8_kernel",), "K7": ("head_int8",)}
+    per = {k: sum(t for n, (t, _) in by_name.items()
+                  if any(s in n for s in subs)) / steps
+           for k, subs in ours.items()}
+    inside = sum(per.values())
+    other_dev = sum(t for t, _ in by_name.values()) / steps - inside
+    print("[trace] a step: " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in per.items())
+          + f"; outside K1/K5/K6/K7 {wall_ms - inside:.4f} ms (other device "
+          f"ops {other_dev:.4f} ms, device idle {wall_ms - busy:.4f} ms)",
+          flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1493,7 +1567,7 @@ def main(argv=None):
     from planar_optical_flow_tpu_torch.infer.calibration import (
         calibrate_serve_v3,
     )
-    from planar_optical_flow_tpu_torch.ops.kernels import _build
+    from planar_optical_flow_tpu_torch.ops.kernels import _build, int8_tiles
 
     device = torch.device("cuda")
     card = card_line()
@@ -1510,7 +1584,7 @@ def main(argv=None):
     for name, rep in sorted(report.items()):
         for line in rep["log"].splitlines():
             if any(s in line for s in ("Compiling entry", "registers",
-                                       "spill")):
+                                       "spill", "Performance Loss")):
                 print(f"[ptxas {name}] {line.strip()}")
 
     p_pad = -(-NUM_PTS // 8) * 8
@@ -1552,6 +1626,24 @@ def main(argv=None):
         print(f"[smem] {fn[:-len('_smem_bytes')]}: {f(*arg)} bytes of "
               f"dynamic shared memory per block{note}")
 
+    # the launch geometry of the wgmma kernels, as the host lays out for it
+    geo = _build.load("conv_stack_int8").int8_wg_geometry
+    geo.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    for name, which, l, mode, want in (
+            ("K5", 0, c, 0, int8_tiles.backbone_geometry(c, 0)),
+            ("K9", 0, c, 1, int8_tiles.backbone_geometry(c, 1)),
+            ("K10", 0, c, 2, int8_tiles.backbone_geometry(c, 2)),
+            ("K7", 1, c // 4, 0, int8_tiles.head_geometry(c // 4))):
+        tile, rows, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+        geo(which, l, mode, ctypes.byref(tile), ctypes.byref(rows),
+            ctypes.byref(smem))
+        got = (tile.value, rows.value, smem.value)
+        print(f"[geometry] {name}: {got[0]} cutouts a block, {got[1]} rows a "
+              f"cutout, {got[2]} bytes of shared memory (int8_tiles: "
+              f"{want})", flush=True)
+        check(got == want and got[2] <= int8_tiles.SMEM_MAX,
+              f"{name} launch geometry {got}, int8_tiles {want}")
+
     model = build_model(args.seed, device)
     rng = np.random.default_rng(args.seed)
     scans = torch.tensor(rng.uniform(0.5, 25.0, (STEPS, BATCH, NUM_PTS)),
@@ -1592,6 +1684,9 @@ def main(argv=None):
               f"{json.dumps([round(t, 3) for t in step_ms[name]])} carried "
               f"median {carried:.3f} ms = {BATCH / carried * 1e3:.1f} "
               f"scans/s on {card}", flush=True)
+
+    torch.cuda.empty_cache()
+    trace_phase(model, scans, device, calib)
 
     kernels = []
     for name, (src, replaces, wrapper, run) in KERNELS.items():

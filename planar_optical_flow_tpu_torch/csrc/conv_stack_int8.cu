@@ -42,83 +42,365 @@
 //       over positions (a sequential sum, then one division); cls and reg
 //       from bf16(mean) and bf16 weights with f32 accumulation.
 //   K16: left[r] = x[r - 1] and right[r] = x[r + 1] of an int8 (rows, 128)
-//       array, zero at the ends of each length-L cutout, read with the
-//       tile loader K10 uses and the tap address of every int8 conv.
+//       array, zero at the ends of each length-L cutout, read through both
+//       tile layouts and tap addresses the int8 convs use (below).
 //
-// Design (int8_stack.cuh has the conv, layer 1, the backbone tail and the
-// head, shared with serve_cell.cu): a block owns kTile cutouts and keeps
-// their activations in shared memory across every layer, as K2/K4 do:
-// device memory sees the f32 cutouts (or the int8 template) in and the
-// outputs only. The TPU kernels' position-major rows and pack-2 lanes are
-// TPU layout devices and are not carried over: the int32 sums are the same
-// in any layout.
+// Design. Every kernel keeps a block's cutouts in shared memory across all
+// its layers: device memory sees the f32 cutouts (or the int8 template) in
+// and the outputs only. The TPU kernels' position-major rows and pack-2
+// lanes are TPU layout devices and are not carried over: the int32 sums are
+// the same in any layout.
 //
-// K10 fills the tile from its int8 input rows instead of computing layer 1,
-// and with bf16 feats its last conv writes bf16 values over the free buffer
-// (the embed reads them there). K8's block loads its stream's whole scan
-// (the taps of a close beam reach ~180 beams away), computes the scan's
-// prefix sum in area mode, and the cutouts of its own 8 beams into the f32
-// cutout buffer K5 reads: the (N, L) cutout tensor never exists in device
-// memory. Its blocks never straddle two streams (the padded scan length is
-// a multiple of kTile). K16 is one small launch of the same loader and tap
-// addressing on a known pattern.
+// K5/K9/K10 and K7 run on int8_wgmma.cuh: 16 cutouts a block in the packed
+// tile (cutouts back to back, one or two zero rows between them), wgmma
+// m64nNk32 s8 products (N = 64-256) with both operands in shared memory,
+// the weights staged by cp.async into a 4 x 16 KB ring two chunks ahead of
+// use (the host lays them out in the descriptor's core-matrix order,
+// int8_tiles.wgmma_weights), two warp groups, 256 threads and one block per
+// SM. They work against the int8 tensor-core rate: one instruction covers
+// 64 rows x up to 256 channels, each weight byte crosses L2 once per 16
+// cutouts, off the critical path, and the 7-position head stage fills 7 of
+// 8 rows. The per-stage split (PERF.md) shows what is left: the epilogues,
+// which both warp groups run at once while the tensor cores idle, and a
+// barrier every chunk.
+
+// The gate embed of K5/K9/K10 is a second kernel, embed_kernel, launched by
+// the same entry over all N cutouts on the feats the first one wrote: 128
+// cutouts a block, We^T staged in shared memory by cp.async, bf16
+// mma.sync.m16n8k16 with the contraction in K-order, so that each zx is the
+// same chain of products and f32 sums as the embed of K8 and K13 (which
+// keep int8_stack.cuh's conv, mma.sync with 8 cutouts a block): K8 and K13
+// stay equal to the bit to K1 -> K5 and K9 -> K6 -> K7.
 //
-// Bound: tensor-core operations at the int8 peak: about 16.1 M operations
-// per cutout for K5/K8/K9 at L=56 (the bf16 embed included), 16.0 M for
-// K10, and 28.9 M for K7 at L/4=14, against ~0.4 KB (K5/K9; K8 reads the
-// 4-byte range instead of the 224-byte cutout), ~7.2 KB (K10: 3.6 KB of act1
-// in, 3.5 KB of int8 or 7 KB of bf16 feats out) and ~3.6 KB (K7) of
-// device-memory traffic. Positions are padded to 16 per MMA tile, which
-// wastes 12% of the backbone's and up to 56% of K7's last two convs (7
-// positions in a 16-row tile). K16 is bound by its launch.
+// K10 fills the tile from its int8 input rows instead of computing layer 1;
+// with bf16 feats its last conv writes the bf16 rows straight to device
+// memory. K8's block loads its stream's whole scan (the taps of a close
+// beam reach ~180 beams away), computes the scan's prefix sum in area mode,
+// and the cutouts of its own 8 beams into the f32 cutout buffer its
+// backbone reads: the (N, L) cutout tensor never exists in device memory.
+// Its blocks never straddle two streams (the padded scan length is a
+// multiple of kTile). K16 is one small launch of the loaders and tap
+// addresses of both conv layouts on a known pattern: a byte where the two
+// disagree comes out as -128, which no pattern value is.
+//
+// Bound on this card (NVIDIA H100, 1,979 TOP/s int8, 989 TFLOP/s bf16):
+// tensor-core operations: about 15.1 M int8 operations per cutout for the
+// backbone convs at L=56 and 0.9 M bf16 for the embed, 28.9 M int8 for K7 at
+// L/4=14, against ~0.4 KB (K5/K9; K8 reads the 4-byte range instead of the
+// 224-byte cutout), ~7.2 KB (K10: 3.6 KB of act1 in, 3.5 KB of int8 or 7 KB
+// of bf16 feats out) and ~3.6 KB (K7) of device-memory traffic per cutout.
+// K16 is bound by its launch.
 
 #include "cutout.cuh"
-#include "int8_stack.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
-// K5 (L1 = kFold), K9 (kDivide) and K10 (kRead). Shared memory: two tile
-// buffers of kTile * S bytes, then the f32 cutouts (kFold/kDivide). With
-// F_OUT the last conv writes bf16 feats (kTile x L/4 x 256) from the start
-// of buf1, which is free by then, into the space after it.
+// the plans of the wgmma convs, (Cin, Cout, row tiles, n64 tiles) a warp
+// group; int8_tiles.BACKBONE_PLAN and HEAD_PLAN mirror them
+using BbPlan0 = ConvPlan<64, 64, 4, 1>;
+using BbPlan1 = ConvPlan<64, 128, 2, 2>;
+using BbPlan2 = ConvPlan<128, 128, 2, 2>;  // layers 4 and 5
+using BbPlan4 = ConvPlan<128, 256, 2, 2>;
+using HdPlan0 = ConvPlan<256, 256, 2, 2>;  // head convs 1 and 2
+using HdPlan2 = ConvPlan<256, 512, 2, 2>;
+using HdPlan3 = ConvPlan<512, 256, 1, 4>;
+using HdPlan4 = ConvPlan<256, 128, 1, 2>;
+
+constexpr size_t kSmemMax = 232448;  // dynamic shared memory a block may use
+// the ring, then a conv's s_eff/b_eff: where a wgmma kernel's tiles start
+constexpr int kRingBytes = kStages * kStageBytes + kScaleBytes;
+
+size_t round128(size_t x) { return (x + 127) / 128 * 128; }
+
+// a backbone block's tile region (each of two): the packed tiles of its
+// stages and its int8 feats rows
+size_t backbone_region(int l, int T) {
+  size_t r = imax(ptile_bytes(l, 64, T), ptile_bytes(l / 2, 128, T));
+  r = r > (size_t)T * (l / 4) * 256 ? r : (size_t)T * (l / 4) * 256;
+  return round128(r);
+}
+
+size_t backbone_smem(int l, int L1, int T) {
+  return kRingBytes + 2 * backbone_region(l, T) +
+         (L1 != kRead ? (size_t)T * l * sizeof(float) : 0);
+}
+
+// a head block's tile region (each of two): the packed tiles of its stages
+// and the last conv's f32 rows
+size_t head_region(int l4, int T) {
+  size_t r = imax(ptile_bytes(l4, 256, T), ptile_bytes(l4 / 2, 512, T));
+  const size_t f = (size_t)T * (l4 / 2) * 128 * sizeof(float);
+  return round128(r > f ? r : f);
+}
+
+size_t head_smem(int l4, int T) {
+  return kRingBytes + 2 * head_region(l4, T) +
+         (size_t)T * 128 * sizeof(float);
+}
+
+// cutouts a block: the most (kWgTile, halved) whose shared memory fits
+int backbone_tile(int l, int L1) {
+  int T = kWgTile;
+  while (T > 1 && backbone_smem(l, L1, T) > kSmemMax) T /= 2;
+  return T;
+}
+
+int head_tile(int l4) {
+  int T = kWgTile;
+  while (T > 1 && head_smem(l4, T) > kSmemMax) T /= 2;
+  return T;
+}
+
+// Backbone layer 1 from the block's f32 cutouts (nv x L in cut_s) into the
+// zeroed packed tile: layer1_tile's arithmetic, ((xl * w0 + x * w1) + xr *
+// w2) + b, leaky (kDivide: then one division by in_scale), rint, clip; each
+// consumer thread keeps the weights of 4 channels in registers and writes
+// them as one 4-byte store, 16 positions at a time.
+template <int L1>
+__device__ __forceinline__ void layer1_packed(const float* cut_s,
+                                              const float* __restrict__ w1,
+                                              const float* __restrict__ b1,
+                                              float in_scale, int8_t* tile,
+                                              int nv, int L, int T) {
+  const int ch = 4 * (threadIdx.x & 15);
+  const int S = pstride(L), rows = prows(L, T);
+  float w[3][4], b[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int t = 0; t < 3; ++t) w[t][j] = w1[64 * t + ch + j];
+    b[j] = b1[ch + j];
+  }
+  for (int r = threadIdx.x >> 4; r < nv * L; r += kWgThreads / 16) {
+    const int c = r / L, p = r - c * L;
+    const float x = cut_s[r];
+    const float xl = p > 0 ? cut_s[r - 1] : 0.0f;
+    const float xr = p < L - 1 ? cut_s[r + 1] : 0.0f;
+    char q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float a = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(xl, w[0][j]), __fmul_rn(x, w[1][j])),
+                    __fmul_rn(xr, w[2][j])),
+          b[j]);
+      const float y =
+          L1 == kDivide ? __fdiv_rn(leaky(a), in_scale) : leaky(a);
+      q[j] = (char)requant(y);
+    }
+    *reinterpret_cast<char4*>(packed_at(tile, rows, c * S + 1 + p, ch)) =
+        make_char4(q[0], q[1], q[2], q[3]);
+  }
+}
+
+// K5 (L1 = kFold), K9 (kDivide) and K10 (kRead): layer 1 (or the int8 act1
+// rows) and the five tail convs on int8_wgmma.cuh; feats out (int8 rows
+// through shared memory, or with F_OUT the bf16 rows straight out). The gate
+// embed is embed_kernel's. Shared memory: the ring, two tile regions of R
+// bytes, the f32 cutouts (kFold/kDivide).
 template <int L1, bool F_OUT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWgThreads, 1)
     backbone_int8_kernel(const void* __restrict__ in,
                          const float* __restrict__ w1,
                          const float* __restrict__ b1, float in_scale,
-                         const TailWeights tw, const bf16* __restrict__ we_t,
-                         const bf16* __restrict__ be, void* __restrict__ feats,
-                         bf16* __restrict__ zx, int n, int L, int S) {
+                         const __grid_constant__ TailWeights tw,
+                         void* __restrict__ feats, int n, int L, int T,
+                         int R) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* buf0 = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* buf1 = buf0 + (size_t)kTile * S;
-  float* cut_s = reinterpret_cast<float*>(buf1 + (size_t)kTile * S);
-  const int c0 = blockIdx.x * kTile;
-  const int nv = min(kTile, n - c0);
+  float* sb = reinterpret_cast<float*>(smem_raw + kStages * kStageBytes);
+  int8_t* bufa = reinterpret_cast<int8_t*>(smem_raw + kRingBytes);
+  int8_t* bufb = bufa + R;
+  float* cut_s = reinterpret_cast<float*>(bufb + R);
+  const int c0 = blockIdx.x * T;
+  const int nv = min(T, n - c0);
+  const int L2 = L / 2, L4 = L / 4;
+  // the weight chunks of the five convs, in the order they are used
+  auto sched = [&](int j, const int8_t*& src, int& bytes) {
+    return chunk_of<BbPlan0>(j, tw.w[0], L, T, src, bytes) ||
+           chunk_of<BbPlan1>(j, tw.w[1], L, T, src, bytes) ||
+           chunk_of<BbPlan2>(j, tw.w[2], L2, T, src, bytes) ||
+           chunk_of<BbPlan2>(j, tw.w[3], L2, T, src, bytes) ||
+           chunk_of<BbPlan4>(j, tw.w[4], L2, T, src, bytes);
+  };
 
-  zero_smem(buf0, kTile * S);
-  zero_smem(buf1, kTile * S);
+  Ring ring = ring_start(smem_raw, sched);
+  zero_smem(bufa, R);
+  zero_smem(bufb, R);
   if (L1 != kRead) {
     const float* cut = static_cast<const float*>(in);
-    for (int idx = threadIdx.x; idx < nv * L; idx += kThreads)
+    for (int idx = threadIdx.x; idx < nv * L; idx += kWgThreads)
       cut_s[idx] = cut[(size_t)c0 * L + idx];
   }
   __syncthreads();
-
   if (L1 == kRead) {
-    load_rows<64>(static_cast<const int8_t*>(in), buf0, c0, nv, L, S);
+    load_packed<64>(static_cast<const int8_t*>(in), bufa, c0, nv, L, T);
   } else {
-    layer1_tile<L1>(cut_s, w1, b1, in_scale, buf0, nv, L, S);
+    layer1_packed<L1>(cut_s, w1, b1, in_scale, bufa, nv, L, T);
   }
   __syncthreads();
-  backbone_tail<F_OUT, true>(buf0, buf1, tw, we_t, be, feats,
-                             zx + (size_t)c0 * 128, c0, nv, L, S);
+  conv_wg<64, 64, 4, 1, kWgStore>(bufa, bufb, L, T, nv, c0, ring, sched, sb,
+                                  tw.s[0], tw.b[0]);
+  __syncthreads();
+  zero_smem(bufa, R);
+  __syncthreads();
+  conv_wg<64, 128, 2, 2, kWgPool>(bufb, bufa, L, T, nv, c0, ring, sched, sb,
+                                  tw.s[1], tw.b[1]);
+  __syncthreads();
+  zero_smem(bufb, R);
+  __syncthreads();
+  conv_wg<128, 128, 2, 2, kWgStore>(bufa, bufb, L2, T, nv, c0, ring, sched, sb,
+                                    tw.s[2], tw.b[2]);
+  __syncthreads();
+  zero_smem(bufa, R);
+  __syncthreads();
+  conv_wg<128, 128, 2, 2, kWgStore>(bufb, bufa, L2, T, nv, c0, ring, sched, sb,
+                                    tw.s[3], tw.b[3]);
+  __syncthreads();
+  if (F_OUT) {
+    conv_wg<128, 256, 2, 2, kWgPoolBf16>(bufa, feats, L2, T, nv, c0, ring,
+                                         sched, sb, tw.s[4], tw.b[4]);
+  } else {
+    conv_wg<128, 256, 2, 2, kWgPoolRows>(bufa, bufb, L2, T, nv, c0, ring, sched,
+                                         sb, tw.s[4], tw.b[4]);
+    __syncthreads();
+    // the block's feats rows, contiguous in device memory as in bufb
+    uint4* dst = reinterpret_cast<uint4*>(static_cast<int8_t*>(feats) +
+                                          (size_t)c0 * L4 * 256);
+    for (int idx = threadIdx.x; idx < nv * L4 * 16; idx += kWgThreads)
+      dst[idx] = reinterpret_cast<const uint4*>(bufb)[idx];
+  }
+  cp_async_wait<0>();  // the zero copies past the last chunk
+}
+
+// ---- the gate embed --------------------------------------------------
+
+constexpr int kEmbRows = 128;   // cutouts a block
+constexpr int kEmbK = 64;       // contraction a stage
+constexpr int kEmbStages = 3;
+
+template <typename TA>
+__host__ __device__ constexpr int emb_lda() {
+  return kEmbK * (int)sizeof(TA) + 16;
+}
+constexpr int kEmbLdb = kEmbK * 2 + 16;
+
+template <typename TA>
+constexpr size_t embed_smem() {
+  return (size_t)kEmbStages * kEmbRows * (emb_lda<TA>() + kEmbLdb);
+}
+
+// zx = bf16(feats_flat @ We + be) over n cutouts: feats (n, K) int8 or bf16
+// (K = L/4 * 256; int8 values are exact in bf16), we_t (128, K) bf16. Warp w
+// owns rows 32 (w % 4) .. + 31 and columns 64 (w / 4) .. + 63; each output
+// is one chain of mma.sync.m16n8k16 over k = 0, 16, ..., K - 16 from 0.0,
+// as the embed of int8_stack.cuh's backbone_tail computes it, then one f32
+// add of the bias and one rounding to bf16.
+template <typename TA>
+__global__ void __launch_bounds__(256)
+    embed_kernel(const TA* __restrict__ feats, const bf16* __restrict__ we_t,
+                 const bf16* __restrict__ be, bf16* __restrict__ zx, int n,
+                 int K) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int LDA = emb_lda<TA>();
+  unsigned char* sa = smem_raw;
+  unsigned char* sb = smem_raw + (size_t)kEmbStages * kEmbRows * LDA;
+  const int r0 = blockIdx.x * kEmbRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int kt_n = K / kEmbK;
+
+  auto load = [&](int kt) {
+    const int st = kt % kEmbStages, k0 = kt * kEmbK;
+    constexpr int VA = kEmbK * (int)sizeof(TA) / 16;  // vectors a row
+    for (int idx = threadIdx.x; idx < kEmbRows * VA; idx += 256) {
+      const int r = idx / VA, v = idx - r * VA;
+      const int row = min(r0 + r, n - 1);  // rows past n: not stored
+      cp_async16(sa + ((size_t)st * kEmbRows + r) * LDA + 16 * v,
+                 reinterpret_cast<const unsigned char*>(
+                     feats + (size_t)row * K + k0) + 16 * v);
+    }
+    for (int idx = threadIdx.x; idx < 128 * 8; idx += 256) {
+      const int col = idx >> 3, v = idx & 7;
+      cp_async16(sb + ((size_t)st * 128 + col) * kEmbLdb + 16 * v,
+                 we_t + (size_t)col * K + k0 + 8 * v);
+    }
+  };
+  auto a_pair = [&](const unsigned char* row, int k) -> uint32_t {
+    if (sizeof(TA) == 1) {
+      const int8_t* p = reinterpret_cast<const int8_t*>(row) + k;
+      return bf16x2_of(p[0], p[1]);
+    }
+    return *reinterpret_cast<const uint32_t*>(row + 2 * k);
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  for (int s = 0; s < kEmbStages - 1; ++s) {
+    if (s < kt_n) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < kt_n; ++kt) {
+    cp_async_wait<kEmbStages - 2>();
+    __syncthreads();
+    const int st = kt % kEmbStages;
+    const unsigned char* a_st = sa + (size_t)st * kEmbRows * LDA;
+    const unsigned char* b_st = sb + (size_t)st * 128 * kEmbLdb;
+#pragma unroll
+    for (int kk = 0; kk < kEmbK; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const unsigned char* ra = a_st + (size_t)(32 * wm + 16 * i + g) * LDA;
+        const unsigned char* rb = ra + 8 * LDA;
+        a[i][0] = a_pair(ra, kk + 2 * tq);
+        a[i][1] = a_pair(rb, kk + 2 * tq);
+        a[i][2] = a_pair(ra, kk + 8 + 2 * tq);
+        a[i][3] = a_pair(rb, kk + 8 + 2 * tq);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const unsigned char* cb =
+            b_st + (size_t)(64 * wn + 8 * j + g) * kEmbLdb + 2 * (kk + 2 * tq);
+        const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(cb),
+                               *reinterpret_cast<const uint32_t*>(cb + 16)};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b);
+      }
+    }
+    if (kt + kEmbStages - 1 < kt_n) load(kt + kEmbStages - 1);
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 32 * wm + 16 * i + g + 8 * h;
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * wn + 8 * j + 2 * tq;
+        bf16* z = zx + (size_t)row * 128 + col;
+        z[0] = __float2bfloat16(
+            __fadd_rn(acc[i][j][2 * h], __bfloat162float(be[col])));
+        z[1] = __float2bfloat16(
+            __fadd_rn(acc[i][j][2 * h + 1], __bfloat162float(be[col + 1])));
+      }
+    }
 }
 
 // K8: (B, p) f32 scans (p a multiple of kTile) -> K5's outputs for the B * p
-// beams. Shared memory: K5's two tiles and f32 cutouts, then the stream's
-// ranges (p), prefix sums (p + 1), the prefix sum's row totals and the
-// block's half-window angles (kTile).
+// beams, on int8_stack.cuh's backbone. Shared memory: two tiles of kTile * S
+// bytes and the f32 cutouts, then the stream's ranges (p), prefix sums (p +
+// 1), the prefix sum's row totals and the block's half-window angles
+// (kTile).
 __global__ void __launch_bounds__(kThreads)
     backbone_int8_cut_kernel(const float* __restrict__ scans,
                              const CutoutCfg cfg, int p,
@@ -168,78 +450,114 @@ __global__ void __launch_bounds__(kThreads)
                              zx + (size_t)c0 * 128, c0, nv, L, S);
 }
 
+
 // K16: x (n * L, 128) int8 -> left[r] = x[r - 1], right[r] = x[r + 1]
-// within each length-L cutout (zero at its ends), through load_rows and
-// TAP_ROW as the convs read their taps.
+// within each length-L cutout (zero at its ends), through both conv
+// layouts: int8_stack.cuh's (load_rows into cutouts of S bytes, TAP_ROW;
+// K8, K12, K13) and int8_wgmma.cuh's packed tile (load_packed, packed_tap;
+// K5, K7, K9, K10). A byte where the two disagree is
+// written as -128, which the known-answer pattern never holds.
 __global__ void __launch_bounds__(kThreads)
     row_shift_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ left,
                      int8_t* __restrict__ right, int n, int L, int S) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int LD = ld_of(128);
   int8_t* tile = reinterpret_cast<int8_t*>(smem_raw);
+  int8_t* ptile = tile + (size_t)kTile * S;
   const int c0 = blockIdx.x * kTile;
   const int nv = min(kTile, n - c0);
-  constexpr int LD = ld_of(128);
-  zero_smem(tile, kTile * S);
+  const int PS = pstride(L), rows = prows(L, kTile);
+  zero_smem(tile, kTile * S + ptile_bytes(L, 128, kTile));
   __syncthreads();
   load_rows<128>(x, tile, c0, nv, L, S);
+  load_packed<128>(x, ptile, c0, nv, L, kTile);
   __syncthreads();
   for (int idx = threadIdx.x; idx < nv * L * 128; idx += kThreads) {
     const int c = idx / (L * 128);
     const int rem = idx - c * L * 128;
     const int p = rem >> 7, ch = rem & 127;
     const size_t o = ((size_t)(c0 + c) * L + p) * 128 + ch;
-    left[o] = TAP_ROW(tile, c, S, LD, 0, 0, p)[ch];
-    right[o] = TAP_ROW(tile, c, S, LD, 0, 2, p)[ch];
+    const int8_t l0 = TAP_ROW(tile, c, S, LD, 0, 0, p)[ch];
+    const int8_t r0 = TAP_ROW(tile, c, S, LD, 0, 2, p)[ch];
+    const int8_t l1 = *packed_at(ptile, rows, c * PS + p, ch);
+    const int8_t r1 = *packed_at(ptile, rows, c * PS + p + 2, ch);
+    left[o] = l0 == l1 ? l1 : (int8_t)-128;
+    right[o] = r0 == r1 ? r1 : (int8_t)-128;
   }
 }
 
-// K7. Shared memory: two tile buffers of kTile * S bytes, then the means.
-__global__ void __launch_bounds__(kThreads)
-    head_int8_kernel(const int8_t* __restrict__ tmpl, const HeadWeights hw,
+// K7: the head on int8_wgmma.cuh: five convs, the f32 mean over positions,
+// cls and reg. Shared memory: the ring, two tile regions of R bytes, the
+// means (T x 128 f32).
+__global__ void __launch_bounds__(kWgThreads, 1)
+    head_int8_kernel(const int8_t* __restrict__ tmpl,
+                     const __grid_constant__ HeadWeights hw,
                      float* __restrict__ cls, float* __restrict__ reg, int n,
-                     int L4, int nc, int S) {
+                     int L4, int nc, int T, int R) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* buf0 = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* buf1 = buf0 + (size_t)kTile * S;
-  float* means = reinterpret_cast<float*>(buf1 + (size_t)kTile * S);  // T x 128
-  const int c0 = blockIdx.x * kTile;
-  const int nv = min(kTile, n - c0);
+  float* sb = reinterpret_cast<float*>(smem_raw + kStages * kStageBytes);
+  int8_t* bufa = reinterpret_cast<int8_t*>(smem_raw + kRingBytes);
+  int8_t* bufb = bufa + R;
+  float* means = reinterpret_cast<float*>(bufb + R);
+  const int c0 = blockIdx.x * T;
+  const int nv = min(T, n - c0);
+  const int L8 = L4 / 2;
+  // the weight chunks of the five convs, in the order they are used
+  auto sched = [&](int j, const int8_t*& src, int& bytes) {
+    return chunk_of<HdPlan0>(j, hw.w[0], L4, T, src, bytes) ||
+           chunk_of<HdPlan0>(j, hw.w[1], L4, T, src, bytes) ||
+           chunk_of<HdPlan2>(j, hw.w[2], L4, T, src, bytes) ||
+           chunk_of<HdPlan3>(j, hw.w[3], L8, T, src, bytes) ||
+           chunk_of<HdPlan4>(j, hw.w[4], L8, T, src, bytes);
+  };
 
-  zero_smem(buf0, kTile * S);
-  zero_smem(buf1, kTile * S);
+  Ring ring = ring_start(smem_raw, sched);
+  zero_smem(bufa, R);
+  zero_smem(bufb, R);
   __syncthreads();
-  load_rows<256>(tmpl, buf0, c0, nv, L4, S);
+  load_packed<256>(tmpl, bufa, c0, nv, L4, T);
   __syncthreads();
-  head_body(buf0, buf1, means, hw, cls, reg, c0, nv, L4, nc, S);
+  conv_wg<256, 256, 2, 2, kWgStore>(bufa, bufb, L4, T, nv, c0, ring, sched, sb,
+                                    hw.s[0], hw.b[0]);
+  __syncthreads();
+  zero_smem(bufa, R);
+  __syncthreads();
+  conv_wg<256, 256, 2, 2, kWgStore>(bufb, bufa, L4, T, nv, c0, ring, sched, sb,
+                                    hw.s[1], hw.b[1]);
+  __syncthreads();
+  zero_smem(bufb, R);
+  __syncthreads();
+  conv_wg<256, 512, 2, 2, kWgPool>(bufa, bufb, L4, T, nv, c0, ring, sched, sb,
+                                   hw.s[2], hw.b[2]);
+  __syncthreads();
+  zero_smem(bufa, R);
+  __syncthreads();
+  conv_wg<512, 256, 1, 4, kWgStore>(bufb, bufa, L8, T, nv, c0, ring, sched, sb,
+                                    hw.s[3], hw.b[3]);
+  __syncthreads();
+  // the last conv is dequantized: f32 rows into the free region
+  float* fout = reinterpret_cast<float*>(bufb);
+  conv_wg<256, 128, 1, 2, kWgMean>(bufa, fout, L8, T, nv, c0, ring, sched, sb,
+                                   hw.s[4], hw.b[4]);
+  __syncthreads();
+  head_mean(fout, means, nv, L8);
+  __syncthreads();
+  head_cls_reg(means, hw, cls, reg, c0, nv, nc);
+  cp_async_wait<0>();  // the zero copies past the last chunk
 }
 
-// tile stride S and dynamic shared memory of a backbone launch
-size_t backbone_int8_smem(int l, int L1, bool f_out, int* S) {
-  *S = backbone_stride(l);
-  size_t bytes = 2 * (size_t)kTile * *S;
-  if (L1 != kRead) bytes += (size_t)kTile * l * sizeof(float);
-  if (f_out) {
-    const size_t fb_end =
-        (size_t)kTile * *S + (size_t)kTile * (l / 4) * 256 * sizeof(bf16);
-    bytes = bytes > fb_end ? bytes : fb_end;
-  }
-  return bytes;
-}
-
-// K8: K5's shared memory and the scan's, at p beams a stream
+// K8: K5's two int8_stack.cuh tiles and f32 cutouts, and the scan's, at p
+// beams a stream
 size_t backbone_int8_cut_smem(int l, int p, int* S) {
-  return backbone_int8_smem(l, kFold, false, S) +
+  *S = backbone_stride(l);
+  return 2 * (size_t)kTile * *S + (size_t)kTile * l * sizeof(float) +
          ((size_t)2 * p + 1 + scan_scratch_floats(p) + kTile) * sizeof(float);
 }
 
-size_t head_int8_smem(int l4, int* S) {
-  *S = head_stride(l4);
-  return 2 * (size_t)kTile * *S + (size_t)kTile * 128 * sizeof(float);
-}
-
+// K16: the padded tile (kTile cutouts of S bytes) and the packed one
 size_t row_shift_smem(int l, int* S) {
   *S = round16((pad16(l) + 2) * ld_of(128));
-  return (size_t)kTile * *S;
+  return (size_t)kTile * *S + ptile_bytes(l, 128, kTile);
 }
 
 TailWeights tail_weights(const void* const* p) {
@@ -248,30 +566,83 @@ TailWeights tail_weights(const void* const* p) {
   return tw;
 }
 
+template <typename TA>
+int launch_embed(const void* feats, const void* we_t, const void* be,
+                 void* zx, int n, int K, cudaStream_t stream) {
+  const size_t smem = embed_smem<TA>();
+  int err = set_smem((const void*)embed_kernel<TA>, smem);
+  if (err) return err;
+  embed_kernel<TA><<<(n + kEmbRows - 1) / kEmbRows, 256, smem, stream>>>(
+      (const TA*)feats, (const bf16*)we_t, (const bf16*)be, (bf16*)zx, n, K);
+  return (int)cudaGetLastError();
+}
+
 template <int L1, bool F_OUT>
 int launch_backbone(const void* in, const void* w1, const void* b1,
                     float in_scale, const TailWeights& tw, const void* we_t,
                     const void* be, void* feats, void* zx, int n, int l,
                     cudaStream_t stream) {
-  int S;
-  const size_t smem = backbone_int8_smem(l, L1, F_OUT, &S);
+  const int T = backbone_tile(l, L1);
+  const size_t smem = backbone_smem(l, L1, T);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   int err = set_smem((const void*)backbone_int8_kernel<L1, F_OUT>, smem);
   if (err) return err;
-  const int grid = (n + kTile - 1) / kTile;
-  backbone_int8_kernel<L1, F_OUT><<<grid, kThreads, smem, stream>>>(
-      in, (const float*)w1, (const float*)b1, in_scale, tw, (const bf16*)we_t,
-      (const bf16*)be, feats, (bf16*)zx, n, l, S);
-  return (int)cudaGetLastError();
+  backbone_int8_kernel<L1, F_OUT><<<(n + T - 1) / T, kWgThreads, smem,
+                                    stream>>>(
+      in, (const float*)w1, (const float*)b1, in_scale, tw, feats, n, l, T,
+      (int)backbone_region(l, T));
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return F_OUT ? launch_embed<bf16>(feats, we_t, be, zx, n, l / 4 * 256,
+                                    stream)
+               : launch_embed<int8_t>(feats, we_t, be, zx, n, l / 4 * 256,
+                                      stream);
 }
 
 }  // namespace
+
+// The launch geometry of K5/K9/K10 (which: 0, l1_mode as for
+// backbone_int8_launch) or K7 (which: 1, l = l4): cutouts a block, rows a
+// cutout in the packed tile and dynamic shared memory (bytes);
+// int8_tiles.backbone_geometry / head_geometry mirror it.
+extern "C" int int8_wg_geometry(int which, int l, int l1_mode, int* tile,
+                                int* rows, long long* smem) {
+  if (which == 0) {
+    *tile = backbone_tile(l, l1_mode);
+    *rows = pstride(l);
+    *smem = (long long)backbone_smem(l, l1_mode, *tile);
+  } else {
+    *tile = head_tile(l);
+    *rows = pstride(l);
+    *smem = (long long)head_smem(l, *tile);
+  }
+  return 0;
+}
+
+// The chunking of layer `layer` (0-4) of the backbone tail (which: 0) or
+// the head (which: 1): output channels a pass and K bytes a chunk, which
+// int8_tiles.wgmma_weights lays out
+extern "C" int int8_wg_plan(int which, int layer, int* ns, int* kc) {
+  static const int plan[2][5][2] = {
+      {{BbPlan0::NS, BbPlan0::KC}, {BbPlan1::NS, BbPlan1::KC},
+       {BbPlan2::NS, BbPlan2::KC}, {BbPlan2::NS, BbPlan2::KC},
+       {BbPlan4::NS, BbPlan4::KC}},
+      {{HdPlan0::NS, HdPlan0::KC}, {HdPlan0::NS, HdPlan0::KC},
+       {HdPlan2::NS, HdPlan2::KC}, {HdPlan3::NS, HdPlan3::KC},
+       {HdPlan4::NS, HdPlan4::KC}}};
+  if (which < 0 || which > 1 || layer < 0 || layer > 4)
+    return (int)cudaErrorInvalidValue;
+  *ns = plan[which][layer][0];
+  *kc = plan[which][layer][1];
+  return 0;
+}
 
 // dynamic shared memory a launch at these lengths asks for (bytes); l1_mode
 // and bf16_out as for backbone_int8_launch
 extern "C" long long backbone_int8_smem_bytes(int l, int l1_mode,
                                               int bf16_out) {
-  int S;
-  return (long long)backbone_int8_smem(l, l1_mode, bf16_out != 0, &S);
+  (void)bf16_out;  // bf16 feats go straight to device memory
+  return (long long)backbone_smem(l, l1_mode, backbone_tile(l, l1_mode));
 }
 
 extern "C" long long backbone_int8_cut_smem_bytes(int l, int p) {
@@ -280,15 +651,16 @@ extern "C" long long backbone_int8_cut_smem_bytes(int l, int p) {
 }
 
 extern "C" long long head_int8_smem_bytes(int l4) {
-  int S;
-  return (long long)head_int8_smem(l4, &S);
+  return (long long)head_smem(l4, head_tile(l4));
 }
 
 // K5 (l1_mode 0: f32 cutouts, 1/in_scale folded into (w1, b1)), K9
 // (l1_mode 1: f32 cutouts, unscaled (w1, b1), one division by in_scale after
 // the leaky) and K10 (l1_mode 2: int8 act1 (n * l, 64); w1, b1 unused).
-// tail: the 15 pointers (w, s_eff, b_eff) of layers 2-6. bf16_out (K10
-// only): bf16 feats of the dequantized last layer instead of int8 feats.
+// tail: the 15 pointers (w, s_eff, b_eff) of layers 2-6, each w laid out by
+// int8_tiles.wgmma_weights. bf16_out (K10 only): bf16 feats of the
+// dequantized last layer instead of int8 feats. Two launches: the backbone,
+// then the gate embed on its feats.
 extern "C" int backbone_int8_launch(const void* in, const void* w1,
                                     const void* b1, float in_scale,
                                     const void* const* tail, const void* we_t,
@@ -357,19 +729,21 @@ extern "C" int row_shift_launch(const void* x, void* left, void* right,
   return (int)cudaGetLastError();
 }
 
-// K7: head: the 15 pointers (w, s_eff, b_eff) of the five head convs
+// K7: head: the 15 pointers (w, s_eff, b_eff) of the five head convs, each w
+// laid out by int8_tiles.wgmma_weights
 extern "C" int head_int8_launch(const void* tmpl, const void* const* head,
                                 const void* wc, const void* bc, const void* wr,
                                 const void* br, void* cls, void* reg, int n,
                                 int l4, int nc, void* stream) {
   if (n == 0) return (int)cudaSuccess;
-  int S;
-  const size_t smem = head_int8_smem(l4, &S);
+  const int T = head_tile(l4);
+  const size_t smem = head_smem(l4, T);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   int err = set_smem((const void*)head_int8_kernel, smem);
   if (err) return err;
-  const int grid = (n + kTile - 1) / kTile;
-  head_int8_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  head_int8_kernel<<<(n + T - 1) / T, kWgThreads, smem,
+                     (cudaStream_t)stream>>>(
       (const int8_t*)tmpl, head_weights(head, wc, bc, wr, br), (float*)cls,
-      (float*)reg, n, l4, nc, S);
+      (float*)reg, n, l4, nc, T, (int)head_region(l4, T));
   return (int)cudaGetLastError();
 }

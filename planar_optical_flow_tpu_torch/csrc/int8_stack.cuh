@@ -1,7 +1,9 @@
-// The int8 conv stacks' device code, shared by conv_stack_int8.cu (K5, K7,
-// K8, K9, K10, K16) and serve_cell.cu (K12, K13): the int8 tensor-core conv
-// over a block's tile of cutouts, backbone layer 1 into the tile, the
-// backbone tail + gate embed, and the head.
+// The int8 conv stacks' device code of K8 (conv_stack_int8.cu) and K12,
+// K13 (serve_cell.cu): the int8 tensor-core conv over a block's tile of
+// cutouts, backbone layer 1 into the tile, the backbone tail + gate embed,
+// and the head. K5/K9/K10 and K7 share layer 1, the tile loader, the
+// epilogue arithmetic and the head's mean and cls/reg from here, and run
+// their convs on int8_wgmma.cuh.
 //
 // A block owns kTile cutouts and keeps their activations in shared memory
 // across every layer: per cutout, rows of C int8 channels padded to C + 16
@@ -83,7 +85,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ void zero_smem(int8_t* p, int n_bytes) {
+__device__ __forceinline__ void zero_smem(int8_t* p, int n_bytes) {
   const uint4 z = make_uint4(0, 0, 0, 0);
   uint4* q = reinterpret_cast<uint4*>(p);
   for (int i = threadIdx.x; i < n_bytes / 16; i += blockDim.x) q[i] = z;
@@ -413,6 +415,43 @@ __device__ __forceinline__ void backbone_tail(
   }
 }
 
+// The f32 mean over positions of the head's last activation (nv x L8 x 128
+// f32 rows from fout): a sequential sum, then one division, into means.
+__device__ __forceinline__ void head_mean(const float* fout, float* means,
+                                          int nv, int L8) {
+  for (int idx = threadIdx.x; idx < nv * 128; idx += kThreads) {
+    const int c = idx >> 7, ch = idx & 127;
+    const float* f = fout + (size_t)c * L8 * 128 + ch;
+    float s = f[0];
+    for (int p = 1; p < L8; ++p) s = __fadd_rn(s, f[p * 128]);
+    means[idx] = __fdiv_rn(s, (float)L8);
+  }
+}
+
+// cls / reg of cutouts c0 .. c0 + nv - 1: bf16(mean) @ bf16 weights, f32
+// accumulate, + f32 bias (the products of two bf16 values are exact in f32)
+__device__ __forceinline__ void head_cls_reg(const float* means,
+                                             const HeadWeights& hw,
+                                             float* __restrict__ cls,
+                                             float* __restrict__ reg, int c0,
+                                             int nv, int nc) {
+  for (int idx = threadIdx.x; idx < nv * (nc + 2); idx += kThreads) {
+    const int c = idx / (nc + 2), j = idx - c * (nc + 2);
+    const bool is_cls = j < nc;
+    const bf16* w = is_cls ? hw.wc + j : hw.wr + (j - nc);
+    const int ldw = is_cls ? nc : 2;
+    float acc = 0.0f;
+    for (int k = 0; k < 128; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(__float2bfloat16(
+                                         means[c * 128 + k])),
+                                     __bfloat162float(w[k * ldw])));
+    if (is_cls)
+      cls[(size_t)(c0 + c) * nc + j] = __fadd_rn(acc, hw.bc[j]);
+    else
+      reg[(size_t)(c0 + c) * 2 + (j - nc)] = __fadd_rn(acc, hw.br[j - nc]);
+  }
+}
+
 // The head on the int8 template tile in buf0 (buf1 zeroed; the caller
 // synchronises after filling buf0): convs (conv, conv, conv, pool/2, conv,
 // conv), the last one dequantized into f32 over buf1; the f32 mean over
@@ -449,33 +488,9 @@ __device__ __forceinline__ void head_body(int8_t* buf0, int8_t* buf1,
                            hw.b[4]);
   __syncthreads();
 
-  // mean over positions: sequential f32 sum, then one division
-  for (int idx = threadIdx.x; idx < nv * 128; idx += kThreads) {
-    const int c = idx >> 7, ch = idx & 127;
-    const float* f = fout + (size_t)c * L8 * 128 + ch;
-    float s = f[0];
-    for (int p = 1; p < L8; ++p) s = __fadd_rn(s, f[p * 128]);
-    means[idx] = __fdiv_rn(s, (float)L8);
-  }
+  head_mean(fout, means, nv, L8);
   __syncthreads();
-
-  // cls / reg: bf16(mean) @ bf16 weights, f32 accumulate, + f32 bias (the
-  // products of two bf16 values are exact in f32)
-  for (int idx = threadIdx.x; idx < nv * (nc + 2); idx += kThreads) {
-    const int c = idx / (nc + 2), j = idx - c * (nc + 2);
-    const bool is_cls = j < nc;
-    const bf16* w = is_cls ? hw.wc + j : hw.wr + (j - nc);
-    const int ldw = is_cls ? nc : 2;
-    float acc = 0.0f;
-    for (int k = 0; k < 128; ++k)
-      acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(__float2bfloat16(
-                                         means[c * 128 + k])),
-                                     __bfloat162float(w[k * ldw])));
-    if (is_cls)
-      cls[(size_t)(c0 + c) * nc + j] = __fadd_rn(acc, hw.bc[j]);
-    else
-      reg[(size_t)(c0 + c) * 2 + (j - nc)] = __fadd_rn(acc, hw.br[j - nc]);
-  }
+  head_cls_reg(means, hw, cls, reg, c0, nv, nc);
 }
 
 }  // namespace

@@ -12,7 +12,7 @@
 // (attention, z mix and sim, the int8 template mix).
 //
 // Design. The TPU programs hold a whole stream in VMEM (up to 100 MB);
-// here a block owns kTile = 8 cutouts, as K5 and K7 do. The attention row
+// here a block owns kTile = 8 cutouts, as K8 does. The attention row
 // of cutout i needs only its own current zx[i] and the CARRIED zt[i + o] and
 // t[i + o], |o| <= window / 2, of its stream: each block reads those from
 // device memory (L2 holds the neighbours' rows, which eight blocks share)

@@ -57,10 +57,15 @@ The int8 stacks, weights from ``quant.kernel_stack_weights``:
 * K16 :func:`row_shift` / :func:`check_row_shift` replace
   ``check_byte_shift``: the known-answer check of the k=3 tap rows.
 
-K5, K7, K8, K9 and K10 run on ``mma.sync`` int8 tensor-core products (~15.1 M
-and 28.9 M int8 operations per cutout). Their plain versions sum the int8
-products in float64, which is exact (the 512-channel conv reaches 1536 *
-127^2 > 2^24, beyond f32's exact integers).
+K5, K7, K9 and K10 run on ``wgmma`` s8 products over a packed tile of 16
+cutouts, with the conv weights staged in shared memory by cp.async
+(``csrc/int8_wgmma.cuh``; the host lays the weights out with
+``int8_tiles.wgmma_weights``), and the gate embed of K5/K9/K10 as a second
+kernel over all cutouts; K8, K12 and K13 run on ``mma.sync`` int8 products
+(``csrc/int8_stack.cuh``) with the same embed arithmetic. ~15.1 M and 28.9 M
+int8 operations per cutout. The plain versions sum the int8 products in
+float64, which is exact (the 512-channel conv reaches 1536 * 127^2 > 2^24,
+beyond f32's exact integers).
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from planar_optical_flow_tpu_torch.ops.kernels import _build
+from planar_optical_flow_tpu_torch.ops.kernels import _build, int8_tiles
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
     cutout_plain,
     div_f32,
@@ -401,6 +406,39 @@ def int8_ptr_array(weights):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
+def _wg_inputs(what, weights, which, smem):
+    """The ``conv_stack_int8`` library and ``weights`` laid out for the ring
+    of its wgmma kernel ``which`` (0: K5/K9/K10, 1: K7), with their pointer
+    array (the laid-out tensors must live until the launch is queued). The
+    first call checks the library's conv plans against ``int8_tiles``';
+    raises if the launch's shared memory is over the card's limit."""
+    plans = (int8_tiles.BACKBONE_PLAN, int8_tiles.HEAD_PLAN)
+    lib = _build.load("conv_stack_int8")
+    if not _wg_inputs.checked:
+        fn = lib.int8_wg_plan
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        for stack, plan in enumerate(plans):
+            for layer, (cin, _, _, nj) in enumerate(plan):
+                ns, kc = ctypes.c_int(), ctypes.c_int()
+                _build.check(fn(stack, layer, ctypes.byref(ns),
+                                ctypes.byref(kc)), f"{what} plan")
+                want = (64 * nj, int8_tiles.chunk_k(3 * cin, 64 * nj))
+                if (ns.value, kc.value) != want:
+                    raise RuntimeError(
+                        f"{what}: the kernel's plan of layer {layer} is "
+                        f"{(ns.value, kc.value)}, int8_tiles lays out {want}")
+        _wg_inputs.checked = True
+    if smem > int8_tiles.SMEM_MAX:
+        raise ValueError(f"{what}: {smem} bytes of shared memory at this "
+                         f"length, over {int8_tiles.SMEM_MAX}")
+    laid = int8_tiles.plan_weights(weights, plans[which])
+    return lib, laid, int8_ptr_array(laid)
+
+
+_wg_inputs.checked = False
+
+
 def check_head_int8_weights(what, conv_weights, head_weights, num_classes,
                             l4):
     """Check the int8 head's shapes and weights (K7, K12, K13); returns the
@@ -469,10 +507,11 @@ def _launch_backbone_int8(what, inp, layer1, weights, embed_weights, l,
         what, inp, layer1, weights, embed_weights, l)
     w1, b1 = [t.data_ptr() for t in layer1] or [None, None]
     n = inp.shape[0] // l if l1_mode == _L1_READ else inp.shape[0]
+    lib, laid, tail = _wg_inputs(what, weights, 0,
+                                 int8_tiles.backbone_geometry(l, l1_mode)[2])
     feats = torch.empty(n * (l // 4), 256, dtype=out_dtype, device=inp.device)
     zx = torch.empty(n, 128, dtype=torch.bfloat16, device=inp.device)
-    tail = int8_ptr_array(weights)
-    fn = _build.load("conv_stack_int8").backbone_int8_launch
+    fn = lib.backbone_int8_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float] \
         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -626,9 +665,10 @@ def row_shift(x, *, l: int):
     """K16: the k=3 tap rows of int8 ``x (rows, 128)``, rows grouped in
     cutouts of ``l`` -> (left, right), ``left[r] = x[r - 1]`` and
     ``right[r] = x[r + 1]``, zero at each cutout's ends. A CUDA tensor
-    launches K16, which reads the rows through K10's tile loader and the
-    tap address of every int8 conv; a CPU tensor runs the plain versions'
-    tap construction."""
+    launches K16, which reads the rows through both int8 tile layouts, each
+    with its loader and tap address (K8/K12/K13's, and the packed tile of
+    K5/K7/K9/K10), and writes -128 where the two disagree; a CPU tensor
+    runs the plain versions' tap construction."""
     rows = x.shape[0]
     if rows % l:
         raise ValueError(f"row_shift: {rows} rows is not a multiple of l={l}")
@@ -668,8 +708,8 @@ def check_row_shift(device) -> None:
     """Known-answer check of the tap rows on ``device`` (K16, the
     counterpart of the JAX ``check_byte_shift``), once per device and
     process; raises ``RuntimeError`` on a mismatch. The serving step runs
-    it before every int8 configuration: every int8 conv (K5, K7, K9, K10)
-    reads its taps through the address this checks."""
+    it before every int8 configuration: every int8 conv (K5, K7-K10, K12,
+    K13) reads its taps through an address this checks."""
     device = torch.device(device)
     key = str(device)
     if key in _ROW_SHIFT_OK:
@@ -702,14 +742,16 @@ def head_int8(template, conv_weights, head_weights, *, num_classes: int,
     head_weights = check_head_int8_weights("head_int8", conv_weights,
                                            head_weights, num_classes, l4)
     template = template.contiguous()
+    lib, laid, convs = _wg_inputs("head_int8", conv_weights, 1,
+                                  int8_tiles.head_geometry(l4)[2])
     cls = torch.empty(n, num_classes, dtype=torch.float32,
                       device=template.device)
     reg = torch.empty(n, 2, dtype=torch.float32, device=template.device)
-    fn = _build.load("conv_stack_int8").head_int8_launch
+    fn = lib.head_int8_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
-    _build.check(fn(template.data_ptr(), int8_ptr_array(conv_weights),
+    _build.check(fn(template.data_ptr(), convs,
                     *head_ptrs(head_weights), cls.data_ptr(), reg.data_ptr(),
                     n, l4, num_classes, _build.stream_ptr(template.device)),
                  "head_int8")

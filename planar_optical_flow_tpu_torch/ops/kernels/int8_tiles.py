@@ -1,0 +1,140 @@
+"""Host side of the int8 wgmma convs of K5/K9/K10 and K7
+(``csrc/int8_wgmma.cuh``): the weights' layout for the wgmma B operand and
+the launch geometry of the packed tile.
+
+* **Weights.** Each conv's ``w (Cout, 3*Cin)`` int8 (``quant.
+  kernel_stack_weights``) is cut into chunks of ``NS = 64 * nj`` output
+  channels x ``KC`` bytes of K (:func:`chunk_k`), ordered ``[pass][chunk]``,
+  and each chunk is laid out in the order a no-swizzle K-major wgmma
+  descriptor reads: ``[16-byte K block][8-channel group][8 rows][16
+  bytes]``, so the kernel's threads copy a chunk into a ring stage as one
+  contiguous run (:func:`wgmma_weights`).
+* **Packed tile.** A block keeps ``tile`` cutouts back to back, cutout c's
+  position p in row ``c * S + 1 + p`` with ``S = row_stride(L)``, ``L + 1``
+  rounded up to even (one or two zero rows after each cutout; row 0 zero).
+  A conv's A row ``m = c * S + p`` reads rows ``m``, ``m + 1``, ``m + 2``;
+  a max-pool pair is rows ``m`` (even) and ``m + 1``. 64-row wgmma tiles
+  cover ``tile * S`` rows; the tile is stored channel-block major (16
+  channels of every row, then the next 16), so that any 8 rows of a block
+  are one core matrix of the wgmma A operand and a tap is a start row.
+* **Geometry.** A block takes the most cutouts (16, halved while needed)
+  whose ring, two tile regions and side buffers fit the 232,448 bytes of
+  shared memory a block may use (:func:`backbone_geometry`,
+  :func:`head_geometry`; the C side, ``int8_wg_geometry``, computes the
+  same).
+
+``BACKBONE_PLAN`` and ``HEAD_PLAN`` are the kernels' conv plans: ``(Cin,
+Cout, row tiles, n64 tiles)`` per warp group, as ``conv_stack_int8.cu``'s
+``BbPlan*``/``HdPlan*`` instantiate them (``int8_wg_plan`` reports them;
+``conv_stack`` compares once per process).
+"""
+
+from __future__ import annotations
+
+WG_TILE = 16            # most cutouts a block
+STAGE_BYTES = 16384     # one weight chunk
+STAGES = 4              # chunks in the ring
+SMEM_MAX = 232448       # dynamic shared memory a block may use (H100)
+# the weight ring and a conv's s_eff/b_eff (2 x 512 f32)
+RING_BYTES = STAGES * STAGE_BYTES + 2 * 512 * 4
+BACKBONE_PLAN = ((64, 64, 4, 1), (64, 128, 2, 2), (128, 128, 2, 2),
+                 (128, 128, 2, 2), (128, 256, 2, 2))
+HEAD_PLAN = ((256, 256, 2, 2), (256, 256, 2, 2), (256, 512, 2, 2),
+             (512, 256, 1, 4), (256, 128, 1, 2))
+_L1_READ = 2  # the backbone's l1_mode that reads int8 act1 rows (no cutouts)
+
+
+def row_stride(l: int) -> int:
+    """Rows a cutout of ``l`` positions takes in the packed tile."""
+    return (l + 2) & ~1
+
+
+def m_tiles(l: int, tile: int) -> int:
+    """64-row wgmma tiles over the packed rows of ``tile`` cutouts."""
+    return -(-tile * row_stride(l) // 64)
+
+
+def ptile_bytes(l: int, c: int, tile: int) -> int:
+    """Bytes of a packed tile of ``c`` channels: every row its 64-row
+    tiles read."""
+    return (m_tiles(l, tile) * 64 + 2) * c
+
+
+def chunk_k(k: int, ns: int) -> int:
+    """K bytes a weight chunk of ``ns`` output channels holds: the largest
+    multiple of 32 dividing ``k`` with ``ns * kc`` within a stage."""
+    return max(kc for kc in range(32, k + 1, 32)
+               if k % kc == 0 and (ns * kc <= STAGE_BYTES or kc == 32))
+
+
+def _round128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def backbone_smem_bytes(l: int, l1_mode: int, tile: int) -> int:
+    """Dynamic shared memory of a K5/K9/K10 block of ``tile`` cutouts: the
+    ring, two regions each holding the largest packed tile or the int8
+    feats rows, and the f32 cutouts (not for K10)."""
+    region = _round128(max(ptile_bytes(l, 64, tile),
+                           ptile_bytes(l // 2, 128, tile),
+                           tile * (l // 4) * 256))
+    cut = tile * l * 4 if l1_mode != _L1_READ else 0
+    return RING_BYTES + 2 * region + cut
+
+
+def head_smem_bytes(l4: int, tile: int) -> int:
+    """Dynamic shared memory of a K7 block of ``tile`` cutouts: the ring,
+    two regions each holding the largest packed tile or the last conv's
+    f32 rows, and the means."""
+    region = _round128(max(ptile_bytes(l4, 256, tile),
+                           ptile_bytes(l4 // 2, 512, tile),
+                           tile * (l4 // 2) * 128 * 4))
+    return RING_BYTES + 2 * region + tile * 128 * 4
+
+
+def _geometry(smem_of, l):
+    tile = WG_TILE
+    while tile > 1 and smem_of(tile) > SMEM_MAX:
+        tile //= 2
+    return tile, row_stride(l), smem_of(tile)
+
+
+def backbone_geometry(l: int, l1_mode: int = 0):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a K5 (0),
+    K9 (1) or K10 (2) launch at cutout length ``l``."""
+    return _geometry(lambda t: backbone_smem_bytes(l, l1_mode, t), l)
+
+
+def head_geometry(l4: int):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a K7 launch
+    at ``l4`` positions."""
+    return _geometry(lambda t: head_smem_bytes(l4, t), l4)
+
+
+def _chunk_shape(cout, k, nj):
+    ns = 64 * nj
+    kc = chunk_k(k, ns)
+    # (pass, n8 group, row, chunk, k16 block, byte) of w (Cout, K)
+    return (cout // ns, ns // 8, 8, k // kc, kc // 16, 16)
+
+
+# (pass, n8 group, row, chunk, k16 block, byte) <-> (pass, chunk, k16 block,
+# n8 group, row, byte): the permutation is its own inverse
+_CHUNK_ORDER = (0, 3, 4, 1, 2, 5)
+
+
+def wgmma_weights(w, nj: int):
+    """``w (Cout, K)`` int8 -> the 1-D chunk order the ring streams: for
+    each pass of ``64 * nj`` output channels, its K chunks, each
+    ``[16-byte K block][8-channel group][8 rows][16 bytes]``."""
+    cout, k = w.shape
+    return (w.reshape(_chunk_shape(cout, k, nj)).permute(_CHUNK_ORDER)
+            .contiguous().reshape(-1))
+
+
+
+def plan_weights(weights, plan):
+    """``[(w, s_eff, b_eff), ...]`` of a conv stack -> the same with each
+    ``w`` in the chunk order of its layer of ``plan``."""
+    return [(wgmma_weights(w, nj), s, b)
+            for (w, s, b), (_, _, _, nj) in zip(weights, plan)]

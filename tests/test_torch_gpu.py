@@ -14,6 +14,8 @@ max where its f32 sum cancels) and within 1e-5 in f32.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -34,7 +36,12 @@ from planar_optical_flow_tpu_torch.infer.fast_gate import (
 from planar_optical_flow_tpu_torch.infer.streaming import int8_weights
 from planar_optical_flow_tpu_torch.models import FlowDrow
 from planar_optical_flow_tpu_torch.ops import quantized_drow as qd
-from planar_optical_flow_tpu_torch.ops.kernels import conv_stack, fold, quant
+from planar_optical_flow_tpu_torch.ops.kernels import (
+    conv_stack,
+    fold,
+    int8_tiles,
+    quant,
+)
 from planar_optical_flow_tpu_torch.ops.kernels import fused_drow as fd
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     backbone_int8,
@@ -158,13 +165,17 @@ def test_gate_kernel(cuda, ct, ct_valid, window, d):
         _close(g, r, BF16_REL)
 
 
+@pytest.mark.parametrize("n", [1, int8_tiles.WG_TILE - 1,
+                               int8_tiles.WG_TILE + 1, 37])
 @pytest.mark.parametrize("ct_len,window", [(16, 5), (56, 11)])
-def test_int8_stack_kernels(cuda, ct_len, window):
-    """K5 and K7 against their plain versions, with scales calibrated on
-    the same cutouts."""
+def test_int8_stack_kernels(cuda, ct_len, window, n):
+    """K5, its K9 and K10 (int8 and bf16 feats) modes and K7 against their
+    plain versions, with scales calibrated on the same cutouts, for n
+    cutouts around the kernels' block of int8_tiles.WG_TILE; the launch
+    geometry and conv plans as int8_tiles computes them."""
     det = _model(ct_len, window, cuda).dr_spaam
     rng = np.random.default_rng(3)
-    n, l4 = 37, ct_len // 4  # n is not a multiple of the kernels' tile
+    l4 = ct_len // 4
     cut = torch.tensor(rng.uniform(-1.0, 1.0, (n, ct_len)),
                        dtype=torch.float32, device=cuda)
     blocks = fold.backbone_blocks(det.backbone)
@@ -176,8 +187,9 @@ def test_int8_stack_kernels(cuda, ct_len, window):
         act_scales=scales, dequant_last=False)
     gp = fold.fold_gate_params(det.gate, dtype=torch.bfloat16)
     we = gp.w * torch.tensor(feat_scale, dtype=torch.bfloat16, device=cuda)
+    tail = quant.kernel_stack_weights(q, cuda)
     args = (cut, quant.layer1_int8_weights(blocks[0], in_scale, cuda),
-            quant.kernel_stack_weights(q, cuda), (we.t().contiguous(), gp.b))
+            tail, (we.t().contiguous(), gp.b))
     n0 = backbone_int8.launches
     feats, zx = backbone_int8(*args, l=ct_len)
     torch.cuda.synchronize()
@@ -185,6 +197,33 @@ def test_int8_stack_kernels(cuda, ct_len, window):
     feats_p, zx_p = backbone_int8_plain(*args, l=ct_len)
     _int8_close(feats, feats_p)
     _close(zx, zx_p, BF16_REL)
+
+    # K9 and K10 (int8 feats) on the same template of the kernel
+    layer1 = (blocks[0][0].reshape(3, -1).contiguous(), blocks[0][1])
+    embed = (we.t().contiguous(), gp.b)
+    got = backbone_int8_pm(cut, layer1, tail, embed, l=ct_len,
+                           in_scale=in_scale)
+    ref = backbone_int8_pm_plain(cut, layer1, tail, embed, l=ct_len,
+                                 in_scale=in_scale)
+    _int8_close(got[0], ref[0])
+    _close(got[1], ref[1], BF16_REL)
+    act1_q = backbone_layer1(cut, layer1, out_scale=in_scale)
+    got = backbone_int8_tail(act1_q, tail, embed, l=ct_len)
+    ref = backbone_int8_tail_plain(act1_q, tail, embed, l=ct_len)
+    _int8_close(got[0], ref[0])
+    _close(got[1], ref[1], BF16_REL)
+    # K10 with bf16 feats: the last layer dequantized, the unscaled embed
+    q8, _, _ = quant.quantize_stack_int8(
+        blocks[1:], None, {1, 4}, in_scale=in_scale, act_scales=scales,
+        dequant_last=True)
+    args8 = (act1_q, quant.kernel_stack_weights(q8, cuda),
+             (gp.w.t().contiguous(), gp.b))
+    got = backbone_int8_tail(*args8, l=ct_len, out_dtype=torch.bfloat16)
+    ref = backbone_int8_tail_plain(*args8, l=ct_len,
+                                   out_dtype=torch.bfloat16)
+    assert got[0].dtype == torch.bfloat16
+    _close(got[0], ref[0], BF16_REL)
+    _close(got[1], ref[1], BF16_REL)
 
     hd_blocks = fold.head_conv_blocks(det.head)
     sample = (feats.float() * feat_scale).reshape(n, l4, 256)
@@ -199,6 +238,20 @@ def test_int8_stack_kernels(cuda, ct_len, window):
     cls_p, reg_p = head_int8_plain(*hargs, l4=l4)
     _close(cls, cls_p, BF16_REL)
     _close(reg, reg_p, BF16_REL)
+
+    # the geometry and plans the host lays the weights out for
+    lib = conv_stack._build.load("conv_stack_int8")
+    fn = lib.int8_wg_geometry
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    for which, l, modes in ((0, ct_len, (0, 1, 2)), (1, l4, (0,))):
+        for mode in modes:
+            tile, rows = ctypes.c_int(), ctypes.c_int()
+            smem = ctypes.c_longlong()
+            assert fn(which, l, mode, ctypes.byref(tile), ctypes.byref(rows),
+                      ctypes.byref(smem)) == 0
+            want = (int8_tiles.backbone_geometry(l, mode) if which == 0
+                    else int8_tiles.head_geometry(l))
+            assert (tile.value, rows.value, smem.value) == want
 
 
 @pytest.mark.parametrize("ct,ct_valid,window,d", [(64, 60, 5, 1024),

@@ -1,0 +1,199 @@
+"""The host side of the int8 wgmma convs of K5/K9/K10 and K7
+(``ops/kernels/int8_tiles.py``), on the CPU.
+
+* The wgmma B layout of every backbone and head conv at the flagship widths
+  inverts exactly to ``quant.kernel_stack_weights``' ``(Cout, 3*Cin)``, and
+  its chunks are the descriptor's core matrices, back to back.
+* A plain emulation of the packed tile (cutouts back to back with zero rows
+  between them, the tap as a row offset, the max-pool pair as an even row
+  and the next one, 64-row tiles over the block) gives the same int32 sums
+  as ``conv_stack._conv_int8_acc``, at L = 16 and 56 and the head's L/4 and
+  L/8, for n not a multiple of the block's cutouts; through whole stacks
+  with the f32 epilogue it gives ``conv_stack._run_int8_plain``'s int8 and
+  f32 activations to the bit.
+* The launch geometry (cutouts a block, rows a cutout, shared memory) of
+  every length the card tests use stays within the 232,448 bytes a block
+  may use, and the kernels' chunks within a ring stage.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from planar_optical_flow_tpu_torch.ops.kernels import conv_stack as cs
+from planar_optical_flow_tpu_torch.ops.kernels import int8_tiles as it
+
+PLANS = [("backbone", i, p) for i, p in enumerate(it.BACKBONE_PLAN)] + [
+    ("head", i, p) for i, p in enumerate(it.HEAD_PLAN)]
+
+
+def _inverse(flat, cout, k, nj):
+    """``it.wgmma_weights`` undone: the chunk order back to ``(Cout, K)``."""
+    p, g, r, c, b, e = it._chunk_shape(cout, k, nj)
+    return (flat.reshape(p, c, b, g, r, e).permute(it._CHUNK_ORDER)
+            .reshape(cout, k))
+
+
+def _int8(rng, *shape):
+    return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("stack,layer,plan", PLANS,
+                         ids=[f"{s}{i}" for s, i, _ in PLANS])
+def test_wgmma_weights_invert(stack, layer, plan):
+    """Layout and inverse at the flagship widths; chunk c of pass q holds
+    w[q * NS + 8 * grp + r, c * KC + 16 * blk + e] at byte
+    ((q * NKC + c) * NS * KC) + ((blk * NS / 8 + grp) * 8 + r) * 16 + e."""
+    cin, cout, _, nj = plan
+    k, ns = 3 * cin, 64 * nj
+    kc = it.chunk_k(k, ns)
+    assert k % kc == 0 and kc % 32 == 0 and ns * kc <= it.STAGE_BYTES
+    w = _int8(np.random.default_rng(layer), cout, k)
+    flat = it.wgmma_weights(w, nj)
+    assert flat.shape == (cout * k,) and flat.is_contiguous()
+    assert torch.equal(_inverse(flat, cout, k, nj), w)
+    rng = np.random.default_rng(10 + layer)
+    for n, kk in zip(rng.integers(0, cout, 64), rng.integers(0, k, 64)):
+        q, nn = divmod(int(n), ns)
+        grp, r = divmod(nn, 8)
+        c, kr = divmod(int(kk), kc)
+        blk, e = divmod(kr, 16)
+        at = ((q * (k // kc) + c) * ns * kc
+              + ((blk * (ns // 8) + grp) * 8 + r) * 16 + e)
+        assert flat[at] == w[n, kk]
+
+
+def _packed_acc(xq, w, tile, pool):
+    """int64 sums of a k=3 SAME conv of int8 ``xq (n, L, Cin)`` computed as
+    the wgmma kernels lay it out: blocks of ``tile`` cutouts, each a packed
+    tile with cutout c's position p in row c * S + 1 + p, A row m reading
+    rows m, m + 1, m + 2 over 64-row tiles; max-pooled pairs as rows m
+    (even) and m + 1. Returns ``(n, L or L/2, Cout)``."""
+    n, length, cin = xq.shape
+    s = it.row_stride(length)
+    rows = it.m_tiles(length, tile) * 64
+    wt = w.long().t()
+    outs = []
+    for c0 in range(0, n, tile):
+        nv = min(tile, n - c0)
+        packed = torch.zeros(rows + 2, cin, dtype=torch.long)
+        for c in range(nv):
+            packed[c * s + 1:c * s + 1 + length] = xq[c0 + c].long()
+        a = torch.cat([packed[t:t + rows] for t in range(3)], dim=1)
+        acc = a @ wt  # (rows, Cout): every row, kept or not
+        m = (torch.arange(nv)[:, None] * s
+             + torch.arange(length)[None, :])  # (nv, L): row of (c, p)
+        if pool:
+            even = m[:, 0::2]
+            assert bool((even % 2 == 0).all())
+            outs.append(torch.maximum(acc[even], acc[even + 1]))
+        else:
+            outs.append(acc[m])
+    return torch.cat(outs)
+
+
+def _plain_acc(xq, w, pool):
+    acc = cs._conv_int8_acc(xq, w).long()
+    if pool:
+        n, length, c = acc.shape
+        acc = acc.reshape(n, length // 2, 2, c).amax(2)
+    return acc
+
+
+# (cin, cout, L, pool): the backbone's convs at L = 16 and 56 (and L/2), the
+# head's at L/4 = 14 and L/8 = 7 (and 4, 2 at L = 16)
+CONVS = [(64, 64, 56, False), (64, 128, 56, True), (128, 256, 28, True),
+         (64, 128, 16, True), (128, 128, 8, False),
+         (256, 512, 14, True), (512, 256, 7, False), (256, 128, 7, False),
+         (256, 256, 4, False), (512, 256, 2, False)]
+
+
+@pytest.mark.parametrize("cin,cout,length,pool", CONVS,
+                         ids=[f"{a}-{b}-L{c}{'-pool' if d else ''}"
+                              for a, b, c, d in CONVS])
+def test_packed_tile_sums(cin, cout, length, pool):
+    """n = 19: one full block of 16 and one of 3 (also 2 cutouts alone)."""
+    rng = np.random.default_rng(cin + cout + length)
+    w = _int8(rng, cout, 3 * cin)
+    for n in (19, 2):
+        xq = _int8(rng, n, length, cin)
+        assert torch.equal(_packed_acc(xq, w, it.WG_TILE, pool),
+                           _plain_acc(xq, w, pool))
+
+
+def _stack(rng, chans, n_layers):
+    """Random int8 conv weights and epilogue constants that keep the
+    activations spread over the int8 range."""
+    out = []
+    for cin, cout in zip(chans[:n_layers], chans[1:n_layers + 1]):
+        w = _int8(rng, cout, 3 * cin)
+        s = torch.tensor(rng.uniform(0.5, 1.5, cout)
+                         / (np.sqrt(3 * cin) * 60.0), dtype=torch.float32)
+        b = torch.tensor(rng.normal(0.0, 2.0, cout), dtype=torch.float32)
+        out.append((w, s, b))
+    return out
+
+
+def _packed_stack(xq, weights, pool_after, requant_last, tile):
+    """``_run_int8_plain`` with every conv's sums from the packed tile."""
+    x = xq
+    for i, (w, s, b) in enumerate(weights):
+        acc = _packed_acc(x, w, tile, i in pool_after).double()
+        y = acc.float() * s + b
+        y = torch.where(y > 0, y, 0.1 * y)
+        x = cs._requant(y) if (i < len(weights) - 1 or requant_last) else y
+    return x
+
+
+@pytest.mark.parametrize("stack", ["backbone", "head"])
+def test_packed_tile_stacks(stack):
+    """The backbone tail at L = 16 (int8 feats) and the head at L/4 = 4 (the
+    last conv dequantized), n = 19, against ``_run_int8_plain``."""
+    rng = np.random.default_rng(5)
+    if stack == "backbone":
+        weights = _stack(rng, cs.BACKBONE_CHANNELS[1:], 5)
+        pool_after, requant_last, length, cin = (1, 4), True, 16, 64
+    else:
+        weights = _stack(rng, cs.HEAD_CHANNELS, 5)
+        pool_after, requant_last, length, cin = (2,), False, 4, 256
+    xq = _int8(rng, 19, length, cin)
+    got = _packed_stack(xq, weights, pool_after, requant_last, it.WG_TILE)
+    ref = cs._run_int8_plain(xq, weights, pool_after, requant_last)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    if requant_last:  # the stack really ran through the int8 range
+        assert int(got.abs().max()) > 60
+
+
+# the lengths the card tests and chip_smoke.py run: cutouts of 16 and 56
+# points, the head at their quarters
+@pytest.mark.parametrize("l", [16, 56])
+def test_launch_geometry(l):
+    for l1_mode in (0, 1, 2):
+        tile, rows, smem = it.backbone_geometry(l, l1_mode)
+        assert (tile, rows) == (16, l + 2) and smem <= it.SMEM_MAX
+    tile, rows, smem = it.head_geometry(l // 4)
+    assert (tile, rows) == (16, l // 4 + 2) and smem <= it.SMEM_MAX
+    if l == 56:  # the flagship block: 15 and 8 row tiles, 4 of the head
+        assert it.m_tiles(56, 16) == 15 and it.m_tiles(28, 16) == 8
+        assert it.m_tiles(14, 16) == 4 and it.m_tiles(7, 16) == 2
+        assert it.backbone_geometry(56, 0)[2] == 204800
+        assert it.head_geometry(14)[2] == 210944
+    # a zero row after every cutout, and pool pairs inside their cutout
+    # (the row stride is even); the last row tile's taps inside the tile
+    for length in (l, l // 2, l // 4, l // 8):
+        if length:
+            assert it.row_stride(length) % 2 == 0
+            assert it.row_stride(length) >= length + 1
+            rows = it.ptile_bytes(length, 1, 16)
+            assert it.m_tiles(length, 16) * 64 + 1 < rows
+
+
+def test_geometry_shrinks_the_block():
+    """A long cutout takes fewer cutouts a block, never more memory."""
+    for l4 in range(2, 33, 2):
+        tile, _, smem = it.head_geometry(l4)
+        assert smem <= it.SMEM_MAX or tile == 1
+        assert tile in (16, 8, 4, 2, 1)
+    assert it.head_geometry(32)[0] < it.WG_TILE
