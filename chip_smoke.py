@@ -17,8 +17,8 @@ Phases:
    for the f32 reference;
 2. build every kernel from ``planar_optical_flow_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` report and
-   each kernel's dynamic shared memory; the launch geometry of K5, K9, K10
-   and K7 (cutouts a block, rows a cutout, shared memory) equal to
+   each kernel's dynamic shared memory; the launch geometry of K5, K9, K10,
+   K7 and K4 (cutouts a block, rows a cutout, shared memory) equal to
    ``int8_tiles``' and within the card's 232,448 bytes;
 3. the model, from a seeded ``torch.Generator``, with seeded BN stats, and
    the int8 calibration on ``scans[0][:8]`` (as ``bench.py`` calibrates);
@@ -31,7 +31,8 @@ Phases:
    (K11 and K10's head); at the 480 rows a stream of ``"pm"``, K1, K9 int8
    backbone with the divide-after-leaky layer 1, and K6 and K7 on K9's
    feats; and the K16 row-shift check (int8 outputs within 1 LSB with under
-   5e-3 of them off by one, float outputs within 2e-2 x max|plain|); K9
+   5e-3 of them off by one, and the count of bytes that differ printed;
+   float outputs within 2e-2 x max|plain|); K9
    equal to the bit to layer 1 + K10, and within JAX's fold-vs-divide bar
    of K5 (at most 4 LSB, under 2% of the feats;
    ``tests/test_conv_stack_v2.py:292-299``); then the fused kernels, each
@@ -141,7 +142,7 @@ KERNELS = {
     "backbone_tail": (_SRC + "conv_stack.cu", _CS + ":302", "backbone_tail",
                       "v3"),
     "gate": (_SRC + "gate.cu", _FG + ":274", "gate", "v3"),
-    "head": (_SRC + "conv_stack.cu", _CS + ":340", "head", "v3"),
+    "head": (_SRC + "head_bf16.cu", _CS + ":340", "head", "v3"),
     "backbone_int8": (_SRC + "conv_stack_int8.cu", _CS + ":1102",
                       "backbone_int8", "int8c"),
     "gate_int8": (_SRC + "gate.cu", _FG + ":679", "gate_int8", "int8c"),
@@ -331,6 +332,7 @@ def kernel_phase(model, scans, device, iters):
     from planar_optical_flow_tpu_torch.ops.kernels import fold
     from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
         backbone_layer1, backbone_tail, backbone_tail_plain, head, head_plain,
+        head_weights_bf16,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
         cutout, cutout_plain,
@@ -423,9 +425,11 @@ def kernel_phase(model, scans, device, iters):
                bound(flops3, H100_F32_FLOPS, bytes3))
         del ref3
 
-        # K4 on the gate's new template
+        # K4 on the gate's new template, its weights laid out once as the
+        # step builders lay them out
         tmpl = got3[0].reshape(-1, 256)
-        cls, reg = head(tmpl, conv_w, head_w, num_classes=1, l4=l4)
+        laid = head_weights_bf16(conv_w)
+        cls, reg = head(tmpl, laid, head_w, num_classes=1, l4=l4)
         torch.cuda.synchronize()
         cls_p, reg_p = head_plain(tmpl, conv_w, head_w, l4=l4)
         flops4 = 2.0 * n * (l4 * 3 * (256 * 256 * 2 + 256 * 512)
@@ -434,7 +438,7 @@ def kernel_phase(model, scans, device, iters):
         bytes4 = (n * d * 2 + n * 3 * 4
                   + sum(w.numel() * 2 + bb.numel() * 4 for w, bb in conv_w))
         record("head", [(cls, cls_p), (reg, reg_p)], TOL_BF16,
-               time_ms(lambda: head(tmpl, conv_w, head_w, num_classes=1,
+               time_ms(lambda: head(tmpl, laid, head_w, num_classes=1,
                                     l4=l4), iters),
                time_ms(lambda: head_plain(tmpl, conv_w, head_w, l4=l4), 3, 1),
                bound(flops4, H100_BF16_FLOPS, bytes4))
@@ -458,7 +462,8 @@ def record_int8(results, name, int8_pairs, float_pairs, ms, plain_ms,
         err, share = int8_diff(g, r)
         errs.append(err)
         ok &= err <= 1 and share < TOL_INT8_SHARE
-        notes.append(f"int8 max={err:.0f} share={share:.3e}")
+        notes.append(f"int8 max={err:.0f} share={share:.3e} "
+                     f"differing={int((g != r).sum())} of {r.numel()}")
     for k, (g, r) in enumerate(float_pairs):
         errs.append(max_err(g, r))
         if float_tols is None:
@@ -1539,7 +1544,7 @@ def trace_phase(model, scans, device, calib, steps=3, top=12):
         print(f"[trace] device op {tot / steps:.4f} ms a step, "
               f"{cnt / steps:g} a step: {name[:150]}", flush=True)
     ours = {"K1": ("cutout_kernel",), "K5": ("backbone_int8", "embed_kernel"),
-            "K6": ("gate_int8_kernel",), "K7": ("head_int8",)}
+            "K6": ("gate_int8_rows_kernel",), "K7": ("head_int8",)}
     per = {k: sum(t for n, (t, _) in by_name.items()
                   if any(s in n for s in subs)) / steps
            for k, subs in ours.items()}
@@ -1593,11 +1598,10 @@ def main(argv=None):
     for lib, fn, arg, note in (
             ("cutout", "cutout_smem_bytes", (p_pad,), ""),
             ("conv_stack", "backbone_tail_smem_bytes", (c,), ""),
-            ("gate", "gate_smem_bytes", (p_pad, WINDOW),
-             " (gate_int8 the same)"),
-            ("gate", "gate_smem_bytes", (p_pm, WINDOW),
-             f" at {p_pm} rows a stream (pm)"),
-            ("conv_stack", "head_smem_bytes", (c // 4,), ""),
+            ("gate", "gate_smem_bytes", (p_pad, WINDOW), " (K3)"),
+            ("gate", "gate_int8_smem_bytes", (WINDOW,),
+             " (K6, at any rows a stream)"),
+            ("head_bf16", "head_bf16_smem_bytes", (c // 4,), " (K4)"),
             ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 0, 0),
              " (K5)"),
             ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 1, 0),
@@ -1629,14 +1633,21 @@ def main(argv=None):
     # the launch geometry of the wgmma kernels, as the host lays out for it
     geo = _build.load("conv_stack_int8").int8_wg_geometry
     geo.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    geo4 = _build.load("head_bf16").head_bf16_geometry
+    geo4.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     for name, which, l, mode, want in (
             ("K5", 0, c, 0, int8_tiles.backbone_geometry(c, 0)),
             ("K9", 0, c, 1, int8_tiles.backbone_geometry(c, 1)),
             ("K10", 0, c, 2, int8_tiles.backbone_geometry(c, 2)),
-            ("K7", 1, c // 4, 0, int8_tiles.head_geometry(c // 4))):
+            ("K7", 1, c // 4, 0, int8_tiles.head_geometry(c // 4)),
+            ("K4", None, c // 4, None, int8_tiles.head_bf16_geometry(c // 4))):
         tile, rows, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-        geo(which, l, mode, ctypes.byref(tile), ctypes.byref(rows),
-            ctypes.byref(smem))
+        if which is None:
+            geo4(l, ctypes.byref(tile), ctypes.byref(rows),
+                 ctypes.byref(smem))
+        else:
+            geo(which, l, mode, ctypes.byref(tile), ctypes.byref(rows),
+                ctypes.byref(smem))
         got = (tile.value, rows.value, smem.value)
         print(f"[geometry] {name}: {got[0]} cutouts a block, {got[1]} rows a "
               f"cutout, {got[2]} bytes of shared memory (int8_tiles: "

@@ -34,7 +34,7 @@ STAMP_DEF = r'''
 __device__ unsigned long long* g_stamps;
 #define STAMP(i) do { if (g_stamps && threadIdx.x == 0) { unsigned long long t_; \
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \
-  g_stamps[(size_t)blockIdx.x * 64 + (i)] = t_; } } while (0)
+  g_stamps[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 64 + (i)] = t_; } } while (0)
 '''
 
 
@@ -83,8 +83,10 @@ def instrument(text, name, offset, sync="__syncthreads();", end_sync=True):
     return text[:a] + new + text[b:], labels
 
 
-def build_timed(funcs, tag, sync="__syncthreads();"):
-    """funcs: [(file, function, offset, end_sync)] -> (lib, labels)"""
+def build_timed(funcs, tag, sync="__syncthreads();",
+                source="conv_stack_int8.cu"):
+    """funcs: [(file, function, offset, end_sync)] -> (lib, labels) of the
+    instrumented ``csrc/<source>``"""
     src = os.path.join(ROOT, "planar_optical_flow_tpu_torch", "csrc")
     dst = os.path.join(ROOT, "build", "stage_split", tag)
     shutil.rmtree(dst, ignore_errors=True)
@@ -100,14 +102,11 @@ def build_timed(funcs, tag, sync="__syncthreads();"):
         text, lab = instrument(text, func, off, sync, end_sync)
         open(p, "w").write(text)
         labels[func] = (off, lab)
-    common = os.path.join(dst, "common.cuh")
-    text = open(common).read()
-    text = text.replace("namespace {\n", "namespace {\n" + STAMP_DEF, 1)
-    open(common, "w").write(text)
-    cu = os.path.join(dst, "conv_stack_int8.cu")
-    with open(cu, "a") as f:
-        f.write('\nextern "C" int set_stamps(void* p) {\n'
-                '  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n')
+    cu = os.path.join(dst, source)
+    text = open(cu).read()
+    open(cu, "w").write(STAMP_DEF + text + (
+        '\nextern "C" int set_stamps(void* p) {\n'
+        '  return (int)cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n'))
     out = os.path.join(dst, "libtimed.so")
     cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", out, cu]
     t0 = time.perf_counter()

@@ -182,6 +182,22 @@ __device__ __forceinline__ int quantize_attn(float attn) {
   return requant(__fmul_rn(attn, 127.0f));
 }
 
+// One new_t byte from its exact template mix m and its x byte:
+// clip(rint((alpha * (s_x * x) + beta * (s_t127 * m)) / s_out)), each f32
+// step rounded once in the JAX order
+__device__ __forceinline__ int blend_requant(int m, int xb, float alpha,
+                                             float beta, float s_x,
+                                             float s_t127, float s_out) {
+  const float mixed = __fmul_rn(__int2float_rn(m), s_t127);
+  const float xf = __fmul_rn((float)xb, s_x);
+  const float v = __fadd_rn(__fmul_rn(alpha, xf), __fmul_rn(beta, mixed));
+  // A zero dividend sends __fdiv_rn down its slow path, a whole warp at a
+  // time (zero bytes of x at a zero mix are common); 0 / s_out rounds to 0
+  // either way, so a zero divides s_out instead and is put back.
+  const float q = __fdiv_rn(v == 0.0f ? s_out : v, s_out);
+  return requant(v == 0.0f ? 0.0f : q);
+}
+
 // new_t[i] at columns col .. col + 15: the 2*hw+1 products of q (row i's
 // quantized attention, window entries) with the carried template rows i + o
 // of the stream (t: its row 0, rows of d int8) summed exactly in int32,
@@ -207,13 +223,11 @@ __device__ __forceinline__ uint4 mix_requant16(
   const unsigned xw[4] = {xraw.x, xraw.y, xraw.z, xraw.w};
   unsigned ow[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    const float mixed = __fmul_rn(__int2float_rn(acc[e]), s_t127);
-    const float xf = __fmul_rn((float)sbyte(xw[e >> 2], e & 3), s_x);
-    const float v = __fadd_rn(__fmul_rn(alpha, xf), __fmul_rn(beta, mixed));
-    ow[e >> 2] |= ((unsigned)requant(__fdiv_rn(v, s_out)) & 0xffu)
+  for (int e = 0; e < 16; ++e)
+    ow[e >> 2] |= ((unsigned)blend_requant(acc[e], sbyte(xw[e >> 2], e & 3),
+                                           alpha, beta, s_x, s_t127, s_out) &
+                   0xffu)
                   << (8 * (e & 3));
-  }
   return make_uint4(ow[0], ow[1], ow[2], ow[3]);
 }
 

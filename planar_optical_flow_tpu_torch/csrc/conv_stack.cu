@@ -1,43 +1,38 @@
-// K2 (backbone tail + gate embed) and K4 (detection head) for Hopper (sm_90a).
+// K2 (backbone tail + gate embed) for Hopper (sm_90a).
 //
 // K2 replaces planar_optical_flow_tpu/ops/pallas/conv_stack.py
-// fused_backbone_v2 (with embed_weights); K4 replaces fused_head_v2.
+// fused_backbone_v2 (with embed_weights). K4, its head, is head_bf16.cu.
 //
-// Both kernels give one block a tile of cutouts and keep the tile's
-// activations in shared memory across every layer: HBM sees the input
-// activation and the outputs only. The conv layer (conv_bf16.cuh, shared
-// with K14's bf16 mode) holds, per cutout, rows of C bf16 channels padded to
-// C+16, with position p in row p+1 and zero rows around. A k=3 SAME conv is
-// then three shifted row
-// windows of the same buffer times the tap-major (3*Cin, Cout) weight:
-// out[p] = sum_t in_row[p + t] @ W[t*Cin:(t+1)*Cin]. A warp task is four
+// A block takes a tile of cutouts and keeps the tile's activations in
+// shared memory across every layer: HBM sees the input activation and the
+// outputs only. The conv layer (conv_bf16.cuh, shared with K14's bf16 mode)
+// holds, per cutout, rows of C bf16 channels padded to C+16, with position
+// p in row p+1 and zero rows around. A k=3 SAME conv is then three shifted
+// row windows of the same buffer times the tap-major (3*Cin, Cout) weight:
+// out[p] = sum_t in_row[p + t] @ W[t*Cin:(t+1)*Cin]. A warp task is eight
 // 16-position tiles x 32 output channels with nvcuda::wmma bf16 16x16x16
 // fragments and f32 accumulators: each B fragment, read from the weights in
-// global memory (L2 resident), feeds four tile products, so the block reads
-// a layer's weights from L2 once per four tiles. Positions are padded to a
-// multiple of 16 per cutout; the padded outputs are written as zero so they
-// serve as the next layer's padding.
+// global memory (L2 resident), feeds eight tile products. Positions are
+// padded to a multiple of 16 per cutout; the padded outputs are written as
+// zero so they serve as the next layer's padding.
 //
-// Rounding follows the JAX kernels: bf16 MMA operands, f32 accumulation,
+// Rounding follows the JAX kernel: bf16 MMA operands, f32 accumulation,
 // bias + LeakyReLU(0.1) in f32, the activation stored as its bf16 MMA
 // operand (bf16 rounding is monotonic, so max-pool commutes with it), feats
-// stored bf16, zx = bf16(feats @ We + be), the head's position mean in f32.
+// stored bf16, zx = bf16(feats @ We + be).
 //
-// Bound: tensor-core operations (about 16 MFLOP per cutout for K2 at
-// L=56, 29 MFLOP for K4 at L4=14, against 8 and 7 KB of HBM traffic).
+// Bound: tensor-core operations (about 16 MFLOP per cutout at L=56,
+// against 8 KB of HBM traffic).
 
 #include "conv_bf16.cuh"
 
 namespace {
 
 constexpr int kTileBackbone = 8;  // cutouts per block (= embed MMA rows)
-constexpr int kTileHead = 4;
 // 16-position tiles per warp task (each B fragment feeds that many tile
 // products); must divide the block's tile count, cutouts x tiles per cutout
 constexpr int kMTilesBackbone = 8;
-constexpr int kMTilesHead = 4;
-static_assert(kTileBackbone % kMTilesBackbone == 0 &&
-                  kTileHead % kMTilesHead == 0,
+static_assert(kTileBackbone % kMTilesBackbone == 0,
               "a warp task's tiles must not run past the block's cutouts");
 
 __global__ void __launch_bounds__(kThreads)
@@ -126,78 +121,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    head_kernel(const bf16* __restrict__ feats,
-                const bf16* __restrict__ w1, const float* __restrict__ b1,
-                const bf16* __restrict__ w2, const float* __restrict__ b2,
-                const bf16* __restrict__ w3, const float* __restrict__ b3,
-                const bf16* __restrict__ w4, const float* __restrict__ b4,
-                const bf16* __restrict__ w5, const float* __restrict__ b5,
-                const bf16* __restrict__ wc, const float* __restrict__ bc,
-                const bf16* __restrict__ wr, const float* __restrict__ br,
-                float* __restrict__ cls, float* __restrict__ reg, int n,
-                int L4, int nc, int S) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int T = kTileHead;
-  bf16* buf0 = reinterpret_cast<bf16*>(smem_raw);
-  bf16* buf1 = buf0 + (size_t)T * S;
-  float* stage_all = reinterpret_cast<float*>(buf1 + (size_t)T * S);
-  float* means = stage_all + kWarps * 256;  // T x 128
-  float* stage = stage_all + (threadIdx.x >> 5) * 256;
-  const int c0 = blockIdx.x * T;
-  const int nv = min(T, n - c0);
-  const int L8 = L4 / 2;
-
-  zero_smem(buf0, T * S);
-  zero_smem(buf1, T * S);
-  __syncthreads();
-  load_rows<256>(buf0, feats, c0, nv, L4, S);
-  __syncthreads();
-  conv_layer<256, 256, kStore, kMTilesHead>(buf0, buf1, nullptr, S, L4, T, w1, b1, stage);
-  __syncthreads();
-  zero_smem(buf0, T * S);
-  __syncthreads();
-  conv_layer<256, 256, kStore, kMTilesHead>(buf1, buf0, nullptr, S, L4, T, w2, b2, stage);
-  __syncthreads();
-  zero_smem(buf1, T * S);
-  __syncthreads();
-  conv_layer<256, 512, kPool, kMTilesHead>(buf0, buf1, nullptr, S, L4, T, w3, b3, stage);
-  __syncthreads();
-  zero_smem(buf0, T * S);
-  __syncthreads();
-  conv_layer<512, 256, kStore, kMTilesHead>(buf1, buf0, nullptr, S, L8, T, w4, b4, stage);
-  __syncthreads();
-  conv_layer<256, 128, kMean, kMTilesHead>(buf0, nullptr, means, S, L8, T, w5, b5, stage);
-  __syncthreads();
-
-  // cls / reg: bf16(mean) @ bf16 weights, f32 accumulate, + f32 bias
-  for (int idx = threadIdx.x; idx < nv * (nc + 2); idx += kThreads) {
-    const int c = idx / (nc + 2), j = idx - c * (nc + 2);
-    const bool is_cls = j < nc;
-    const bf16* w = is_cls ? wc + j : wr + (j - nc);
-    const int ldw = is_cls ? nc : 2;
-    float acc = 0.0f;
-    for (int k = 0; k < 128; ++k)
-      acc += __bfloat162float(__float2bfloat16(means[c * 128 + k])) *
-             __bfloat162float(w[k * ldw]);
-    if (is_cls)
-      cls[(size_t)(c0 + c) * nc + j] = acc + bc[j];
-    else
-      reg[(size_t)(c0 + c) * 2 + (j - nc)] = acc + br[j - nc];
-  }
-}
-
 size_t backbone_tail_smem(int l, int* S) {
   *S = imax(imax((pad16(l) + 2) * ld_of(64), (pad16(l / 2) + 2) * ld_of(128)),
             (pad16(l / 4) + 2) * ld_of(256));
   return 2 * (size_t)kTileBackbone * *S * sizeof(bf16) +
          kWarps * 256 * sizeof(float);
-}
-
-size_t head_smem(int l4, int* S) {
-  *S = imax((pad16(l4) + 2) * ld_of(256), (pad16(l4 / 2) + 2) * ld_of(512));
-  return 2 * (size_t)kTileHead * *S * sizeof(bf16) +
-         (kWarps * 256 + kTileHead * 128) * sizeof(float);
 }
 
 }  // namespace
@@ -206,11 +134,6 @@ size_t head_smem(int l4, int* S) {
 extern "C" long long backbone_tail_smem_bytes(int l) {
   int S;
   return (long long)backbone_tail_smem(l, &S);
-}
-
-extern "C" long long head_smem_bytes(int l4) {
-  int S;
-  return (long long)head_smem(l4, &S);
 }
 
 extern "C" int backbone_tail_launch(
@@ -229,27 +152,5 @@ extern "C" int backbone_tail_launch(
       (const float*)b3, (const bf16*)w4, (const float*)b4, (const bf16*)w5,
       (const float*)b5, (const bf16*)w6, (const float*)b6, (const bf16*)we,
       (const bf16*)be, (bf16*)feats, (bf16*)zx, n, l, S);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int head_launch(const void* feats, const void* w1, const void* b1,
-                           const void* w2, const void* b2, const void* w3,
-                           const void* b3, const void* w4, const void* b4,
-                           const void* w5, const void* b5, const void* wc,
-                           const void* bc, const void* wr, const void* br,
-                           void* cls, void* reg, int n, int l4, int nc,
-                           void* stream) {
-  if (n == 0) return (int)cudaSuccess;
-  int S;
-  const size_t smem = head_smem(l4, &S);
-  int err = set_smem((const void*)head_kernel, smem);
-  if (err) return err;
-  const int grid = (n + kTileHead - 1) / kTileHead;
-  head_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)feats, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
-      (const float*)b2, (const bf16*)w3, (const float*)b3, (const bf16*)w4,
-      (const float*)b4, (const bf16*)w5, (const float*)b5, (const bf16*)wc,
-      (const float*)bc, (const bf16*)wr, (const float*)br, (float*)cls,
-      (float*)reg, n, l4, nc, S);
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@
 // lanes are TPU layout devices and are not carried over: the int32 sums are
 // the same in any layout.
 //
-// K5/K9/K10 and K7 run on int8_wgmma.cuh: 16 cutouts a block in the packed
+// K5/K9/K10 and K7 run on wgmma_conv.cuh: 16 cutouts a block in the packed
 // tile (cutouts back to back, one or two zero rows between them), wgmma
 // m64nNk32 s8 products (N = 64-256) with both operands in shared memory,
 // the weights staged by cp.async into a 4 x 16 KB ring two chunks ahead of
@@ -92,7 +92,7 @@
 // K16 is bound by its launch.
 
 #include "cutout.cuh"
-#include "int8_wgmma.cuh"
+#include "wgmma_conv.cuh"
 
 namespace {
 
@@ -106,12 +106,6 @@ using HdPlan0 = ConvPlan<256, 256, 2, 2>;  // head convs 1 and 2
 using HdPlan2 = ConvPlan<256, 512, 2, 2>;
 using HdPlan3 = ConvPlan<512, 256, 1, 4>;
 using HdPlan4 = ConvPlan<256, 128, 1, 2>;
-
-constexpr size_t kSmemMax = 232448;  // dynamic shared memory a block may use
-// the ring, then a conv's s_eff/b_eff: where a wgmma kernel's tiles start
-constexpr int kRingBytes = kStages * kStageBytes + kScaleBytes;
-
-size_t round128(size_t x) { return (x + 127) / 128 * 128; }
 
 // a backbone block's tile region (each of two): the packed tiles of its
 // stages and its int8 feats rows
@@ -194,7 +188,7 @@ __device__ __forceinline__ void layer1_packed(const float* cut_s,
 }
 
 // K5 (L1 = kFold), K9 (kDivide) and K10 (kRead): layer 1 (or the int8 act1
-// rows) and the five tail convs on int8_wgmma.cuh; feats out (int8 rows
+// rows) and the five tail convs on wgmma_conv.cuh; feats out (int8 rows
 // through shared memory, or with F_OUT the bf16 rows straight out). The gate
 // embed is embed_kernel's. Shared memory: the ring, two tile regions of R
 // bytes, the f32 cutouts (kFold/kDivide).
@@ -454,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
 // K16: x (n * L, 128) int8 -> left[r] = x[r - 1], right[r] = x[r + 1]
 // within each length-L cutout (zero at its ends), through both conv
 // layouts: int8_stack.cuh's (load_rows into cutouts of S bytes, TAP_ROW;
-// K8, K12, K13) and int8_wgmma.cuh's packed tile (load_packed, packed_tap;
+// K8, K12, K13) and wgmma_conv.cuh's packed tile (load_packed, packed_tap;
 // K5, K7, K9, K10). A byte where the two disagree is
 // written as -128, which the known-answer pattern never holds.
 __global__ void __launch_bounds__(kThreads)
@@ -486,7 +480,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K7: the head on int8_wgmma.cuh: five convs, the f32 mean over positions,
+// K7: the head on wgmma_conv.cuh: five convs, the f32 mean over positions,
 // cls and reg. Shared memory: the ring, two tile regions of R bytes, the
 // means (T x 128 f32).
 __global__ void __launch_bounds__(kWgThreads, 1)

@@ -3,7 +3,7 @@
 // cutouts, backbone layer 1 into the tile, the backbone tail + gate embed,
 // and the head. K5/K9/K10 and K7 share layer 1, the tile loader, the
 // epilogue arithmetic and the head's mean and cls/reg from here, and run
-// their convs on int8_wgmma.cuh.
+// their convs on wgmma_conv.cuh.
 //
 // A block owns kTile cutouts and keeps their activations in shared memory
 // across every layer: per cutout, rows of C int8 channels padded to C + 16
@@ -63,16 +63,6 @@ __device__ __forceinline__ uint32_t ldg32(const void* p) {
 __device__ __forceinline__ uint32_t bf16x2_of(int8_t lo, int8_t hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn((float)lo, (float)hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// D += A (16x32 s8, row) * B (32x8 s8, col), s32 accumulate
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // D += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulate

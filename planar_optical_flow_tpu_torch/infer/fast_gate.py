@@ -8,6 +8,9 @@ gate API of the module-backbone serving step.
 * K6 :func:`gate_int8` replaces ``gate_fused_int8_pm`` with
   ``per_stream=True`` (kernel ``_gate_int8_pm_stream_kernel``,
   ``_quantize_attn``, ``_mix_requant``): int8 features and template carry.
+  Its blocks take :data:`GATE_ROWS` rows of one stream; the exact int32
+  mix runs on the int8 tensor cores with the quantized band as one operand
+  and the byte-transposed template rows as the other.
 * K12 :func:`gate_head_int8` replaces ``gate_head_fused_int8_pm`` (kernel
   ``_gate_head_int8_pm_stream_kernel``): K6, then the int8 head (K7,
   ``conv_stack.head_int8``) on the fresh template in the same kernel,
@@ -72,10 +75,22 @@ _LEAKY_SLOPE = 0.1
 EMBED_DIM = 128
 
 _EMBED_CHUNK = 16384  # rows per product of embed (bounds f32 copies)
+# K6's block: GATE_ROWS rows of one stream, the template walked in chunks of
+# GATE_COLS columns (csrc/gate.cu kGateRows, kGateCols); the band of a
+# 16-row tile is one k32 step of the int8 mma for window <= 17, else two,
+# its K window starting gate_halo(window) rows above the tile
+GATE_ROWS = 64
+GATE_COLS = 128
+
+
+def gate_halo(window_size: int) -> int:
+    """Rows above a 16-row tile where K6's band operand starts."""
+    return 8 if window_size // 2 <= 8 else 16
 
 __all__ = ["GateParams", "banded_mix_update", "banded_mix_update_plain",
            "embed", "gate", "gate_bootstrap", "gate_fused", "gate_head_int8",
            "gate_head_int8_plain", "gate_int8", "gate_int8_plain",
+           "int8_mix_plain",
            "gate_plain", "gate_step"]
 
 
@@ -311,24 +326,36 @@ def gate_int8_plain(zx, zt, x, template, *, ct: int, alpha: float,
                     ct_valid: int | None = None):
     """Plain PyTorch version of :func:`gate_int8` (same arguments)."""
     ct_valid = ct_valid or ct
-    n, d = template.shape
     attn, s, rows = _attention(zx, zt, ct=ct, ct_valid=ct_valid,
                                window_size=window_size)
-    b = attn.shape[0]
     q = torch.clamp(torch.round(attn * 127.0), -127, 127).to(torch.int32)
+    new_t = int8_mix_plain(q, x, template, ct=ct, ct_valid=ct_valid,
+                           alpha=alpha, s_x=s_x, s_t=s_t, s_out=s_out)
+    attn_bf = attn.to(torch.bfloat16).float()
+    return (new_t, _new_z(zx, zt, attn_bf, rows, ct, alpha),
+            s.reshape(template.shape[0], -1))
+
+
+def int8_mix_plain(q, x, template, *, ct: int, ct_valid: int, alpha: float,
+                   s_x: float, s_t: float, s_out: float):
+    """K6's template mix from the quantized attention ``q (B, ct, window)``
+    (0 off the valid band): the exact int32 sum ``m = sum_o q[o] * t[i +
+    o]`` and ``clip(rint((alpha * (s_x * x) + (1 - alpha) * ((s_t / 127) *
+    m)) / s_out))`` -> ``(N, D)`` int8."""
+    n, d = template.shape
+    b, _, window = q.shape
+    rows, _ = _band_rows(ct, ct_valid, window, q.device)
     t = template.reshape(b, ct, d).to(torch.int32)
     mixed = torch.zeros_like(t)
-    for k in range(rows.shape[1]):
-        mixed += q[..., k:k + 1] * t[:, rows[:, k]]
+    for k in range(window):
+        mixed += q[..., k:k + 1].to(torch.int32) * t[:, rows[:, k]]
     # the JAX constants: Python doubles rounded once to f32; one true f32
     # division by s_out
     new_t = (alpha * (x.reshape(b, ct, d).float() * s_x)
              + (1.0 - alpha) * (mixed.float() * (s_t / 127.0)))
     new_t = torch.clamp(torch.round(div_f32(new_t, s_out)), -127, 127).to(
         torch.int8)
-    attn_bf = attn.to(torch.bfloat16).float()
-    return (new_t.reshape(n, d), _new_z(zx, zt, attn_bf, rows, ct, alpha),
-            s.reshape(n, -1))
+    return new_t.reshape(n, d)
 
 
 def gate_int8(zx, zt, x, template, *, ct: int, alpha: float,
@@ -339,27 +366,29 @@ def gate_int8(zx, zt, x, template, *, ct: int, alpha: float,
     ``zx``/``zt``: ``(N, 128)`` bf16 as for :func:`gate`; ``x``: ``(N, D)``
     int8 features at scale ``s_x``; ``template``: ``(N, D)`` int8 at
     ``s_t``. Returns new_template ``(N, D)`` int8 at ``s_out``, new_z
-    ``(N, 128)`` bf16, sim ``(N, window)`` f32. A CUDA tensor launches K6;
-    a CPU tensor runs :func:`gate_int8_plain`.
+    ``(N, 128)`` bf16, sim ``(N, window)`` f32. A CUDA tensor launches K6
+    (blocks of :data:`GATE_ROWS` rows of one stream walking the template in
+    chunks of :data:`GATE_COLS` columns); a CPU tensor runs
+    :func:`gate_int8_plain`.
     """
     kw = dict(ct=ct, alpha=alpha, window_size=window_size, s_x=s_x, s_t=s_t,
               s_out=s_out, ct_valid=ct_valid)
     if zx.device.type == "cpu":
         return gate_int8_plain(zx, zt, x, template, **kw)
     ct_valid = ct_valid or ct
-    n, d, d_chunk = _check_gate_args("gate_int8", zx, zt, x, template, ct,
-                                     ct_valid, window_size, torch.int8, 16)
+    n, d, _ = _check_gate_args("gate_int8", zx, zt, x, template, ct,
+                               ct_valid, window_size, torch.int8, 16)
     zx, zt, x, template = (t.contiguous() for t in (zx, zt, x, template))
     new_t = torch.empty_like(template)
     new_z = torch.empty_like(zx)
     sim = torch.empty(n, window_size, dtype=torch.float32, device=zx.device)
     fn = _build.load("gate").gate_int8_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
         + [ctypes.c_float] * 5 + [ctypes.c_void_p]
     _build.check(fn(zx.data_ptr(), zt.data_ptr(), x.data_ptr(),
                     template.data_ptr(), new_t.data_ptr(), new_z.data_ptr(),
-                    sim.data_ptr(), n, d, ct, ct_valid, window_size, d_chunk,
+                    sim.data_ptr(), n, d, ct, ct_valid, window_size,
                     float(alpha), 1.0 - alpha, float(s_x), s_t / 127.0,
                     float(s_out), _build.stream_ptr(zx.device)), "gate_int8")
     gate_int8.launches += 1

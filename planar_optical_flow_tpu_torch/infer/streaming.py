@@ -88,6 +88,7 @@ from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     check_row_shift,
     head,
     head_int8,
+    head_weights_bf16,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
 from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import serve_cell_int8
@@ -791,7 +792,9 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
 
     if precision == "bf16":
         layer1, tail_w = fold.backbone_stack_weights(det.backbone)
-        hd_conv_w = fold.prepare_stack_weights(fold.head_conv_blocks(det.head))
+        # K4's conv weights laid out for its weight ring once, for every step
+        hd_conv_w = head_weights_bf16(
+            fold.prepare_stack_weights(fold.head_conv_blocks(det.head)))
 
         @torch.inference_mode()
         def step(carry, scan):

@@ -1,6 +1,6 @@
 """K2, K4 (bf16) and K5, K7, K9, K10 (int8): the fused DROW conv stacks
-(``csrc/conv_stack.cu``, ``csrc/conv_stack_int8.cu``), and K16, the check
-of the int8 kernels' tap rows.
+(``csrc/conv_stack.cu``, ``csrc/head_bf16.cu``, ``csrc/conv_stack_int8.cu``),
+and K16, the check of the int8 kernels' tap rows.
 
 * K2 :func:`backbone_tail` replaces
   ``planar_optical_flow_tpu/ops/pallas/conv_stack.py`` ``fused_backbone_v2``
@@ -24,8 +24,11 @@ Bound on the H100: operations. K2 does ~16.1 MFLOP per cutout at L=56 (the
 embed included) and K4 ~28.9 MFLOP at L4=14, against 8 KB and 7 KB of HBM
 traffic per cutout. The kernels keep a tile of cutouts' activations in
 shared memory across all layers (HBM sees only the input and the outputs,
-which is what the TPU kernels bought) and run each conv as three shifted
-bf16 tensor-core products (``nvcuda::wmma`` 16x16x16, f32 accumulate).
+which is what the TPU kernels bought). K2 runs each conv as three shifted
+bf16 tensor-core products (``nvcuda::wmma`` 16x16x16, f32 accumulate); K4
+runs on the wgmma conv of K7 in bf16 (``csrc/wgmma_conv.cuh``: 8 cutouts a
+block in a packed tile, its conv weights laid out once by
+:func:`head_weights_bf16` and staged through a ring in shared memory).
 
 The int8 stacks, weights from ``quant.kernel_stack_weights``:
 
@@ -59,7 +62,7 @@ The int8 stacks, weights from ``quant.kernel_stack_weights``:
 
 K5, K7, K9 and K10 run on ``wgmma`` s8 products over a packed tile of 16
 cutouts, with the conv weights staged in shared memory by cp.async
-(``csrc/int8_wgmma.cuh``; the host lays the weights out with
+(``csrc/wgmma_conv.cuh``; the host lays the weights out with
 ``int8_tiles.wgmma_weights``), and the gate embed of K5/K9/K10 as a second
 kernel over all cutouts; K8, K12 and K13 run on ``mma.sync`` int8 products
 (``csrc/int8_stack.cuh``) with the same embed arithmetic. ~15.1 M and 28.9 M
@@ -72,6 +75,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -213,38 +217,91 @@ def backbone_tail(act1, weights, embed_weights, *, l: int):
     return feats, zx
 
 
+class HeadBf16Weights(NamedTuple):
+    """K4's conv weights laid out once (:func:`head_weights_bf16`): the
+    ``(w (3*Cin, Cout) bf16, b (Cout,) f32)`` pairs of ``fold.
+    head_stack_weights`` and each ``w`` in the chunk order of its conv's
+    plan (``int8_tiles.plan_weights_bf16``)."""
+    convs: tuple
+    laid: tuple
+
+
+def head_weights_bf16(conv_weights) -> HeadBf16Weights:
+    """Lay K4's conv weights out for its weight ring, once per set of
+    weights: the step builders hold the result and pass it to :func:`head`
+    on every call."""
+    _check_weights(conv_weights, HEAD_CHANNELS, "head")
+    return HeadBf16Weights(
+        tuple(conv_weights),
+        tuple(int8_tiles.plan_weights_bf16(conv_weights)))
+
+
+def _check_head_bf16_plan(lib):
+    """Raise unless the library's K4 plan chunks the weights as
+    ``int8_tiles.HEAD_BF16_PLAN`` lays them out (once per process)."""
+    if _check_head_bf16_plan.checked:
+        return
+    fn = lib.head_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
+    _check_plan("head", fn, int8_tiles.HEAD_BF16_PLAN, 2)
+    _check_head_bf16_plan.checked = True
+
+
+_check_head_bf16_plan.checked = False
+
+
 def head(feats, conv_weights, head_weights, *, num_classes: int, l4: int):
     """Head convs + position mean + cls/reg: ``(N*l4, 256)`` bf16 -> (cls
     ``(N, num_classes)`` f32, reg ``(N, 2)`` f32).
 
-    ``conv_weights``/``head_weights`` from ``fold.head_stack_weights``. A
-    CUDA tensor launches K4; a CPU tensor runs :func:`head_plain`.
+    ``conv_weights``: :func:`head_weights_bf16` of ``fold.
+    head_stack_weights``' conv weights (a caller that passes the pairs
+    themselves has them laid out on every call); ``head_weights`` the
+    cls/reg weights. A CUDA tensor launches K4; a CPU tensor runs
+    :func:`head_plain`.
     """
     if feats.device.type == "cpu":
+        if isinstance(conv_weights, HeadBf16Weights):
+            conv_weights = conv_weights.convs
         return head_plain(feats, conv_weights, head_weights, l4=l4)
     if l4 % 2 or not 2 <= l4 <= 32:
         raise ValueError(f"head: l4={l4} must be even and in [2, 32]")
     if not 1 <= num_classes <= 8:
         raise ValueError(f"head: num_classes={num_classes} not in [1, 8]")
+    if not isinstance(conv_weights, HeadBf16Weights):
+        conv_weights = head_weights_bf16(conv_weights)
     n = feats.shape[0] // l4
     _check_cuda(feats, torch.bfloat16, (n * l4, 256), "head feats")
-    _check_weights(conv_weights, HEAD_CHANNELS, "head")
+    for w, (_, b) in zip(conv_weights.laid, conv_weights.convs):
+        _check_cuda(w, torch.bfloat16, (w.numel(),), "head laid-out w")
+        _check_cuda(b, torch.float32, (b.numel(),), "head b")
     wc, bc, wr, br = head_weights
     _check_cuda(wc, torch.bfloat16, (128, num_classes), "head wc")
     _check_cuda(bc, torch.float32, (num_classes,), "head bc")
     _check_cuda(wr, torch.bfloat16, (128, 2), "head wr")
     _check_cuda(br, torch.float32, (2,), "head br")
+    smem = int8_tiles.head_bf16_geometry(l4)[2]
+    if smem > int8_tiles.SMEM_MAX:
+        raise ValueError(f"head: {smem} bytes of shared memory at l4={l4}, "
+                         f"over {int8_tiles.SMEM_MAX}")
     feats = feats.contiguous()
     wc, bc, wr, br = (t.contiguous() for t in head_weights)
     cls = torch.empty(n, num_classes, dtype=torch.float32, device=feats.device)
     reg = torch.empty(n, 2, dtype=torch.float32, device=feats.device)
-    fn = _build.load("conv_stack").head_launch
+    lib = _build.load("head_bf16")
+    _check_head_bf16_plan(lib)
+    ptrs = [t.data_ptr() for w, (_, b) in zip(conv_weights.laid,
+                                              conv_weights.convs)
+            for t in (w, b)]
+    convs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    fn = lib.head_bf16_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
-    _build.check(fn(feats.data_ptr(), *_ptrs(conv_weights), wc.data_ptr(),
-                    bc.data_ptr(), wr.data_ptr(), br.data_ptr(),
-                    cls.data_ptr(), reg.data_ptr(), n, l4, num_classes,
+    _build.check(fn(feats.data_ptr(), convs, wc.data_ptr(), bc.data_ptr(),
+                    wr.data_ptr(), br.data_ptr(), cls.data_ptr(),
+                    reg.data_ptr(), n, l4, num_classes,
                     _build.stream_ptr(feats.device)), "head")
     head.launches += 1
     return cls, reg
@@ -406,6 +463,22 @@ def int8_ptr_array(weights):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
+def _check_plan(what, query, plan, esize):
+    """Raise unless the library's chunking of each conv of ``plan``,
+    ``query(layer, &ns, &kc)``, is the one ``int8_tiles`` lays the weights
+    out in (operands of ``esize`` bytes)."""
+    for layer, (cin, _, _, nj, *wgn) in enumerate(plan):
+        ns, kc = ctypes.c_int(), ctypes.c_int()
+        _build.check(query(layer, ctypes.byref(ns), ctypes.byref(kc)),
+                     f"{what} plan")
+        n = 64 * nj * (wgn[0] if wgn else 1)
+        want = (n, int8_tiles.chunk_k(3 * cin, n, esize))
+        if (ns.value, kc.value) != want:
+            raise RuntimeError(f"{what}: the kernel's plan of layer {layer} "
+                               f"is {(ns.value, kc.value)}, int8_tiles lays "
+                               f"out {want}")
+
+
 def _wg_inputs(what, weights, which, smem):
     """The ``conv_stack_int8`` library and ``weights`` laid out for the ring
     of its wgmma kernel ``which`` (0: K5/K9/K10, 1: K7), with their pointer
@@ -419,15 +492,8 @@ def _wg_inputs(what, weights, which, smem):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
         for stack, plan in enumerate(plans):
-            for layer, (cin, _, _, nj) in enumerate(plan):
-                ns, kc = ctypes.c_int(), ctypes.c_int()
-                _build.check(fn(stack, layer, ctypes.byref(ns),
-                                ctypes.byref(kc)), f"{what} plan")
-                want = (64 * nj, int8_tiles.chunk_k(3 * cin, 64 * nj))
-                if (ns.value, kc.value) != want:
-                    raise RuntimeError(
-                        f"{what}: the kernel's plan of layer {layer} is "
-                        f"{(ns.value, kc.value)}, int8_tiles lays out {want}")
+            _check_plan(what, lambda layer, *out: fn(stack, layer, *out), plan,
+                        1)
         _wg_inputs.checked = True
     if smem > int8_tiles.SMEM_MAX:
         raise ValueError(f"{what}: {smem} bytes of shared memory at this "

@@ -1,14 +1,15 @@
-"""Host side of the int8 wgmma convs of K5/K9/K10 and K7
-(``csrc/int8_wgmma.cuh``): the weights' layout for the wgmma B operand and
+"""Host side of the wgmma convs (``csrc/wgmma_conv.cuh``) of K5/K9/K10 and
+K7 (int8) and of K4 (bf16): the weights' layout for the wgmma B operand and
 the launch geometry of the packed tile.
 
-* **Weights.** Each conv's ``w (Cout, 3*Cin)`` int8 (``quant.
-  kernel_stack_weights``) is cut into chunks of ``NS = 64 * nj`` output
-  channels x ``KC`` bytes of K (:func:`chunk_k`), ordered ``[pass][chunk]``,
-  and each chunk is laid out in the order a no-swizzle K-major wgmma
-  descriptor reads: ``[16-byte K block][8-channel group][8 rows][16
-  bytes]``, so the kernel's threads copy a chunk into a ring stage as one
-  contiguous run (:func:`wgmma_weights`).
+* **Weights.** Each conv's ``w (Cout, 3*Cin)`` (int8 from ``quant.
+  kernel_stack_weights``; bf16, the transpose of ``fold``'s ``(3*Cin,
+  Cout)``) is cut into chunks of ``NS = 64 * nj * wgn`` output channels x
+  ``KC`` elements of K (:func:`chunk_k`), ordered ``[pass][chunk]``, and
+  each chunk is laid out in the order a no-swizzle K-major wgmma descriptor
+  reads: ``[16-byte K block][8-channel group][8 rows][16 bytes]`` (16 int8
+  or 8 bf16 of K a core-matrix row), so the kernel's threads copy a chunk
+  into a ring stage as one contiguous run (:func:`wgmma_weights`).
 * **Packed tile.** A block keeps ``tile`` cutouts back to back, cutout c's
   position p in row ``c * S + 1 + p`` with ``S = row_stride(L)``, ``L + 1``
   rounded up to even (one or two zero rows after each cutout; row 0 zero).
@@ -20,13 +21,16 @@ the launch geometry of the packed tile.
 * **Geometry.** A block takes the most cutouts (16, halved while needed)
   whose ring, two tile regions and side buffers fit the 232,448 bytes of
   shared memory a block may use (:func:`backbone_geometry`,
-  :func:`head_geometry`; the C side, ``int8_wg_geometry``, computes the
-  same).
+  :func:`head_geometry`, :func:`head_bf16_geometry`; the C side,
+  ``int8_wg_geometry`` and ``head_bf16_geometry``, computes the same). A
+  bf16 tile takes twice the bytes: K4 takes 8 cutouts a block at L/4 = 14.
 
-``BACKBONE_PLAN`` and ``HEAD_PLAN`` are the kernels' conv plans: ``(Cin,
-Cout, row tiles, n64 tiles)`` per warp group, as ``conv_stack_int8.cu``'s
-``BbPlan*``/``HdPlan*`` instantiate them (``int8_wg_plan`` reports them;
-``conv_stack`` compares once per process).
+``BACKBONE_PLAN``, ``HEAD_PLAN`` and ``HEAD_BF16_PLAN`` are the kernels'
+conv plans: ``(Cin, Cout, row tiles, n64 tiles)`` per warp group, and for
+K4 a fifth entry, the warp groups along N (2: both warp groups share the
+row tiles and split N), as ``conv_stack_int8.cu``'s ``BbPlan*``/``HdPlan*``
+and ``head_bf16.cu``'s ``HbPlan*`` instantiate them (``int8_wg_plan`` and
+``head_bf16_plan`` report them; ``conv_stack`` compares once per process).
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ BACKBONE_PLAN = ((64, 64, 4, 1), (64, 128, 2, 2), (128, 128, 2, 2),
                  (128, 128, 2, 2), (128, 256, 2, 2))
 HEAD_PLAN = ((256, 256, 2, 2), (256, 256, 2, 2), (256, 512, 2, 2),
              (512, 256, 1, 4), (256, 128, 1, 2))
+HEAD_BF16_PLAN = ((256, 256, 1, 4, 1), (256, 256, 1, 4, 1),
+                  (256, 512, 1, 4, 1), (512, 256, 1, 2, 2),
+                  (256, 128, 1, 1, 2))
 _L1_READ = 2  # the backbone's l1_mode that reads int8 act1 rows (no cutouts)
 
 
@@ -55,16 +62,19 @@ def m_tiles(l: int, tile: int) -> int:
 
 
 def ptile_bytes(l: int, c: int, tile: int) -> int:
-    """Bytes of a packed tile of ``c`` channels: every row its 64-row
+    """Bytes of a packed tile of rows of ``c`` bytes: every row its 64-row
     tiles read."""
     return (m_tiles(l, tile) * 64 + 2) * c
 
 
-def chunk_k(k: int, ns: int) -> int:
-    """K bytes a weight chunk of ``ns`` output channels holds: the largest
-    multiple of 32 dividing ``k`` with ``ns * kc`` within a stage."""
-    return max(kc for kc in range(32, k + 1, 32)
-               if k % kc == 0 and (ns * kc <= STAGE_BYTES or kc == 32))
+def chunk_k(k: int, ns: int, esize: int = 1) -> int:
+    """K elements (of ``esize`` bytes) a weight chunk of ``ns`` output
+    channels holds: the largest multiple of 32 bytes dividing ``k`` with
+    ``ns * kc`` elements within a stage."""
+    step = 32 // esize
+    return max(kc for kc in range(step, k + 1, step)
+               if k % kc == 0 and (ns * kc * esize <= STAGE_BYTES
+                                   or kc == step))
 
 
 def _round128(x: int) -> int:
@@ -92,6 +102,16 @@ def head_smem_bytes(l4: int, tile: int) -> int:
     return RING_BYTES + 2 * region + tile * 128 * 4
 
 
+def head_bf16_smem_bytes(l4: int, tile: int) -> int:
+    """Dynamic shared memory of a K4 block of ``tile`` cutouts: the ring,
+    two regions each holding the largest bf16 packed tile or the last
+    conv's f32 rows, and the means."""
+    region = _round128(max(ptile_bytes(l4, 256 * 2, tile),
+                           ptile_bytes(l4 // 2, 512 * 2, tile),
+                           tile * (l4 // 2) * 128 * 4))
+    return RING_BYTES + 2 * region + tile * 128 * 4
+
+
 def _geometry(smem_of, l):
     tile = WG_TILE
     while tile > 1 and smem_of(tile) > SMEM_MAX:
@@ -111,30 +131,45 @@ def head_geometry(l4: int):
     return _geometry(lambda t: head_smem_bytes(l4, t), l4)
 
 
-def _chunk_shape(cout, k, nj):
-    ns = 64 * nj
-    kc = chunk_k(k, ns)
-    # (pass, n8 group, row, chunk, k16 block, byte) of w (Cout, K)
-    return (cout // ns, ns // 8, 8, k // kc, kc // 16, 16)
+def head_bf16_geometry(l4: int):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a K4 launch
+    at ``l4`` positions."""
+    return _geometry(lambda t: head_bf16_smem_bytes(l4, t), l4)
 
 
-# (pass, n8 group, row, chunk, k16 block, byte) <-> (pass, chunk, k16 block,
-# n8 group, row, byte): the permutation is its own inverse
+def _chunk_shape(cout, k, nj, wgn=1, esize=1):
+    ns = 64 * nj * wgn
+    kc = chunk_k(k, ns, esize)
+    blk = 16 // esize  # elements of a 16-byte K block
+    # (pass, n8 group, row, chunk, k block, element) of w (Cout, K)
+    return (cout // ns, ns // 8, 8, k // kc, kc // blk, blk)
+
+
+# (pass, n8 group, row, chunk, k block, element) <-> (pass, chunk, k block,
+# n8 group, row, element): the permutation is its own inverse
 _CHUNK_ORDER = (0, 3, 4, 1, 2, 5)
 
 
-def wgmma_weights(w, nj: int):
-    """``w (Cout, K)`` int8 -> the 1-D chunk order the ring streams: for
-    each pass of ``64 * nj`` output channels, its K chunks, each
-    ``[16-byte K block][8-channel group][8 rows][16 bytes]``."""
+def wgmma_weights(w, nj: int, wgn: int = 1):
+    """``w (Cout, K)`` int8 or bf16 -> the 1-D chunk order the ring
+    streams: for each pass of ``64 * nj * wgn`` output channels, its K
+    chunks, each ``[16-byte K block][8-channel group][8 rows][16 bytes]``."""
     cout, k = w.shape
-    return (w.reshape(_chunk_shape(cout, k, nj)).permute(_CHUNK_ORDER)
-            .contiguous().reshape(-1))
-
+    shape = _chunk_shape(cout, k, nj, wgn, w.element_size())
+    return (w.reshape(shape).permute(_CHUNK_ORDER).contiguous()
+            .reshape(-1))
 
 
 def plan_weights(weights, plan):
-    """``[(w, s_eff, b_eff), ...]`` of a conv stack -> the same with each
-    ``w`` in the chunk order of its layer of ``plan``."""
+    """``[(w, s_eff, b_eff), ...]`` of an int8 conv stack -> the same with
+    each ``w`` in the chunk order of its layer of ``plan``."""
     return [(wgmma_weights(w, nj), s, b)
             for (w, s, b), (_, _, _, nj) in zip(weights, plan)]
+
+
+def plan_weights_bf16(weights, plan=HEAD_BF16_PLAN):
+    """``[(w (3*Cin, Cout) bf16, b), ...]`` of a bf16 conv stack -> each
+    ``w`` transposed to ``(Cout, 3*Cin)`` and laid out in the chunk order of
+    its layer of ``plan`` (1-D bf16)."""
+    return [wgmma_weights(w.t().contiguous(), nj, wgn)
+            for (w, _), (_, _, _, nj, wgn) in zip(weights, plan)]

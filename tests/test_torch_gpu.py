@@ -273,6 +273,82 @@ def test_gate_int8_kernel(cuda, ct, ct_valid, window, d):
     _close(got[2], ref[2], 1e-5)
 
 
+def _probe_q(zx, zt, ct, ct_valid, window, d):
+    """K6's own quantized attention q (N, window), read back through K6: a
+    template whose column c holds 1 at the rows j = c (mod 32), x = 0,
+    alpha = 0, s_t = 127 and s_out = 1 make new_t[i, c] = q[i, o] for the
+    band offset o = c - i (mod 32) (window <= 32, d >= 32)."""
+    n, hw = zx.shape[0], window // 2
+    j = torch.arange(n, device=zx.device) % ct
+    c = torch.arange(d, device=zx.device) % 32
+    probe = ((j[:, None] % 32) == c[None, :]).to(torch.int8).contiguous()
+    new_t = gate_int8(zx, zt, torch.zeros_like(probe), probe, ct=ct,
+                      ct_valid=ct_valid, alpha=0.0, window_size=window,
+                      s_x=1.0, s_t=127.0, s_out=1.0)[0]
+    o = torch.arange(-hw, hw + 1, device=zx.device)
+    cols = (j[:, None] + o[None, :]) % 32
+    return torch.gather(new_t[:, :32].int(), 1, cols)
+
+
+# K6 at the rows of a block and a partial one (100, 70 rows), ct_valid < ct,
+# a last column chunk of 16, window 21 (two k32 steps), and the flagship
+@pytest.mark.parametrize("ct,ct_valid,window,d", [(100, 93, 5, 400),
+                                                  (70, 61, 21, 144),
+                                                  (456, 450, 11, 3584)])
+def test_gate_int8_row_tiles(cuda, ct, ct_valid, window, d):
+    """new_t within 1 LSB of the plain version (the attention sums in
+    another order), and equal to the bit to the plain mix on the kernel's
+    own quantized attention; z and sim at the existing bars."""
+    from planar_optical_flow_tpu_torch.infer import fast_gate
+    from planar_optical_flow_tpu_torch.infer.fast_gate import int8_mix_plain
+
+    rng = np.random.default_rng(5)
+    n = 3 * ct
+    zx, zt = (torch.tensor(rng.normal(size=(n, 128)) * 0.5,
+                           dtype=torch.bfloat16, device=cuda)
+              for _ in range(2))
+    x, t = (torch.tensor(rng.integers(-127, 128, (n, d)), dtype=torch.int8,
+                         device=cuda) for _ in range(2))
+    kw = dict(ct=ct, ct_valid=ct_valid, alpha=0.5, window_size=window,
+              s_x=0.11, s_t=0.17, s_out=0.13)
+    got = gate_int8(zx, zt, x, t, **kw)
+    torch.cuda.synchronize()
+    ref = gate_int8_plain(zx, zt, x, t, **kw)
+    _int8_close(got[0], ref[0])
+    _close(got[1], ref[1], BF16_REL)
+    _close(got[2], ref[2], 1e-5)
+    q = _probe_q(zx, zt, ct, ct_valid, window, d)
+    attn, _, _ = fast_gate._attention(zx, zt, ct=ct, ct_valid=ct_valid,
+                                      window_size=window)
+    q_plain = torch.round(attn * 127.0).int().reshape(n, window)
+    assert int((q - q_plain).abs().max()) <= 1 and int(q.max()) > 20
+    mix = int8_mix_plain(q.reshape(3, ct, window), x, t, ct=ct,
+                         ct_valid=ct_valid, alpha=0.5, s_x=0.11, s_t=0.17,
+                         s_out=0.13)
+    assert torch.equal(got[0], mix)
+
+
+@pytest.mark.parametrize("l4", [4, 14])
+def test_head_bf16_kernel_blocks(cuda, l4):
+    """K4 at 1, T - 1 and T + 1 cutouts (T its cutouts a block), on weights
+    laid out once, within the bf16 bar of head_plain."""
+    det = _model(4 * l4, 11, cuda).dr_spaam
+    conv_w, head_w = fold.head_stack_weights(det.head)
+    laid = conv_stack.head_weights_bf16(conv_w)
+    tile = int8_tiles.head_bf16_geometry(l4)[0]
+    rng = np.random.default_rng(6)
+    for n in (1, tile - 1, tile + 1):
+        feats = torch.tensor(rng.normal(0.0, 0.5, (n * l4, 256)),
+                             dtype=torch.bfloat16, device=cuda)
+        n0 = head.launches
+        cls, reg = head(feats, laid, head_w, num_classes=1, l4=l4)
+        torch.cuda.synchronize()
+        assert head.launches == n0 + 1
+        cls_p, reg_p = head_plain(feats, conv_w, head_w, l4=l4)
+        _close(cls, cls_p, BF16_REL)
+        _close(reg, reg_p, BF16_REL)
+
+
 @pytest.mark.parametrize("ct_len,window", [(16, 5), (56, 11)])
 def test_int8_backbone_layer1_forms(cuda, ct_len, window):
     """K9 and K10 (int8 and bf16 feats) against their plain versions; K9

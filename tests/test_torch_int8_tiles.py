@@ -1,5 +1,5 @@
-"""The host side of the int8 wgmma convs of K5/K9/K10 and K7
-(``ops/kernels/int8_tiles.py``), on the CPU.
+"""The host side of the wgmma convs of K5/K9/K10 and K7 (int8) and of K4
+(bf16) (``ops/kernels/int8_tiles.py``), on the CPU.
 
 * The wgmma B layout of every backbone and head conv at the flagship widths
   inverts exactly to ``quant.kernel_stack_weights``' ``(Cout, 3*Cin)``, and
@@ -14,6 +14,11 @@
 * The launch geometry (cutouts a block, rows a cutout, shared memory) of
   every length the card tests use stays within the 232,448 bytes a block
   may use, and the kernels' chunks within a ring stage.
+* K4: the bf16 layout of every head conv inverts to ``fold``'s ``(3*Cin,
+  Cout)`` weights; the packed bf16 tile's head (bf16 operands, f32 sums,
+  max-pool on the sums, 8 cutouts a block at L/4 = 14) is within the bf16
+  bar of ``head_plain``, which is within it of JAX ``fused_head_v2`` in
+  interpret mode; its geometry fits the 4-stage ring and two bf16 tiles.
 """
 
 from __future__ import annotations
@@ -197,3 +202,166 @@ def test_geometry_shrinks_the_block():
         assert smem <= it.SMEM_MAX or tile == 1
         assert tile in (16, 8, 4, 2, 1)
     assert it.head_geometry(32)[0] < it.WG_TILE
+
+
+# ------------------------------------------------------------ K4 in bf16
+# (csrc/head_bf16.cu on the same packed tile, int8_tiles.HEAD_BF16_PLAN)
+
+BF16_REL = 2e-2  # x max|plain| (tests/test_fast_gate.py)
+BF16_PLANS = list(enumerate(it.HEAD_BF16_PLAN))
+
+
+def _bf16(rng, *shape, scale=1.0):
+    return torch.from_numpy(rng.normal(0.0, scale, shape).astype(
+        np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("layer,plan", BF16_PLANS,
+                         ids=[f"head{i}" for i, _ in BF16_PLANS])
+def test_bf16_weights_invert(layer, plan):
+    """``plan_weights_bf16`` of ``(3*Cin, Cout)`` weights inverts to them;
+    chunk c of pass q holds w[c * KC + 8 * blk + e, q * NS + 8 * grp + r]
+    at element ((q * NKC + c) * NS * KC) + ((blk * NS / 8 + grp) * 8 + r) *
+    8 + e, every chunk one ring stage."""
+    cin, cout, _, nj, wgn = plan
+    k, ns = 3 * cin, 64 * nj * wgn
+    kc = it.chunk_k(k, ns, 2)
+    assert k % kc == 0 and kc % 16 == 0 and ns * kc * 2 <= it.STAGE_BYTES
+    rng = np.random.default_rng(30 + layer)
+    w = _bf16(rng, k, cout)
+    b = torch.zeros(cout)
+    (flat,) = it.plan_weights_bf16([(w, b)], [plan])
+    assert flat.dtype == torch.bfloat16 and flat.shape == (cout * k,)
+    p, g, r, c, blk, e = it._chunk_shape(cout, k, nj, wgn, 2)
+    back = (flat.reshape(p, c, blk, g, r, e).permute(it._CHUNK_ORDER)
+            .reshape(cout, k))
+    assert torch.equal(back, w.t())
+    for n, kk in zip(rng.integers(0, cout, 64), rng.integers(0, k, 64)):
+        q, nn = divmod(int(n), ns)
+        grp, row = divmod(nn, 8)
+        ch, kr = divmod(int(kk), kc)
+        bk, el = divmod(kr, 8)
+        at = ((q * (k // kc) + ch) * ns * kc
+              + ((bk * (ns // 8) + grp) * 8 + row) * 8 + el)
+        assert flat[at] == w[kk, n]
+
+
+def _packed_conv_bf16(x, wcat, b, tile, pool):
+    """A k=3 SAME bf16 conv of ``x (n, L, Cin)`` (bf16 values) as K4 lays it
+    out: blocks of ``tile`` cutouts in a packed tile, A row m reading rows
+    m, m + 1, m + 2 over 64-row tiles, f32 sums of bf16 products; max-pool
+    on the sums of rows m (even) and m + 1; then leaky(acc + b) in f32."""
+    n, length, cin = x.shape
+    s = it.row_stride(length)
+    rows = it.m_tiles(length, tile) * 64
+    outs = []
+    for c0 in range(0, n, tile):
+        nv = min(tile, n - c0)
+        packed = torch.zeros(rows + 2, cin)
+        for c in range(nv):
+            packed[c * s + 1:c * s + 1 + length] = x[c0 + c].float()
+        a = torch.cat([packed[t:t + rows] for t in range(3)], dim=1)
+        acc = a @ wcat.float()
+        m = (torch.arange(nv)[:, None] * s + torch.arange(length)[None, :])
+        if pool:
+            even = m[:, 0::2]
+            assert bool((even % 2 == 0).all())
+            acc = torch.maximum(acc[even], acc[even + 1])
+        else:
+            acc = acc[m]
+        y = acc + b
+        outs.append(torch.where(y > 0, y, 0.1 * y))
+    return torch.cat(outs)
+
+
+def _packed_head_bf16(feats, conv_w, head_w, l4, tile):
+    """K4 on the packed tile: the five convs (activations stored as bf16,
+    the last one f32), the f32 mean (a running sum, then one division), and
+    cls/reg from its bf16 -> (cls, reg)."""
+    x = feats.reshape(-1, l4, 256)
+    for i, (w, b) in enumerate(conv_w):
+        y = _packed_conv_bf16(x, w, b, tile, i == 2)
+        x = y.to(torch.bfloat16) if i < len(conv_w) - 1 else y
+    acc = x[:, 0]
+    for i in range(1, x.shape[1]):
+        acc = acc + x[:, i]
+    mean = (acc / x.shape[1]).to(torch.bfloat16).float()
+    wc, bc, wr, br = head_w
+    return mean @ wc.float() + bc, mean @ wr.float() + br
+
+
+def _close(got, ref, what):
+    lim = BF16_REL * float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    assert err <= lim, f"{what}: {err} > {lim}"
+
+
+@pytest.mark.parametrize("l4", [4, 14])
+def test_packed_bf16_head(l4):
+    """Random bf16 weights, n = T + 3 cutouts (a full block and a part):
+    the packed tile's head within the bf16 bar of ``head_plain``."""
+    rng = np.random.default_rng(40 + l4)
+    tile = it.head_bf16_geometry(l4)[0]
+    conv_w = [(_bf16(rng, 3 * cin, cout, scale=1.0 / np.sqrt(3 * cin)),
+               torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)))
+              for cin, cout in zip(cs.HEAD_CHANNELS[:-1], cs.HEAD_CHANNELS[1:])]
+    head_w = (_bf16(rng, 128, 1, scale=0.1), torch.zeros(1),
+              _bf16(rng, 128, 2, scale=0.1), torch.zeros(2))
+    n = tile + 3
+    feats = _bf16(rng, n * l4, 256)
+    got = _packed_head_bf16(feats, conv_w, head_w, l4, tile)
+    laid = cs.head_weights_bf16(conv_w)
+    ref = cs.head(feats, laid, head_w, num_classes=1, l4=l4)
+    for g, r, what in zip(got, ref, ("cls", "reg")):
+        assert g.shape == r.shape == (n, g.shape[1])
+        _close(g, r, what)
+    plain = cs.head_plain(feats, conv_w, head_w, l4=l4)
+    assert all(torch.equal(a, b) for a, b in zip(ref, plain))
+
+
+def test_bf16_head_against_pallas():
+    """The model's head weights at L/4 = 4: the packed tile's head within
+    the bf16 bar of ``head_plain``, and ``head_plain`` within it of JAX
+    ``fused_head_v2`` in interpret mode."""
+    import jax.numpy as jnp
+
+    from planar_optical_flow_tpu.ops.pallas import conv_stack as jcs
+    from planar_optical_flow_tpu_torch.ops.kernels import fold
+    from tests.test_torch_common import flow_drow_pair, to_jax
+
+    _, v_np, port = flow_drow_pair(seed=2)
+    rng = np.random.default_rng(50)
+    n, l4 = 19, 4
+    feats = _bf16(rng, n * l4, 256, scale=0.5)
+    conv_w, head_w = fold.head_stack_weights(port.dr_spaam.head)
+    got = _packed_head_bf16(feats, conv_w, head_w, l4,
+                            it.head_bf16_geometry(l4)[0])
+    plain = cs.head_plain(feats, conv_w, head_w, l4=l4)
+    jv = to_jax({c: v_np[c]["dr_spaam"]["head"]
+                 for c in ("params", "batch_stats")})
+    conv_j, head_j = jcs.head_stack_weights(jv)
+    ref = jcs.fused_head_v2(
+        jnp.asarray(feats.float().numpy(), jnp.bfloat16), conv_j, head_j,
+        num_classes=1, l4=l4, tile=16, conv_mode="3mm", interpret=True)
+    for g, p, r, what in zip(got, plain, ref, ("cls", "reg")):
+        _close(g, p, what)
+        _close(p, torch.from_numpy(np.asarray(r, np.float32)), what)
+
+
+@pytest.mark.parametrize("l", [16, 56])
+def test_head_bf16_geometry(l):
+    """K4's block: the most cutouts (16, halved) whose 4-stage ring, two
+    bf16 tile regions and means fit 232,448 bytes; 8 at the flagship."""
+    l4 = l // 4
+    tile, rows, smem = it.head_bf16_geometry(l4)
+    assert rows == l4 + 2 and smem <= it.SMEM_MAX
+    assert it.head_bf16_smem_bytes(l4, 2 * tile) > it.SMEM_MAX or tile == 16
+    assert it.RING_BYTES == it.STAGES * it.STAGE_BYTES + 2 * 512 * 4
+    assert it.STAGES == 4
+    if l == 56:  # two 64-row tiles at 14 positions, one at 7 (WGN = 2)
+        assert tile == 8 and smem == 208896
+        assert it.m_tiles(14, 8) == 2 and it.m_tiles(7, 8) == 1
+    for cin, cout, mt, nj, wgn in it.HEAD_BF16_PLAN:
+        ns = 64 * nj * wgn
+        assert cout % ns == 0
+        assert ns * it.chunk_k(3 * cin, ns, 2) * 2 <= it.STAGE_BYTES
