@@ -18,8 +18,8 @@ Phases:
 2. build every kernel from ``planar_optical_flow_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` report and
    each kernel's dynamic shared memory; the launch geometry of K5, K9, K10,
-   K7 and K4 (cutouts a block, rows a cutout, shared memory) equal to
-   ``int8_tiles``' and within the card's 232,448 bytes;
+   K7, K4 and K14 f32 (cutouts a block, rows a cutout, shared memory) equal
+   to ``int8_tiles``' and within the card's 232,448 bytes;
 3. the model, from a seeded ``torch.Generator``, with seeded BN stats, and
    the int8 calibration on ``scans[0][:8]`` (as ``bench.py`` calibrates);
 4. each kernel at the flagship shapes against its plain PyTorch version on
@@ -42,8 +42,10 @@ Phases:
    kernels on the same inputs: K8 against K1 -> K5 at 456 rows a stream,
    K12 against K6 -> K7 on p2's feats and a carried template, K13 against
    K9 -> K6 -> K7 at 480 rows with a carried template; then K14's backbone
-   and head in f32 (at rtol 1e-3 + 1e-4 x max|plain|, fewer timed launches)
-   and in bf16 on the module cutouts of the 450-beam streams, K3's f32 mode
+   and head in f32 (split-bf16 wgmma, on weights laid out once, equal to
+   the bit to a call on the pairs; at rtol 1e-3 + 1e-4 x max|plain|, fewer
+   timed launches, with the split-bf16, 3xTF32 and FFMA bounds) and in bf16
+   on the module cutouts of the 450-beam streams, K3's f32 mode
    at ct=450 (template 2e-5, z and sim 2e-4, ``tests/test_fast_gate.py``),
    and K15 in bf16 against its plain version and against K3's new template
    on K3's own attention (read back through K3 with a probe template), each
@@ -99,6 +101,7 @@ import numpy as np
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (NVIDIA data sheet)
 H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12   # dense TF32 tensor-core peak
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s
 CUTOUT_KW = dict(fixed=True, centered=True, window_width=1.0,
                  window_depth=0.5, num_cutout_pts=56, padding_val=29.99,
@@ -122,7 +125,7 @@ PM_TILE = 160           # make_serve_step_v3's pm_tile: "pm" pads to 480
 # K13 vs its plain version: z, sim, cls, reg (tests/test_int8_serving_gate.py
 # cell vs pm: z 2e-2, outputs 5e-2)
 CELL_TOLS = (2e-2, 5e-2, 5e-2, 5e-2)
-F32_ITERS = 3            # timed launches of the f32 K14 kernels
+F32_ITERS = 10           # timed launches of the f32 K14 kernels
 TOL_K14_F32 = (1e-3, 1e-4)  # rtol, atol x max|plain| (tests/test_pallas_fused)
 K3_F32_TOLS = (2e-5, 2e-4, 2e-4)  # new_t, new_z, sim (tests/test_fast_gate.py)
 TOL_FUSED_F32 = 3e-3     # fused vs module, absolute (tests/test_pallas_fused)
@@ -174,11 +177,11 @@ KERNELS = {
     "serve_cell_int8": (_SRC + "serve_cell.cu",
                         "planar_optical_flow_tpu/ops/pallas/serve_cell.py:170",
                         "serve_cell_int8", "cell"),
-    "fused_backbone": (_SRC + "fused_drow.cu", _FD + ":172", "fused_backbone",
+    "fused_backbone": (_SRC + "fused_f32.cu", _FD + ":172", "fused_backbone",
                        "fused"),
     "fused_backbone_bf16": (_SRC + "fused_drow.cu", _FD + ":172",
                             "fused_backbone", "fused_bf16"),
-    "fused_head": (_SRC + "fused_drow.cu", _FD + ":198", "fused_head",
+    "fused_head": (_SRC + "fused_f32.cu", _FD + ":198", "fused_head",
                    "fused"),
     "fused_head_bf16": (_SRC + "fused_drow.cu", _FD + ":198", "fused_head",
                         "fused_bf16"),
@@ -997,21 +1000,35 @@ def k14_k15_kernel_phase(model, scans, device):
     def w_bytes(weights, dt_bytes):
         return sum(w.numel() * dt_bytes + bb.numel() * 4 for w, bb in weights)
 
-    def record_f32(name, pairs, ms, plain_ms, bound_pair):
-        """Each output within rtol * |plain| + atol * max|plain|."""
+    def record_f32(name, pairs, ms, plain_ms, ops, nbytes):
+        """Each output within rtol * |plain| + atol * max|plain|. The bound
+        is split bf16's (three bf16 products for each f32 one, the kernel's
+        route and the least time the card takes for the f32 work at the
+        bar); the 3xTF32 and FFMA bounds beside it."""
         rtol, atol = TOL_K14_F32
         errs = [max_err(g, r) for g, r in pairs]
         ok = all(bool(((g - r).abs() <= rtol * r.abs()
                        + atol * float(r.abs().max())).all())
                  for g, r in pairs)
+        bound_pair = bound(3 * ops, H100_BF16_FLOPS, nbytes)
+        tf32 = bound(3 * ops, H100_TF32_FLOPS, nbytes)
+        ffma = bound(ops, H100_F32_FLOPS, nbytes)
         print(f"[kernel] {name}: max_abs_err={max(errs):.3e} (rtol {rtol}, "
               f"atol {atol} x max) ms={ms:.4f} plain_ms={plain_ms:.3f} "
-              f"bound_ms={bound_pair[0]:.4f} ({bound_pair[1]}) "
-              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+              f"bound_ms={bound_pair[0]:.4f} ({bound_pair[1]}; split bf16: "
+              f"3 x ops at {H100_BF16_FLOPS / 1e12:.0f} TFLOP/s) "
+              f"tf32x3_bound_ms={tf32[0]:.4f} ({tf32[1]}; 3 x ops at "
+              f"{H100_TF32_FLOPS / 1e12:.0f} TFLOP/s) ffma_bound_ms="
+              f"{ffma[0]:.4f} ({ffma[1]}; ops at {H100_F32_FLOPS / 1e12:.0f} "
+              f"TFLOP/s) {'ok' if ok else 'MISMATCH'}", flush=True)
         check(ok, f"{name} kernel disagrees with its plain version")
         results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_pair[0], bound_by=bound_pair[1])
 
+    # f32: the weights laid out once, as make_fused_stream_step holds them
+    laid = {torch.float32: (fd.backbone_weights_f32(w_bb),
+                            fd.head_weights_f32(w_hd)),
+            torch.bfloat16: (w_bb, w_hd)}
     with torch.inference_mode():
         cut = _encode_single(_sanitize_scan(scans[0], CUTOUT_KW["padding_val"]),
                              phi, CUTOUT_KW).reshape(n, c)
@@ -1019,44 +1036,52 @@ def k14_k15_kernel_phase(model, scans, device):
         for name, dt, iters in (("fused_backbone", torch.float32, F32_ITERS),
                                 ("fused_backbone_bf16", torch.bfloat16,
                                  TIMED_ITERS)):
-            got = fd.fused_backbone(cut, w_bb, compute_dtype=dt)
+            wk = laid[dt][0]
+            got = fd.fused_backbone(cut, wk, compute_dtype=dt)
             torch.cuda.synchronize()
+            if dt == torch.float32:  # the pairs, laid out in the call
+                check(torch.equal(got, fd.fused_backbone(cut, w_bb,
+                                                         compute_dtype=dt)),
+                      "fused_backbone: pairs and laid-out weights differ")
             ref = fd.fused_backbone_plain(cut, w_bb, compute_dtype=dt)
-            rate = H100_F32_FLOPS if dt == torch.float32 else H100_BF16_FLOPS
-            args = (time_ms(lambda: fd.fused_backbone(cut, w_bb,
+            nbytes = (n * c * 4.0 + n * d * 4.0
+                      + w_bytes(w_bb, dt.itemsize))
+            args = (time_ms(lambda: fd.fused_backbone(cut, wk,
                                                       compute_dtype=dt),
                             iters, 1),
                     time_ms(lambda: fd.fused_backbone_plain(
-                        cut, w_bb, compute_dtype=dt), 1, 1),
-                    bound(bb_ops, rate, n * c * 4.0 + n * d * 4.0
-                          + w_bytes(w_bb, dt.itemsize)))
+                        cut, w_bb, compute_dtype=dt), 1, 1))
             if dt == torch.float32:
-                record_f32(name, [(got, ref)], *args)
+                record_f32(name, [(got, ref)], *args, bb_ops, nbytes)
             else:
-                record_int8(results, name, [], [(got, ref)], *args)
+                record_int8(results, name, [], [(got, ref)], *args,
+                            bound(bb_ops, H100_BF16_FLOPS, nbytes))
             feats[dt] = got
             del ref
 
         for name, dt, iters in (("fused_head", torch.float32, F32_ITERS),
                                 ("fused_head_bf16", torch.bfloat16,
                                  TIMED_ITERS)):
-            f = feats[dt]
-            got = fd.fused_head(f, w_hd, compute_dtype=dt)
+            f, wk = feats[dt], laid[dt][1]
+            got = fd.fused_head(f, wk, compute_dtype=dt)
             torch.cuda.synchronize()
+            if dt == torch.float32:
+                check(all(torch.equal(a, b) for a, b in zip(
+                    got, fd.fused_head(f, w_hd, compute_dtype=dt))),
+                      "fused_head: pairs and laid-out weights differ")
             ref = fd.fused_head_plain(f, w_hd, compute_dtype=dt)
-            rate = H100_F32_FLOPS if dt == torch.float32 else H100_BF16_FLOPS
-            args = (time_ms(lambda: fd.fused_head(f, w_hd, compute_dtype=dt),
+            nbytes = n * d * 4.0 + n * 3 * 4.0 + w_bytes(w_hd, dt.itemsize)
+            args = (time_ms(lambda: fd.fused_head(f, wk, compute_dtype=dt),
                             iters, 1),
                     time_ms(lambda: fd.fused_head_plain(f, w_hd,
                                                         compute_dtype=dt),
-                            1, 1),
-                    bound(hd_ops, rate, n * d * 4.0 + n * 3 * 4.0
-                          + w_bytes(w_hd, dt.itemsize)))
+                            1, 1))
             pairs = list(zip(got, ref))
             if dt == torch.float32:
-                record_f32(name, pairs, *args)
+                record_f32(name, pairs, *args, hd_ops, nbytes)
             else:
-                record_int8(results, name, [], pairs, *args)
+                record_int8(results, name, [], pairs, *args,
+                            bound(hd_ops, H100_BF16_FLOPS, nbytes))
         del feats[torch.bfloat16]
 
         # K3 f32 at ct=450: scan 0's f32 feats, scan 1's as the template
@@ -1065,7 +1090,8 @@ def k14_k15_kernel_phase(model, scans, device):
         cut1 = _encode_single(_sanitize_scan(scans[1],
                                              CUTOUT_KW["padding_val"]),
                               phi, CUTOUT_KW).reshape(n, c)
-        t = fd.fused_backbone(cut1, w_bb, compute_dtype=None).reshape(n, d)
+        t = fd.fused_backbone(cut1, laid[torch.float32][0],
+                              compute_dtype=None).reshape(n, d)
         del cut1, feats
         zx, zt = fg.embed(gp, x), fg.embed(gp, t)
         gkw = dict(ct=NUM_PTS, alpha=gp.alpha, window_size=gp.window_size)
@@ -1618,11 +1644,11 @@ def main(argv=None):
             ("gate", "gate_smem_bytes", (NUM_PTS, WINDOW),
              f" at {NUM_PTS} rows a stream (K3 f32, make_serve_step; K15 "
              "the same)"),
-            ("fused_drow", "fused_backbone_smem_bytes", (c, 1), " (K14 f32)"),
-            ("fused_drow", "fused_backbone_smem_bytes", (c, 0),
-             " (K14 bf16)"),
-            ("fused_drow", "fused_head_smem_bytes", (c // 4, 1), " (K14 f32)"),
-            ("fused_drow", "fused_head_smem_bytes", (c // 4, 0),
+            ("fused_f32", "fused_backbone_f32_smem_bytes", (c,), " (K14 f32)"),
+            ("fused_drow", "fused_backbone_smem_bytes", (c,), " (K14 bf16)"),
+            ("fused_f32", "fused_head_f32_smem_bytes", (c // 4,),
+             " (K14 f32)"),
+            ("fused_drow", "fused_head_smem_bytes", (c // 4,),
              " (K14 bf16)")):
         f = getattr(_build.load(lib), fn)
         f.restype = ctypes.c_longlong
@@ -1635,16 +1661,25 @@ def main(argv=None):
     geo.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
     geo4 = _build.load("head_bf16").head_bf16_geometry
     geo4.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    geo14 = _build.load("fused_f32").fused_f32_geometry
+    geo14.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     for name, which, l, mode, want in (
             ("K5", 0, c, 0, int8_tiles.backbone_geometry(c, 0)),
             ("K9", 0, c, 1, int8_tiles.backbone_geometry(c, 1)),
             ("K10", 0, c, 2, int8_tiles.backbone_geometry(c, 2)),
             ("K7", 1, c // 4, 0, int8_tiles.head_geometry(c // 4)),
-            ("K4", None, c // 4, None, int8_tiles.head_bf16_geometry(c // 4))):
+            ("K4", None, c // 4, None, int8_tiles.head_bf16_geometry(c // 4)),
+            ("K14 f32 backbone", "f32", c, 0,
+             int8_tiles.fused_backbone_f32_geometry(c)),
+            ("K14 f32 head", "f32", c // 4, 1,
+             int8_tiles.fused_head_f32_geometry(c // 4))):
         tile, rows, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
         if which is None:
             geo4(l, ctypes.byref(tile), ctypes.byref(rows),
                  ctypes.byref(smem))
+        elif which == "f32":
+            check(geo14(mode, l, ctypes.byref(tile), ctypes.byref(rows),
+                        ctypes.byref(smem)) == 0, f"{name} geometry")
         else:
             geo(which, l, mode, ctypes.byref(tile), ctypes.byref(rows),
                 ctypes.byref(smem))

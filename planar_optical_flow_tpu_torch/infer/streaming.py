@@ -282,7 +282,8 @@ def make_fused_stream_step(model, cutout_kwargs, num_pts: int = 450,
     (new_template, outputs)``, ``template=None`` to bootstrap.
 
     The module cutout, K14's backbone in ``compute_dtype`` (None: f32, the
-    default; or ``torch.bfloat16``) from the BN-folded f32 weights, the
+    default; or ``torch.bfloat16``) from the BN-folded f32 weights (laid
+    out once here in f32: ``fused_drow.backbone_weights_f32``), the
     dense module gate (on a copy of the model cast to ``compute_dtype``,
     with the features in it), K14's head on the new template, the module
     flow head, sigmoid, canonical->global flow and the full vote NMS. The
@@ -295,6 +296,8 @@ def make_fused_stream_step(model, cutout_kwargs, num_pts: int = 450,
     w_hd = fd.head_weights(det.head)
     num_classes = w_hd[5][0].shape[-1]
     cdt = compute_dtype or torch.float32
+    if cdt == torch.float32:
+        w_bb, w_hd = fd.backbone_weights_f32(w_bb), fd.head_weights_f32(w_hd)
     cast = cast_model(model, compute_dtype) if compute_dtype else model
     _, cast_det = _parts(cast)
 

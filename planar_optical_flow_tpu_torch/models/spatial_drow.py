@@ -17,6 +17,8 @@ engine's banded form lives in ``infer/fast_gate.py``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -49,6 +51,21 @@ def band_mask(n_cutout: int, window_size: int) -> np.ndarray:
     return mask
 
 
+@functools.lru_cache(maxsize=None)
+def band_tensors(n_cutout: int, window_size: int, device: torch.device,
+                 dtype: torch.dtype):
+    """(band indices ``(n_cutout, window)`` int64, dense 0/1 mask
+    ``(n_cutout, n_cutout)`` in ``dtype``) on ``device``, made once per
+    argument set: a gate step then copies nothing from the host. Made
+    outside inference mode, so any caller may use them."""
+    with torch.inference_mode(False):
+        band = torch.as_tensor(neighbor_band(n_cutout, window_size),
+                               device=device)
+        mask = torch.as_tensor(band_mask(n_cutout, window_size), dtype=dtype,
+                               device=device)
+    return band, mask
+
+
 class SpatialAttentionGate(nn.Module):
     """One step of the template update on flat ``(B, ct, D)`` features."""
 
@@ -73,11 +90,8 @@ class SpatialAttentionGate(nn.Module):
         emb_x = self.embedding(x)
         emb_t = self.embedding(template)
         sim = torch.einsum("bic,bjc->bij", emb_x, emb_t)
-        band = torch.as_tensor(neighbor_band(ct, self.window_size),
-                               device=x.device)
+        band, mask = band_tensors(ct, self.window_size, x.device, sim.dtype)
         sim_band = torch.gather(sim, 2, band[None].expand(b, -1, -1))
-        mask = torch.as_tensor(band_mask(ct, self.window_size),
-                               dtype=sim.dtype, device=x.device)
         # the softmax op by op, as jax.nn.softmax (bf16 rounds each step)
         masked = sim - 1e10 * (1.0 - mask)
         e = torch.exp(masked - masked.amax(dim=-1, keepdim=True))

@@ -23,20 +23,26 @@ them. Every conv is k=3 SAME with LeakyReLU 0.1, rounded as the JAX
   mean to bf16, and the cls/reg products take bf16 operands with f32 sums.
 
 Bound on the H100: operations, ~15.2 MFLOP a cutout (backbone) and ~28.9
-MFLOP (head) at L=56: f32 at 67 TFLOP/s outside the tensor cores, bf16 on
-them at 989 TFLOP/s. The kernels keep a tile of cutouts in shared memory
-across every layer (what the TPU kernels kept in VMEM); f32 runs
-register-tiled FFMA products, bf16 the tensor-core conv layer of K2/K4.
+MFLOP (head) at L=56. The kernels keep a tile of cutouts in shared memory
+across every layer (what the TPU kernels kept in VMEM). f32
+(``csrc/fused_f32.cu``) runs each conv as three bf16 wgmma products (split
+bf16: hi * hi + hi * lo + lo * hi of each operand's two bf16 parts, ~1e-5
+relative, 3 x the operations at 989 TFLOP/s); its weights are split and
+laid out once by :func:`backbone_weights_f32` / :func:`head_weights_f32`
+(a caller passing the pairs has them laid out on every call). bf16
+(``csrc/fused_drow.cu``) runs the tensor-core conv layer of K2/K4 at 989
+TFLOP/s.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from planar_optical_flow_tpu_torch.ops.kernels import _build, fold
+from planar_optical_flow_tpu_torch.ops.kernels import _build, fold, int8_tiles
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import recip
 
 _LEAKY_SLOPE = 0.1
@@ -44,8 +50,9 @@ _PLAIN_CHUNK = 16384  # cutouts per pass of the plain versions (bounds memory)
 BACKBONE_CHANNELS = (1, 64, 64, 128, 128, 128, 256)
 HEAD_CHANNELS = (256, 256, 256, 512, 256, 128)
 
-__all__ = ["backbone_weights", "fused_backbone", "fused_backbone_plain",
-           "fused_head", "fused_head_plain", "head_weights"]
+__all__ = ["F32Weights", "backbone_weights", "backbone_weights_f32",
+           "fused_backbone", "fused_backbone_plain", "fused_head",
+           "fused_head_plain", "head_weights", "head_weights_f32"]
 
 
 def backbone_weights(backbone) -> list:
@@ -140,6 +147,87 @@ def _kernel_weights(weights, chans, dt, what):
     return ws, bs
 
 
+class F32Weights(NamedTuple):
+    """K14 f32's weights laid out once (:func:`backbone_weights_f32`,
+    :func:`head_weights_f32`): the pairs as given, and the tensors the
+    kernel reads, in its order (each wgmma conv's ``w`` split into bf16 hi
+    and lo, in the chunk order of its plan, ``int8_tiles.
+    plan_weights_f32``)."""
+    pairs: tuple
+    tensors: tuple
+
+
+def _pairs(weights):
+    return weights.pairs if isinstance(weights, F32Weights) else weights
+
+
+def backbone_weights_f32(weights) -> F32Weights:
+    """Lay K14 f32's backbone weights (:func:`backbone_weights`) out for
+    its weight ring, once per set of weights: layer 1 ``(3, 64)`` as it is,
+    convs 2-6 laid out for the wgmma ring, each with its f32 bias."""
+    if len(weights) != 6:
+        raise ValueError("fused_backbone: need the six backbone convs")
+    ws, bs = _kernel_weights(weights, BACKBONE_CHANNELS, torch.float32,
+                             "fused_backbone")
+    laid = int8_tiles.plan_weights_f32(list(zip(ws[1:], bs[1:])),
+                                       int8_tiles.FUSED_BACKBONE_F32_PLAN)
+    tensors = [ws[0], bs[0]] + [t for pair in zip(laid, bs[1:])
+                                for t in pair]
+    return F32Weights(tuple(weights), tuple(tensors))
+
+
+def head_weights_f32(weights) -> F32Weights:
+    """Lay K14 f32's head weights (:func:`head_weights`) out, once per set
+    of weights: the five convs for the wgmma ring, each with its f32 bias,
+    then cls and reg as they are."""
+    if len(weights) != 7:
+        raise ValueError("fused_head: need the five convs, cls and reg")
+    ws, bs = _kernel_weights(weights[:5], HEAD_CHANNELS, torch.float32,
+                             "fused_head")
+    laid = int8_tiles.plan_weights_f32(list(zip(ws, bs)),
+                                       int8_tiles.FUSED_HEAD_F32_PLAN)
+    tensors = [t for pair in zip(laid, bs) for t in pair]
+    for w, b in weights[5:]:
+        tensors += [w.float().contiguous(), b.float().contiguous()]
+    return F32Weights(tuple(weights), tuple(tensors))
+
+
+def _check_f32_plan(lib):
+    """Raise unless the library's K14 f32 plans chunk the weights as
+    ``int8_tiles`` lays them out (once per process)."""
+    if _check_f32_plan.checked:
+        return
+    fn = lib.fused_f32_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    for which, plan in enumerate((int8_tiles.FUSED_BACKBONE_F32_PLAN,
+                                  int8_tiles.FUSED_HEAD_F32_PLAN)):
+        for layer, (cin, _, _, nj, wgn) in enumerate(plan):
+            ns, kc = ctypes.c_int(), ctypes.c_int()
+            _build.check(fn(which, layer, ctypes.byref(ns), ctypes.byref(kc)),
+                         "fused_f32 plan")
+            n = 64 * nj * wgn
+            want = (n, int8_tiles.chunk_k_x3(3 * cin, n))
+            if (ns.value, kc.value) != want:
+                stack = "backbone" if which == 0 else "head"
+                raise RuntimeError(f"fused_f32: the kernel's plan of {stack} "
+                                   f"layer {layer} is {(ns.value, kc.value)}, "
+                                   f"int8_tiles lays out {want}")
+    _check_f32_plan.checked = True
+
+
+_check_f32_plan.checked = False
+
+
+def _f32_lib(what, smem):
+    if smem > int8_tiles.SMEM_MAX:
+        raise ValueError(f"{what}: {smem} bytes of shared memory, over "
+                         f"{int8_tiles.SMEM_MAX}")
+    lib = _build.load("fused_f32")
+    _check_f32_plan(lib)
+    return lib
+
+
 def _ptr_array(tensors, device):
     for t in tensors:
         if t.device != device:
@@ -151,13 +239,14 @@ def fused_backbone(cutouts, weights, tile: int = 64,
                    compute_dtype=torch.bfloat16):
     """``(N, L)`` f32 cutouts -> ``(N, L/4, 256)`` f32 features.
 
-    ``weights``: :func:`backbone_weights`. ``tile`` is accepted for API
-    parity with the JAX function (the kernel picks its own tile). A CUDA
-    tensor launches K14's backbone; a CPU tensor runs
-    :func:`fused_backbone_plain`.
+    ``weights``: :func:`backbone_weights`, or in f32 their layout
+    :func:`backbone_weights_f32`. ``tile`` is accepted for API parity with
+    the JAX function (the kernel picks its own tile). A CUDA tensor
+    launches K14's backbone; a CPU tensor runs :func:`fused_backbone_plain`.
     """
     if cutouts.device.type == "cpu":
-        return fused_backbone_plain(cutouts, weights, tile, compute_dtype)
+        return fused_backbone_plain(cutouts, _pairs(weights), tile,
+                                    compute_dtype)
     dt = _dtype(compute_dtype)
     n, l = cutouts.shape
     if l % 4 or l < 4:
@@ -166,20 +255,35 @@ def fused_backbone(cutouts, weights, tile: int = 64,
     if cutouts.dtype != torch.float32:
         raise ValueError(f"fused_backbone: cutouts must be float32, got "
                          f"{cutouts.dtype}")
-    if len(weights) != 6:
-        raise ValueError("fused_backbone: need the six backbone convs")
-    ws, bs = _kernel_weights(weights, BACKBONE_CHANNELS, dt, "fused_backbone")
     cutouts = cutouts.contiguous()
     feats = torch.empty(n, l // 4, 256, dtype=torch.float32,
                         device=cutouts.device)
-    fn = _build.load("fused_drow").fused_backbone_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    _build.check(fn(cutouts.data_ptr(), _ptr_array(ws, cutouts.device),
-                    _ptr_array(bs, cutouts.device), feats.data_ptr(), n, l,
-                    int(dt == torch.float32),
-                    _build.stream_ptr(cutouts.device)), "fused_backbone")
+    stream = _build.stream_ptr(cutouts.device)
+    if dt == torch.float32:
+        if not isinstance(weights, F32Weights):
+            weights = backbone_weights_f32(weights)
+        fn = _f32_lib("fused_backbone",
+                      int8_tiles.fused_backbone_f32_geometry(l)[2]
+                      ).fused_backbone_f32_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        _build.check(fn(cutouts.data_ptr(),
+                        _ptr_array(weights.tensors, cutouts.device),
+                        feats.data_ptr(), n, l, stream), "fused_backbone")
+    else:
+        weights = _pairs(weights)
+        if len(weights) != 6:
+            raise ValueError("fused_backbone: need the six backbone convs")
+        ws, bs = _kernel_weights(weights, BACKBONE_CHANNELS, dt,
+                                 "fused_backbone")
+        fn = _build.load("fused_drow").fused_backbone_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        _build.check(fn(cutouts.data_ptr(), _ptr_array(ws, cutouts.device),
+                        _ptr_array(bs, cutouts.device), feats.data_ptr(), n,
+                        l, stream), "fused_backbone")
     fused_backbone.launches += 1
     return feats
 
@@ -189,12 +293,12 @@ def fused_head(feats, weights, num_classes: int = 1, tile: int = 64,
     """``(N, L4, 256)`` f32 features -> (cls ``(N, num_classes)`` f32, reg
     ``(N, 2)`` f32).
 
-    ``weights``: :func:`head_weights`; ``tile`` as for
-    :func:`fused_backbone`. A CUDA tensor launches K14's head; a CPU tensor
-    runs :func:`fused_head_plain`.
+    ``weights``: :func:`head_weights`, or in f32 :func:`head_weights_f32`;
+    ``tile`` as for :func:`fused_backbone`. A CUDA tensor launches K14's
+    head; a CPU tensor runs :func:`fused_head_plain`.
     """
     if feats.device.type == "cpu":
-        return fused_head_plain(feats, weights, num_classes, tile,
+        return fused_head_plain(feats, _pairs(weights), num_classes, tile,
                                 compute_dtype)
     dt = _dtype(compute_dtype)
     n, l4, c = feats.shape
@@ -204,28 +308,44 @@ def fused_head(feats, weights, num_classes: int = 1, tile: int = 64,
     if feats.dtype != torch.float32:
         raise ValueError(f"fused_head: feats must be float32, got "
                          f"{feats.dtype}")
-    if not 1 <= num_classes <= 8 or len(weights) != 7:
+    pairs = _pairs(weights)
+    if not 1 <= num_classes <= 8 or len(pairs) != 7:
         raise ValueError("fused_head: need 1 <= num_classes <= 8 and the "
                          "five convs, cls and reg")
-    ws, bs = _kernel_weights(weights[:5], HEAD_CHANNELS, dt, "fused_head")
-    for (w, b), cout in zip(weights[5:], (num_classes, 2)):
+    for (w, b), cout in zip(pairs[5:], (num_classes, 2)):
         if tuple(w.shape) != (128, cout) or tuple(b.shape) != (cout,):
             raise ValueError(f"fused_head: linear needs w (128, {cout}) and "
                              f"b ({cout},), got {tuple(w.shape)}")
-        ws.append(w.to(dt).contiguous())
-        bs.append(b.float().contiguous())
     feats = feats.contiguous()
     cls = torch.empty(n, num_classes, dtype=torch.float32, device=feats.device)
     reg = torch.empty(n, 2, dtype=torch.float32, device=feats.device)
-    fn = _build.load("fused_drow").fused_head_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    _build.check(fn(feats.data_ptr(), _ptr_array(ws, feats.device),
-                    _ptr_array(bs, feats.device), cls.data_ptr(),
-                    reg.data_ptr(), n, l4, num_classes,
-                    int(dt == torch.float32), _build.stream_ptr(feats.device)),
-                 "fused_head")
+    stream = _build.stream_ptr(feats.device)
+    if dt == torch.float32:
+        if not isinstance(weights, F32Weights):
+            weights = head_weights_f32(weights)
+        fn = _f32_lib("fused_head",
+                      int8_tiles.fused_head_f32_geometry(l4)[2]
+                      ).fused_head_f32_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        ptrs = _ptr_array(weights.tensors, feats.device)
+        _build.check(fn(feats.data_ptr(), ptrs, *ptrs[10:], cls.data_ptr(),
+                        reg.data_ptr(), n, l4, num_classes, stream),
+                     "fused_head")
+    else:
+        ws, bs = _kernel_weights(pairs[:5], HEAD_CHANNELS, dt, "fused_head")
+        for w, b in pairs[5:]:
+            ws.append(w.to(dt).contiguous())
+            bs.append(b.float().contiguous())
+        fn = _build.load("fused_drow").fused_head_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        _build.check(fn(feats.data_ptr(), _ptr_array(ws, feats.device),
+                        _ptr_array(bs, feats.device), cls.data_ptr(),
+                        reg.data_ptr(), n, l4, num_classes, stream),
+                     "fused_head")
     fused_head.launches += 1
     return cls, reg
 

@@ -1,6 +1,7 @@
 """Host side of the wgmma convs (``csrc/wgmma_conv.cuh``) of K5/K9/K10 and
-K7 (int8) and of K4 (bf16): the weights' layout for the wgmma B operand and
-the launch geometry of the packed tile.
+K7 (int8), of K4 (bf16) and of K14 in f32 (split bf16, ``csrc/
+fused_f32.cu``): the weights' layout for the wgmma B operand and the launch
+geometry of the packed tile.
 
 * **Weights.** Each conv's ``w (Cout, 3*Cin)`` (int8 from ``quant.
   kernel_stack_weights``; bf16, the transpose of ``fold``'s ``(3*Cin,
@@ -24,6 +25,16 @@ the launch geometry of the packed tile.
   :func:`head_geometry`, :func:`head_bf16_geometry`; the C side,
   ``int8_wg_geometry`` and ``head_bf16_geometry``, computes the same). A
   bf16 tile takes twice the bytes: K4 takes 8 cutouts a block at L/4 = 14.
+* **K14 f32.** Each f32 weight ``w`` is held as two bf16 values, ``hi =
+  bf16(w)`` and ``lo = bf16(w - hi)``; each conv's ``(Cout, 3*Cin)`` hi and
+  lo are laid out as the bf16 weights are, in chunks of :func:`chunk_k_x3`,
+  and interleaved chunk by chunk, the hi part, then the lo part
+  (:func:`plan_weights_f32`): the bytes of the f32 weights. The kernel's
+  tiles are pairs of bf16 tiles (hi, then lo) and tight: a channel block
+  holds the ``tile * S + 2`` rows with data, and the rows a 64-row tile
+  reads past them are a spill of the last block (:func:`tight_tile_bytes`).
+  At most 4 cutouts a block (:func:`fused_backbone_f32_geometry`,
+  :func:`fused_head_f32_geometry`; the C side, ``fused_f32_geometry``).
 
 ``BACKBONE_PLAN``, ``HEAD_PLAN`` and ``HEAD_BF16_PLAN`` are the kernels'
 conv plans: ``(Cin, Cout, row tiles, n64 tiles)`` per warp group, and for
@@ -31,9 +42,14 @@ K4 a fifth entry, the warp groups along N (2: both warp groups share the
 row tiles and split N), as ``conv_stack_int8.cu``'s ``BbPlan*``/``HdPlan*``
 and ``head_bf16.cu``'s ``HbPlan*`` instantiate them (``int8_wg_plan`` and
 ``head_bf16_plan`` report them; ``conv_stack`` compares once per process).
+``FUSED_BACKBONE_F32_PLAN`` and ``FUSED_HEAD_F32_PLAN`` are K14 f32's, as
+``fused_f32.cu``'s ``BxPlan*``/``HxPlan*`` (``fused_f32_plan``), in the
+same five-entry form.
 """
 
 from __future__ import annotations
+
+import torch
 
 WG_TILE = 16            # most cutouts a block
 STAGE_BYTES = 16384     # one weight chunk
@@ -48,6 +64,13 @@ HEAD_PLAN = ((256, 256, 2, 2), (256, 256, 2, 2), (256, 512, 2, 2),
 HEAD_BF16_PLAN = ((256, 256, 1, 4, 1), (256, 256, 1, 4, 1),
                   (256, 512, 1, 4, 1), (512, 256, 1, 2, 2),
                   (256, 128, 1, 1, 2))
+F32_TILE = 4            # most cutouts a K14 f32 block
+FUSED_BACKBONE_F32_PLAN = ((64, 64, 2, 1, 1), (64, 128, 2, 1, 1),
+                           (128, 128, 1, 2, 1), (128, 128, 1, 2, 1),
+                           (128, 256, 1, 2, 1))
+FUSED_HEAD_F32_PLAN = ((256, 256, 1, 2, 2), (256, 256, 1, 2, 2),
+                       (256, 512, 1, 2, 2), (512, 256, 1, 2, 2),
+                       (256, 128, 1, 1, 2))
 _L1_READ = 2  # the backbone's l1_mode that reads int8 act1 rows (no cutouts)
 
 
@@ -112,8 +135,40 @@ def head_bf16_smem_bytes(l4: int, tile: int) -> int:
     return RING_BYTES + 2 * region + tile * 128 * 4
 
 
-def _geometry(smem_of, l):
-    tile = WG_TILE
+def tight_rows(l: int, tile: int) -> int:
+    """Rows a channel block of a K14 f32 tile holds: ``tile`` cutouts, their
+    zero rows and row 0."""
+    return tile * row_stride(l) + 2
+
+
+def tight_tile_bytes(l: int, c: int, tile: int) -> int:
+    """Bytes of one tight bf16 tile of ``c`` channels (a K14 f32 tile pair
+    is two): its rows, and the rows the last channel block's 64-row tiles
+    read past them."""
+    rows = tight_rows(l, tile)
+    return rows * c * 2 + (m_tiles(l, tile) * 64 + 2 - rows) * 16
+
+
+def fused_backbone_f32_smem_bytes(l: int, tile: int) -> int:
+    """Dynamic shared memory of a K14 f32 backbone block: the ring and two
+    regions each holding the largest tight tile pair."""
+    region = _round128(2 * max(tight_tile_bytes(l, 64, tile),
+                               tight_tile_bytes(l // 2, 128, tile)))
+    return RING_BYTES + 2 * region
+
+
+def fused_head_f32_smem_bytes(l4: int, tile: int) -> int:
+    """Dynamic shared memory of a K14 f32 head block: the ring, two regions
+    each holding the largest tight tile pair or the last conv's f32 rows,
+    and the means."""
+    region = _round128(max(2 * max(tight_tile_bytes(l4, 256, tile),
+                                   tight_tile_bytes(l4 // 2, 512, tile)),
+                           tile * (l4 // 2) * 128 * 4))
+    return RING_BYTES + 2 * region + tile * 128 * 4
+
+
+def _geometry(smem_of, l, start=WG_TILE):
+    tile = start
     while tile > 1 and smem_of(tile) > SMEM_MAX:
         tile //= 2
     return tile, row_stride(l), smem_of(tile)
@@ -137,9 +192,23 @@ def head_bf16_geometry(l4: int):
     return _geometry(lambda t: head_bf16_smem_bytes(l4, t), l4)
 
 
-def _chunk_shape(cout, k, nj, wgn=1, esize=1):
+def fused_backbone_f32_geometry(l: int):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a K14 f32
+    backbone launch at cutout length ``l``."""
+    return _geometry(lambda t: fused_backbone_f32_smem_bytes(l, t), l,
+                     F32_TILE)
+
+
+def fused_head_f32_geometry(l4: int):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a K14 f32
+    head launch at ``l4`` positions."""
+    return _geometry(lambda t: fused_head_f32_smem_bytes(l4, t), l4,
+                     F32_TILE)
+
+
+def _chunk_shape(cout, k, nj, wgn=1, esize=1, kc=None):
     ns = 64 * nj * wgn
-    kc = chunk_k(k, ns, esize)
+    kc = kc or chunk_k(k, ns, esize)
     blk = 16 // esize  # elements of a 16-byte K block
     # (pass, n8 group, row, chunk, k block, element) of w (Cout, K)
     return (cout // ns, ns // 8, 8, k // kc, kc // blk, blk)
@@ -150,12 +219,13 @@ def _chunk_shape(cout, k, nj, wgn=1, esize=1):
 _CHUNK_ORDER = (0, 3, 4, 1, 2, 5)
 
 
-def wgmma_weights(w, nj: int, wgn: int = 1):
-    """``w (Cout, K)`` int8 or bf16 -> the 1-D chunk order the ring
+def wgmma_weights(w, nj: int, wgn: int = 1, kc: int | None = None):
+    """``w (Cout, K)`` int8, bf16 or f32 -> the 1-D chunk order the ring
     streams: for each pass of ``64 * nj * wgn`` output channels, its K
-    chunks, each ``[16-byte K block][8-channel group][8 rows][16 bytes]``."""
+    chunks (of ``kc`` elements; by default :func:`chunk_k`'s), each
+    ``[16-byte K block][8-channel group][8 rows][16 bytes]``."""
     cout, k = w.shape
-    shape = _chunk_shape(cout, k, nj, wgn, w.element_size())
+    shape = _chunk_shape(cout, k, nj, wgn, w.element_size(), kc)
     return (w.reshape(shape).permute(_CHUNK_ORDER).contiguous()
             .reshape(-1))
 
@@ -173,3 +243,35 @@ def plan_weights_bf16(weights, plan=HEAD_BF16_PLAN):
     its layer of ``plan`` (1-D bf16)."""
     return [wgmma_weights(w.t().contiguous(), nj, wgn)
             for (w, _), (_, _, _, nj, wgn) in zip(weights, plan)]
+
+
+def chunk_k_x3(k: int, ns: int) -> int:
+    """K a K14 f32 weight chunk of ``ns`` output channels holds: the largest
+    multiple of 16 dividing ``k`` whose bf16 hi and lo parts fit a stage."""
+    return max(kc for kc in range(16, k + 1, 16)
+               if k % kc == 0 and (ns * kc * 4 <= STAGE_BYTES or kc == 16))
+
+
+def split_bf16(x):
+    """f32 ``x`` -> (hi, lo) bf16: ``hi = bf16(x)``, ``lo = bf16(x -
+    hi)``."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def plan_weights_f32(weights, plan):
+    """``[(w (3*Cin, Cout) f32, b), ...]`` of a K14 f32 conv stack -> each
+    ``w`` transposed to ``(Cout, 3*Cin)``, split (:func:`split_bf16`), hi
+    and lo each laid out in the chunk order of its layer of ``plan``
+    (:func:`chunk_k_x3`), and the two interleaved chunk by chunk (1-D
+    bf16)."""
+    out = []
+    for (w, _), (cin, _, _, nj, wgn) in zip(weights, plan):
+        ns = 64 * nj * wgn
+        kc = chunk_k_x3(3 * cin, ns)
+        parts = [wgmma_weights(x.contiguous(), nj, wgn, kc).reshape(-1,
+                                                                    ns * kc)
+                 for x in split_bf16(w.t())]
+        out.append(torch.stack(parts, 1).reshape(-1))
+    return out
