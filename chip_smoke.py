@@ -18,14 +18,17 @@ Phases:
 2. build every kernel from ``planar_optical_flow_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` report and
    each kernel's dynamic shared memory; the launch geometry of K5, K9, K10,
-   K7, K4 and K14 f32 (cutouts a block, rows a cutout, shared memory) equal
-   to ``int8_tiles``' and within the card's 232,448 bytes;
+   K7, K4 (and K14's bf16 head, on K4's kernel), K13 and K14 f32 (cutouts a
+   block, rows a cutout, shared memory) equal to ``int8_tiles``' and within
+   the card's 232,448 bytes;
 3. the model, from a seeded ``torch.Generator``, with seeded BN stats, and
    the int8 calibration on ``scans[0][:8]`` (as ``bench.py`` calibrates);
 4. each kernel at the flagship shapes against its plain PyTorch version on
    the same inputs, then timed with CUDA events beside the plain version:
    K1 cutout, K2 backbone tail, K3 gate, K4 head (bf16: within 2e-2 x
-   max|plain|), then K5 int8 backbone, K6 int8 gate, K7 int8 head; at the
+   max|plain|), then K5 int8 backbone, K6 int8 gate, K7 int8 head (K5, K7,
+   K9, K10 and K13 on weights laid out once, as the step builder holds
+   them, each equal to the bit to a call on the triples); at the
    456 rows a stream of ``"flat"`` and ``"int8"``, K10 int8 backbone on
    the int8 layer 1 (int8 and bf16 feats) and K6 and K7 on K10's feats
    (K11 and K10's head); at the 480 rows a stream of ``"pm"``, K1, K9 int8
@@ -45,7 +48,9 @@ Phases:
    and head in f32 (split-bf16 wgmma, on weights laid out once, equal to
    the bit to a call on the pairs; at rtol 1e-3 + 1e-4 x max|plain|, fewer
    timed launches, with the split-bf16, 3xTF32 and FFMA bounds) and in bf16
-   on the module cutouts of the 450-beam streams, K3's f32 mode
+   (the head on K4's kernel, its weights laid out once, equal to the bit to
+   a call on the pairs) on the module cutouts of the 450-beam streams, K3's
+   f32 mode
    at ct=450 (template 2e-5, z and sim 2e-4, ``tests/test_fast_gate.py``),
    and K15 in bf16 against its plain version and against K3's new template
    on K3's own attention (read back through K3 with a probe template), each
@@ -174,7 +179,7 @@ KERNELS = {
                           "backbone_int8_cut", "p2c"),
     "gate_head_int8": (_SRC + "serve_cell.cu", _FG + ":567", "gate_head_int8",
                        "p2_fused"),
-    "serve_cell_int8": (_SRC + "serve_cell.cu",
+    "serve_cell_int8": (_SRC + "serve_cell_wg.cu",
                         "planar_optical_flow_tpu/ops/pallas/serve_cell.py:170",
                         "serve_cell_int8", "cell"),
     "fused_backbone": (_SRC + "fused_f32.cu", _FD + ":172", "fused_backbone",
@@ -183,7 +188,7 @@ KERNELS = {
                             "fused_backbone", "fused_bf16"),
     "fused_head": (_SRC + "fused_f32.cu", _FD + ":198", "fused_head",
                    "fused"),
-    "fused_head_bf16": (_SRC + "fused_drow.cu", _FD + ":198", "fused_head",
+    "fused_head_bf16": (_SRC + "head_bf16.cu", _FD + ":198", "fused_head",
                         "fused_bf16"),
     "gate_f32": (_SRC + "gate.cu", _FG + ":274", "gate", "serve_f32"),
     # on no serving path, as in JAX: the launches of its phase-4 checks
@@ -214,6 +219,26 @@ LAYOUTS = {
                  dict(cutout=6, backbone_int8=6, gate_head_int8=5,
                       gate_int8=1, head_int8=1), "p2"),
 }
+
+
+def laid_weights(w):
+    """The int8 weights ``w`` with the wgmma convs' (K5/K9/K10, K7, K13)
+    laid out once, as ``make_serve_step_v3`` holds them (K8 and K12 read
+    their triples, ``.convs``)."""
+    from planar_optical_flow_tpu_torch.ops.kernels import conv_stack as cs
+
+    return w._replace(backbone=cs.backbone_weights_int8(w.backbone),
+                      head=cs.head_weights_int8(w.head))
+
+
+def same_bits(name, got, ref):
+    """Check that two calls' outputs are equal to the bit."""
+    import torch
+
+    ok = all(torch.equal(g, r) for g, r in zip(got, ref))
+    print(f"[kernel] {name}: {'bit-identical' if ok else 'DIFFER'}",
+          flush=True)
+    check(ok, f"{name} differ")
 
 
 def check(cond, msg):
@@ -541,15 +566,20 @@ def gate_and_head_int8(results, names, feats, zx, feats2, zx2, w, head_w,
         bound(ops6, H100_F32_FLOPS, bytes6))
     del ref6, tmpl
 
-    # K7 on the gate's new template
+    # K7 on the gate's new template, on the weights laid out once and on
+    # the triples
     t7 = got6[0].reshape(-1, 256)
     cls, reg = head_int8(t7, w.head, head_w, num_classes=1, l4=l4)
     torch.cuda.synchronize()
+    same_bits(f"{names[1]} on the laid-out weights and on the triples",
+              (cls, reg), head_int8(t7, w.head.convs, head_w, num_classes=1,
+                                    l4=l4))
     cls_p, reg_p = head_int8_plain(t7, w.head, head_w, l4=l4)
     conv7 = 2.0 * (l4 * 3 * (256 * 256 * 2 + 256 * 512)
                    + (l4 // 2) * 3 * (512 * 256 + 256 * 128))
     bytes7 = (n * d + n * 3 * 4 + sum(t.numel() * t.element_size()
-                                      for layer in w.head for t in layer))
+                                      for layer in w.head.convs
+                                      for t in layer))
     record_int8(
         results, names[1], [], [(cls, cls_p), (reg, reg_p)],
         time_ms(lambda: head_int8(t7, w.head, head_w, num_classes=1, l4=l4),
@@ -583,7 +613,7 @@ def int8_kernel_phase(model, scans, calib, device, iters):
                window_depth=CUTOUT_KW["window_depth"],
                padding_val=CUTOUT_KW["padding_val"], centered=True,
                area_mode=True, p_valid=NUM_PTS)
-    w = int8_weights(det, calib, device)
+    w = laid_weights(int8_weights(det, calib, device))
     head_w = fold.head_linear_weights(det.head)
     gp = fold.fold_gate_params(det.gate)
     results = {}
@@ -597,12 +627,15 @@ def int8_kernel_phase(model, scans, calib, device, iters):
         flat, (feats, zx) = feats_of(scans[0])
         k5 = (flat, w.layer1, w.backbone, w.embed)
         torch.cuda.synchronize()
+        same_bits("backbone_int8 on the laid-out weights and on the triples",
+                  (feats, zx), backbone_int8(flat, w.layer1, w.backbone.convs,
+                                             w.embed, l=c))
         feats_p, zx_p = backbone_int8_plain(*k5, l=c)
         conv5 = 2.0 * (c * 3 * (64 * 64 + 64 * 128)
                        + (c // 2) * 3 * (2 * 128 * 128 + 128 * 256))
         bytes5 = (n * c * 4 + n * d + n * 128 * 2 + w.embed[0].numel() * 2
                   + sum(t.numel() * t.element_size()
-                        for layer in w.backbone for t in layer))
+                        for layer in w.backbone.convs for t in layer))
         record_int8(
             results, "backbone_int8", [(feats, feats_p)], [(zx, zx_p)],
             time_ms(lambda: backbone_int8(*k5, l=c), iters),
@@ -644,8 +677,8 @@ def layouts_kernel_phase(model, scans, calib, device, iters):
                window_depth=CUTOUT_KW["window_depth"],
                padding_val=CUTOUT_KW["padding_val"], centered=True,
                area_mode=True, p_valid=NUM_PTS)
-    w = int8_weights(det, calib, device, "int8c")
-    w8 = int8_weights(det, calib, device, "int8")
+    w = laid_weights(int8_weights(det, calib, device, "int8c"))
+    w8 = laid_weights(int8_weights(det, calib, device, "int8"))
     head_w = fold.head_linear_weights(det.head)
     gp = fold.fold_gate_params(det.gate)
     results = {}
@@ -658,7 +691,7 @@ def layouts_kernel_phase(model, scans, calib, device, iters):
 
     def weight_bytes(weights):
         return sum(t.numel() * t.element_size()
-                   for layer in weights for t in layer)
+                   for layer in weights.convs for t in layer)
 
     def pad(scan, p_pad):
         return F.pad(scan, (0, p_pad - NUM_PTS))
@@ -736,6 +769,10 @@ def layouts_kernel_phase(model, scans, calib, device, iters):
         k9 = (flat, w.layer1_div, w.backbone, w.embed)
         feats9, zx9 = cs.backbone_int8_pm(*k9, l=c, in_scale=w.in_scale)
         torch.cuda.synchronize()
+        same_bits("backbone_int8_pm on the laid-out weights and on the "
+                  "triples", (feats9, zx9),
+                  cs.backbone_int8_pm(flat, w.layer1_div, w.backbone.convs,
+                                      w.embed, l=c, in_scale=w.in_scale))
         ref = cs.backbone_int8_pm_plain(*k9, l=c, in_scale=w.in_scale)
         nbytes9 = (n * c * 4 + n * d + n * 128 * 2 + w.embed[0].numel() * 2
                    + weight_bytes(w.backbone))
@@ -816,7 +853,7 @@ def fused_kernel_phase(model, scans, calib, device, iters):
     from planar_optical_flow_tpu_torch.ops.kernels import fold
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
     from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import (
-        serve_cell_int8, serve_cell_int8_plain,
+        cell_embed, serve_cell_int8, serve_cell_int8_plain,
     )
 
     det = model.dr_spaam
@@ -828,7 +865,7 @@ def fused_kernel_phase(model, scans, calib, device, iters):
                window_depth=CUTOUT_KW["window_depth"],
                padding_val=CUTOUT_KW["padding_val"], centered=True,
                area_mode=True, p_valid=NUM_PTS)
-    w = int8_weights(det, calib, device)
+    w = laid_weights(int8_weights(det, calib, device))
     head_w = fold.head_linear_weights(det.head)
     gp = fold.fold_gate_params(det.gate)
     results = {}
@@ -837,13 +874,8 @@ def fused_kernel_phase(model, scans, calib, device, iters):
     head_ops = 2.0 * (l4 * 3 * (256 * 256 * 2 + 256 * 512)
                       + (l4 // 2) * 3 * (512 * 256 + 256 * 128))
     weight_bytes = sum(t.numel() * t.element_size()
-                       for layer in w.backbone + w.head for t in layer)
-
-    def same(name, got, chain):
-        ok = all(torch.equal(g, r) for g, r in zip(got, chain))
-        print(f"[kernel] {name}: outputs "
-              f"{'bit-identical' if ok else 'DIFFER'}", flush=True)
-        check(ok, f"{name}: the fused kernel differs from the unfused ones")
+                       for layer in w.backbone.convs + w.head.convs
+                       for t in layer)
 
     def gkw(p_pad):
         return dict(ct=p_pad, ct_valid=NUM_PTS, alpha=gp.alpha,
@@ -862,7 +894,7 @@ def fused_kernel_phase(model, scans, calib, device, iters):
         p_pad = -(-NUM_PTS // 8) * 8
         n = b * p_pad
         scan_p = F.pad(scans[0], (0, p_pad - NUM_PTS))
-        k8 = (scan_p, w.layer1, w.backbone, w.embed)
+        k8 = (scan_p, w.layer1, w.backbone.convs, w.embed)
         got = cs.backbone_int8_cut(*k8, **ckw)
         torch.cuda.synchronize()
         ref = cs.backbone_int8_cut_plain(*k8, **ckw)
@@ -878,18 +910,18 @@ def fused_kernel_phase(model, scans, calib, device, iters):
                   n * 4.0 + n * d + n * 128 * 2 + w.embed[0].numel() * 2
                   + weight_bytes))
         del ref
-        same(f"K8 vs K1 -> K5 at {p_pad} rows a stream", got,
+        same_bits(f"K8 vs K1 -> K5 at {p_pad} rows a stream", got,
              cs.backbone_int8(cutout(scan_p, **ckw), w.layer1, w.backbone,
                               w.embed, l=c))
 
         # K12 on p2's feats (scan 0) and scan 1's features as the template
         x, zx = got[0].reshape(n, d), got[1]
         feats2, zx2 = cs.backbone_int8_cut(
-            F.pad(scans[1], (0, p_pad - NUM_PTS)), w.layer1, w.backbone,
+            F.pad(scans[1], (0, p_pad - NUM_PTS)), w.layer1, w.backbone.convs,
             w.embed, **ckw)
         tmpl = carried(feats2, n)
         del feats2, got
-        k12 = (zx, zx2, x, tmpl, w.head, head_w)
+        k12 = (zx, zx2, x, tmpl, w.head.convs, head_w)
         kw12 = dict(gkw(p_pad), num_classes=1, l4=l4)
         got = gate_head_int8(*k12, **kw12)
         torch.cuda.synchronize()
@@ -908,7 +940,7 @@ def fused_kernel_phase(model, scans, calib, device, iters):
         chain = gate_int8(zx, zx2, x, tmpl, **gkw(p_pad))
         chain += cs.head_int8(chain[0].reshape(-1, 256), w.head, head_w,
                               num_classes=1, l4=l4)
-        same(f"K12 vs K6 -> K7 at {p_pad} rows a stream", got, chain)
+        same_bits(f"K12 vs K6 -> K7 at {p_pad} rows a stream", got, chain)
         del got, chain, x, zx, zx2, tmpl
 
         # K13 at 480 rows a stream, the carry from K9 on scan 0
@@ -920,11 +952,17 @@ def fused_kernel_phase(model, scans, calib, device, iters):
         tmpl = carried(feats0, n)
         del feats0
         cut = cutout(F.pad(scans[1], (0, p_pad - NUM_PTS)), **ckw)
-        k13 = (cut, zt, tmpl, w.layer1_div, w.backbone, w.embed, w.head,
-               head_w)
+        # the weights laid out once, as make_serve_step_v3 holds them
+        k13 = (cut, zt, tmpl, w.layer1_div, w.backbone, cell_embed(w.embed),
+               w.head, head_w)
         kw13 = dict(gkw(p_pad), l=c, in_scale=w.in_scale, num_classes=1)
         got = serve_cell_int8(*k13, **kw13)
         torch.cuda.synchronize()
+        same_bits("serve_cell_int8 on the laid-out weights and on the "
+                  "triples", got,
+                  serve_cell_int8(cut, zt, tmpl, w.layer1_div,
+                                  w.backbone.convs, w.embed, w.head.convs,
+                                  head_w, **kw13))
         ref = serve_cell_int8_plain(*k13, **kw13)
         # the plain zx (float64 sums) and the kernel's (the MMA's f32 sums)
         # differ in a bf16 last bit on some rows, and inside the cell that
@@ -949,7 +987,8 @@ def fused_kernel_phase(model, scans, calib, device, iters):
         chain = gate_int8(zx, zt, x.reshape(n, d), tmpl, **gkw(p_pad))
         chain += cs.head_int8(chain[0].reshape(-1, 256), w.head, head_w,
                               num_classes=1, l4=l4)
-        same(f"K13 vs K9 -> K6 -> K7 at {p_pad} rows a stream", got, chain)
+        same_bits(f"K13 vs K9 -> K6 -> K7 at {p_pad} rows a stream", got,
+                  chain)
     return results
 
 
@@ -1025,10 +1064,11 @@ def k14_k15_kernel_phase(model, scans, device):
         results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_pair[0], bound_by=bound_pair[1])
 
-    # f32: the weights laid out once, as make_fused_stream_step holds them
+    # the weights laid out once, as make_fused_stream_step holds them (the
+    # bf16 backbone reads the pairs)
     laid = {torch.float32: (fd.backbone_weights_f32(w_bb),
                             fd.head_weights_f32(w_hd)),
-            torch.bfloat16: (w_bb, w_hd)}
+            torch.bfloat16: (w_bb, fd.head_weights_bf16(w_hd))}
     with torch.inference_mode():
         cut = _encode_single(_sanitize_scan(scans[0], CUTOUT_KW["padding_val"]),
                              phi, CUTOUT_KW).reshape(n, c)
@@ -1065,10 +1105,8 @@ def k14_k15_kernel_phase(model, scans, device):
             f, wk = feats[dt], laid[dt][1]
             got = fd.fused_head(f, wk, compute_dtype=dt)
             torch.cuda.synchronize()
-            if dt == torch.float32:
-                check(all(torch.equal(a, b) for a, b in zip(
-                    got, fd.fused_head(f, w_hd, compute_dtype=dt))),
-                      "fused_head: pairs and laid-out weights differ")
+            same_bits(f"{name} on the laid-out weights and on the pairs",
+                      got, fd.fused_head(f, w_hd, compute_dtype=dt))
             ref = fd.fused_head_plain(f, w_hd, compute_dtype=dt)
             nbytes = n * d * 4.0 + n * 3 * 4.0 + w_bytes(w_hd, dt.itemsize)
             args = (time_ms(lambda: fd.fused_head(f, wk, compute_dtype=dt),
@@ -1627,7 +1665,8 @@ def main(argv=None):
             ("gate", "gate_smem_bytes", (p_pad, WINDOW), " (K3)"),
             ("gate", "gate_int8_smem_bytes", (WINDOW,),
              " (K6, at any rows a stream)"),
-            ("head_bf16", "head_bf16_smem_bytes", (c // 4,), " (K4)"),
+            ("head_bf16", "head_bf16_smem_bytes", (c // 4,),
+             " (K4, and K14's bf16 head)"),
             ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 0, 0),
              " (K5)"),
             ("conv_stack_int8", "backbone_int8_smem_bytes", (c, 1, 0),
@@ -1640,16 +1679,14 @@ def main(argv=None):
             ("conv_stack_int8", "backbone_int8_cut_smem_bytes", (c, p_pad),
              " (K8)"),
             ("serve_cell", "gate_head_int8_smem_bytes", (c // 4,), " (K12)"),
-            ("serve_cell", "serve_cell_int8_smem_bytes", (c,), " (K13)"),
+            ("serve_cell_wg", "serve_cell_int8_smem_bytes", (c,), " (K13)"),
             ("gate", "gate_smem_bytes", (NUM_PTS, WINDOW),
              f" at {NUM_PTS} rows a stream (K3 f32, make_serve_step; K15 "
              "the same)"),
             ("fused_f32", "fused_backbone_f32_smem_bytes", (c,), " (K14 f32)"),
             ("fused_drow", "fused_backbone_smem_bytes", (c,), " (K14 bf16)"),
             ("fused_f32", "fused_head_f32_smem_bytes", (c // 4,),
-             " (K14 f32)"),
-            ("fused_drow", "fused_head_smem_bytes", (c // 4,),
-             " (K14 bf16)")):
+             " (K14 f32)")):
         f = getattr(_build.load(lib), fn)
         f.restype = ctypes.c_longlong
         f.argtypes = [ctypes.c_int] * len(arg)
@@ -1663,12 +1700,16 @@ def main(argv=None):
     geo4.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     geo14 = _build.load("fused_f32").fused_f32_geometry
     geo14.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    geo13 = _build.load("serve_cell_wg").cell_geometry
+    geo13.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     for name, which, l, mode, want in (
             ("K5", 0, c, 0, int8_tiles.backbone_geometry(c, 0)),
             ("K9", 0, c, 1, int8_tiles.backbone_geometry(c, 1)),
             ("K10", 0, c, 2, int8_tiles.backbone_geometry(c, 2)),
             ("K7", 1, c // 4, 0, int8_tiles.head_geometry(c // 4)),
-            ("K4", None, c // 4, None, int8_tiles.head_bf16_geometry(c // 4)),
+            ("K4 and K14 bf16 head", None, c // 4, None,
+             int8_tiles.head_bf16_geometry(c // 4)),
+            ("K13", "cell", c, None, int8_tiles.cell_geometry(c)),
             ("K14 f32 backbone", "f32", c, 0,
              int8_tiles.fused_backbone_f32_geometry(c)),
             ("K14 f32 head", "f32", c // 4, 1,
@@ -1677,6 +1718,9 @@ def main(argv=None):
         if which is None:
             geo4(l, ctypes.byref(tile), ctypes.byref(rows),
                  ctypes.byref(smem))
+        elif which == "cell":
+            geo13(l, ctypes.byref(tile), ctypes.byref(rows),
+                  ctypes.byref(smem))
         elif which == "f32":
             check(geo14(mode, l, ctypes.byref(tile), ctypes.byref(rows),
                         ctypes.byref(smem)) == 0, f"{name} geometry")

@@ -1,5 +1,5 @@
 // The band gate's device code, shared by gate.cu (K3, K6), serve_cell.cu
-// (K12, K13) and banded_mix.cu (K15): the banded attention of one row (the
+// (K12), serve_cell_wg.cu (K13) and banded_mix.cu (K15): the banded attention of one row (the
 // JAX _attention_body), the z-carry mix and similarity band, and the int8
 // template mix with its requant. The attention and z mix take bf16 or f32
 // embeddings (K3's two modes). Every row reads only its own current embedding and the CARRIED
@@ -33,6 +33,8 @@
 #include "common.cuh"
 
 namespace {
+
+constexpr int kMaxWindow = 32;  // attention lanes a row (one warp): K12, K13
 
 // bf16 vectors move as one 8- or 16-byte access; the lanes are read and
 // written through __nv_bfloat162 views of the register copy
@@ -196,6 +198,31 @@ __device__ __forceinline__ int blend_requant(int m, int xb, float alpha,
   // either way, so a zero divides s_out instead and is put back.
   const float q = __fdiv_rn(v == 0.0f ? s_out : v, s_out);
   return requant(v == 0.0f ? 0.0f : q);
+}
+
+// word k of a 16-byte vector
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Four template rows' 16 bytes (tr[e]: row e of a quad, columns c .. c +
+// 15) byte-transposed into the 16 words at dst: word c' holds the four
+// rows' bytes of column c + c', the K order of the B operand of the int8
+// mix's mma.m16n8k32 (K6, K13)
+__device__ __forceinline__ void transpose_quad(uint32_t* dst,
+                                               const uint4 (&tr)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t r0 = word_of(tr[0], k), r1 = word_of(tr[1], k);
+    const uint32_t r2 = word_of(tr[2], k), r3 = word_of(tr[3], k);
+    const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);
+    const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);
+    const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
+    const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
+    *reinterpret_cast<uint4*>(dst + 4 * k) = make_uint4(
+        __byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
+        __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632));
+  }
 }
 
 // new_t[i] at columns col .. col + 15: the 2*hw+1 products of q (row i's

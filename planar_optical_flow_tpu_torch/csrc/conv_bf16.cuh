@@ -1,5 +1,5 @@
-// The bf16 tensor-core conv layer of K2 and K4 (conv_stack.cu), shared with
-// K14's bf16 mode (fused_drow.cu): a tile of cutouts in shared memory, one
+// The bf16 tensor-core conv layer of K2 (conv_stack.cu), shared with K14's
+// bf16 backbone (fused_drow.cu): a tile of cutouts in shared memory, one
 // k=3 SAME conv per call as three shifted row windows times the tap-major
 // (3*Cin, Cout) weight, on nvcuda::wmma bf16 16x16x16 fragments with f32
 // accumulators. Layout in shared memory, per cutout: rows of C bf16 channels
@@ -23,10 +23,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPadCols = 16;  // shared-memory row padding (elements)
 constexpr int kNTiles = 2;    // 16-channel tiles per warp task
 
-// kMeanRound: the mean of the JAX fused_drow head in bf16: each activation
-// rounded to bf16, summed in f32, times the f32 reciprocal of L (XLA's form
-// of a division by a constant)
-enum Epilogue { kStore = 0, kPool = 1, kMean = 2, kMeanRound = 3 };
+enum Epilogue { kStore = 0, kPool = 1 };
 
 __host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
 __host__ __device__ constexpr int ld_of(int c) { return c + kPadCols; }
@@ -36,11 +33,6 @@ __device__ __forceinline__ float leaky(float v) {
   return v > 0.0f ? v : 0.1f * v;
 }
 
-template <int EPI>
-__device__ __forceinline__ float mean_term(float v) {
-  return EPI == kMeanRound ? __bfloat162float(__float2bfloat16(v)) : v;
-}
-
 __device__ void zero_smem(bf16* p, int n_elems) {
   uint4 z = make_uint4(0, 0, 0, 0);
   uint4* q = reinterpret_cast<uint4*>(p);
@@ -48,11 +40,10 @@ __device__ void zero_smem(bf16* p, int n_elems) {
 }
 
 // One k=3 SAME conv layer over the tile: `in` (CIN channels, L positions)
-// -> `out` (COUT channels; pooled to L/2 for kPool) or, for kMean, the f32
-// mean over the L (<= 16) positions into `means` (T x COUT).
+// -> `out` (COUT channels; pooled to L/2 for kPool).
 // `stage`: this warp's 16x16 f32 scratch.
 template <int CIN, int COUT, int EPI, int MTILES>
-__device__ void conv_layer(const bf16* in, bf16* out, float* means, int S,
+__device__ void conv_layer(const bf16* in, bf16* out, int S,
                            int L, int T, const bf16* __restrict__ W,
                            const float* __restrict__ bias, float* stage) {
   constexpr int LDI = ld_of(CIN), LDO = ld_of(COUT);
@@ -109,7 +100,7 @@ __device__ void conv_layer(const bf16* in, bf16* out, float* means, int S,
             out[(size_t)c * S + (size_t)(pos + 1) * LDO + n0 + col] =
                 __float2bfloat16(v);
           }
-        } else if (EPI == kPool) {
+        } else {
           for (int e = 0; e < 4; ++e) {
             const int idx = lane + 32 * e;
             const int r = idx >> 4, col = idx & 15;
@@ -120,13 +111,6 @@ __device__ void conv_layer(const bf16* in, bf16* out, float* means, int S,
             out[(size_t)c * S + (size_t)(8 * m + r + 1) * LDO + n0 + col] =
                 __float2bfloat16(v);
           }
-        } else if (lane < 16) {  // kMean: one tile per cutout (L <= 16)
-          const float bb = bias[n0 + lane];
-          float s = mean_term<EPI>(leaky(stage[lane] + bb));
-          for (int r = 1; r < L; ++r)
-            s += mean_term<EPI>(leaky(stage[r * 16 + lane] + bb));
-          means[c * COUT + n0 + lane] =
-              EPI == kMeanRound ? s * (1.0f / (float)L) : s / (float)L;
         }
         __syncwarp();
       }

@@ -61,23 +61,23 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   load_rows<64>(buf0, act1, c0, nv, L, S);
   __syncthreads();
-  conv_layer<64, 64, kStore, kMTilesBackbone>(buf0, buf1, nullptr, S, L, T, w2, b2, stage);
+  conv_layer<64, 64, kStore, kMTilesBackbone>(buf0, buf1, S, L, T, w2, b2, stage);
   __syncthreads();
   zero_smem(buf0, T * S);
   __syncthreads();
-  conv_layer<64, 128, kPool, kMTilesBackbone>(buf1, buf0, nullptr, S, L, T, w3, b3, stage);
+  conv_layer<64, 128, kPool, kMTilesBackbone>(buf1, buf0, S, L, T, w3, b3, stage);
   __syncthreads();
   zero_smem(buf1, T * S);
   __syncthreads();
-  conv_layer<128, 128, kStore, kMTilesBackbone>(buf0, buf1, nullptr, S, L2, T, w4, b4, stage);
+  conv_layer<128, 128, kStore, kMTilesBackbone>(buf0, buf1, S, L2, T, w4, b4, stage);
   __syncthreads();
   zero_smem(buf0, T * S);
   __syncthreads();
-  conv_layer<128, 128, kStore, kMTilesBackbone>(buf1, buf0, nullptr, S, L2, T, w5, b5, stage);
+  conv_layer<128, 128, kStore, kMTilesBackbone>(buf1, buf0, S, L2, T, w5, b5, stage);
   __syncthreads();
   zero_smem(buf1, T * S);
   __syncthreads();
-  conv_layer<128, 256, kPool, kMTilesBackbone>(buf0, buf1, nullptr, S, L2, T, w6, b6, stage);
+  conv_layer<128, 256, kPool, kMTilesBackbone>(buf0, buf1, S, L2, T, w6, b6, stage);
   __syncthreads();
 
   // feats: rows 1..L4 of buf1 -> (N*L4, 256)

@@ -68,9 +68,10 @@
 // the same entry over all N cutouts on the feats the first one wrote: 128
 // cutouts a block, We^T staged in shared memory by cp.async, bf16
 // mma.sync.m16n8k16 with the contraction in K-order, so that each zx is the
-// same chain of products and f32 sums as the embed of K8 and K13 (which
-// keep int8_stack.cuh's conv, mma.sync with 8 cutouts a block): K8 and K13
-// stay equal to the bit to K1 -> K5 and K9 -> K6 -> K7.
+// same chain of products and f32 sums as the embed of K8 (int8_stack.cuh's
+// backbone_tail) and of K13 (serve_cell_wg.cu, on int8_wg.cuh's
+// embed_frag_a): K8 and K13 stay equal to the bit to K1 -> K5 and K9 -> K6
+// -> K7.
 //
 // K10 fills the tile from its int8 input rows instead of computing layer 1;
 // with bf16 feats its last conv writes the bf16 rows straight to device
@@ -92,27 +93,15 @@
 // K16 is bound by its launch.
 
 #include "cutout.cuh"
-#include "wgmma_conv.cuh"
+#include "int8_wg.cuh"
 
 namespace {
-
-// the plans of the wgmma convs, (Cin, Cout, row tiles, n64 tiles) a warp
-// group; int8_tiles.BACKBONE_PLAN and HEAD_PLAN mirror them
-using BbPlan0 = ConvPlan<64, 64, 4, 1>;
-using BbPlan1 = ConvPlan<64, 128, 2, 2>;
-using BbPlan2 = ConvPlan<128, 128, 2, 2>;  // layers 4 and 5
-using BbPlan4 = ConvPlan<128, 256, 2, 2>;
-using HdPlan0 = ConvPlan<256, 256, 2, 2>;  // head convs 1 and 2
-using HdPlan2 = ConvPlan<256, 512, 2, 2>;
-using HdPlan3 = ConvPlan<512, 256, 1, 4>;
-using HdPlan4 = ConvPlan<256, 128, 1, 2>;
 
 // a backbone block's tile region (each of two): the packed tiles of its
 // stages and its int8 feats rows
 size_t backbone_region(int l, int T) {
-  size_t r = imax(ptile_bytes(l, 64, T), ptile_bytes(l / 2, 128, T));
-  r = r > (size_t)T * (l / 4) * 256 ? r : (size_t)T * (l / 4) * 256;
-  return round128(r);
+  const size_t r = backbone_tiles(l, T), f = (size_t)T * (l / 4) * 256;
+  return round128(r > f ? r : f);
 }
 
 size_t backbone_smem(int l, int L1, int T) {
@@ -122,11 +111,7 @@ size_t backbone_smem(int l, int L1, int T) {
 
 // a head block's tile region (each of two): the packed tiles of its stages
 // and the last conv's f32 rows
-size_t head_region(int l4, int T) {
-  size_t r = imax(ptile_bytes(l4, 256, T), ptile_bytes(l4 / 2, 512, T));
-  const size_t f = (size_t)T * (l4 / 2) * 128 * sizeof(float);
-  return round128(r > f ? r : f);
-}
+size_t head_region(int l4, int T) { return round128(head_tiles(l4, T)); }
 
 size_t head_smem(int l4, int T) {
   return kRingBytes + 2 * head_region(l4, T) +
@@ -144,47 +129,6 @@ int head_tile(int l4) {
   int T = kWgTile;
   while (T > 1 && head_smem(l4, T) > kSmemMax) T /= 2;
   return T;
-}
-
-// Backbone layer 1 from the block's f32 cutouts (nv x L in cut_s) into the
-// zeroed packed tile: layer1_tile's arithmetic, ((xl * w0 + x * w1) + xr *
-// w2) + b, leaky (kDivide: then one division by in_scale), rint, clip; each
-// consumer thread keeps the weights of 4 channels in registers and writes
-// them as one 4-byte store, 16 positions at a time.
-template <int L1>
-__device__ __forceinline__ void layer1_packed(const float* cut_s,
-                                              const float* __restrict__ w1,
-                                              const float* __restrict__ b1,
-                                              float in_scale, int8_t* tile,
-                                              int nv, int L, int T) {
-  const int ch = 4 * (threadIdx.x & 15);
-  const int S = pstride(L), rows = prows(L, T);
-  float w[3][4], b[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int t = 0; t < 3; ++t) w[t][j] = w1[64 * t + ch + j];
-    b[j] = b1[ch + j];
-  }
-  for (int r = threadIdx.x >> 4; r < nv * L; r += kWgThreads / 16) {
-    const int c = r / L, p = r - c * L;
-    const float x = cut_s[r];
-    const float xl = p > 0 ? cut_s[r - 1] : 0.0f;
-    const float xr = p < L - 1 ? cut_s[r + 1] : 0.0f;
-    char q[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float a = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(xl, w[0][j]), __fmul_rn(x, w[1][j])),
-                    __fmul_rn(xr, w[2][j])),
-          b[j]);
-      const float y =
-          L1 == kDivide ? __fdiv_rn(leaky(a), in_scale) : leaky(a);
-      q[j] = (char)requant(y);
-    }
-    *reinterpret_cast<char4*>(packed_at(tile, rows, c * S + 1 + p, ch)) =
-        make_char4(q[0], q[1], q[2], q[3]);
-  }
 }
 
 // K5 (L1 = kFold), K9 (kDivide) and K10 (kRead): layer 1 (or the int8 act1
@@ -207,14 +151,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* cut_s = reinterpret_cast<float*>(bufb + R);
   const int c0 = blockIdx.x * T;
   const int nv = min(T, n - c0);
-  const int L2 = L / 2, L4 = L / 4;
+  const int L4 = L / 4;
   // the weight chunks of the five convs, in the order they are used
   auto sched = [&](int j, const int8_t*& src, int& bytes) {
-    return chunk_of<BbPlan0>(j, tw.w[0], L, T, src, bytes) ||
-           chunk_of<BbPlan1>(j, tw.w[1], L, T, src, bytes) ||
-           chunk_of<BbPlan2>(j, tw.w[2], L2, T, src, bytes) ||
-           chunk_of<BbPlan2>(j, tw.w[3], L2, T, src, bytes) ||
-           chunk_of<BbPlan4>(j, tw.w[4], L2, T, src, bytes);
+    return backbone_chunk(j, tw, L, T, src, bytes);
   };
 
   Ring ring = ring_start(smem_raw, sched);
@@ -232,30 +172,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     layer1_packed<L1>(cut_s, w1, b1, in_scale, bufa, nv, L, T);
   }
   __syncthreads();
-  conv_wg<64, 64, 4, 1, kWgStore>(bufa, bufb, L, T, nv, c0, ring, sched, sb,
-                                  tw.s[0], tw.b[0]);
-  __syncthreads();
-  zero_smem(bufa, R);
-  __syncthreads();
-  conv_wg<64, 128, 2, 2, kWgPool>(bufb, bufa, L, T, nv, c0, ring, sched, sb,
-                                  tw.s[1], tw.b[1]);
-  __syncthreads();
-  zero_smem(bufb, R);
-  __syncthreads();
-  conv_wg<128, 128, 2, 2, kWgStore>(bufa, bufb, L2, T, nv, c0, ring, sched, sb,
-                                    tw.s[2], tw.b[2]);
-  __syncthreads();
-  zero_smem(bufa, R);
-  __syncthreads();
-  conv_wg<128, 128, 2, 2, kWgStore>(bufb, bufa, L2, T, nv, c0, ring, sched, sb,
-                                    tw.s[3], tw.b[3]);
-  __syncthreads();
-  if (F_OUT) {
-    conv_wg<128, 256, 2, 2, kWgPoolBf16>(bufa, feats, L2, T, nv, c0, ring,
-                                         sched, sb, tw.s[4], tw.b[4]);
-  } else {
-    conv_wg<128, 256, 2, 2, kWgPoolRows>(bufa, bufb, L2, T, nv, c0, ring, sched,
-                                         sb, tw.s[4], tw.b[4]);
+  backbone_convs<F_OUT ? kWgPoolBf16 : kWgPoolRows>(
+      bufa, bufb, R, feats, L, T, nv, c0, ring, sched, sb, tw);
+  if (!F_OUT) {
     __syncthreads();
     // the block's feats rows, contiguous in device memory as in bufb
     uint4* dst = reinterpret_cast<uint4*>(static_cast<int8_t*>(feats) +
@@ -320,13 +239,6 @@ __global__ void __launch_bounds__(256)
                  we_t + (size_t)col * K + k0 + 8 * v);
     }
   };
-  auto a_pair = [&](const unsigned char* row, int k) -> uint32_t {
-    if (sizeof(TA) == 1) {
-      const int8_t* p = reinterpret_cast<const int8_t*>(row) + k;
-      return bf16x2_of(p[0], p[1]);
-    }
-    return *reinterpret_cast<const uint32_t*>(row + 2 * k);
-  };
 
   float acc[2][8][4];
 #pragma unroll
@@ -352,11 +264,8 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const unsigned char* ra = a_st + (size_t)(32 * wm + 16 * i + g) * LDA;
-        const unsigned char* rb = ra + 8 * LDA;
-        a[i][0] = a_pair(ra, kk + 2 * tq);
-        a[i][1] = a_pair(rb, kk + 2 * tq);
-        a[i][2] = a_pair(ra, kk + 8 + 2 * tq);
-        a[i][3] = a_pair(rb, kk + 8 + 2 * tq);
+        embed_frag_a(a[i], reinterpret_cast<const TA*>(ra),
+                     reinterpret_cast<const TA*>(ra + 8 * LDA), kk + 2 * tq);
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -440,16 +349,16 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   layer1_tile<kFold>(cut_s, w1, b1, 1.0f, buf0, nv, L, S);
   __syncthreads();
-  backbone_tail<false, true>(buf0, buf1, tw, we_t, be, feats,
-                             zx + (size_t)c0 * 128, c0, nv, L, S);
+  backbone_tail(buf0, buf1, tw, we_t, be, feats, zx + (size_t)c0 * 128, c0,
+                nv, L, S);
 }
 
 
 // K16: x (n * L, 128) int8 -> left[r] = x[r - 1], right[r] = x[r + 1]
 // within each length-L cutout (zero at its ends), through both conv
 // layouts: int8_stack.cuh's (load_rows into cutouts of S bytes, TAP_ROW;
-// K8, K12, K13) and wgmma_conv.cuh's packed tile (load_packed, packed_tap;
-// K5, K7, K9, K10). A byte where the two disagree is
+// K8, K12) and wgmma_conv.cuh's packed tile (load_packed, packed_tap;
+// K5, K7, K9, K10, K13). A byte where the two disagree is
 // written as -128, which the known-answer pattern never holds.
 __global__ void __launch_bounds__(kThreads)
     row_shift_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ left,
@@ -495,14 +404,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* means = reinterpret_cast<float*>(bufb + R);
   const int c0 = blockIdx.x * T;
   const int nv = min(T, n - c0);
-  const int L8 = L4 / 2;
   // the weight chunks of the five convs, in the order they are used
   auto sched = [&](int j, const int8_t*& src, int& bytes) {
-    return chunk_of<HdPlan0>(j, hw.w[0], L4, T, src, bytes) ||
-           chunk_of<HdPlan0>(j, hw.w[1], L4, T, src, bytes) ||
-           chunk_of<HdPlan2>(j, hw.w[2], L4, T, src, bytes) ||
-           chunk_of<HdPlan3>(j, hw.w[3], L8, T, src, bytes) ||
-           chunk_of<HdPlan4>(j, hw.w[4], L8, T, src, bytes);
+    return head_chunk(j, hw, L4, T, src, bytes);
   };
 
   Ring ring = ring_start(smem_raw, sched);
@@ -511,32 +415,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   __syncthreads();
   load_packed<256>(tmpl, bufa, c0, nv, L4, T);
   __syncthreads();
-  conv_wg<256, 256, 2, 2, kWgStore>(bufa, bufb, L4, T, nv, c0, ring, sched, sb,
-                                    hw.s[0], hw.b[0]);
-  __syncthreads();
-  zero_smem(bufa, R);
-  __syncthreads();
-  conv_wg<256, 256, 2, 2, kWgStore>(bufb, bufa, L4, T, nv, c0, ring, sched, sb,
-                                    hw.s[1], hw.b[1]);
-  __syncthreads();
-  zero_smem(bufb, R);
-  __syncthreads();
-  conv_wg<256, 512, 2, 2, kWgPool>(bufa, bufb, L4, T, nv, c0, ring, sched, sb,
-                                   hw.s[2], hw.b[2]);
-  __syncthreads();
-  zero_smem(bufa, R);
-  __syncthreads();
-  conv_wg<512, 256, 1, 4, kWgStore>(bufb, bufa, L8, T, nv, c0, ring, sched, sb,
-                                    hw.s[3], hw.b[3]);
-  __syncthreads();
-  // the last conv is dequantized: f32 rows into the free region
-  float* fout = reinterpret_cast<float*>(bufb);
-  conv_wg<256, 128, 1, 2, kWgMean>(bufa, fout, L8, T, nv, c0, ring, sched, sb,
-                                   hw.s[4], hw.b[4]);
-  __syncthreads();
-  head_mean(fout, means, nv, L8);
-  __syncthreads();
-  head_cls_reg(means, hw, cls, reg, c0, nv, nc);
+  head_convs(bufa, bufb, R, means, L4, T, nv, c0, ring, sched, sb, hw, cls,
+             reg, nc);
   cp_async_wait<0>();  // the zero copies past the last chunk
 }
 
@@ -617,18 +497,7 @@ extern "C" int int8_wg_geometry(int which, int l, int l1_mode, int* tile,
 // the head (which: 1): output channels a pass and K bytes a chunk, which
 // int8_tiles.wgmma_weights lays out
 extern "C" int int8_wg_plan(int which, int layer, int* ns, int* kc) {
-  static const int plan[2][5][2] = {
-      {{BbPlan0::NS, BbPlan0::KC}, {BbPlan1::NS, BbPlan1::KC},
-       {BbPlan2::NS, BbPlan2::KC}, {BbPlan2::NS, BbPlan2::KC},
-       {BbPlan4::NS, BbPlan4::KC}},
-      {{HdPlan0::NS, HdPlan0::KC}, {HdPlan0::NS, HdPlan0::KC},
-       {HdPlan2::NS, HdPlan2::KC}, {HdPlan3::NS, HdPlan3::KC},
-       {HdPlan4::NS, HdPlan4::KC}}};
-  if (which < 0 || which > 1 || layer < 0 || layer > 4)
-    return (int)cudaErrorInvalidValue;
-  *ns = plan[which][layer][0];
-  *kc = plan[which][layer][1];
-  return 0;
+  return int8_plan_of(which, layer, ns, kc);
 }
 
 // dynamic shared memory a launch at these lengths asks for (bytes); l1_mode

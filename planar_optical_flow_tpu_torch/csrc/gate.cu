@@ -7,8 +7,8 @@
 // per_stream=True (kernel _gate_int8_pm_stream_kernel, _quantize_attn,
 // _mix_requant). Both share the front half, as the JAX kernels share
 // _attention_body: band_attention and z_mix_and_sim in band_gate.cuh, which
-// states the math and also holds K6's int8 mix (mix_requant16), shared with
-// K12 and K13. K3 mixes the bf16 template with the bf16-rounded attention:
+// states the math and also holds the int8 mix (mix_requant16, K12's; K6 and
+// K13 take the same sums on the tensor cores). K3 mixes the bf16 template with the bf16-rounded attention:
 //   new_t[i] = alpha * x[i] + beta * sum_o bf16(attn[i, o]) * t[i + o]
 // and in its f32 mode (f32 embeddings, features and template; the JAX
 // mix_dtype f32) the f32 template with the f32 attention, every output f32.
@@ -120,11 +120,6 @@ struct GateTiles {
   static constexpr int TB_BYTES = QUADS * kTbPitch * 4;
 };
 
-// word k of a 16-byte vector
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
 // The int8 gate on the row tiles of a stream. Each block first computes
 // the banded attention of its own rows once (band_attention, z_mix_and_sim:
 // new_z and sim; q = clip(rint(127 * attn)) into shared memory) and packs
@@ -234,21 +229,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     const int col0 = ch * kGateCols, cw = min(kGateCols, d - col0);
     const int buf = ch & 1;
     // the chunk's template, byte-transposed: 4 rows x 4 columns a step
-    if (threadIdx.x < G::UNITS) {
-      uint32_t* dst = tb + uq * kTbPitch + ucol;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t r0 = word_of(tr[0], k), r1 = word_of(tr[1], k);
-        const uint32_t r2 = word_of(tr[2], k), r3 = word_of(tr[3], k);
-        const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);
-        const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);
-        const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-        const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-        *reinterpret_cast<uint4*>(dst + 4 * k) = make_uint4(
-            __byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
-            __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632));
-      }
-    }
+    if (threadIdx.x < G::UNITS) transpose_quad(tb + uq * kTbPitch + ucol, tr);
     cp_async_wait<0>();
     __syncthreads();
     if (ch + 1 < nch) {  // the next chunk on its way during this one

@@ -1,9 +1,9 @@
-// The int8 conv stacks' device code of K8 (conv_stack_int8.cu) and K12,
-// K13 (serve_cell.cu): the int8 tensor-core conv over a block's tile of
+// The int8 conv stacks' device code of K8 (conv_stack_int8.cu) and K12
+// (serve_cell.cu): the int8 tensor-core conv over a block's tile of
 // cutouts, backbone layer 1 into the tile, the backbone tail + gate embed,
-// and the head. K5/K9/K10 and K7 share layer 1, the tile loader, the
-// epilogue arithmetic and the head's mean and cls/reg from here, and run
-// their convs on wgmma_conv.cuh.
+// and the head. K5/K9/K10, K7 and K13 share the epilogue arithmetic, the
+// weight structs and the head's mean and cls/reg from here, and run their
+// convs on wgmma_conv.cuh.
 //
 // A block owns kTile cutouts and keeps their activations in shared memory
 // across every layer: per cutout, rows of C int8 channels padded to C + 16
@@ -38,7 +38,7 @@ constexpr int kNTiles = 2;  // 8-channel tiles per warp task
 static_assert(kTile % kMTiles == 0,
               "a warp task's tiles must not run past the block's cutouts");
 
-enum Epilogue { kStore = 0, kPool = 1, kMean = 2, kPoolBf16 = 3 };
+enum Epilogue { kStore = 0, kPool = 1, kMean = 2 };
 // how a backbone block gets its layer-1 activation
 enum Layer1 { kFold = 0, kDivide = 1, kRead = 2 };
 
@@ -111,8 +111,7 @@ __device__ void load_rows(const int8_t* __restrict__ src, int8_t* tile,
 // One k=3 SAME int8 conv over the block's kTile cutouts: `in` (CIN channels,
 // L positions, per-cutout stride S bytes) -> `out` (COUT channels, int8
 // requantized; pooled to L/2 positions for kPool) or, into `fout`, the f32
-// activation (kMean: kTile x L x COUT) or the bf16 of the pooled f32
-// activation (kPoolBf16: kTile x L/2 x COUT). W: (COUT, 3*CIN) int8.
+// activation (kMean: kTile x L x COUT). W: (COUT, 3*CIN) int8.
 // Fragment layouts (PTX ISA, mma.m16n8k32 .s8): lane = 4 * g + tq; A
 // registers hold rows g / g+8 at k = 4tq.. and 16+4tq..; B registers hold
 // column g at k = 4tq.. and 16+4tq..; D holds rows g / g+8 at columns 2tq,
@@ -170,7 +169,7 @@ __device__ void conv_s8(const int8_t* in, int8_t* out, void* fout, int S,
         const int n = (ng * kNTiles + j) * 8 + 2 * tq;
         const float s0 = s_eff[n], s1 = s_eff[n + 1];
         const float b0 = b_eff[n], b1 = b_eff[n + 1];
-        if (EPI == kPool || EPI == kPoolBf16) {
+        if (EPI == kPool) {
           // positions 2r, 2r+1 are rows g, g^1: lanes `lane`, `lane ^ 4`
           int v[4];
 #pragma unroll
@@ -183,16 +182,9 @@ __device__ void conv_s8(const int8_t* in, int8_t* out, void* fout, int S,
               if (pos >= L) continue;
               const float y0 = scale_leaky(v[2 * h], s0, b0);
               const float y1 = scale_leaky(v[2 * h + 1], s1, b1);
-              if (EPI == kPool) {
-                *reinterpret_cast<char2*>(
-                    out + (size_t)c * S + (size_t)(pos / 2 + 1) * LDO + n) =
-                    make_char2((char)requant(y0), (char)requant(y1));
-              } else {
-                *reinterpret_cast<__nv_bfloat162*>(
-                    static_cast<bf16*>(fout) +
-                    ((size_t)c * (L / 2) + pos / 2) * COUT + n) =
-                    __floats2bfloat162_rn(y0, y1);
-              }
+              *reinterpret_cast<char2*>(
+                  out + (size_t)c * S + (size_t)(pos / 2 + 1) * LDO + n) =
+                  make_char2((char)requant(y0), (char)requant(y1));
             }
           }
         } else {
@@ -302,18 +294,14 @@ __device__ __forceinline__ void layer1_tile(const float* cut_s,
 }
 
 // Backbone layers 2-6 and the gate embed on the layer-1 tile in buf0 (buf1
-// zeroed; the caller synchronises after filling buf0). Feats end in buf1
-// (int8, rows 1..L/4 of each cutout) or, with F_OUT, as bf16 (kTile x L/4 x
-// 256) from the start of buf1, which is free by then, into the space after
-// it. With TO_GLOBAL they are also written to `feats` ((n * L/4, 256) rows
-// from cutout c0 on). zx row g goes to zx_rows + g * 128 (device or shared
-// memory) for g < nv.
-template <bool F_OUT, bool TO_GLOBAL>
+// zeroed; the caller synchronises after filling buf0). The int8 feats end
+// in buf1 (rows 1..L/4 of each cutout) and in `feats` ((n * L/4, 256) rows
+// from cutout c0 on); zx row g goes to zx_rows + g * 128 for g < nv.
 __device__ __forceinline__ void backbone_tail(
     int8_t* buf0, int8_t* buf1, const TailWeights& tw,
     const bf16* __restrict__ we_t, const bf16* __restrict__ be,
-    void* __restrict__ feats, bf16* zx_rows, int c0, int nv, int L, int S) {
-  bf16* fb = reinterpret_cast<bf16*>(buf1);
+    int8_t* __restrict__ feats, bf16* __restrict__ zx_rows, int c0, int nv,
+    int L, int S) {
   const int L2 = L / 2, L4 = L / 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -332,35 +320,20 @@ __device__ __forceinline__ void backbone_tail(
   __syncthreads();
   conv_s8<128, 128, kStore>(buf1, buf0, nullptr, S, L2, tw.w[3], tw.s[3], tw.b[3]);
   __syncthreads();
-  if (F_OUT) {
-    conv_s8<128, 256, kPoolBf16>(buf0, nullptr, fb, S, L2, tw.w[4], tw.s[4],
-                                 tw.b[4]);
-  } else {
-    zero_smem(buf1, kTile * S);
-    __syncthreads();
-    conv_s8<128, 256, kPool>(buf0, buf1, nullptr, S, L2, tw.w[4], tw.s[4],
-                             tw.b[4]);
-  }
+  zero_smem(buf1, kTile * S);
+  __syncthreads();
+  conv_s8<128, 256, kPool>(buf0, buf1, nullptr, S, L2, tw.w[4], tw.s[4],
+                           tw.b[4]);
   __syncthreads();
 
-  if (TO_GLOBAL && F_OUT) {
-    // feats: the block's rows of fb are contiguous, as in device memory
-    const int nvec = nv * L4 * 32;  // 16-byte vectors
-    uint4* dst = reinterpret_cast<uint4*>(static_cast<bf16*>(feats) +
-                                          (size_t)c0 * L4 * 256);
-    for (int idx = threadIdx.x; idx < nvec; idx += kThreads)
-      dst[idx] = reinterpret_cast<const uint4*>(fb)[idx];
-  } else if (TO_GLOBAL) {
-    // feats: rows 1..L4 of buf1 -> (N * L4, 256) int8
-    int8_t* f8 = static_cast<int8_t*>(feats);
-    for (int idx = threadIdx.x; idx < nv * L4 * 16; idx += kThreads) {
-      const int c = idx / (L4 * 16);
-      const int rem = idx - c * L4 * 16;
-      const int p = rem >> 4, v = rem & 15;
-      reinterpret_cast<uint4*>(f8 + ((size_t)(c0 + c) * L4 + p) * 256)[v] =
-          reinterpret_cast<const uint4*>(buf1 + (size_t)c * S +
-                                         (size_t)(p + 1) * ld_of(256))[v];
-    }
+  // feats: rows 1..L4 of buf1 -> (N * L4, 256) int8
+  for (int idx = threadIdx.x; idx < nv * L4 * 16; idx += kThreads) {
+    const int c = idx / (L4 * 16);
+    const int rem = idx - c * L4 * 16;
+    const int p = rem >> 4, v = rem & 15;
+    reinterpret_cast<uint4*>(feats + ((size_t)(c0 + c) * L4 + p) * 256)[v] =
+        reinterpret_cast<const uint4*>(buf1 + (size_t)c * S +
+                                       (size_t)(p + 1) * ld_of(256))[v];
   }
 
   // gate embed zx = feats_flat @ We + be on bf16 operands (int8 values are
@@ -372,20 +345,14 @@ __device__ __forceinline__ void backbone_tail(
     const int K = L4 * 256;
     float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     const int8_t* arow = buf1 + (size_t)g * S;
-    const bf16* frow = fb + (size_t)g * K + 2 * tq;
     const bf16* wrow0 = we_t + (size_t)((2 * warp) * 8 + g) * K + 2 * tq;
     const bf16* wrow1 = wrow0 + (size_t)8 * K;
     for (int k0 = 0; k0 < K; k0 += 16) {
       uint32_t a[4];
-      if (F_OUT) {
-        a[0] = *reinterpret_cast<const uint32_t*>(frow + k0);
-        a[2] = *reinterpret_cast<const uint32_t*>(frow + k0 + 8);
-      } else {
-        const int8_t* ap = arow + (size_t)((k0 >> 8) + 1) * ld_of(256) +
-                           (k0 & 255) + 2 * tq;
-        a[0] = bf16x2_of(ap[0], ap[1]);
-        a[2] = bf16x2_of(ap[8], ap[9]);
-      }
+      const int8_t* ap = arow + (size_t)((k0 >> 8) + 1) * ld_of(256) +
+                         (k0 & 255) + 2 * tq;
+      a[0] = bf16x2_of(ap[0], ap[1]);
+      a[2] = bf16x2_of(ap[8], ap[9]);
       a[1] = a[3] = 0u;
       const uint32_t bw0[2] = {ldg32(wrow0 + k0), ldg32(wrow0 + k0 + 8)};
       const uint32_t bw1[2] = {ldg32(wrow1 + k0), ldg32(wrow1 + k0 + 8)};

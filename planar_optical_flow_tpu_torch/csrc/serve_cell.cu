@@ -1,47 +1,36 @@
-// K12 (int8 gate + head) and K13 (the whole int8 serving cell) for Hopper
-// (sm_90a).
+// K12 (int8 gate + head) for Hopper (sm_90a). (K13, the whole cell, is
+// serve_cell_wg.cu.)
 //
 // K12 replaces planar_optical_flow_tpu/infer/fast_gate.py
 // gate_head_fused_int8_pm (kernel _gate_head_int8_pm_stream_kernel): K6 and
-// then K7 on the fresh template, byte-identical to the pair. K13 replaces
-// planar_optical_flow_tpu/ops/pallas/serve_cell.py serve_cell_int8 (kernel
-// _cell_kernel): K9's backbone (the divide-after-leaky layer 1, the int8
-// tail, the gate embed with zx rounded to bf16), then K6 and K7, equal to
-// that chain to the bit. The math is the shared device code of those
-// kernels: int8_stack.cuh (layer 1, backbone tail, head) and band_gate.cuh
-// (attention, z mix and sim, the int8 template mix).
+// then K7 on the fresh template, byte-identical to the pair. The math is
+// the shared device code of those kernels: int8_stack.cuh (the head) and
+// band_gate.cuh (attention, z mix and sim, the int8 template mix).
 //
-// Design. The TPU programs hold a whole stream in VMEM (up to 100 MB);
-// here a block owns kTile = 8 cutouts, as K8 does. The attention row
-// of cutout i needs only its own current zx[i] and the CARRIED zt[i + o] and
+// Design. The TPU program holds a whole stream in VMEM (up to 100 MB);
+// here a block owns kTile = 8 cutouts, as K8 does. The attention row of
+// cutout i needs only its own current zx[i] and the CARRIED zt[i + o] and
 // t[i + o], |o| <= window / 2, of its stream: each block reads those from
 // device memory (L2 holds the neighbours' rows, which eight blocks share)
 // and writes the new template, z and sim to fresh buffers, so no block ever
-// reads a row that another writes (the TPU kernels alias the carry). One
+// reads a row that another writes (the TPU kernel aliases the carry). One
 // warp computes each row's attention. The block's new template goes to
-// device memory and, in the head's tile layout, straight into shared memory,
-// where the head runs on it: K12 saves K7's read of the template and one
-// launch; K13 also keeps the feats in shared memory (they never reach device
-// memory) and the cutouts' zx there.
+// device memory and, in the head's tile layout, straight into shared
+// memory, where the head runs on it: K12 saves K7's read of the template
+// and one launch.
 //
 // Shared memory (bytes, at L = 56): two regions of kTile * S (S = 9504, the
-// head's tile stride, the larger of the backbone's 5280 and the head's),
-// the head's means (4 KB), the quantized attention (1 KB), and for K13 the
-// f32 cutouts (1.8 KB) and zx (2 KB): 157 KB (K12) and 161 KB (K13), one
-// block per SM. The backbone's two tiles (stride 5280) sit at the start of
-// the two regions; the int8 feats end in the second, the new template is
-// written into the first in the head's layout.
+// head's tile stride), the head's means (4 KB) and the quantized attention
+// (1 KB): 157 KB, one block per SM.
 //
 // Bound: tensor-core operations. K12 does K7's 28.9 M int8 operations per
 // cutout against ~10.6 KB of device memory (x, t in, new_t out, at 3.5 KB
-// each); K13 adds K9's 16.1 M.
+// each).
 
 #include "band_gate.cuh"
 #include "int8_stack.cuh"
 
 namespace {
-
-constexpr int kMaxWindow = 32;  // attention lanes per row (one warp)
 
 // The gate rows c0 .. c0 + nv - 1 (row = stream * ct + i): attention, sim
 // and new z, one warp a row, the quantized attention into attn_q (row c at
@@ -131,76 +120,10 @@ __global__ void __launch_bounds__(kThreads)
   head_body(buf0, buf1, means, hw, cls, reg, c0, nv, L4, nc, S);
 }
 
-// K13. Shared memory: regions r0, r1 (kTile * R each, R = max(S_bb, S_hd)),
-// the means, the quantized attention, the f32 cutouts, zx (bf16). The
-// backbone runs on tiles of stride S_bb at the start of r0 and r1 and ends
-// with the int8 feats in r1; the mix writes the new template into r0 at the
-// head's stride S_hd; the head runs on r0 and r1.
-__global__ void __launch_bounds__(kThreads)
-    serve_cell_int8_kernel(const float* __restrict__ cutouts,
-                           const bf16* __restrict__ zt,
-                           const int8_t* __restrict__ t,
-                           const float* __restrict__ w1,
-                           const float* __restrict__ b1, float in_scale,
-                           const TailWeights tw, const bf16* __restrict__ we_t,
-                           const bf16* __restrict__ be,
-                           int8_t* __restrict__ new_t,
-                           bf16* __restrict__ new_z, float* __restrict__ sim,
-                           const HeadWeights hw, float* __restrict__ cls,
-                           float* __restrict__ reg, const GateArgs ga, int n,
-                           int L, int nc, int S_bb, int S_hd, int R) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* r0 = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* r1 = r0 + (size_t)kTile * R;
-  float* means = reinterpret_cast<float*>(r1 + (size_t)kTile * R);
-  int* attn_q = reinterpret_cast<int*>(means + kTile * 128);
-  float* cut_s = reinterpret_cast<float*>(attn_q + kTile * kMaxWindow);
-  bf16* zx_s = reinterpret_cast<bf16*>(cut_s + kTile * L);
-  const int c0 = blockIdx.x * kTile;
-  const int nv = min(kTile, n - c0);
-  const int L4 = L / 4;
-
-  // K9: layer 1 (divide after the leaky), the int8 tail, zx into zx_s
-  zero_smem(r0, kTile * S_bb);
-  zero_smem(r1, kTile * S_bb);
-  for (int idx = threadIdx.x; idx < nv * L; idx += kThreads)
-    cut_s[idx] = cutouts[(size_t)c0 * L + idx];
-  __syncthreads();
-  layer1_tile<kDivide>(cut_s, w1, b1, in_scale, r0, nv, L, S_bb);
-  __syncthreads();
-  backbone_tail<false, false>(r0, r1, tw, we_t, be, nullptr, zx_s, c0, nv, L,
-                              S_bb);
-  __syncthreads();
-
-  // K6 on the block's rows: feats from r1, the new template into r0
-  zero_smem(r0, kTile * S_hd);
-  gate_rows(zx_s, zt, new_z, sim, attn_q, c0, nv, ga.ct, ga.ct_valid,
-            ga.window, ga.alpha, ga.beta);
-  __syncthreads();
-  mix_rows(attn_q, t, r1 + ld_of(256), S_bb, ld_of(256), new_t, r0, c0, nv,
-           ga.ct, ga.window, L4, S_hd, ga.alpha, ga.beta, ga.s_x, ga.s_t127,
-           ga.s_out);
-  __syncthreads();
-
-  // K7 on the fresh template
-  zero_smem(r1, kTile * S_hd);
-  __syncthreads();
-  head_body(r0, r1, means, hw, cls, reg, c0, nv, L4, nc, S_hd);
-}
-
 size_t gate_head_int8_smem(int l4, int* S) {
   *S = head_stride(l4);
   return 2 * (size_t)kTile * *S +
          (size_t)kTile * (128 * sizeof(float) + kMaxWindow * sizeof(int));
-}
-
-size_t serve_cell_int8_smem(int l, int* S_bb, int* S_hd, int* R) {
-  *S_bb = backbone_stride(l);
-  *S_hd = head_stride(l / 4);
-  *R = imax(*S_bb, *S_hd);
-  return 2 * (size_t)kTile * *R +
-         (size_t)kTile * (128 * sizeof(float) + kMaxWindow * sizeof(int) +
-                          l * sizeof(float) + 128 * sizeof(bf16));
 }
 
 }  // namespace
@@ -208,11 +131,6 @@ size_t serve_cell_int8_smem(int l, int* S_bb, int* S_hd, int* R) {
 extern "C" long long gate_head_int8_smem_bytes(int l4) {
   int S;
   return (long long)gate_head_int8_smem(l4, &S);
-}
-
-extern "C" long long serve_cell_int8_smem_bytes(int l) {
-  int S_bb, S_hd, R;
-  return (long long)serve_cell_int8_smem(l, &S_bb, &S_hd, &R);
 }
 
 // K12: zx, zt (n, 128) bf16; x, t (n, l4 * 256) int8 (n a multiple of ct);
@@ -238,38 +156,5 @@ extern "C" int gate_head_int8_launch(
       (int8_t*)new_t, (bf16*)new_z, (float*)sim,
       head_weights(head, wc, bc, wr, br), (float*)cls, (float*)reg, ga, n,
       l4, nc, S);
-  return (int)cudaGetLastError();
-}
-
-// K13: cutouts (n, l) f32; zt (n, 128) bf16 and t (n, l/4 * 256) int8, the
-// carry (n a multiple of ct); w1, b1: the unscaled layer 1 ((3, 64), (64,)
-// f32) and in_scale; tail: the 15 pointers of the backbone's layers 2-6;
-// we_t, be: the embed (W^T (128, l/4 * 256) bf16 with the feats scale
-// folded in, b (128,) bf16); head, wc .. br as for gate_head_int8_launch.
-// Outputs as for gate_head_int8_launch.
-extern "C" int serve_cell_int8_launch(
-    const void* cutouts, const void* zt, const void* t, const void* w1,
-    const void* b1, float in_scale, const void* const* tail, const void* we_t,
-    const void* be, const void* const* head, const void* wc, const void* bc,
-    const void* wr, const void* br, void* new_t, void* new_z, void* sim,
-    void* cls, void* reg, int n, int ct, int ct_valid, int window, int l,
-    int nc, float alpha, float beta, float s_x, float s_t127, float s_out,
-    void* stream) {
-  if (n == 0) return (int)cudaSuccess;
-  if (window > kMaxWindow) return (int)cudaErrorInvalidValue;
-  int S_bb, S_hd, R;
-  const size_t smem = serve_cell_int8_smem(l, &S_bb, &S_hd, &R);
-  int err = set_smem((const void*)serve_cell_int8_kernel, smem);
-  if (err) return err;
-  TailWeights tw;
-  fill_convs(tw, tail);
-  const GateArgs ga = {ct, ct_valid, window, alpha, beta, s_x, s_t127, s_out};
-  serve_cell_int8_kernel<<<(n + kTile - 1) / kTile, kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      (const float*)cutouts, (const bf16*)zt, (const int8_t*)t,
-      (const float*)w1, (const float*)b1, in_scale, tw, (const bf16*)we_t,
-      (const bf16*)be, (int8_t*)new_t, (bf16*)new_z, (float*)sim,
-      head_weights(head, wc, bc, wr, br), (float*)cls, (float*)reg, ga, n, l,
-      nc, S_bb, S_hd, R);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// The wgmma convs of K5 (with its K9/K10 modes) and K7 (int8) and of K4
-// (bf16) for Hopper: products on weights staged in shared memory, over a
-// packed tile of cutouts.
+// The wgmma convs of K5 (with its K9/K10 modes), K7 and K13 (int8) and of
+// K4 and K14's head (bf16) for Hopper: products on weights staged in shared
+// memory, over a packed tile of cutouts.
 //
 // Packed tile. A block keeps its cutouts' activations in shared memory.
 // Cutout c's position p sits in row c * S + 1 + p with S = pstride(L) = L +
@@ -377,7 +377,15 @@ enum WgEpilogue {
   kWgPoolBf16 = 3,  // pooled bf16 of the int8 conv's f32 activation, rows
                     // into device memory (cutout c0 + c)
   kWgMean = 4,      // f32 activation rows (c, L, COUT) into shared memory
+  kWgPoolCell = 5,  // as kWgPoolRows, cutout c's rows at c * cell_pitch
 };
+
+// bytes from one cutout's pooled int8 rows to the next in K13's feats
+// (kWgPoolCell): L/2 x COUT and 16 more, so that the rows g of an mma
+// fragment fall in different banks
+__host__ __device__ constexpr int cell_pitch(int l2, int cout) {
+  return l2 * cout + 16;
+}
 
 // the activation of one sum: int8 sums scaled (s_eff, b_eff), bf16 ones
 // biased (b), then leaky
@@ -483,8 +491,8 @@ __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
       ring.i += P::NKC;
 
       // epilogue: this thread's rows g and g + 8 of each 16-row slab
-      constexpr bool kPooled =
-          EPI == kWgPool || EPI == kWgPoolRows || EPI == kWgPoolBf16;
+      constexpr bool kPooled = EPI == kWgPool || EPI == kWgPoolRows ||
+                               EPI == kWgPoolBf16 || EPI == kWgPoolCell;
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -516,6 +524,10 @@ __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
                             y);
                 } else if (EPI == kWgPoolRows) {
                   static_cast<int8_t*>(out)[((size_t)c * L2 + r) * COUT + col] =
+                      (int8_t)requant(y);
+                } else if (EPI == kWgPoolCell) {
+                  static_cast<int8_t*>(out)[(size_t)c * cell_pitch(L2, COUT) +
+                                            r * COUT + col] =
                       (int8_t)requant(y);
                 } else {
                   static_cast<bf16*>(out)[((size_t)(c0 + c) * L2 + r) * COUT +

@@ -66,6 +66,7 @@ from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     check_head_int8_weights,
     head_int8_plain,
     head_ptrs,
+    int8_convs,
     int8_ptr_array,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import div_f32
@@ -451,7 +452,8 @@ def gate_head_int8(zx, zt, x, template, head_conv_weights, head_weights, *,
         + [ctypes.c_float] * 5 + [ctypes.c_void_p]
     _build.check(fn(zx.data_ptr(), zt.data_ptr(), x.data_ptr(),
                     template.data_ptr(), new_t.data_ptr(), new_z.data_ptr(),
-                    sim.data_ptr(), int8_ptr_array(head_conv_weights),
+                    sim.data_ptr(),
+                    int8_ptr_array(int8_convs(head_conv_weights)),
                     *head_ptrs(head_weights), cls.data_ptr(), reg.data_ptr(),
                     n, ct, ct_valid, window_size, l4, num_classes,
                     float(alpha), 1.0 - alpha, float(s_x), s_t / 127.0,

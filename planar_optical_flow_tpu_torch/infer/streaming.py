@@ -85,13 +85,18 @@ from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     backbone_int8_tail,
     backbone_layer1,
     backbone_tail,
+    backbone_weights_int8,
     check_row_shift,
     head,
     head_int8,
     head_weights_bf16,
+    head_weights_int8,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
-from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import serve_cell_int8
+from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import (
+    cell_embed,
+    serve_cell_int8,
+)
 from planar_optical_flow_tpu_torch.ops.nms import (
     nms_predicted_center,
     nms_predicted_center_topk,
@@ -283,7 +288,8 @@ def make_fused_stream_step(model, cutout_kwargs, num_pts: int = 450,
 
     The module cutout, K14's backbone in ``compute_dtype`` (None: f32, the
     default; or ``torch.bfloat16``) from the BN-folded f32 weights (laid
-    out once here in f32: ``fused_drow.backbone_weights_f32``), the
+    out once here: ``fused_drow.backbone_weights_f32`` and
+    ``head_weights_f32`` in f32, ``head_weights_bf16`` in bf16), the
     dense module gate (on a copy of the model cast to ``compute_dtype``,
     with the features in it), K14's head on the new template, the module
     flow head, sigmoid, canonical->global flow and the full vote NMS. The
@@ -298,6 +304,8 @@ def make_fused_stream_step(model, cutout_kwargs, num_pts: int = 450,
     cdt = compute_dtype or torch.float32
     if cdt == torch.float32:
         w_bb, w_hd = fd.backbone_weights_f32(w_bb), fd.head_weights_f32(w_hd)
+    else:
+        w_hd = fd.head_weights_bf16(w_hd)
     cast = cast_model(model, compute_dtype) if compute_dtype else model
     _, cast_det = _parts(cast)
 
@@ -835,23 +843,26 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             sanitize=sanitize_inputs, san_max=san_max, dev=dev)
     w = int8_weights(det, calib, dev, precision)
     check_row_shift(dev)
+    # the wgmma convs' weights (K5/K9/K10, K7, K13) laid out for their
+    # weight rings once, for every step; K8 and K12 read the triples
+    bb_laid, hd_laid = backbone_weights_int8(w.backbone), head_weights_int8(
+        w.head)
 
     def head_of(template):
         """int8 ``(N*l4, 256)`` template -> (cls, reg): K7."""
-        return head_int8(template, w.head, hd_head_w,
+        return head_int8(template, hd_laid, hd_head_w,
                          num_classes=num_classes, l4=l4)
 
     def backbone(flat):
         """-> (feats (N*l4, 256), zx (N, 128) bf16)."""
         if pm and (layout in ("pm", "cell") or p2_l1_mode != "mm"):
-            return backbone_int8_pm(flat, w.layer1_div, w.backbone, w.embed,
+            return backbone_int8_pm(flat, w.layer1_div, bb_laid, w.embed,
                                     l=ct_len, in_scale=w.in_scale)
         if pm:
-            return backbone_int8(flat, w.layer1, w.backbone, w.embed,
-                                 l=ct_len)
+            return backbone_int8(flat, w.layer1, bb_laid, w.embed, l=ct_len)
         act1 = backbone_layer1(flat, w.layer1_div, out_scale=w.in_scale)
         return backbone_int8_tail(
-            act1, w.backbone, w.embed, l=ct_len,
+            act1, bb_laid, w.embed, l=ct_len,
             out_dtype=torch.int8 if precision == "int8c" else torch.bfloat16)
 
     if precision == "int8":
@@ -877,6 +888,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
 
     feat_scale, tmpl_scale = w.feat_scale, w.tmpl_scale
     gate_kw.update(s_x=feat_scale, s_out=tmpl_scale)
+    embed_cell = cell_embed(w.embed) if cell else None
 
     def features(padded):
         """(B, p_pad) scans -> (feats (N, D) int8, zx (N, 128) bf16)."""
@@ -904,7 +916,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         elif cell:
             template, z, sim, cls, reg = serve_cell_int8(
                 cutout(padded, **cut_kw), carry["z"], carry["template"],
-                w.layer1_div, w.backbone, w.embed, w.head, hd_head_w,
+                w.layer1_div, bb_laid, embed_cell, hd_laid, hd_head_w,
                 l=ct_len, in_scale=w.in_scale, s_t=tmpl_scale,
                 num_classes=num_classes, **gate_kw)
         elif fuse_gate_head:

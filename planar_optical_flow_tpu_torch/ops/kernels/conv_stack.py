@@ -60,13 +60,16 @@ The int8 stacks, weights from ``quant.kernel_stack_weights``:
 * K16 :func:`row_shift` / :func:`check_row_shift` replace
   ``check_byte_shift``: the known-answer check of the k=3 tap rows.
 
-K5, K7, K9 and K10 run on ``wgmma`` s8 products over a packed tile of 16
-cutouts, with the conv weights staged in shared memory by cp.async
-(``csrc/wgmma_conv.cuh``; the host lays the weights out with
-``int8_tiles.wgmma_weights``), and the gate embed of K5/K9/K10 as a second
-kernel over all cutouts; K8, K12 and K13 run on ``mma.sync`` int8 products
-(``csrc/int8_stack.cuh``) with the same embed arithmetic. ~15.1 M and 28.9 M
-int8 operations per cutout. The plain versions sum the int8 products in
+K5, K7, K9 and K10 (and K13, ``serve_cell``) run on ``wgmma`` s8 products
+over a packed tile of 16 cutouts, with the conv weights staged in shared
+memory by cp.async (``csrc/wgmma_conv.cuh``, ``csrc/int8_wg.cuh``); the
+host lays the weights out once per set of weights
+(:func:`backbone_weights_int8`, :func:`head_weights_int8`, held by the
+step builder; a caller passing the triples has them laid out on every
+call). The gate embed of K5/K9/K10 is a second kernel over all cutouts.
+K8 and K12 run on ``mma.sync`` int8 products (``csrc/int8_stack.cuh``)
+with the same embed arithmetic. ~15.1 M and 28.9 M int8 operations per
+cutout. The plain versions sum the int8 products in
 float64, which is exact (the 512-channel conv reaches 1536 * 127^2 > 2^24,
 beyond f32's exact integers).
 """
@@ -236,19 +239,19 @@ def head_weights_bf16(conv_weights) -> HeadBf16Weights:
         tuple(int8_tiles.plan_weights_bf16(conv_weights)))
 
 
-def _check_head_bf16_plan(lib):
+def check_head_bf16_plan(lib):
     """Raise unless the library's K4 plan chunks the weights as
     ``int8_tiles.HEAD_BF16_PLAN`` lays them out (once per process)."""
-    if _check_head_bf16_plan.checked:
+    if check_head_bf16_plan.checked:
         return
     fn = lib.head_bf16_plan
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
     _check_plan("head", fn, int8_tiles.HEAD_BF16_PLAN, 2)
-    _check_head_bf16_plan.checked = True
+    check_head_bf16_plan.checked = True
 
 
-_check_head_bf16_plan.checked = False
+check_head_bf16_plan.checked = False
 
 
 def head(feats, conv_weights, head_weights, *, num_classes: int, l4: int):
@@ -290,7 +293,7 @@ def head(feats, conv_weights, head_weights, *, num_classes: int, l4: int):
     cls = torch.empty(n, num_classes, dtype=torch.float32, device=feats.device)
     reg = torch.empty(n, 2, dtype=torch.float32, device=feats.device)
     lib = _build.load("head_bf16")
-    _check_head_bf16_plan(lib)
+    check_head_bf16_plan(lib)
     ptrs = [t.data_ptr() for w, (_, b) in zip(conv_weights.laid,
                                               conv_weights.convs)
             for t in (w, b)]
@@ -347,8 +350,9 @@ def _conv_int8_acc(xq, w):
 def _run_int8_plain(xq, weights, pool_after, requant_last):
     """int8 conv stack: the int32 sum (pooled first where the plan pools),
     ``f32(acc) * s_eff + b_eff``, leaky, requant (the last layer stays f32
-    unless ``requant_last``)."""
-    x = xq
+    unless ``requant_last``); ``weights`` the triples or an
+    :class:`Int8Laid`."""
+    x, weights = xq, int8_convs(weights)
     for i, (w, s, b) in enumerate(weights):
         acc = _conv_int8_acc(x, w)
         if i in pool_after:
@@ -479,30 +483,80 @@ def _check_plan(what, query, plan, esize):
                                f"out {want}")
 
 
+class Int8Laid(NamedTuple):
+    """An int8 conv stack's weights laid out once for its wgmma kernel
+    (:func:`backbone_weights_int8`, :func:`head_weights_int8`): the ``(w
+    (Cout, 3*Cin) int8, s_eff, b_eff)`` triples of ``quant.
+    kernel_stack_weights`` and the same triples with each ``w`` in the
+    chunk order of its conv's plan (``int8_tiles.plan_weights``)."""
+    convs: tuple
+    laid: tuple
+
+
+def int8_convs(weights):
+    """The ``(w, s_eff, b_eff)`` triples of ``weights``: an :class:`Int8Laid`
+    or the triples themselves."""
+    return weights.convs if isinstance(weights, Int8Laid) else weights
+
+
+def backbone_weights_int8(weights) -> Int8Laid:
+    """Lay the int8 backbone tail (layers 2-6) out for the weight ring of
+    K5/K9/K10 and K13, once per set of weights: the step builder holds the
+    result and passes it on every call."""
+    return Int8Laid(tuple(weights), tuple(
+        int8_tiles.plan_weights(weights, int8_tiles.BACKBONE_PLAN)))
+
+
+def head_weights_int8(weights) -> Int8Laid:
+    """Lay the five int8 head convs out for the weight ring of K7 and K13,
+    once per set of weights."""
+    return Int8Laid(tuple(weights), tuple(
+        int8_tiles.plan_weights(weights, int8_tiles.HEAD_PLAN)))
+
+
+def check_int8_plans(lib, what):
+    """Raise unless ``lib``'s wgmma conv plans (``int8_wg_plan``, which
+    ``conv_stack_int8`` and ``serve_cell_wg`` both export) chunk the
+    weights as ``int8_tiles`` lays them out (once per library)."""
+    if lib._name in check_int8_plans.checked:
+        return
+    fn = lib.int8_wg_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    for stack, plan in enumerate((int8_tiles.BACKBONE_PLAN,
+                                  int8_tiles.HEAD_PLAN)):
+        _check_plan(what, lambda layer, *out: fn(stack, layer, *out), plan, 1)
+    check_int8_plans.checked.add(lib._name)
+
+
+check_int8_plans.checked = set()
+
+
+def wg_laid(weights, which):
+    """``weights`` (an :class:`Int8Laid` or the triples) -> the laid-out
+    triples of the wgmma kernels' stack ``which`` (0: the backbone tail, 1:
+    the head): the held layout, or (for a caller passing the triples) one
+    made in this call."""
+    if isinstance(weights, Int8Laid):
+        return weights.laid
+    return (backbone_weights_int8 if which == 0 else head_weights_int8)(
+        weights).laid
+
+
 def _wg_inputs(what, weights, which, smem):
-    """The ``conv_stack_int8`` library and ``weights`` laid out for the ring
-    of its wgmma kernel ``which`` (0: K5/K9/K10, 1: K7), with their pointer
-    array (the laid-out tensors must live until the launch is queued). The
-    first call checks the library's conv plans against ``int8_tiles``';
-    raises if the launch's shared memory is over the card's limit."""
-    plans = (int8_tiles.BACKBONE_PLAN, int8_tiles.HEAD_PLAN)
+    """The ``conv_stack_int8`` library and the pointer array of ``weights``
+    laid out for the ring of its wgmma kernel ``which`` (0: K5/K9/K10, 1:
+    K7), and the laid-out tensors (they must live until the launch is
+    queued). The first call checks the library's conv plans against
+    ``int8_tiles``'; raises if the launch's shared memory is over the
+    card's limit."""
     lib = _build.load("conv_stack_int8")
-    if not _wg_inputs.checked:
-        fn = lib.int8_wg_plan
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-        for stack, plan in enumerate(plans):
-            _check_plan(what, lambda layer, *out: fn(stack, layer, *out), plan,
-                        1)
-        _wg_inputs.checked = True
+    check_int8_plans(lib, what)
     if smem > int8_tiles.SMEM_MAX:
         raise ValueError(f"{what}: {smem} bytes of shared memory at this "
                          f"length, over {int8_tiles.SMEM_MAX}")
-    laid = int8_tiles.plan_weights(weights, plans[which])
+    laid = wg_laid(weights, which)
     return lib, laid, int8_ptr_array(laid)
-
-
-_wg_inputs.checked = False
 
 
 def check_head_int8_weights(what, conv_weights, head_weights, num_classes,
@@ -513,7 +567,7 @@ def check_head_int8_weights(what, conv_weights, head_weights, num_classes,
         raise ValueError(f"{what}: l4={l4} must be even and in [2, 32]")
     if not 1 <= num_classes <= 8:
         raise ValueError(f"{what}: num_classes={num_classes} not in [1, 8]")
-    _check_int8_weights(conv_weights, HEAD_CHANNELS, what)
+    _check_int8_weights(int8_convs(conv_weights), HEAD_CHANNELS, what)
     wc, bc, wr, br = head_weights
     _check_cuda(wc, torch.bfloat16, (128, num_classes), f"{what} wc")
     _check_cuda(bc, torch.float32, (num_classes,), f"{what} bc")
@@ -538,7 +592,7 @@ def _check_backbone_weights(what, layer1, weights, embed_weights, l):
     else:
         _check_cuda(layer1[0], torch.float32, (3, 64), f"{what} layer-1 w")
         _check_cuda(layer1[1], torch.float32, (64,), f"{what} layer-1 b")
-    _check_int8_weights(weights, BACKBONE_CHANNELS, what)
+    _check_int8_weights(int8_convs(weights), BACKBONE_CHANNELS, what)
     we_t, be = embed_weights
     _check_cuda(we_t, torch.bfloat16, (128, (l // 4) * 256), f"{what} W^T")
     _check_cuda(be, torch.bfloat16, (128,), f"{what} b")
@@ -685,7 +739,7 @@ def backbone_int8_cut(scans, layer1, weights, embed_weights, *,
     feats = torch.empty(b * p * (l // 4), 256, dtype=torch.int8,
                         device=scans.device)
     zx = torch.empty(b * p, 128, dtype=torch.bfloat16, device=scans.device)
-    tail = int8_ptr_array(weights)
+    tail = int8_ptr_array(int8_convs(weights))
     fn = _build.load("conv_stack_int8").backbone_int8_cut_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
@@ -732,8 +786,8 @@ def row_shift(x, *, l: int):
     cutouts of ``l`` -> (left, right), ``left[r] = x[r - 1]`` and
     ``right[r] = x[r + 1]``, zero at each cutout's ends. A CUDA tensor
     launches K16, which reads the rows through both int8 tile layouts, each
-    with its loader and tap address (K8/K12/K13's, and the packed tile of
-    K5/K7/K9/K10), and writes -128 where the two disagree; a CPU tensor
+    with its loader and tap address (K8/K12's, and the packed tile of
+    K5/K7/K9/K10/K13), and writes -128 where the two disagree; a CPU tensor
     runs the plain versions' tap construction."""
     rows = x.shape[0]
     if rows % l:

@@ -1,5 +1,6 @@
-"""K14: the fused DROW backbone and head of ``make_fused_stream_step``
-(``csrc/fused_drow.cu``), f32 and bf16.
+"""K14: the fused DROW backbone and head of ``make_fused_stream_step``, f32
+(``csrc/fused_f32.cu``) and bf16 (``csrc/fused_drow.cu``, the head on K4's
+kernel in ``csrc/head_bf16.cu``).
 
 * :func:`fused_backbone` replaces ``planar_optical_flow_tpu/ops/pallas/
   fused_drow.py`` ``fused_backbone`` (kernel ``_backbone_kernel``): the
@@ -29,8 +30,11 @@ across every layer (what the TPU kernels kept in VMEM). f32
 bf16: hi * hi + hi * lo + lo * hi of each operand's two bf16 parts, ~1e-5
 relative, 3 x the operations at 989 TFLOP/s); its weights are split and
 laid out once by :func:`backbone_weights_f32` / :func:`head_weights_f32`
-(a caller passing the pairs has them laid out on every call). bf16
-(``csrc/fused_drow.cu``) runs the tensor-core conv layer of K2/K4 at 989
+(a caller passing the pairs has them laid out on every call). The bf16
+backbone (``csrc/fused_drow.cu``) runs K2's tensor-core conv layer; the
+bf16 head runs K4's wgmma kernel (``csrc/head_bf16.cu``: 8 cutouts a
+block in a packed tile, the f32 feats rounded to bf16 as they load, K14's
+mean), its weights laid out once by :func:`head_weights_bf16`, at 989
 TFLOP/s.
 """
 
@@ -43,6 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build, fold, int8_tiles
+from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+    check_head_bf16_plan,
+)
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import recip
 
 _LEAKY_SLOPE = 0.1
@@ -50,9 +57,10 @@ _PLAIN_CHUNK = 16384  # cutouts per pass of the plain versions (bounds memory)
 BACKBONE_CHANNELS = (1, 64, 64, 128, 128, 128, 256)
 HEAD_CHANNELS = (256, 256, 256, 512, 256, 128)
 
-__all__ = ["F32Weights", "backbone_weights", "backbone_weights_f32",
+__all__ = ["LaidWeights", "backbone_weights", "backbone_weights_f32",
            "fused_backbone", "fused_backbone_plain", "fused_head",
-           "fused_head_plain", "head_weights", "head_weights_f32"]
+           "fused_head_plain", "head_weights", "head_weights_bf16",
+           "head_weights_f32"]
 
 
 def backbone_weights(backbone) -> list:
@@ -147,21 +155,27 @@ def _kernel_weights(weights, chans, dt, what):
     return ws, bs
 
 
-class F32Weights(NamedTuple):
-    """K14 f32's weights laid out once (:func:`backbone_weights_f32`,
-    :func:`head_weights_f32`): the pairs as given, and the tensors the
-    kernel reads, in its order (each wgmma conv's ``w`` split into bf16 hi
-    and lo, in the chunk order of its plan, ``int8_tiles.
-    plan_weights_f32``)."""
+class LaidWeights(NamedTuple):
+    """K14's weights laid out once (:func:`backbone_weights_f32`,
+    :func:`head_weights_f32`, :func:`head_weights_bf16`): the pairs as
+    given, the tensors the kernel reads, in its order (each wgmma conv's
+    ``w`` in the chunk order of its plan: split into bf16 hi and lo in f32,
+    ``int8_tiles.plan_weights_f32``; in bf16, ``int8_tiles.
+    plan_weights_bf16``), and the compute dtype they are laid out for."""
     pairs: tuple
     tensors: tuple
+    dtype: torch.dtype
 
 
 def _pairs(weights):
-    return weights.pairs if isinstance(weights, F32Weights) else weights
+    return weights.pairs if isinstance(weights, LaidWeights) else weights
 
 
-def backbone_weights_f32(weights) -> F32Weights:
+def _laid_for(weights, dt):
+    return isinstance(weights, LaidWeights) and weights.dtype == dt
+
+
+def backbone_weights_f32(weights) -> LaidWeights:
     """Lay K14 f32's backbone weights (:func:`backbone_weights`) out for
     its weight ring, once per set of weights: layer 1 ``(3, 64)`` as it is,
     convs 2-6 laid out for the wgmma ring, each with its f32 bias."""
@@ -173,10 +187,10 @@ def backbone_weights_f32(weights) -> F32Weights:
                                        int8_tiles.FUSED_BACKBONE_F32_PLAN)
     tensors = [ws[0], bs[0]] + [t for pair in zip(laid, bs[1:])
                                 for t in pair]
-    return F32Weights(tuple(weights), tuple(tensors))
+    return LaidWeights(tuple(weights), tuple(tensors), torch.float32)
 
 
-def head_weights_f32(weights) -> F32Weights:
+def head_weights_f32(weights) -> LaidWeights:
     """Lay K14 f32's head weights (:func:`head_weights`) out, once per set
     of weights: the five convs for the wgmma ring, each with its f32 bias,
     then cls and reg as they are."""
@@ -189,7 +203,24 @@ def head_weights_f32(weights) -> F32Weights:
     tensors = [t for pair in zip(laid, bs) for t in pair]
     for w, b in weights[5:]:
         tensors += [w.float().contiguous(), b.float().contiguous()]
-    return F32Weights(tuple(weights), tuple(tensors))
+    return LaidWeights(tuple(weights), tuple(tensors), torch.float32)
+
+
+def head_weights_bf16(weights) -> LaidWeights:
+    """Lay K14 bf16's head weights (:func:`head_weights`) out, once per set
+    of weights: the five convs in bf16 for K4's weight ring
+    (``int8_tiles.plan_weights_bf16``, ``HEAD_BF16_PLAN``), each with its
+    f32 bias, then cls and reg in bf16 with f32 biases."""
+    if len(weights) != 7:
+        raise ValueError("fused_head: need the five convs, cls and reg")
+    ws, bs = _kernel_weights(weights[:5], HEAD_CHANNELS, torch.bfloat16,
+                             "fused_head")
+    laid = int8_tiles.plan_weights_bf16(list(zip(ws, bs)))
+    tensors = [t for pair in zip(laid, bs) for t in pair]
+    for w, b in weights[5:]:
+        tensors += [w.to(torch.bfloat16).contiguous(),
+                    b.float().contiguous()]
+    return LaidWeights(tuple(weights), tuple(tensors), torch.bfloat16)
 
 
 def _check_f32_plan(lib):
@@ -260,7 +291,7 @@ def fused_backbone(cutouts, weights, tile: int = 64,
                         device=cutouts.device)
     stream = _build.stream_ptr(cutouts.device)
     if dt == torch.float32:
-        if not isinstance(weights, F32Weights):
+        if not _laid_for(weights, dt):
             weights = backbone_weights_f32(weights)
         fn = _f32_lib("fused_backbone",
                       int8_tiles.fused_backbone_f32_geometry(l)[2]
@@ -293,9 +324,10 @@ def fused_head(feats, weights, num_classes: int = 1, tile: int = 64,
     """``(N, L4, 256)`` f32 features -> (cls ``(N, num_classes)`` f32, reg
     ``(N, 2)`` f32).
 
-    ``weights``: :func:`head_weights`, or in f32 :func:`head_weights_f32`;
-    ``tile`` as for :func:`fused_backbone`. A CUDA tensor launches K14's
-    head; a CPU tensor runs :func:`fused_head_plain`.
+    ``weights``: :func:`head_weights`, or their layout for ``compute_dtype``
+    (:func:`head_weights_f32`, :func:`head_weights_bf16`); ``tile`` as for
+    :func:`fused_backbone`. A CUDA tensor launches K14's head; a CPU tensor
+    runs :func:`fused_head_plain`.
     """
     if feats.device.type == "cpu":
         return fused_head_plain(feats, _pairs(weights), num_classes, tile,
@@ -320,32 +352,26 @@ def fused_head(feats, weights, num_classes: int = 1, tile: int = 64,
     cls = torch.empty(n, num_classes, dtype=torch.float32, device=feats.device)
     reg = torch.empty(n, 2, dtype=torch.float32, device=feats.device)
     stream = _build.stream_ptr(feats.device)
+    if not _laid_for(weights, dt):
+        weights = (head_weights_f32 if dt == torch.float32
+                   else head_weights_bf16)(pairs)
     if dt == torch.float32:
-        if not isinstance(weights, F32Weights):
-            weights = head_weights_f32(weights)
-        fn = _f32_lib("fused_head",
-                      int8_tiles.fused_head_f32_geometry(l4)[2]
+        fn = _f32_lib("fused_head", int8_tiles.fused_head_f32_geometry(l4)[2]
                       ).fused_head_f32_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        ptrs = _ptr_array(weights.tensors, feats.device)
-        _build.check(fn(feats.data_ptr(), ptrs, *ptrs[10:], cls.data_ptr(),
-                        reg.data_ptr(), n, l4, num_classes, stream),
-                     "fused_head")
     else:
-        ws, bs = _kernel_weights(pairs[:5], HEAD_CHANNELS, dt, "fused_head")
-        for w, b in pairs[5:]:
-            ws.append(w.to(dt).contiguous())
-            bs.append(b.float().contiguous())
-        fn = _build.load("fused_drow").fused_head_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        _build.check(fn(feats.data_ptr(), _ptr_array(ws, feats.device),
-                        _ptr_array(bs, feats.device), cls.data_ptr(),
-                        reg.data_ptr(), n, l4, num_classes, stream),
-                     "fused_head")
+        smem = int8_tiles.head_bf16_geometry(l4)[2]
+        if smem > int8_tiles.SMEM_MAX:
+            raise ValueError(f"fused_head: {smem} bytes of shared memory, "
+                             f"over {int8_tiles.SMEM_MAX}")
+        lib = _build.load("head_bf16")
+        check_head_bf16_plan(lib)
+        fn = lib.fused_head_bf16_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    ptrs = _ptr_array(weights.tensors, feats.device)
+    _build.check(fn(feats.data_ptr(), ptrs, *ptrs[10:], cls.data_ptr(),
+                    reg.data_ptr(), n, l4, num_classes, stream), "fused_head")
     fused_head.launches += 1
     return cls, reg
 

@@ -25,6 +25,15 @@ geometry of the packed tile.
   :func:`head_geometry`, :func:`head_bf16_geometry`; the C side,
   ``int8_wg_geometry`` and ``head_bf16_geometry``, computes the same). A
   bf16 tile takes twice the bytes: K4 takes 8 cutouts a block at L/4 = 14.
+* **K13.** One block of the cell (``csrc/serve_cell_wg.cu``) runs K9's
+  backbone, the gate embed, K6's mix and K7's head on 16 cutouts of one
+  stream, in two regions that each hold the largest packed tile of either
+  stack, the head's f32 rows, the feats rows of the embed's 16-row tile at
+  ``cell_pitch`` and the gate's staged template (:func:`cell_geometry`;
+  the C side, ``cell_geometry``). Each warp reads its columns of the
+  embed's ``W^T (128, D)`` from L2 in chunks of ``EMBED_K`` columns of K,
+  each ``[8-element K block][column][8 elements]``: the bf16 wgmma layout
+  of ``nj = 2`` (:func:`embed_weights`).
 * **K14 f32.** Each f32 weight ``w`` is held as two bf16 values, ``hi =
   bf16(w)`` and ``lo = bf16(w - hi)``; each conv's ``(Cout, 3*Cin)`` hi and
   lo are laid out as the bf16 weights are, in chunks of :func:`chunk_k_x3`,
@@ -72,6 +81,9 @@ FUSED_HEAD_F32_PLAN = ((256, 256, 1, 2, 2), (256, 256, 1, 2, 2),
                        (256, 512, 1, 2, 2), (512, 256, 1, 2, 2),
                        (256, 128, 1, 1, 2))
 _L1_READ = 2  # the backbone's l1_mode that reads int8 act1 rows (no cutouts)
+EMBED_K = 64  # K of a K13 embed weight chunk: 128 x 64 bf16
+CELL_ROWS = 16  # the rows of K13's mix tile (mma.m16n8k32) and embed tile
+CELL_MAX_WINDOW = 32  # the quantized band's lanes a row (one warp)
 
 
 def row_stride(l: int) -> int:
@@ -135,6 +147,36 @@ def head_bf16_smem_bytes(l4: int, tile: int) -> int:
     return RING_BYTES + 2 * region + tile * 128 * 4
 
 
+def cell_pitch(l4: int) -> int:
+    """Bytes from one cutout's int8 feats rows (``l4 x 256``) to the next in
+    K13's shared memory: 16 more than the rows, so that the rows of an mma
+    fragment fall in different banks."""
+    return l4 * 256 + 16
+
+
+def _gate_tb_bytes(kt: int) -> int:
+    """Bytes of K13's staged template chunk at ``kt`` k32 steps of the band:
+    ``8 kt`` row quads of ``512 / kt`` columns and 8 words."""
+    return 8 * kt * (512 // kt + 8) * 4
+
+
+def cell_smem_bytes(l: int, tile: int) -> int:
+    """Dynamic shared memory of a K13 block of ``tile`` cutouts: the ring,
+    two regions each holding the largest packed tile of the backbone and
+    the head, the head's f32 rows, the pitched feats rows and the staged
+    template, then the means, zx, the quantized band and the f32
+    cutouts."""
+    l4 = l // 4
+    region = _round128(max(ptile_bytes(l, 64, tile),
+                           ptile_bytes(l // 2, 128, tile),
+                           ptile_bytes(l4, 256, tile),
+                           ptile_bytes(l4 // 2, 512, tile),
+                           tile * (l4 // 2) * 128 * 4,
+                           CELL_ROWS * cell_pitch(l4), _gate_tb_bytes(2)))
+    return (RING_BYTES + 2 * region + tile * 128 * (4 + 2)
+            + CELL_ROWS * CELL_MAX_WINDOW * 4 + tile * l * 4)
+
+
 def tight_rows(l: int, tile: int) -> int:
     """Rows a channel block of a K14 f32 tile holds: ``tile`` cutouts, their
     zero rows and row 0."""
@@ -192,6 +234,12 @@ def head_bf16_geometry(l4: int):
     return _geometry(lambda t: head_bf16_smem_bytes(l4, t), l4)
 
 
+def cell_geometry(l: int):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a K13
+    launch at cutout length ``l``."""
+    return _geometry(lambda t: cell_smem_bytes(l, t), l)
+
+
 def fused_backbone_f32_geometry(l: int):
     """(cutouts a block, rows a cutout, shared-memory bytes) of a K14 f32
     backbone launch at cutout length ``l``."""
@@ -243,6 +291,14 @@ def plan_weights_bf16(weights, plan=HEAD_BF16_PLAN):
     its layer of ``plan`` (1-D bf16)."""
     return [wgmma_weights(w.t().contiguous(), nj, wgn)
             for (w, _), (_, _, _, nj, wgn) in zip(weights, plan)]
+
+
+def embed_weights(we_t):
+    """K13's gate embed ``W^T (128, D)`` bf16 -> the 1-D chunk order the
+    kernel reads: ``D / EMBED_K`` chunks, each ``[8-element K block][column
+    (128)][8 elements]`` (:func:`wgmma_weights` at ``nj = 2``, ``kc =
+    EMBED_K``)."""
+    return wgmma_weights(we_t.contiguous(), 2, 1, EMBED_K)
 
 
 def chunk_k_x3(k: int, ns: int) -> int:

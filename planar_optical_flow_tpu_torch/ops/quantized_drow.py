@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from planar_optical_flow_tpu_torch import resolve_device
+
 _LEAKY = 0.1
 _QMAX = 127.0
 
@@ -116,11 +118,13 @@ class QuantizedConvStack:
     numpy); ``pools``: the indices of layers followed by a 2x max pool;
     ``in_scale``/``act_scales`` from :func:`calibrate`; ``dequant_last``:
     return the last activation in f32 (else int8 at ``out_scale``).
-    ``device``: where the weights live (the inputs' device).
+    ``device``: where the weights live (the inputs' device); the card by
+    default, which raises without one (pass ``device="cpu"``).
     """
 
     def __init__(self, layers, pools, in_scale, act_scales,
-                 dequant_last=True, device="cpu"):
+                 dequant_last=True, device="cuda"):
+        device = resolve_device(device)
         self.pools = tuple(pools)
         self.in_scale = float(in_scale)
         self.act_scales = [float(v) for v in act_scales]
@@ -170,10 +174,11 @@ class QuantizedConvStack:
                           for i in range(0, x_q.shape[0], _ROWS)])
 
 
-def build_quantized_backbone(folded_weights, calib_cutouts, device="cpu"):
+def build_quantized_backbone(folded_weights, calib_cutouts, device="cuda"):
     """``folded_weights``: the six backbone convs ``[(w, b), ...]``
     (``ops/kernels/fused_drow.backbone_weights``); ``calib_cutouts``: f32
-    ``(N, L)`` representative cutouts."""
+    ``(N, L)`` representative cutouts; ``device`` as for
+    :class:`QuantizedConvStack`."""
     layers = [(_numpy(w), _numpy(b)) for w, b in folded_weights]
     pools = (2, 5)
     sample = _numpy(calib_cutouts)[..., None]
@@ -182,11 +187,13 @@ def build_quantized_backbone(folded_weights, calib_cutouts, device="cpu"):
                               device=device)
 
 
-def build_quantized_head_convs(folded_weights, calib_feats, device="cpu"):
+def build_quantized_head_convs(folded_weights, calib_feats, device="cuda"):
     """Quantized head convs (block3 + block4; the mean and the cls/reg
     linears stay f32). ``folded_weights``: the head's five convs, then cls
     and reg (``ops/kernels/fused_drow.head_weights``); ``calib_feats``: f32
-    ``(N, L4, 256)``. Returns (stack, (wc, bc, wr, br))."""
+    ``(N, L4, 256)``; ``device`` as for :class:`QuantizedConvStack`.
+    Returns (stack, (wc, bc, wr, br))."""
+    device = resolve_device(device)
     layers = [(_numpy(w), _numpy(b)) for w, b in folded_weights[:5]]
     pools = (2,)
     in_scale, act_scales = calibrate(layers, pools, _numpy(calib_feats))

@@ -203,7 +203,7 @@ def test_quantized_conv_stack_matches_jax(weights):
     cut = rng.normal(0.0, 0.5, (70, 16)).astype(np.float32)
     j_bb = jqd.build_quantized_backbone(jbb, cut[:48])
     p_bb = qd.build_quantized_backbone(fd.backbone_weights(det.backbone),
-                                       cut[:48])
+                                       cut[:48], device="cpu")
     for a, b in zip([j_bb.in_scale] + j_bb.act_scales,
                     [p_bb.in_scale] + p_bb.act_scales):
         assert abs(a - b) <= 1e-5 * abs(a)
@@ -215,7 +215,8 @@ def test_quantized_conv_stack_matches_jax(weights):
     args = ((2, 5), j_bb.in_scale, j_bb.act_scales)
     j8 = jax.jit(lambda a: jqd.QuantizedConvStack(
         layers, *args, dequant_last=False)(a))(jnp.asarray(xq))
-    p8 = qd.QuantizedConvStack(layers, *args, dequant_last=False)(
+    p8 = qd.QuantizedConvStack(layers, *args, dequant_last=False,
+                               device="cpu")(
         torch.from_numpy(xq))
     diff = np.abs(t2n(p8) - np.asarray(j8, np.float32))
     assert diff.max() <= 1 and (diff > 0).mean() <= 5e-3, diff.max()
@@ -225,7 +226,7 @@ def test_quantized_conv_stack_matches_jax(weights):
 
     j_hd, j_heads = jqd.build_quantized_head_convs(jhd, feats_j[:48])
     p_hd, p_heads = qd.build_quantized_head_convs(fd.head_weights(det.head),
-                                                  feats_j[:48])
+                                                  feats_j[:48], device="cpu")
     for a, b in zip([j_hd.in_scale] + j_hd.act_scales,
                     [p_hd.in_scale] + p_hd.act_scales):
         assert abs(a - b) <= 1e-5 * abs(a)

@@ -63,6 +63,7 @@ from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
     cutout_plain,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.serve_cell import (
+    cell_embed,
     serve_cell_int8,
     serve_cell_int8_plain,
 )
@@ -537,6 +538,71 @@ def test_serve_cell_int8_kernel(cuda, num_pts, ct_len, window):
         assert torch.equal(g, c)
 
 
+@pytest.mark.parametrize("num_pts,ct_len,window",
+                         [(37, 16, 5), (37, 56, 11), (37, 16, 21)])
+def test_serve_cell_int8_partial_tile(cuda, num_pts, ct_len, window):
+    """K13 at 40 rows a stream (blocks of 16, 16 and 8 rows), 37 of them
+    valid, window 5, 11 and 21 (two k32 steps of the band): on the weights
+    laid out once and on the triples, equal to K9, K6 then K7 to the bit,
+    and within the bars of its plain version."""
+    w, head_w, gp, cut_kw, scans = _fused_setup(cuda, num_pts, ct_len,
+                                                 window)
+    ct, l4 = 40, ct_len // 4
+    assert ct % int8_tiles.cell_geometry(ct_len)[0]
+    cuts = [cutout(_pad(s, ct), **cut_kw) for s in scans]
+    bb = conv_stack.backbone_weights_int8(w.backbone)
+    hd = conv_stack.head_weights_int8(w.head)
+    feats, zt = backbone_int8_pm(cuts[0], w.layer1_div, bb, w.embed,
+                                 l=ct_len, in_scale=w.in_scale)
+    tmpl = quant.quantize_int8(feats.float().reshape(zt.shape[0], -1)
+                               * w.feat_scale, w.tmpl_scale)
+    gkw = _gate_kw(w, gp, ct, num_pts)
+    kw = dict(gkw, l=ct_len, in_scale=w.in_scale, num_classes=1)
+    n0 = serve_cell_int8.launches
+    got = serve_cell_int8(cuts[1], zt, tmpl, w.layer1_div, bb,
+                          cell_embed(w.embed), hd, head_w, **kw)
+    torch.cuda.synchronize()
+    assert serve_cell_int8.launches == n0 + 1
+    raw = serve_cell_int8(cuts[1], zt, tmpl, w.layer1_div, w.backbone,
+                          w.embed, w.head, head_w, **kw)
+    x, zx = backbone_int8_pm(cuts[1], w.layer1_div, bb, w.embed, l=ct_len,
+                             in_scale=w.in_scale)
+    chain = gate_int8(zx, zt, x.reshape(zx.shape[0], -1), tmpl, **gkw)
+    chain += head_int8(chain[0].reshape(-1, 256), hd, head_w, num_classes=1,
+                       l4=l4)
+    for g, r, c in zip(got, raw, chain):
+        assert torch.equal(g, r) and torch.equal(g, c)
+    ref = serve_cell_int8_plain(cuts[1], zt, tmpl, w.layer1_div, w.backbone,
+                                w.embed, w.head, head_w, **kw)
+    _int8_close(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        _close(g, r, BF16_REL)
+
+
+@pytest.mark.parametrize("l4", [4, 14])
+def test_fused_head_bf16_blocks(cuda, l4):
+    """K14's bf16 head (K4's kernel on f32 feats) at 1, T - 1 and T + 3
+    cutouts (T its cutouts a block), on weights laid out once and on the
+    pairs (equal to the bit), within the bf16 bar of fused_head_plain."""
+    det = _model(4 * l4, 11, cuda).dr_spaam
+    w_hd = fd.head_weights(det.head)
+    laid = fd.head_weights_bf16(w_hd)
+    tile = int8_tiles.head_bf16_geometry(l4)[0]
+    rng = np.random.default_rng(12)
+    for n in (1, tile - 1, tile + 3):
+        feats = torch.tensor(rng.normal(0.0, 0.5, (n, l4, 256)),
+                             dtype=torch.float32, device=cuda)
+        n0 = fd.fused_head.launches
+        got = fd.fused_head(feats, laid, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert fd.fused_head.launches == n0 + 1
+        pairs = fd.fused_head(feats, w_hd, compute_dtype=torch.bfloat16)
+        ref = fd.fused_head_plain(feats, w_hd, compute_dtype=torch.bfloat16)
+        for g, p, r in zip(got, pairs, ref):
+            assert torch.equal(g, p)
+            _close(g, r, BF16_REL)
+
+
 @pytest.mark.parametrize("ct_len,window", [(16, 5), (56, 11)])
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
 def test_fused_drow_kernels(cuda, ct_len, window, mode):
@@ -613,7 +679,7 @@ def test_quantized_stack_on_the_card(cuda):
     rng = np.random.default_rng(11)
     cut = rng.normal(0.0, 0.5, (40, 16)).astype(np.float32)
     w_bb = [(w.cpu(), b.cpu()) for w, b in fd.backbone_weights(det.backbone)]
-    cpu = qd.build_quantized_backbone(w_bb, cut)
+    cpu = qd.build_quantized_backbone(w_bb, cut, device="cpu")
     card = qd.build_quantized_backbone(w_bb, cut, device=cuda)
     x = torch.from_numpy(cut[..., None])
     q = cpu.quantize_input(x)

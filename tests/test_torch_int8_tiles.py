@@ -19,6 +19,14 @@
   max-pool on the sums, 8 cutouts a block at L/4 = 14) is within the bf16
   bar of ``head_plain``, which is within it of JAX ``fused_head_v2`` in
   interpret mode; its geometry fits the 4-stage ring and two bf16 tiles.
+* K14's bf16 head, on K4's kernel: the packed tile's head with f32 feats
+  rounded to bf16 as they load and K14's mean (the last activations' bf16
+  values summed in f32, times the reciprocal of the count) is within the
+  bf16 bar of JAX ``fused_head(compute_dtype=bf16)`` in interpret mode and
+  of ``fused_drow.fused_head_plain``, at a full block and a part.
+* The int8 weights laid out once (``conv_stack.backbone_weights_int8``,
+  ``head_weights_int8``) are ``plan_weights``' layouts and give the
+  triples' results through ``backbone_int8_pm`` and ``head_int8``.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 
 from planar_optical_flow_tpu_torch.ops.kernels import conv_stack as cs
 from planar_optical_flow_tpu_torch.ops.kernels import int8_tiles as it
+from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import recip
 
 PLANS = [("backbone", i, p) for i, p in enumerate(it.BACKBONE_PLAN)] + [
     ("head", i, p) for i, p in enumerate(it.HEAD_PLAN)]
@@ -274,18 +283,23 @@ def _packed_conv_bf16(x, wcat, b, tile, pool):
     return torch.cat(outs)
 
 
-def _packed_head_bf16(feats, conv_w, head_w, l4, tile):
+def _packed_head_bf16(feats, conv_w, head_w, l4, tile, k14=False):
     """K4 on the packed tile: the five convs (activations stored as bf16,
     the last one f32), the f32 mean (a running sum, then one division), and
-    cls/reg from its bf16 -> (cls, reg)."""
+    cls/reg from its bf16 -> (cls, reg). With ``k14``, K14's bf16 head: f32
+    feats rounded to bf16 as the tile loads, the last activations' bf16
+    values summed in f32, times the f32 reciprocal of the count."""
     x = feats.reshape(-1, l4, 256)
+    if k14:
+        x = x.to(torch.bfloat16)
     for i, (w, b) in enumerate(conv_w):
         y = _packed_conv_bf16(x, w, b, tile, i == 2)
-        x = y.to(torch.bfloat16) if i < len(conv_w) - 1 else y
-    acc = x[:, 0]
+        x = y.to(torch.bfloat16) if i < len(conv_w) - 1 or k14 else y
+    acc = x[:, 0].float()
     for i in range(1, x.shape[1]):
-        acc = acc + x[:, i]
-    mean = (acc / x.shape[1]).to(torch.bfloat16).float()
+        acc = acc + x[:, i].float()
+    mean = (acc * recip(x.shape[1]) if k14 else acc / x.shape[1]).to(
+        torch.bfloat16).float()
     wc, bc, wr, br = head_w
     return mean @ wc.float() + bc, mean @ wr.float() + br
 
@@ -365,3 +379,69 @@ def test_head_bf16_geometry(l):
         ns = 64 * nj * wgn
         assert cout % ns == 0
         assert ns * it.chunk_k(3 * cin, ns, 2) * 2 <= it.STAGE_BYTES
+
+
+@pytest.mark.parametrize("l4", [4, 14])
+def test_packed_k14_head_against_pallas(l4):
+    """K14's bf16 head on the packed tile at n = T + 3 cutouts (a full
+    block and a part), on the bridged weights: within the bf16 bar of JAX
+    ``fused_head(compute_dtype=bf16)`` in interpret mode and of
+    ``fused_head_plain``."""
+    import jax.numpy as jnp
+
+    from planar_optical_flow_tpu.ops.pallas import fused_drow as jfd
+    from planar_optical_flow_tpu_torch.ops.kernels import fused_drow as fd
+    from tests.test_torch_common import flow_drow_pair
+
+    _, v_np, port = flow_drow_pair(seed=4)
+    jhd = jfd.head_weights({k: v_np[k]["dr_spaam"]["head"]
+                            for k in ("params", "batch_stats")})
+    w_hd = fd.head_weights(port.dr_spaam.head)
+    conv_w = [(w.reshape(-1, w.shape[-1]).to(torch.bfloat16), b.float())
+              for w, b in w_hd[:5]]
+    (wc, bc), (wr, br) = w_hd[5:]
+    head_w = (wc.to(torch.bfloat16), bc.float(), wr.to(torch.bfloat16),
+              br.float())
+    tile = it.head_bf16_geometry(l4)[0]
+    n = tile + 3
+    feats = torch.from_numpy(np.random.default_rng(60 + l4).normal(
+        0.0, 0.5, (n, l4, 256)).astype(np.float32))
+    got = _packed_head_bf16(feats, conv_w, head_w, l4, tile, k14=True)
+    ref = jfd.fused_head(jnp.asarray(feats.numpy()), jhd, num_classes=1,
+                         tile=16, compute_dtype=jnp.bfloat16, interpret=True)
+    plain = fd.fused_head_plain(feats, w_hd, compute_dtype=torch.bfloat16)
+    for g, p, r, what in zip(got, plain, ref, ("cls", "reg")):
+        assert g.shape == p.shape == (n, g.shape[1])
+        _close(g, torch.from_numpy(np.asarray(r, np.float32)), what)
+        _close(g, p, what)
+
+
+def test_laid_int8_weights_equal_triples():
+    """The backbone tail and head laid out once are ``plan_weights``'
+    layouts (which invert to the triples), and give the triples' results
+    through ``backbone_int8_pm`` and ``head_int8`` on the CPU."""
+    rng = np.random.default_rng(61)
+    backbone = _stack(rng, cs.BACKBONE_CHANNELS, 5)
+    head = _stack(rng, cs.HEAD_CHANNELS, 5)
+    bb, hd = cs.backbone_weights_int8(backbone), cs.head_weights_int8(head)
+    for laid, raw, plan in ((bb, backbone, it.BACKBONE_PLAN),
+                            (hd, head, it.HEAD_PLAN)):
+        assert laid.convs == tuple(raw)
+        for (lw, ls, lb), (w, s, b), (cin, cout, _, nj) in zip(
+                laid.laid, raw, plan):
+            assert torch.equal(_inverse(lw, cout, 3 * cin, nj), w)
+            assert ls is s and lb is b
+    cut = torch.from_numpy(rng.normal(0.0, 0.5, (19, 16)).astype(np.float32))
+    layer1 = (torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32)),
+              torch.zeros(64))
+    embed = (_bf16(rng, 128, 4 * 256, scale=0.02), _bf16(rng, 128))
+    got = cs.backbone_int8_pm(cut, layer1, bb, embed, l=16, in_scale=0.02)
+    ref = cs.backbone_int8_pm(cut, layer1, backbone, embed, l=16,
+                              in_scale=0.02)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert int(got[0].abs().max()) > 30
+    head_w = (_bf16(rng, 128, 1, scale=0.1), torch.zeros(1),
+              _bf16(rng, 128, 2, scale=0.1), torch.zeros(2))
+    got = cs.head_int8(ref[0], hd, head_w, num_classes=1, l4=4)
+    ref = cs.head_int8(ref[0], head, head_w, num_classes=1, l4=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
