@@ -16,17 +16,23 @@ Phases:
 1. the card's name and power limit, CUDA version and capability; TF32 off
    for the f32 reference;
 2. build every kernel from ``planar_optical_flow_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` report and
-   each kernel's dynamic shared memory; the launch geometry of K5, K9, K10,
-   K7, K4 (and K14's bf16 head, on K4's kernel), K13 and K14 f32 (cutouts a
+   ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` report, the
+   count of each source's ``C75xx`` notes (every note that says a wgmma
+   was serialized printed; the bf16 backbones may carry none) and each
+   kernel's dynamic shared memory; the launch geometry of K5, K9, K10, K7,
+   K4 (and K14's bf16 head, on K4's kernel), K2 in its three layer-1 modes
+   (and K14's bf16 backbone, on K2's kernel), K13 and K14 f32 (cutouts a
    block, rows a cutout, shared memory) equal to ``int8_tiles``' and within
    the card's 232,448 bytes;
 3. the model, from a seeded ``torch.Generator``, with seeded BN stats, and
    the int8 calibration on ``scans[0][:8]`` (as ``bench.py`` calibrates);
 4. each kernel at the flagship shapes against its plain PyTorch version on
    the same inputs, then timed with CUDA events beside the plain version:
-   K1 cutout, K2 backbone tail, K3 gate, K4 head (bf16: within 2e-2 x
-   max|plain|), then K5 int8 backbone, K6 int8 gate, K7 int8 head (K5, K7,
+   K1 cutout, K2 backbone from the cutouts (layer 1 inside, on weights
+   laid out once; against ``backbone_layer1`` -> ``backbone_tail_plain``,
+   and equal to the bit to K2 on ``backbone_layer1``'s act1 and to a call
+   on the pairs; K2 on act1 and the plain layer 1 timed beside it), K3
+   gate, K4 head (bf16: within 2e-2 x max|plain|), then K5 int8 backbone, K6 int8 gate, K7 int8 head (K5, K7,
    K9, K10 and K13 on weights laid out once, as the step builder holds
    them, each equal to the bit to a call on the triples); at the
    456 rows a stream of ``"flat"`` and ``"int8"``, K10 int8 backbone on
@@ -48,17 +54,17 @@ Phases:
    and head in f32 (split-bf16 wgmma, on weights laid out once, equal to
    the bit to a call on the pairs; at rtol 1e-3 + 1e-4 x max|plain|, fewer
    timed launches, with the split-bf16, 3xTF32 and FFMA bounds) and in bf16
-   (the head on K4's kernel, its weights laid out once, equal to the bit to
-   a call on the pairs) on the module cutouts of the 450-beam streams, K3's
-   f32 mode
+   (the backbone on K2's kernel, the head on K4's, their weights laid out
+   once, each equal to the bit to a call on the pairs) on the module
+   cutouts of the 450-beam streams, K3's f32 mode
    at ct=450 (template 2e-5, z and sim 2e-4, ``tests/test_fast_gate.py``),
    and K15 in bf16 against its plain version and against K3's new template
    on K3's own attention (read back through K3 with a probe template), each
    within one bf16 ulp (or 2^-17 x max where the f32 sum cancels);
 5. the slices, each for 1 bootstrap + 5 carried steps, every launch
    counter set to 0 just before and read just after:
-   ``StreamingRunner(engine="v3")`` (K1-K4 launched, one per-stream reset)
-   within the JAX package's bf16-vs-f32 tolerance of ``engine="module"`` on
+   ``StreamingRunner(engine="v3")`` (K1-K4 launched, K2 from the cutouts,
+   never on a plain layer 1's act1; one per-stream reset) within the JAX package's bf16-vs-f32 tolerance of ``engine="module"`` on
    the same scans, and ``StreamingRunner(engine="int8c")`` (K1, K5-K7
    launched, K2-K4 not) at the JAX int8c-vs-f32 bar (corr > 0.95 on cls
    and flow); a second int8c runner built from the saved
@@ -83,7 +89,8 @@ Phases:
 6. ``[trace]``: ``torch.profiler`` over 3 carried steps of the int8c
    runner (the JAX serving default): the device busy share, the top device
    operations and the time a step spends outside K1/K5/K6/K7 ("not
-   measured" where the profiler records no device time);
+   measured" where the profiler records no device time); ``[trace v3]``
+   the same for the v3 runner, outside K1-K4;
 7. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -137,6 +144,8 @@ TOL_FUSED_F32 = 3e-3     # fused vs module, absolute (tests/test_pallas_fused)
 KEEP_AGREE = 0.98        # det_keep slots that agree (tests/test_pallas_fused)
 TOL_SERVE_F32 = 2e-4     # make_serve_step f32 vs module (test_fast_gate.py)
 QUANT_MEAN = 0.05        # mean |pred_cls| difference (tests/test_quantized.py)
+# the ptxas notes C75xx that say a wgmma was serialized
+SERIAL_NOTES = ("10", "11", "12", "13", "14", "15", "16", "18", "20")
 # the kernels line: name -> (source, the TPU kernel it replaces, wrapper,
 # the phase-5 run whose launches it reports)
 _CS = "planar_optical_flow_tpu/ops/pallas/conv_stack.py"
@@ -147,8 +156,10 @@ KERNELS = {
     "cutout": (_SRC + "cutout.cu",
                "planar_optical_flow_tpu/ops/pallas/cutout_kernel.py:159",
                "cutout", "int8c"),
-    "backbone_tail": (_SRC + "conv_stack.cu", _CS + ":302", "backbone_tail",
-                      "v3"),
+    # K2 keeps its row's name; the v3 path enters it through backbone_bf16
+    # (layer 1 inside), backbone_tail being its JAX interface on act1
+    "backbone_tail": (_SRC + "backbone_bf16.cu", _CS + ":302",
+                      "backbone_bf16", "v3"),
     "gate": (_SRC + "gate.cu", _FG + ":274", "gate", "v3"),
     "head": (_SRC + "head_bf16.cu", _CS + ":340", "head", "v3"),
     "backbone_int8": (_SRC + "conv_stack_int8.cu", _CS + ":1102",
@@ -184,7 +195,7 @@ KERNELS = {
                         "serve_cell_int8", "cell"),
     "fused_backbone": (_SRC + "fused_f32.cu", _FD + ":172", "fused_backbone",
                        "fused"),
-    "fused_backbone_bf16": (_SRC + "fused_drow.cu", _FD + ":172",
+    "fused_backbone_bf16": (_SRC + "backbone_bf16.cu", _FD + ":172",
                             "fused_backbone", "fused_bf16"),
     "fused_head": (_SRC + "fused_f32.cu", _FD + ":198", "fused_head",
                    "fused"),
@@ -195,7 +206,7 @@ KERNELS = {
     "banded_mix": (_SRC + "banded_mix.cu", _FG + ":191", "banded_mix_update",
                    "phase4"),
 }
-V3_KERNELS = ("cutout", "backbone_tail", "gate", "head")
+V3_KERNELS = ("cutout", "backbone_bf16", "gate", "head")
 INT8C_KERNELS = ("cutout", "backbone_int8", "gate_int8", "head_int8")
 # the make_serve_step_v3 runs: (options, the launches of each wrapper in 1
 # bootstrap + 5 carried steps (every other wrapper 0; K16 once, at the
@@ -288,7 +299,7 @@ def wrappers():
         banded_mix_update, gate, gate_head_int8, gate_int8,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
-        backbone_int8, backbone_int8_cut, backbone_int8_pm,
+        backbone_bf16, backbone_int8, backbone_int8_cut, backbone_int8_pm,
         backbone_int8_tail, backbone_tail, head, head_int8, row_shift,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
@@ -299,7 +310,8 @@ def wrappers():
         serve_cell_int8,
     )
 
-    return {"cutout": cutout, "backbone_tail": backbone_tail, "gate": gate,
+    return {"cutout": cutout, "backbone_bf16": backbone_bf16,
+            "backbone_tail": backbone_tail, "gate": gate,
             "head": head, "backbone_int8": backbone_int8,
             "gate_int8": gate_int8, "head_int8": head_int8,
             "backbone_int8_pm": backbone_int8_pm,
@@ -359,8 +371,8 @@ def kernel_phase(model, scans, device, iters):
     from planar_optical_flow_tpu_torch.infer.fast_gate import gate, gate_plain
     from planar_optical_flow_tpu_torch.ops.kernels import fold
     from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
-        backbone_layer1, backbone_tail, backbone_tail_plain, head, head_plain,
-        head_weights_bf16,
+        backbone_bf16, backbone_bf16_plain, backbone_layer1, backbone_tail,
+        backbone_weights_bf16, head, head_plain, head_weights_bf16,
     )
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
         cutout, cutout_plain,
@@ -412,30 +424,47 @@ def kernel_phase(model, scans, device, iters):
                bound(cutout_ops(scan_p, c, NUM_PTS), H100_F32_FLOPS,
                      4.0 * n + 4.0 * n * c))
 
-        # K2 on this scan's layer-1 activation
-        act1 = backbone_layer1(got, layer1)
-        feats, zx = backbone_tail(act1, tail, (gp.w, gp.b), l=c)
+        # K2 from this scan's cutouts (layer 1 inside), on its weights laid
+        # out once as the v3 step holds them
+        emb = (gp.w, gp.b)
+        laid2 = backbone_weights_bf16(tail)
+        feats, zx = backbone_bf16(got, layer1, laid2, emb, l=c)
         torch.cuda.synchronize()
-        feats_p, zx_p = backbone_tail_plain(act1, tail, (gp.w, gp.b), l=c)
+        feats_p, zx_p = backbone_bf16_plain(got, layer1, tail, emb, l=c)
         flops2 = 2.0 * n * (c * 3 * (64 * 64 + 64 * 128)
                             + (c // 2) * 3 * (2 * 128 * 128 + 128 * 256)
                             + d * 128)
-        bytes2 = (n * c * 64 * 2 + n * d * 2 + n * 128 * 2
+        ops1 = 7.0 * n * c * 64  # layer 1: 3 products, 3 adds, the leaky
+        bytes2 = (n * c * 4 + n * d * 2 + n * 128 * 2
                   + sum(w.numel() * 2 + bb.numel() * 4 for w, bb in tail)
                   + gp.w.numel() * 2)
         record("backbone_tail", [(feats, feats_p), (zx, zx_p)], TOL_BF16,
-               time_ms(lambda: backbone_tail(act1, tail, (gp.w, gp.b), l=c),
+               time_ms(lambda: backbone_bf16(got, layer1, laid2, emb, l=c),
                        iters),
-               time_ms(lambda: backbone_tail_plain(act1, tail, (gp.w, gp.b),
+               time_ms(lambda: backbone_bf16_plain(got, layer1, tail, emb,
                                                    l=c), 3, 1),
-               bound(flops2, H100_BF16_FLOPS, bytes2))
+               bound([(flops2, H100_BF16_FLOPS), (ops1, H100_F32_FLOPS)],
+                     None, bytes2))
         del feats_p, zx_p
+        # layer 1 folded in exactly: K2 on backbone_layer1's act1 (its JAX
+        # interface) gives the same bits, and so do the pairs laid out in
+        # the call
+        act1 = backbone_layer1(got, layer1)
+        same_bits("backbone_tail from the cutouts and on backbone_layer1's "
+                  "act1", (feats, zx), backbone_tail(act1, laid2, emb, l=c))
+        same_bits("backbone_tail on the laid-out weights and on the pairs",
+                  (feats, zx), backbone_bf16(got, layer1, tail, emb, l=c))
+        ms_read = time_ms(lambda: backbone_tail(act1, laid2, emb, l=c), iters)
+        ms_l1 = time_ms(lambda: backbone_layer1(got, layer1), iters)
+        print(f"[kernel] backbone_tail on act1 (its JAX interface) "
+              f"ms={ms_read:.4f}; the plain layer 1 before it "
+              f"(backbone_layer1) ms={ms_l1:.4f}", flush=True)
+        del act1
 
         # K3, carried: a second scan's features as the template
-        feats2, zx2 = backbone_tail(
-            backbone_layer1(cutout(F.pad(scans[1], (0, p_pad - NUM_PTS)),
-                                   **ckw), layer1),
-            tail, (gp.w, gp.b), l=c)
+        feats2, zx2 = backbone_bf16(
+            cutout(F.pad(scans[1], (0, p_pad - NUM_PTS)), **ckw), layer1,
+            laid2, emb, l=c)
         x, t = feats.reshape(n, d), feats2.reshape(n, d)
         gkw = dict(ct=p_pad, ct_valid=NUM_PTS, alpha=gp.alpha,
                    window_size=gp.window_size)
@@ -1064,11 +1093,11 @@ def k14_k15_kernel_phase(model, scans, device):
         results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_pair[0], bound_by=bound_pair[1])
 
-    # the weights laid out once, as make_fused_stream_step holds them (the
-    # bf16 backbone reads the pairs)
+    # the weights laid out once, as make_fused_stream_step holds them
     laid = {torch.float32: (fd.backbone_weights_f32(w_bb),
                             fd.head_weights_f32(w_hd)),
-            torch.bfloat16: (w_bb, fd.head_weights_bf16(w_hd))}
+            torch.bfloat16: (fd.backbone_weights_bf16(w_bb),
+                             fd.head_weights_bf16(w_hd))}
     with torch.inference_mode():
         cut = _encode_single(_sanitize_scan(scans[0], CUTOUT_KW["padding_val"]),
                              phi, CUTOUT_KW).reshape(n, c)
@@ -1079,10 +1108,9 @@ def k14_k15_kernel_phase(model, scans, device):
             wk = laid[dt][0]
             got = fd.fused_backbone(cut, wk, compute_dtype=dt)
             torch.cuda.synchronize()
-            if dt == torch.float32:  # the pairs, laid out in the call
-                check(torch.equal(got, fd.fused_backbone(cut, w_bb,
-                                                         compute_dtype=dt)),
-                      "fused_backbone: pairs and laid-out weights differ")
+            same_bits(f"{name} on the laid-out weights and on the pairs",
+                      (got,), (fd.fused_backbone(cut, w_bb,
+                                                 compute_dtype=dt),))
             ref = fd.fused_backbone_plain(cut, w_bb, compute_dtype=dt)
             nbytes = (n * c * 4.0 + n * d * 4.0
                       + w_bytes(w_bb, dt.itemsize))
@@ -1303,6 +1331,8 @@ def slice_phase(model, scans, device, calib, reset_step, reset_stream):
     for k in V3_KERNELS:
         check(launches_v3[k] > 0, f"kernel {k} was not launched on the v3 "
               "path")
+    check(launches_v3["backbone_tail"] == 0, "the v3 path read a layer-1 "
+          "activation (backbone_tail) instead of K2's own layer 1")
     for i, out in enumerate(outs):
         check_outputs(out, b, f"v3 step {i}")
         compare_engines(out, refs[i], i)
@@ -1553,21 +1583,39 @@ def engines_slice_phase(model, scans, device, calib):
     return all_launches, all_ms
 
 
-def trace_phase(model, scans, device, calib, steps=3, top=12):
+# the device operations of each traced runner's kernels, by the names they
+# appear under in the profiler
+TRACE_KERNELS = {
+    "int8c": {"K1": ("cutout_kernel",),
+              "K5": ("backbone_int8", "embed_kernel"),
+              "K6": ("gate_int8_rows_kernel",), "K7": ("head_int8",)},
+    "v3": {"K1": ("cutout_kernel",),
+           "K2": ("backbone_bf16_kernel", "embed_kernel"),
+           "K3": ("gate_kernel",), "K4": ("head_bf16_kernel",)},
+}
+
+
+def trace_phase(model, scans, device, calib, engine="int8c", steps=3,
+                top=12):
     """The ``[trace]`` phase: ``torch.profiler`` (CPU + CUDA activities)
-    over ``steps`` carried steps of ``StreamingRunner(engine="int8c")``
+    over ``steps`` carried steps of ``StreamingRunner(engine=engine)``
     (after its bootstrap and one carried step); prints the device busy
     share of the window, the top device operations by time and the time a
-    step spends outside K1/K5/K6/K7, or "not measured" where the profiler
-    recorded no device time."""
+    step spends outside its kernels (``TRACE_KERNELS``: K1/K5/K6/K7 for
+    int8c, K1-K4 for v3), or "not measured" where the profiler recorded no
+    device time. Lines ``[trace]`` (int8c) or ``[trace v3]``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from planar_optical_flow_tpu_torch.infer.streaming import StreamingRunner
 
-    runner = StreamingRunner(model, CUTOUT_KW, engine="int8c", calib=calib,
+    runner = StreamingRunner(model, CUTOUT_KW, engine=engine,
+                             calib=calib if engine == "int8c" else None,
                              num_pts=NUM_PTS, device=device)
+    tag = "[trace]" if engine == "int8c" else f"[trace {engine}]"
+    ours = TRACE_KERNELS[engine]
+    names = "/".join(ours)
     runner(scans[0])
     runner(scans[1])
     torch.cuda.synchronize()
@@ -1586,12 +1634,13 @@ def trace_phase(model, scans, device, calib, steps=3, top=12):
         spans.append((start, end))
         tot, cnt = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (tot + (end - start) / 1e3, cnt + 1)
-    print(f"[trace] {steps} carried int8c p2 steps at B={scans.shape[1]}: "
+    what = "int8c p2" if engine == "int8c" else engine
+    print(f"{tag} {steps} carried {what} steps at B={scans.shape[1]}: "
           f"{wall_ms:.3f} ms a step (host clock)", flush=True)
     if not spans:
-        print("[trace] device busy share: not measured (the profiler "
+        print(f"{tag} device busy share: not measured (the profiler "
               "recorded no device time); top device operations: not "
-              "measured; time outside K1/K5/K6/K7: not measured", flush=True)
+              f"measured; time outside {names}: not measured", flush=True)
         return
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in sorted(spans):
@@ -1601,22 +1650,20 @@ def trace_phase(model, scans, device, calib, steps=3, top=12):
         else:
             cur_e = max(cur_e, e)
     busy = (busy + cur_e - cur_s) / 1e3 / steps
-    print(f"[trace] device busy {busy:.3f} ms a step = share "
+    print(f"{tag} device busy {busy:.3f} ms a step = share "
           f"{busy / wall_ms:.4f} of the host-clock step", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for name, (tot, cnt) in ranked[:top]:
-        print(f"[trace] device op {tot / steps:.4f} ms a step, "
+        print(f"{tag} device op {tot / steps:.4f} ms a step, "
               f"{cnt / steps:g} a step: {name[:150]}", flush=True)
-    ours = {"K1": ("cutout_kernel",), "K5": ("backbone_int8", "embed_kernel"),
-            "K6": ("gate_int8_rows_kernel",), "K7": ("head_int8",)}
     per = {k: sum(t for n, (t, _) in by_name.items()
                   if any(s in n for s in subs)) / steps
            for k, subs in ours.items()}
     inside = sum(per.values())
     other_dev = sum(t for t, _ in by_name.values()) / steps - inside
-    print("[trace] a step: " + ", ".join(f"{k} {v:.4f} ms"
-                                        for k, v in per.items())
-          + f"; outside K1/K5/K6/K7 {wall_ms - inside:.4f} ms (other device "
+    print(f"{tag} a step: " + ", ".join(f"{k} {v:.4f} ms"
+                                       for k, v in per.items())
+          + f"; outside {names} {wall_ms - inside:.4f} ms (other device "
           f"ops {other_dev:.4f} ms, device idle {wall_ms - busy:.4f} ms)",
           flush=True)
 
@@ -1651,17 +1698,33 @@ def main(argv=None):
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(report)}", flush=True)
     for name, rep in sorted(report.items()):
+        notes = {}
         for line in rep["log"].splitlines():
-            if any(s in line for s in ("Compiling entry", "registers",
-                                       "spill", "Performance Loss")):
+            # notes C7510-C7516 and C7518-C7520 say that a wgmma was
+            # serialized; C7517 and C7519 that a wait or an arrive was
+            # injected
+            code = line.partition("(C75")[2][:2]
+            if code:
+                notes[f"C75{code}"] = notes.get(f"C75{code}", 0) + 1
+            if code in SERIAL_NOTES or any(
+                    s in line for s in ("Compiling entry", "registers",
+                                        "spill", "Performance Loss")):
                 print(f"[ptxas {name}] {line.strip()}")
+        print(f"[ptxas {name}] notes: {json.dumps(notes)}", flush=True)
+        check(name != "backbone_bf16"
+              or not any(k[3:] in SERIAL_NOTES for k in notes),
+              f"ptxas serialized a wgmma of {name}: {notes}")
 
     p_pad = -(-NUM_PTS // 8) * 8
     p_pm = -(-NUM_PTS // PM_TILE) * PM_TILE
     c = CUTOUT_KW["num_cutout_pts"]
     for lib, fn, arg, note in (
             ("cutout", "cutout_smem_bytes", (p_pad,), ""),
-            ("conv_stack", "backbone_tail_smem_bytes", (c,), ""),
+            ("backbone_bf16", "backbone_bf16_smem_bytes", (c, 0), " (K2)"),
+            ("backbone_bf16", "backbone_bf16_smem_bytes", (c, 2),
+             " (K2 on act1)"),
+            ("backbone_bf16", "backbone_bf16_smem_bytes", (c, 1),
+             " (K14 bf16)"),
             ("gate", "gate_smem_bytes", (p_pad, WINDOW), " (K3)"),
             ("gate", "gate_int8_smem_bytes", (WINDOW,),
              " (K6, at any rows a stream)"),
@@ -1684,7 +1747,6 @@ def main(argv=None):
              f" at {NUM_PTS} rows a stream (K3 f32, make_serve_step; K15 "
              "the same)"),
             ("fused_f32", "fused_backbone_f32_smem_bytes", (c,), " (K14 f32)"),
-            ("fused_drow", "fused_backbone_smem_bytes", (c,), " (K14 bf16)"),
             ("fused_f32", "fused_head_f32_smem_bytes", (c // 4,),
              " (K14 f32)")):
         f = getattr(_build.load(lib), fn)
@@ -1702,6 +1764,8 @@ def main(argv=None):
     geo14.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     geo13 = _build.load("serve_cell_wg").cell_geometry
     geo13.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    geo2 = _build.load("backbone_bf16").backbone_bf16_geometry
+    geo2.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
     for name, which, l, mode, want in (
             ("K5", 0, c, 0, int8_tiles.backbone_geometry(c, 0)),
             ("K9", 0, c, 1, int8_tiles.backbone_geometry(c, 1)),
@@ -1709,6 +1773,11 @@ def main(argv=None):
             ("K7", 1, c // 4, 0, int8_tiles.head_geometry(c // 4)),
             ("K4 and K14 bf16 head", None, c // 4, None,
              int8_tiles.head_bf16_geometry(c // 4)),
+            ("K2", "bf16", c, 0, int8_tiles.backbone_bf16_geometry(c, 0)),
+            ("K2 on act1", "bf16", c, 2,
+             int8_tiles.backbone_bf16_geometry(c, 2)),
+            ("K14 bf16 backbone", "bf16", c, 1,
+             int8_tiles.backbone_bf16_geometry(c, 1)),
             ("K13", "cell", c, None, int8_tiles.cell_geometry(c)),
             ("K14 f32 backbone", "f32", c, 0,
              int8_tiles.fused_backbone_f32_geometry(c)),
@@ -1724,6 +1793,9 @@ def main(argv=None):
         elif which == "f32":
             check(geo14(mode, l, ctypes.byref(tile), ctypes.byref(rows),
                         ctypes.byref(smem)) == 0, f"{name} geometry")
+        elif which == "bf16":
+            check(geo2(l, mode, ctypes.byref(tile), ctypes.byref(rows),
+                       ctypes.byref(smem)) == 0, f"{name} geometry")
         else:
             geo(which, l, mode, ctypes.byref(tile), ctypes.byref(rows),
                 ctypes.byref(smem))
@@ -1777,6 +1849,8 @@ def main(argv=None):
 
     torch.cuda.empty_cache()
     trace_phase(model, scans, device, calib)
+    torch.cuda.empty_cache()
+    trace_phase(model, scans, device, calib, engine="v3")
 
     kernels = []
     for name, (src, replaces, wrapper, run) in KERNELS.items():

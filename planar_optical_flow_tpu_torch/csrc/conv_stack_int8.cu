@@ -64,14 +64,14 @@
 // which both warp groups run at once while the tensor cores idle, and a
 // barrier every chunk.
 
-// The gate embed of K5/K9/K10 is a second kernel, embed_kernel, launched by
-// the same entry over all N cutouts on the feats the first one wrote: 128
-// cutouts a block, We^T staged in shared memory by cp.async, bf16
-// mma.sync.m16n8k16 with the contraction in K-order, so that each zx is the
-// same chain of products and f32 sums as the embed of K8 (int8_stack.cuh's
-// backbone_tail) and of K13 (serve_cell_wg.cu, on int8_wg.cuh's
-// embed_frag_a): K8 and K13 stay equal to the bit to K1 -> K5 and K9 -> K6
-// -> K7.
+// The gate embed of K5/K9/K10 is a second kernel, embed_kernel (embed.cuh,
+// shared with K2), launched by the same entry over all N cutouts on the
+// feats the first one wrote: 128 cutouts a block, We^T staged in shared
+// memory by cp.async, bf16 mma.sync.m16n8k16 with the contraction in
+// K-order, so that each zx is the same chain of products and f32 sums as
+// the embed of K8 (int8_stack.cuh's backbone_tail) and of K13
+// (serve_cell_wg.cu, on embed.cuh's embed_frag_a): K8 and K13 stay equal
+// to the bit to K1 -> K5 and K9 -> K6 -> K7.
 //
 // K10 fills the tile from its int8 input rows instead of computing layer 1;
 // with bf16 feats its last conv writes the bf16 rows straight to device
@@ -93,6 +93,7 @@
 // K16 is bound by its launch.
 
 #include "cutout.cuh"
+#include "embed.cuh"
 #include "int8_wg.cuh"
 
 namespace {
@@ -183,120 +184,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       dst[idx] = reinterpret_cast<const uint4*>(bufb)[idx];
   }
   cp_async_wait<0>();  // the zero copies past the last chunk
-}
-
-// ---- the gate embed --------------------------------------------------
-
-constexpr int kEmbRows = 128;   // cutouts a block
-constexpr int kEmbK = 64;       // contraction a stage
-constexpr int kEmbStages = 3;
-
-template <typename TA>
-__host__ __device__ constexpr int emb_lda() {
-  return kEmbK * (int)sizeof(TA) + 16;
-}
-constexpr int kEmbLdb = kEmbK * 2 + 16;
-
-template <typename TA>
-constexpr size_t embed_smem() {
-  return (size_t)kEmbStages * kEmbRows * (emb_lda<TA>() + kEmbLdb);
-}
-
-// zx = bf16(feats_flat @ We + be) over n cutouts: feats (n, K) int8 or bf16
-// (K = L/4 * 256; int8 values are exact in bf16), we_t (128, K) bf16. Warp w
-// owns rows 32 (w % 4) .. + 31 and columns 64 (w / 4) .. + 63; each output
-// is one chain of mma.sync.m16n8k16 over k = 0, 16, ..., K - 16 from 0.0,
-// as the embed of int8_stack.cuh's backbone_tail computes it, then one f32
-// add of the bias and one rounding to bf16.
-template <typename TA>
-__global__ void __launch_bounds__(256)
-    embed_kernel(const TA* __restrict__ feats, const bf16* __restrict__ we_t,
-                 const bf16* __restrict__ be, bf16* __restrict__ zx, int n,
-                 int K) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int LDA = emb_lda<TA>();
-  unsigned char* sa = smem_raw;
-  unsigned char* sb = smem_raw + (size_t)kEmbStages * kEmbRows * LDA;
-  const int r0 = blockIdx.x * kEmbRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int kt_n = K / kEmbK;
-
-  auto load = [&](int kt) {
-    const int st = kt % kEmbStages, k0 = kt * kEmbK;
-    constexpr int VA = kEmbK * (int)sizeof(TA) / 16;  // vectors a row
-    for (int idx = threadIdx.x; idx < kEmbRows * VA; idx += 256) {
-      const int r = idx / VA, v = idx - r * VA;
-      const int row = min(r0 + r, n - 1);  // rows past n: not stored
-      cp_async16(sa + ((size_t)st * kEmbRows + r) * LDA + 16 * v,
-                 reinterpret_cast<const unsigned char*>(
-                     feats + (size_t)row * K + k0) + 16 * v);
-    }
-    for (int idx = threadIdx.x; idx < 128 * 8; idx += 256) {
-      const int col = idx >> 3, v = idx & 7;
-      cp_async16(sb + ((size_t)st * 128 + col) * kEmbLdb + 16 * v,
-                 we_t + (size_t)col * K + k0 + 8 * v);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  for (int s = 0; s < kEmbStages - 1; ++s) {
-    if (s < kt_n) load(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<kEmbStages - 2>();
-    __syncthreads();
-    const int st = kt % kEmbStages;
-    const unsigned char* a_st = sa + (size_t)st * kEmbRows * LDA;
-    const unsigned char* b_st = sb + (size_t)st * 128 * kEmbLdb;
-#pragma unroll
-    for (int kk = 0; kk < kEmbK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const unsigned char* ra = a_st + (size_t)(32 * wm + 16 * i + g) * LDA;
-        embed_frag_a(a[i], reinterpret_cast<const TA*>(ra),
-                     reinterpret_cast<const TA*>(ra + 8 * LDA), kk + 2 * tq);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const unsigned char* cb =
-            b_st + (size_t)(64 * wn + 8 * j + g) * kEmbLdb + 2 * (kk + 2 * tq);
-        const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(cb),
-                               *reinterpret_cast<const uint32_t*>(cb + 16)};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b);
-      }
-    }
-    if (kt + kEmbStages - 1 < kt_n) load(kt + kEmbStages - 1);
-    cp_async_commit();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 32 * wm + 16 * i + g + 8 * h;
-      if (row >= n) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = 64 * wn + 8 * j + 2 * tq;
-        bf16* z = zx + (size_t)row * 128 + col;
-        z[0] = __float2bfloat16(
-            __fadd_rn(acc[i][j][2 * h], __bfloat162float(be[col])));
-        z[1] = __float2bfloat16(
-            __fadd_rn(acc[i][j][2 * h + 1], __bfloat162float(be[col + 1])));
-      }
-    }
 }
 
 // K8: (B, p) f32 scans (p a multiple of kTile) -> K5's outputs for the B * p
@@ -438,17 +325,6 @@ TailWeights tail_weights(const void* const* p) {
   TailWeights tw;
   fill_convs(tw, p);
   return tw;
-}
-
-template <typename TA>
-int launch_embed(const void* feats, const void* we_t, const void* be,
-                 void* zx, int n, int K, cudaStream_t stream) {
-  const size_t smem = embed_smem<TA>();
-  int err = set_smem((const void*)embed_kernel<TA>, smem);
-  if (err) return err;
-  embed_kernel<TA><<<(n + kEmbRows - 1) / kEmbRows, 256, smem, stream>>>(
-      (const TA*)feats, (const bf16*)we_t, (const bf16*)be, (bf16*)zx, n, K);
-  return (int)cudaGetLastError();
 }
 
 template <int L1, bool F_OUT>

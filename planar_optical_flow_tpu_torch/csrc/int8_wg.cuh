@@ -1,11 +1,13 @@
 // The int8 wgmma stacks' device code, shared by K5/K9/K10 and K7
 // (conv_stack_int8.cu) and K13 (serve_cell_wg.cu): the conv plans, the
 // backbone's layer 1 into the packed tile, the chunk schedules of the
-// backbone tail and the head, the two stacks' conv sequences, and the A
-// fragment of the gate embed. The convs themselves are wgmma_conv.cuh's.
+// backbone tail and the head, and the two stacks' conv sequences. The
+// convs themselves are wgmma_conv.cuh's, the gate embed's A fragment
+// embed.cuh's.
 
 #pragma once
 
+#include "embed.cuh"
 #include "wgmma_conv.cuh"
 
 namespace {
@@ -195,28 +197,6 @@ __device__ __forceinline__ void head_convs(int8_t* bufa, int8_t* bufb, int R,
   head_mean(fout, means, nv, L8);
   __syncthreads();
   head_cls_reg(means, hw, cls, reg, c0, nv, nc);
-}
-
-// The A fragment of one k16 step of the gate embed (mma.m16n8k16 bf16 x
-// bf16 -> f32): rows g and g + 8 of an m16 tile at ra and rb, columns k and
-// k + 1, k + 8 and k + 9 (k = the step's first k + 2 * tq); int8 feats as
-// exact bf16 pairs, bf16 feats as they are. embed_kernel (K5/K9/K10) and
-// K13 build every zx from these fragments with the same instruction over k
-// = 0, 16, ... from 0.0, then one f32 add of the bias and one rounding to
-// bf16, so the two give the same bits.
-__device__ __forceinline__ uint32_t embed_pair(const int8_t* row, int k) {
-  return bf16x2_of(row[k], row[k + 1]);
-}
-__device__ __forceinline__ uint32_t embed_pair(const bf16* row, int k) {
-  return *reinterpret_cast<const uint32_t*>(row + k);
-}
-template <typename TA>
-__device__ __forceinline__ void embed_frag_a(uint32_t (&a)[4], const TA* ra,
-                                             const TA* rb, int k) {
-  a[0] = embed_pair(ra, k);
-  a[1] = embed_pair(rb, k);
-  a[2] = embed_pair(ra, k + 8);
-  a[3] = embed_pair(rb, k + 8);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // The wgmma convs of K5 (with its K9/K10 modes), K7 and K13 (int8) and of
-// K4 and K14's head (bf16) for Hopper: products on weights staged in shared
-// memory, over a packed tile of cutouts.
+// K2, K4 and K14's bf16 backbone and head (bf16) for Hopper: products on
+// weights staged in shared memory, over a packed tile of cutouts.
 //
 // Packed tile. A block keeps its cutouts' activations in shared memory.
 // Cutout c's position p sits in row c * S + 1 + p with S = pstride(L) = L +
@@ -374,10 +374,11 @@ enum WgEpilogue {
   kWgStore = 0,     // into a packed tile of the same length
   kWgPool = 1,      // pooled, into a packed tile of length L / 2
   kWgPoolRows = 2,  // pooled int8 rows (c, L/2, COUT) into shared memory
-  kWgPoolBf16 = 3,  // pooled bf16 of the int8 conv's f32 activation, rows
-                    // into device memory (cutout c0 + c)
+  kWgPoolBf16 = 3,  // pooled bf16 of the f32 activation, rows into device
+                    // memory (cutout c0 + c)
   kWgMean = 4,      // f32 activation rows (c, L, COUT) into shared memory
   kWgPoolCell = 5,  // as kWgPoolRows, cutout c's rows at c * cell_pitch
+  kWgPoolF32 = 6,   // as kWgPoolBf16, the bf16 values stored as f32
 };
 
 // bytes from one cutout's pooled int8 rows to the next in K13's feats
@@ -420,12 +421,17 @@ __device__ __forceinline__ void store_act2(bf16* p, float y0, float y1) {
 // kernel's chunks; chunk_of<ConvPlan<...>> this conv's); the epilogue reads
 // s_eff (int8 only) and b_eff from shared memory (sb, kScaleBytes), where
 // the conv copies them first: from device memory their latency held every
-// epilogue's dependent chain. No product is issued under a branch that
-// depends on the data: a warp group past the last row tile multiplies the
-// last one again and drops the result (a wgmma on a divergent path is
-// serialized).
+// epilogue's dependent chain. With HOIST (bf16 convs) the epilogue takes
+// the latency out of each element's chain: each thread reads its pass's
+// biases into registers while the pass's last products run, and a pooled
+// epilogue makes all of a row slab's pool shuffles before its first store
+// (a shuffle cannot move across the branch before a store, so each element
+// waited for its own; K2's pooled epilogues took 19 of its 56 us a block
+// without HOIST). No product is issued under a branch that depends on the
+// data: a warp group past the last row tile multiplies the last one again
+// and drops the result (a wgmma on a divergent path is serialized).
 template <int CIN, int COUT, int MT, int NJ, int EPI, int WGN = 1,
-          typename E = int8_t, class Sched>
+          bool HOIST = false, typename E = int8_t, class Sched>
 __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
                                         int T, int nv, int c0, Ring& ring,
                                         const Sched& sched, float* sb,
@@ -433,6 +439,7 @@ __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
                                         const float* __restrict__ b_eff) {
   using P = ConvPlan<CIN, COUT, MT, NJ, WGN, E>;
   using Acc = typename std::conditional<sizeof(E) == 1, int, float>::type;
+  static_assert(!HOIST || sizeof(E) == 2, "hoisted epilogue: bf16 convs");
   const int S = pstride(L), L2 = L / 2, rows = prows(L, T);
   const int tiles = m_tiles(L, T), groups = P::groups(L, T);
   const int wg = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3;
@@ -487,12 +494,22 @@ __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
         }
         wgmma_commit();
       }
+      float2 bias[NJ][8];  // HOIST: columns n, n + 1 of each n8 block
+      if constexpr (HOIST) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            bias[j][jj] = *reinterpret_cast<const float2*>(
+                sb + COUT + ns * P::NS + n_wg + 64 * j + 8 * jj + 2 * tq);
+      }
       wgmma_wait<0>();
       ring.i += P::NKC;
 
       // epilogue: this thread's rows g and g + 8 of each 16-row slab
       constexpr bool kPooled = EPI == kWgPool || EPI == kWgPoolRows ||
-                               EPI == kWgPoolBf16 || EPI == kWgPoolCell;
+                               EPI == kWgPoolBf16 || EPI == kWgPoolCell ||
+                               EPI == kWgPoolF32;
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -500,6 +517,22 @@ __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
           const int m = m0[i] + 16 * wq + g + 8 * h;
           const int c = m / S, p = m - c * S;
           const bool keep = live[i] && c < nv && p < L;
+          Acc pooled[NJ][8];  // HOIST, pooled: the slab's pooled sums
+          if constexpr (HOIST) {
+            if constexpr (kPooled) {
+              const int odd = g & 1;
+#pragma unroll
+              for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int jj = 0; jj < 8; ++jj) {
+                  const Acc v0 = acc[i][32 * j + 4 * jj + 2 * h];
+                  const Acc v1 = acc[i][32 * j + 4 * jj + 2 * h + 1];
+                  pooled[j][jj] = vmax(
+                      odd ? v1 : v0, __shfl_xor_sync(kFull, odd ? v0 : v1, 4));
+                }
+            }
+            if (!keep) continue;
+          }
 #pragma unroll
           for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -512,11 +545,19 @@ __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
                 // `lane` and `lane ^ 4`: the even lane pools column n, the
                 // odd one column n + 1, into output position p / 2
                 const int odd = g & 1;
-                const Acc v = vmax(odd ? v1 : v0,
-                                   __shfl_xor_sync(kFull, odd ? v0 : v1, 4));
+                Acc v;
+                if constexpr (HOIST)
+                  v = pooled[j][jj];
+                else
+                  v = vmax(odd ? v1 : v0,
+                           __shfl_xor_sync(kFull, odd ? v0 : v1, 4));
                 if (!keep) continue;
                 const int col = n + odd;
-                const float y = act_of(v, sb[col], sb[COUT + col]);
+                float y;
+                if constexpr (HOIST)
+                  y = leaky(__fadd_rn(v, odd ? bias[j][jj].y : bias[j][jj].x));
+                else
+                  y = act_of(v, sb[col], sb[COUT + col]);
                 const int r = p / 2;
                 if (EPI == kWgPool) {
                   store_act(packed_at(static_cast<E*>(out), prows(L2, T),
@@ -529,6 +570,10 @@ __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
                   static_cast<int8_t*>(out)[(size_t)c * cell_pitch(L2, COUT) +
                                             r * COUT + col] =
                       (int8_t)requant(y);
+                } else if (EPI == kWgPoolF32) {
+                  static_cast<float*>(out)[((size_t)(c0 + c) * L2 + r) * COUT +
+                                           col] =
+                      __bfloat162float(__float2bfloat16_rn(y));
                 } else {
                   static_cast<bf16*>(out)[((size_t)(c0 + c) * L2 + r) * COUT +
                                           col] = __float2bfloat16_rn(y);
@@ -536,8 +581,14 @@ __device__ __forceinline__ void conv_wg(const E* in, void* out, int L,
                 continue;
               }
               if (!keep) continue;
-              const float y0 = act_of(v0, sb[n], sb[COUT + n]);
-              const float y1 = act_of(v1, sb[n + 1], sb[COUT + n + 1]);
+              float y0, y1;
+              if constexpr (HOIST) {
+                y0 = leaky(__fadd_rn(v0, bias[j][jj].x));
+                y1 = leaky(__fadd_rn(v1, bias[j][jj].y));
+              } else {
+                y0 = act_of(v0, sb[n], sb[COUT + n]);
+                y1 = act_of(v1, sb[n + 1], sb[COUT + n + 1]);
+              }
               if (EPI == kWgStore) {
                 store_act2(packed_at(static_cast<E*>(out), rows, m + 1, n), y0,
                            y1);

@@ -6,8 +6,8 @@ builder of the JAX module, and its three runner engines:
 * ``"module"`` (:func:`make_stream_step`): the module path, the reference
   in f32 (``compute_dtype`` runs a cast copy of the model);
 * ``"v3"`` (:func:`make_serve_step_v3`, ``precision="bf16"``): sanitize ->
-  pad to ``p_pad = ceil(P/8)*8`` beams -> K1 cutout -> backbone layer 1
-  (plain torch) -> K2 backbone tail + gate embed -> K3 gate -> K4 head ->
+  pad to ``p_pad = ceil(P/8)*8`` beams -> K1 cutout -> K2 backbone (layer 1
+  included) + gate embed -> K3 gate -> K4 head ->
   bf16 flow head (plain torch convs) -> sigmoid, canonical->global flow and
   top-64 vote NMS. The carry is ``{"template": (B*p_pad, D) bf16, "z":
   (B*p_pad, 128) bf16}``.
@@ -79,12 +79,13 @@ from planar_optical_flow_tpu_torch.ops import quantized_drow as qd
 from planar_optical_flow_tpu_torch.ops.kernels import fold, quant
 from planar_optical_flow_tpu_torch.ops.kernels import fused_drow as fd
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+    backbone_bf16,
     backbone_int8,
     backbone_int8_cut,
     backbone_int8_pm,
     backbone_int8_tail,
     backbone_layer1,
-    backbone_tail,
+    backbone_weights_bf16,
     backbone_weights_int8,
     check_row_shift,
     head,
@@ -289,7 +290,8 @@ def make_fused_stream_step(model, cutout_kwargs, num_pts: int = 450,
     The module cutout, K14's backbone in ``compute_dtype`` (None: f32, the
     default; or ``torch.bfloat16``) from the BN-folded f32 weights (laid
     out once here: ``fused_drow.backbone_weights_f32`` and
-    ``head_weights_f32`` in f32, ``head_weights_bf16`` in bf16), the
+    ``head_weights_f32`` in f32, ``backbone_weights_bf16`` and
+    ``head_weights_bf16`` in bf16), the
     dense module gate (on a copy of the model cast to ``compute_dtype``,
     with the features in it), K14's head on the new template, the module
     flow head, sigmoid, canonical->global flow and the full vote NMS. The
@@ -305,7 +307,7 @@ def make_fused_stream_step(model, cutout_kwargs, num_pts: int = 450,
     if cdt == torch.float32:
         w_bb, w_hd = fd.backbone_weights_f32(w_bb), fd.head_weights_f32(w_hd)
     else:
-        w_hd = fd.head_weights_bf16(w_hd)
+        w_bb, w_hd = fd.backbone_weights_bf16(w_bb), fd.head_weights_bf16(w_hd)
     cast = cast_model(model, compute_dtype) if compute_dtype else model
     _, cast_det = _parts(cast)
 
@@ -681,8 +683,8 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
                        sanitize_inputs: bool = True, device="cuda"):
     """The fused serving step on the CUDA kernels.
 
-    * ``precision="bf16"``: K1 cutout, backbone layer 1 (plain torch), K2
-      backbone tail + gate embed, K3 gate, K4 head; the carry is
+    * ``precision="bf16"``: K1 cutout, K2 backbone (layer 1 included) +
+      gate embed, K3 gate, K4 head; the carry is
       ``{"template": (N, D) bf16, "z": (N, 128) bf16}``.
     * ``precision="int8"`` (the int8 conv stacks with a bf16 carry; layout
       ``"flat"`` or the default, both cutout-major as in JAX): K1, layer 1
@@ -803,7 +805,9 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
 
     if precision == "bf16":
         layer1, tail_w = fold.backbone_stack_weights(det.backbone)
-        # K4's conv weights laid out for its weight ring once, for every step
+        # K2's and K4's conv weights laid out for their weight rings once,
+        # for every step
+        bb_w = backbone_weights_bf16(tail_w)
         hd_conv_w = head_weights_bf16(
             fold.prepare_stack_weights(fold.head_conv_blocks(det.head)))
 
@@ -811,8 +815,8 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         def step(carry, scan):
             scan, flat = encode(scan)
             b = scan.shape[0]
-            act1 = backbone_layer1(flat, layer1)            # (N*L, 64) bf16
-            feats, zx = backbone_tail(act1, tail_w, (gp.w, gp.b), l=ct_len)
+            feats, zx = backbone_bf16(flat, layer1, bb_w, (gp.w, gp.b),
+                                      l=ct_len)
             feats = feats.reshape(b * p_pad, l4 * FEAT_CHANNELS)
             if carry is None:
                 # bootstrap: the features become the template; the gate

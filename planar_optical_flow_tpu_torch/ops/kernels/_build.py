@@ -31,9 +31,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("cutout", "conv_stack", "head_bf16", "conv_stack_int8", "gate",
-           "serve_cell", "serve_cell_wg", "fused_drow", "fused_f32",
-           "banded_mix")
+SOURCES = ("cutout", "backbone_bf16", "head_bf16", "conv_stack_int8", "gate",
+           "serve_cell", "serve_cell_wg", "fused_f32", "banded_mix")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,14 +1,20 @@
 """K2, K4 (bf16) and K5, K7, K9, K10 (int8): the fused DROW conv stacks
-(``csrc/conv_stack.cu``, ``csrc/head_bf16.cu``, ``csrc/conv_stack_int8.cu``),
-and K16, the check of the int8 kernels' tap rows.
+(``csrc/backbone_bf16.cu``, ``csrc/head_bf16.cu``,
+``csrc/conv_stack_int8.cu``), and K16, the check of the int8 kernels' tap
+rows.
 
-* K2 :func:`backbone_tail` replaces
-  ``planar_optical_flow_tpu/ops/pallas/conv_stack.py`` ``fused_backbone_v2``
-  with ``embed_weights`` (body ``_backbone_kernel``/``_run_plan``/
-  ``_conv_rolled``, epilogue ``_embed_epilogue``): backbone layers 2-6
-  (conv, conv, pool/2, conv, conv, conv, pool/2) on the layer-1 activation
-  ``(N*L, 64)`` bf16, then the gate embedding ``zx = feats @ W + b``.
-  Returns feats ``(N*L/4, 256)`` bf16 and zx ``(N, 128)`` bf16.
+* K2 :func:`backbone_bf16` replaces ``planar_optical_flow_tpu/ops/pallas/
+  conv_stack.py`` ``fused_backbone_v2`` with ``embed_weights`` (body
+  ``_backbone_kernel``/``_run_plan``/``_conv_rolled``, epilogue
+  ``_embed_epilogue``) together with the XLA layer 1 the v3 step runs in
+  front of it (``backbone_layer1``): ``(N, L)`` f32 cutouts -> layer 1
+  (1 -> 64, rounded as :func:`backbone_layer1` rounds it) -> backbone
+  layers 2-6 (conv, conv, pool/2, conv, conv, conv, pool/2) -> feats
+  ``(N*L/4, 256)`` bf16 and the gate embedding ``zx = feats @ W + b``
+  ``(N, 128)`` bf16. :func:`backbone_tail` is the JAX function's own
+  interface, the layer-1 activation ``(N*L, 64)`` bf16 in, on the same
+  kernel: :func:`backbone_layer1` then :func:`backbone_tail` equals
+  :func:`backbone_bf16` to the bit.
 * K4 :func:`head` replaces ``fused_head_v2`` (``_head_kernel``,
   ``_head_cls_reg``): head convs (conv, conv, conv, pool/2, conv, conv), the
   mean over positions and the cls/reg linears. ``(N*L4, 256)`` bf16 ->
@@ -21,14 +27,15 @@ same value since bf16 rounding is monotonic), feats stored bf16, zx cast to
 bf16 from the f32 product, the position mean taken in f32.
 
 Bound on the H100: operations. K2 does ~16.1 MFLOP per cutout at L=56 (the
-embed included) and K4 ~28.9 MFLOP at L4=14, against 8 KB and 7 KB of HBM
-traffic per cutout. The kernels keep a tile of cutouts' activations in
+embed included) and K4 ~28.9 MFLOP at L4=14, against 7.4 KB and 7 KB of
+HBM traffic per cutout. The kernels keep a tile of cutouts' activations in
 shared memory across all layers (HBM sees only the input and the outputs,
-which is what the TPU kernels bought). K2 runs each conv as three shifted
-bf16 tensor-core products (``nvcuda::wmma`` 16x16x16, f32 accumulate); K4
-runs on the wgmma conv of K7 in bf16 (``csrc/wgmma_conv.cuh``: 8 cutouts a
-block in a packed tile, its conv weights laid out once by
+which is what the TPU kernels bought), and both run on the wgmma conv of
+K7 in bf16 (``csrc/wgmma_conv.cuh``: 8 cutouts a block in a packed tile,
+the conv weights laid out once by :func:`backbone_weights_bf16` /
 :func:`head_weights_bf16` and staged through a ring in shared memory).
+K2's gate embed is K5's embed kernel (``csrc/embed.cuh``) on its bf16
+feats, launched by the same entry.
 
 The int8 stacks, weights from ``quant.kernel_stack_weights``:
 
@@ -186,57 +193,40 @@ def _ptrs(weights):
     return [p for w, b in weights for p in (w.data_ptr(), b.data_ptr())]
 
 
-def backbone_tail(act1, weights, embed_weights, *, l: int):
-    """Layers 2-6 + gate embed: ``act1 (N*l, 64)`` bf16 -> (feats
-    ``(N*l/4, 256)`` bf16, zx ``(N, 128)`` bf16).
-
-    ``weights``: the tail from ``fold.backbone_stack_weights``;
-    ``embed_weights``: ``(W (l/4*256, 128) bf16, b (128,) bf16)``. A CUDA
-    tensor launches K2; a CPU tensor runs :func:`backbone_tail_plain`.
-    """
-    if act1.device.type == "cpu":
-        return backbone_tail_plain(act1, weights, embed_weights, l=l)
-    if l % 4 or l < 4:
-        raise ValueError(f"backbone_tail: l={l} must be a positive multiple "
-                         "of 4")
-    n = act1.shape[0] // l
-    _check_cuda(act1, torch.bfloat16, (n * l, 64), "backbone_tail act1")
-    _check_weights(weights, BACKBONE_CHANNELS, "backbone_tail")
-    we, be = embed_weights
-    _check_cuda(we, torch.bfloat16, ((l // 4) * 256, 128), "backbone_tail W")
-    _check_cuda(be, torch.bfloat16, (128,), "backbone_tail b")
-    act1, we, be = act1.contiguous(), we.contiguous(), be.contiguous()
-    feats = torch.empty(n * (l // 4), 256, dtype=torch.bfloat16,
-                        device=act1.device)
-    zx = torch.empty(n, 128, dtype=torch.bfloat16, device=act1.device)
-    fn = _build.load("conv_stack").backbone_tail_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
-    _build.check(fn(act1.data_ptr(), *_ptrs(weights), we.data_ptr(),
-                    be.data_ptr(), feats.data_ptr(), zx.data_ptr(), n, l,
-                    _build.stream_ptr(act1.device)), "backbone_tail")
-    backbone_tail.launches += 1
-    return feats, zx
-
-
-class HeadBf16Weights(NamedTuple):
-    """K4's conv weights laid out once (:func:`head_weights_bf16`): the
-    ``(w (3*Cin, Cout) bf16, b (Cout,) f32)`` pairs of ``fold.
-    head_stack_weights`` and each ``w`` in the chunk order of its conv's
-    plan (``int8_tiles.plan_weights_bf16``)."""
+class Bf16Laid(NamedTuple):
+    """A bf16 conv stack's weights laid out once for its wgmma kernel
+    (:func:`head_weights_bf16`, K4; :func:`backbone_weights_bf16`, K2): the
+    ``(w (3*Cin, Cout) bf16, b (Cout,) f32)`` pairs of ``fold`` and each
+    ``w`` in the chunk order of its conv's plan
+    (``int8_tiles.plan_weights_bf16``)."""
     convs: tuple
     laid: tuple
 
 
-def head_weights_bf16(conv_weights) -> HeadBf16Weights:
+def head_weights_bf16(conv_weights) -> Bf16Laid:
     """Lay K4's conv weights out for its weight ring, once per set of
     weights: the step builders hold the result and pass it to :func:`head`
     on every call."""
     _check_weights(conv_weights, HEAD_CHANNELS, "head")
-    return HeadBf16Weights(
+    return Bf16Laid(
         tuple(conv_weights),
         tuple(int8_tiles.plan_weights_bf16(conv_weights)))
+
+
+def backbone_weights_bf16(weights) -> Bf16Laid:
+    """Lay K2's backbone tail (layers 2-6, ``fold.backbone_stack_weights``)
+    out for its weight ring, once per set of weights: the step builder
+    holds the result and passes it to :func:`backbone_bf16` on every
+    call."""
+    _check_weights(weights, BACKBONE_CHANNELS, "backbone")
+    return Bf16Laid(tuple(weights), tuple(int8_tiles.plan_weights_bf16(
+        weights, int8_tiles.BACKBONE_BF16_PLAN)))
+
+
+def _bf16_convs(weights):
+    """The ``(w, b)`` pairs of ``weights``: a :class:`Bf16Laid` or the pairs
+    themselves."""
+    return weights.convs if isinstance(weights, Bf16Laid) else weights
 
 
 def check_head_bf16_plan(lib):
@@ -265,14 +255,13 @@ def head(feats, conv_weights, head_weights, *, num_classes: int, l4: int):
     :func:`head_plain`.
     """
     if feats.device.type == "cpu":
-        if isinstance(conv_weights, HeadBf16Weights):
-            conv_weights = conv_weights.convs
-        return head_plain(feats, conv_weights, head_weights, l4=l4)
+        return head_plain(feats, _bf16_convs(conv_weights), head_weights,
+                          l4=l4)
     if l4 % 2 or not 2 <= l4 <= 32:
         raise ValueError(f"head: l4={l4} must be even and in [2, 32]")
     if not 1 <= num_classes <= 8:
         raise ValueError(f"head: num_classes={num_classes} not in [1, 8]")
-    if not isinstance(conv_weights, HeadBf16Weights):
+    if not isinstance(conv_weights, Bf16Laid):
         conv_weights = head_weights_bf16(conv_weights)
     n = feats.shape[0] // l4
     _check_cuda(feats, torch.bfloat16, (n * l4, 256), "head feats")
@@ -310,6 +299,145 @@ def head(feats, conv_weights, head_weights, *, num_classes: int, l4: int):
     return cls, reg
 
 
+# --------------------------------------------------------------------------
+# K2 and K14's bf16 backbone: csrc/backbone_bf16.cu
+# --------------------------------------------------------------------------
+
+# layer-1 modes of the bf16 backbone kernel: K2 from the cutouts (torch's
+# backbone_layer1 rounding), K14 (layer 1 on bf16-rounded cutouts), K2 from
+# the bf16 act1 rows
+L1_XLA, L1_CONV3, L1_READ = 0, 1, 2
+
+
+def check_backbone_bf16_plan(lib):
+    """Raise unless the library's bf16 backbone plan chunks the weights as
+    ``int8_tiles.BACKBONE_BF16_PLAN`` lays them out (once per process)."""
+    if check_backbone_bf16_plan.checked:
+        return
+    fn = lib.backbone_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2
+    _check_plan("backbone_bf16", fn, int8_tiles.BACKBONE_BF16_PLAN, 2)
+    check_backbone_bf16_plan.checked = True
+
+
+check_backbone_bf16_plan.checked = False
+
+
+def launch_backbone_bf16(what, inp, ptrs, embed_weights, feats, zx, n, l,
+                         l1_mode):
+    """Launch ``csrc/backbone_bf16.cu`` in ``l1_mode`` on ``inp`` (the f32
+    cutouts, or act1 in :data:`L1_READ`) into ``feats`` (and, but for
+    :data:`L1_CONV3`, the gate embed into ``zx``). ``ptrs``: the 12
+    pointers w1, b1 (None in :data:`L1_READ`) and (laid-out w, b) of convs
+    2-6; ``embed_weights``: ``(W (l/4*256, 128) bf16, b (128,) bf16)`` or
+    None."""
+    smem = int8_tiles.backbone_bf16_geometry(l, l1_mode)[2]
+    if smem > int8_tiles.SMEM_MAX:
+        raise ValueError(f"{what}: {smem} bytes of shared memory at l={l}, "
+                         f"over {int8_tiles.SMEM_MAX}")
+    lib = _build.load("backbone_bf16")
+    check_backbone_bf16_plan(lib)
+    we_t = be = None
+    if embed_weights is not None:
+        we, be = embed_weights
+        _check_cuda(we, torch.bfloat16, ((l // 4) * 256, 128), f"{what} W")
+        _check_cuda(be, torch.bfloat16, (128,), f"{what} b")
+        we_t, be = we.t().contiguous(), be.contiguous()
+    fn = lib.backbone_bf16_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    _build.check(fn(inp.data_ptr(), (ctypes.c_void_p * 12)(*ptrs),
+                    None if we_t is None else we_t.data_ptr(),
+                    None if be is None else be.data_ptr(),
+                    feats.data_ptr(), None if zx is None else zx.data_ptr(),
+                    n, l, l1_mode, _build.stream_ptr(inp.device)), what)
+
+
+def _launch_k2(what, inp, layer1, weights, embed_weights, l, l1_mode):
+    """K2 on CUDA tensors: layer 1 from the cutouts (``layer1``) or the
+    act1 rows (``layer1`` None), the tail convs (the pairs, laid out in
+    this call, or a :class:`Bf16Laid`), the gate embed -> (feats, zx)."""
+    if l % 4 or l < 4:
+        raise ValueError(f"{what}: l={l} must be a positive multiple of 4")
+    if not isinstance(weights, Bf16Laid):
+        weights = backbone_weights_bf16(weights)
+    if layer1 is None:
+        n = inp.shape[0] // l
+        _check_cuda(inp, torch.bfloat16, (n * l, 64), f"{what} act1")
+        l1 = [None, None]
+    else:
+        n = inp.shape[0]
+        _check_cuda(inp, torch.float32, (n, l), f"{what} cutouts")
+        w1, b1 = layer1[0].reshape(3, 64), layer1[1]
+        _check_cuda(w1, torch.float32, (3, 64), f"{what} layer-1 w")
+        _check_cuda(b1, torch.float32, (64,), f"{what} layer-1 b")
+        layer1 = (w1.contiguous(), b1.contiguous())
+        l1 = [t.data_ptr() for t in layer1]
+    for w, (_, b) in zip(weights.laid, weights.convs):
+        _check_cuda(w, torch.bfloat16, (w.numel(),), f"{what} laid-out w")
+        _check_cuda(b, torch.float32, (b.numel(),), f"{what} b")
+    inp = inp.contiguous()
+    feats = torch.empty(n * (l // 4), 256, dtype=torch.bfloat16,
+                        device=inp.device)
+    zx = torch.empty(n, 128, dtype=torch.bfloat16, device=inp.device)
+    ptrs = l1 + [t.data_ptr() for w, (_, b) in zip(weights.laid,
+                                                   weights.convs)
+                 for t in (w, b)]
+    launch_backbone_bf16(what, inp, ptrs, embed_weights, feats, zx, n, l,
+                         l1_mode)
+    return feats, zx
+
+
+def backbone_bf16_plain(cutouts, layer1, weights, embed_weights, *, l: int):
+    """Plain PyTorch version of :func:`backbone_bf16` (same arguments):
+    :func:`backbone_layer1`, then :func:`backbone_tail_plain`."""
+    return backbone_tail_plain(backbone_layer1(cutouts, layer1),
+                               _bf16_convs(weights), embed_weights, l=l)
+
+
+def backbone_bf16(cutouts, layer1, weights, embed_weights, *, l: int):
+    """K2 with its layer 1: ``cutouts (N, l)`` f32 -> (feats ``(N*l/4,
+    256)`` bf16, zx ``(N, 128)`` bf16).
+
+    ``layer1``: ``(w (3, 1, 64) or (3, 64), b (64,))`` f32, the folded
+    layer 1 of ``fold.backbone_stack_weights``, computed in the kernel as
+    :func:`backbone_layer1` computes it (each f32 operation rounded once,
+    leaky, bf16); ``weights``: :func:`backbone_weights_bf16` of the tail
+    (a caller that passes the pairs has them laid out on every call);
+    ``embed_weights``: ``(W (l/4*256, 128) bf16, b (128,) bf16)``. A CUDA
+    tensor launches K2; a CPU tensor runs :func:`backbone_bf16_plain`.
+    """
+    if cutouts.device.type == "cpu":
+        return backbone_bf16_plain(cutouts, layer1, weights, embed_weights,
+                                   l=l)
+    out = _launch_k2("backbone_bf16", cutouts, layer1, weights,
+                     embed_weights, l, L1_XLA)
+    backbone_bf16.launches += 1
+    return out
+
+
+def backbone_tail(act1, weights, embed_weights, *, l: int):
+    """K2 on its JAX interface, layers 2-6 + gate embed: ``act1 (N*l,
+    64)`` bf16 (:func:`backbone_layer1`) -> (feats ``(N*l/4, 256)`` bf16,
+    zx ``(N, 128)`` bf16).
+
+    ``weights``: the tail from ``fold.backbone_stack_weights``, or its
+    :func:`backbone_weights_bf16`; ``embed_weights`` as for
+    :func:`backbone_bf16`. A CUDA tensor launches K2's kernel reading the
+    act1 rows; a CPU tensor runs :func:`backbone_tail_plain`.
+    """
+    if act1.device.type == "cpu":
+        return backbone_tail_plain(act1, _bf16_convs(weights), embed_weights,
+                                   l=l)
+    out = _launch_k2("backbone_tail", act1, None, weights, embed_weights, l,
+                     L1_READ)
+    backbone_tail.launches += 1
+    return out
+
+
+backbone_bf16.launches = 0
 backbone_tail.launches = 0
 head.launches = 0
 

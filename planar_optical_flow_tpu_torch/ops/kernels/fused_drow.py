@@ -1,6 +1,6 @@
 """K14: the fused DROW backbone and head of ``make_fused_stream_step``, f32
-(``csrc/fused_f32.cu``) and bf16 (``csrc/fused_drow.cu``, the head on K4's
-kernel in ``csrc/head_bf16.cu``).
+(``csrc/fused_f32.cu``) and bf16 (the backbone on K2's kernel in
+``csrc/backbone_bf16.cu``, the head on K4's in ``csrc/head_bf16.cu``).
 
 * :func:`fused_backbone` replaces ``planar_optical_flow_tpu/ops/pallas/
   fused_drow.py`` ``fused_backbone`` (kernel ``_backbone_kernel``): the
@@ -30,12 +30,13 @@ across every layer (what the TPU kernels kept in VMEM). f32
 bf16: hi * hi + hi * lo + lo * hi of each operand's two bf16 parts, ~1e-5
 relative, 3 x the operations at 989 TFLOP/s); its weights are split and
 laid out once by :func:`backbone_weights_f32` / :func:`head_weights_f32`
-(a caller passing the pairs has them laid out on every call). The bf16
-backbone (``csrc/fused_drow.cu``) runs K2's tensor-core conv layer; the
-bf16 head runs K4's wgmma kernel (``csrc/head_bf16.cu``: 8 cutouts a
-block in a packed tile, the f32 feats rounded to bf16 as they load, K14's
-mean), its weights laid out once by :func:`head_weights_bf16`, at 989
-TFLOP/s.
+(a caller passing the pairs has them laid out on every call). In bf16 both
+run on the wgmma bf16 kernels, 8 cutouts a block in a packed tile, at 989
+TFLOP/s: the backbone on K2's (``csrc/backbone_bf16.cu``, layer 1 on the
+bf16-rounded cutouts, f32 feats out), the head on K4's
+(``csrc/head_bf16.cu``: the f32 feats rounded to bf16 as they load, K14's
+mean), their weights laid out once by :func:`backbone_weights_bf16` and
+:func:`head_weights_bf16`.
 """
 
 from __future__ import annotations
@@ -48,7 +49,9 @@ import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build, fold, int8_tiles
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+    L1_CONV3,
     check_head_bf16_plan,
+    launch_backbone_bf16,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import recip
 
@@ -57,10 +60,10 @@ _PLAIN_CHUNK = 16384  # cutouts per pass of the plain versions (bounds memory)
 BACKBONE_CHANNELS = (1, 64, 64, 128, 128, 128, 256)
 HEAD_CHANNELS = (256, 256, 256, 512, 256, 128)
 
-__all__ = ["LaidWeights", "backbone_weights", "backbone_weights_f32",
-           "fused_backbone", "fused_backbone_plain", "fused_head",
-           "fused_head_plain", "head_weights", "head_weights_bf16",
-           "head_weights_f32"]
+__all__ = ["LaidWeights", "backbone_weights", "backbone_weights_bf16",
+           "backbone_weights_f32", "fused_backbone", "fused_backbone_plain",
+           "fused_head", "fused_head_plain", "head_weights",
+           "head_weights_bf16", "head_weights_f32"]
 
 
 def backbone_weights(backbone) -> list:
@@ -157,11 +160,12 @@ def _kernel_weights(weights, chans, dt, what):
 
 class LaidWeights(NamedTuple):
     """K14's weights laid out once (:func:`backbone_weights_f32`,
-    :func:`head_weights_f32`, :func:`head_weights_bf16`): the pairs as
-    given, the tensors the kernel reads, in its order (each wgmma conv's
-    ``w`` in the chunk order of its plan: split into bf16 hi and lo in f32,
-    ``int8_tiles.plan_weights_f32``; in bf16, ``int8_tiles.
-    plan_weights_bf16``), and the compute dtype they are laid out for."""
+    :func:`head_weights_f32`, :func:`backbone_weights_bf16`,
+    :func:`head_weights_bf16`): the pairs as given, the tensors the kernel
+    reads, in its order (each wgmma conv's ``w`` in the chunk order of its
+    plan: split into bf16 hi and lo in f32, ``int8_tiles.
+    plan_weights_f32``; in bf16, ``int8_tiles.plan_weights_bf16``), and the
+    compute dtype they are laid out for."""
     pairs: tuple
     tensors: tuple
     dtype: torch.dtype
@@ -188,6 +192,23 @@ def backbone_weights_f32(weights) -> LaidWeights:
     tensors = [ws[0], bs[0]] + [t for pair in zip(laid, bs[1:])
                                 for t in pair]
     return LaidWeights(tuple(weights), tuple(tensors), torch.float32)
+
+
+def backbone_weights_bf16(weights) -> LaidWeights:
+    """Lay K14 bf16's backbone weights (:func:`backbone_weights`) out, once
+    per set of weights: layer 1 ``(3, 64)`` as f32 holding its bf16 values,
+    convs 2-6 in bf16 for K2's weight ring (``int8_tiles.
+    plan_weights_bf16``, ``BACKBONE_BF16_PLAN``), each with its f32
+    bias."""
+    if len(weights) != 6:
+        raise ValueError("fused_backbone: need the six backbone convs")
+    ws, bs = _kernel_weights(weights, BACKBONE_CHANNELS, torch.bfloat16,
+                             "fused_backbone")
+    laid = int8_tiles.plan_weights_bf16(list(zip(ws[1:], bs[1:])),
+                                        int8_tiles.BACKBONE_BF16_PLAN)
+    tensors = [ws[0].float(), bs[0]] + [t for pair in zip(laid, bs[1:])
+                                        for t in pair]
+    return LaidWeights(tuple(weights), tuple(tensors), torch.bfloat16)
 
 
 def head_weights_f32(weights) -> LaidWeights:
@@ -270,9 +291,10 @@ def fused_backbone(cutouts, weights, tile: int = 64,
                    compute_dtype=torch.bfloat16):
     """``(N, L)`` f32 cutouts -> ``(N, L/4, 256)`` f32 features.
 
-    ``weights``: :func:`backbone_weights`, or in f32 their layout
-    :func:`backbone_weights_f32`. ``tile`` is accepted for API parity with
-    the JAX function (the kernel picks its own tile). A CUDA tensor
+    ``weights``: :func:`backbone_weights`, or their layout for
+    ``compute_dtype`` (:func:`backbone_weights_f32`,
+    :func:`backbone_weights_bf16`). ``tile`` is accepted for API parity
+    with the JAX function (the kernel picks its own tile). A CUDA tensor
     launches K14's backbone; a CPU tensor runs :func:`fused_backbone_plain`.
     """
     if cutouts.device.type == "cpu":
@@ -289,32 +311,22 @@ def fused_backbone(cutouts, weights, tile: int = 64,
     cutouts = cutouts.contiguous()
     feats = torch.empty(n, l // 4, 256, dtype=torch.float32,
                         device=cutouts.device)
-    stream = _build.stream_ptr(cutouts.device)
+    if not _laid_for(weights, dt):
+        weights = (backbone_weights_f32 if dt == torch.float32
+                   else backbone_weights_bf16)(weights)
+    ptrs = _ptr_array(weights.tensors, cutouts.device)
     if dt == torch.float32:
-        if not _laid_for(weights, dt):
-            weights = backbone_weights_f32(weights)
         fn = _f32_lib("fused_backbone",
                       int8_tiles.fused_backbone_f32_geometry(l)[2]
                       ).fused_backbone_f32_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
             + [ctypes.c_void_p]
-        _build.check(fn(cutouts.data_ptr(),
-                        _ptr_array(weights.tensors, cutouts.device),
-                        feats.data_ptr(), n, l, stream), "fused_backbone")
+        _build.check(fn(cutouts.data_ptr(), ptrs, feats.data_ptr(), n, l,
+                        _build.stream_ptr(cutouts.device)), "fused_backbone")
     else:
-        weights = _pairs(weights)
-        if len(weights) != 6:
-            raise ValueError("fused_backbone: need the six backbone convs")
-        ws, bs = _kernel_weights(weights, BACKBONE_CHANNELS, dt,
-                                 "fused_backbone")
-        fn = _build.load("fused_drow").fused_backbone_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p]
-        _build.check(fn(cutouts.data_ptr(), _ptr_array(ws, cutouts.device),
-                        _ptr_array(bs, cutouts.device), feats.data_ptr(), n,
-                        l, stream), "fused_backbone")
+        launch_backbone_bf16("fused_backbone", cutouts, list(ptrs), None,
+                             feats, None, n, l, L1_CONV3)
     fused_backbone.launches += 1
     return feats
 

@@ -1,7 +1,7 @@
 """Host side of the wgmma convs (``csrc/wgmma_conv.cuh``) of K5/K9/K10 and
-K7 (int8), of K4 (bf16) and of K14 in f32 (split bf16, ``csrc/
-fused_f32.cu``): the weights' layout for the wgmma B operand and the launch
-geometry of the packed tile.
+K7 (int8), of K4, K2 and K14's bf16 backbone (bf16) and of K14 in f32
+(split bf16, ``csrc/fused_f32.cu``): the weights' layout for the wgmma B
+operand and the launch geometry of the packed tile.
 
 * **Weights.** Each conv's ``w (Cout, 3*Cin)`` (int8 from ``quant.
   kernel_stack_weights``; bf16, the transpose of ``fold``'s ``(3*Cin,
@@ -22,9 +22,11 @@ geometry of the packed tile.
 * **Geometry.** A block takes the most cutouts (16, halved while needed)
   whose ring, two tile regions and side buffers fit the 232,448 bytes of
   shared memory a block may use (:func:`backbone_geometry`,
-  :func:`head_geometry`, :func:`head_bf16_geometry`; the C side,
-  ``int8_wg_geometry`` and ``head_bf16_geometry``, computes the same). A
-  bf16 tile takes twice the bytes: K4 takes 8 cutouts a block at L/4 = 14.
+  :func:`head_geometry`, :func:`head_bf16_geometry`,
+  :func:`backbone_bf16_geometry`; the C side, ``int8_wg_geometry``,
+  ``head_bf16_geometry`` and ``backbone_bf16_geometry``, computes the
+  same). A bf16 tile takes twice the bytes: K4 takes 8 cutouts a block at
+  L/4 = 14, the bf16 backbone (``csrc/backbone_bf16.cu``) 8 at L = 56.
 * **K13.** One block of the cell (``csrc/serve_cell_wg.cu``) runs K9's
   backbone, the gate embed, K6's mix and K7's head on 16 cutouts of one
   stream, in two regions that each hold the largest packed tile of either
@@ -45,12 +47,14 @@ geometry of the packed tile.
   At most 4 cutouts a block (:func:`fused_backbone_f32_geometry`,
   :func:`fused_head_f32_geometry`; the C side, ``fused_f32_geometry``).
 
-``BACKBONE_PLAN``, ``HEAD_PLAN`` and ``HEAD_BF16_PLAN`` are the kernels'
-conv plans: ``(Cin, Cout, row tiles, n64 tiles)`` per warp group, and for
-K4 a fifth entry, the warp groups along N (2: both warp groups share the
-row tiles and split N), as ``conv_stack_int8.cu``'s ``BbPlan*``/``HdPlan*``
-and ``head_bf16.cu``'s ``HbPlan*`` instantiate them (``int8_wg_plan`` and
-``head_bf16_plan`` report them; ``conv_stack`` compares once per process).
+``BACKBONE_PLAN``, ``HEAD_PLAN``, ``HEAD_BF16_PLAN`` and
+``BACKBONE_BF16_PLAN`` are the kernels' conv plans: ``(Cin, Cout, row
+tiles, n64 tiles)`` per warp group, and for the bf16 kernels a fifth entry,
+the warp groups along N (2: both warp groups share the row tiles and split
+N), as ``int8_wg.cuh``'s ``BbPlan*``/``HdPlan*``, ``head_bf16.cu``'s
+``HbPlan*`` and ``backbone_bf16.cu``'s ``BfPlan*`` instantiate them
+(``int8_wg_plan``, ``head_bf16_plan`` and ``backbone_bf16_plan`` report
+them; ``conv_stack`` compares once per process).
 ``FUSED_BACKBONE_F32_PLAN`` and ``FUSED_HEAD_F32_PLAN`` are K14 f32's, as
 ``fused_f32.cu``'s ``BxPlan*``/``HxPlan*`` (``fused_f32_plan``), in the
 same five-entry form.
@@ -73,6 +77,9 @@ HEAD_PLAN = ((256, 256, 2, 2), (256, 256, 2, 2), (256, 512, 2, 2),
 HEAD_BF16_PLAN = ((256, 256, 1, 4, 1), (256, 256, 1, 4, 1),
                   (256, 512, 1, 4, 1), (512, 256, 1, 2, 2),
                   (256, 128, 1, 1, 2))
+BACKBONE_BF16_PLAN = ((64, 64, 4, 1, 1), (64, 128, 2, 2, 1),
+                      (128, 128, 2, 2, 1), (128, 128, 2, 2, 1),
+                      (128, 256, 2, 2, 1))
 F32_TILE = 4            # most cutouts a K14 f32 block
 FUSED_BACKBONE_F32_PLAN = ((64, 64, 2, 1, 1), (64, 128, 2, 1, 1),
                            (128, 128, 1, 2, 1), (128, 128, 1, 2, 1),
@@ -80,7 +87,7 @@ FUSED_BACKBONE_F32_PLAN = ((64, 64, 2, 1, 1), (64, 128, 2, 1, 1),
 FUSED_HEAD_F32_PLAN = ((256, 256, 1, 2, 2), (256, 256, 1, 2, 2),
                        (256, 512, 1, 2, 2), (512, 256, 1, 2, 2),
                        (256, 128, 1, 1, 2))
-_L1_READ = 2  # the backbone's l1_mode that reads int8 act1 rows (no cutouts)
+_L1_READ = 2  # the backbones' l1_mode that reads act1 rows (no cutouts)
 EMBED_K = 64  # K of a K13 embed weight chunk: 128 x 64 bf16
 CELL_ROWS = 16  # the rows of K13's mix tile (mma.m16n8k32) and embed tile
 CELL_MAX_WINDOW = 32  # the quantized band's lanes a row (one warp)
@@ -145,6 +152,18 @@ def head_bf16_smem_bytes(l4: int, tile: int) -> int:
                            ptile_bytes(l4 // 2, 512 * 2, tile),
                            tile * (l4 // 2) * 128 * 4))
     return RING_BYTES + 2 * region + tile * 128 * 4
+
+
+def backbone_bf16_smem_bytes(l: int, l1_mode: int, tile: int) -> int:
+    """Dynamic shared memory of a bf16 backbone block (K2, K14 bf16) of
+    ``tile`` cutouts: the ring, two regions each holding the larger bf16
+    packed tile of its two lengths (``l`` and ``l/2`` positions; the last
+    conv writes device memory), and the f32 cutouts (not in the read mode,
+    ``l1_mode`` 2)."""
+    region = _round128(max(ptile_bytes(l, 64 * 2, tile),
+                           ptile_bytes(l // 2, 128 * 2, tile)))
+    cut = tile * l * 4 if l1_mode != _L1_READ else 0
+    return RING_BYTES + 2 * region + cut
 
 
 def cell_pitch(l4: int) -> int:
@@ -232,6 +251,13 @@ def head_bf16_geometry(l4: int):
     """(cutouts a block, rows a cutout, shared-memory bytes) of a K4 launch
     at ``l4`` positions."""
     return _geometry(lambda t: head_bf16_smem_bytes(l4, t), l4)
+
+
+def backbone_bf16_geometry(l: int, l1_mode: int = 0):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a bf16
+    backbone launch at cutout length ``l``: layer 1 from the cutouts
+    (``l1_mode`` 0, K2; 1, K14) or read from act1 (2, K2)."""
+    return _geometry(lambda t: backbone_bf16_smem_bytes(l, l1_mode, t), l)
 
 
 def cell_geometry(l: int):

@@ -44,6 +44,8 @@ from planar_optical_flow_tpu_torch.ops.kernels import (
 )
 from planar_optical_flow_tpu_torch.ops.kernels import fused_drow as fd
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+    backbone_bf16,
+    backbone_bf16_plain,
     backbone_int8,
     backbone_int8_plain,
     backbone_int8_pm,
@@ -145,6 +147,62 @@ def test_conv_stack_kernels(cuda, ct_len, window):
     cls_p, reg_p = head_plain(feats, conv_w, head_w, l4=ct_len // 4)
     _close(cls, cls_p, BF16_REL)
     _close(reg, reg_p, BF16_REL)
+
+
+@pytest.mark.parametrize("ct_len,window", [(16, 5), (56, 11)])
+@pytest.mark.parametrize("mode", ["xla", "read", "conv3"])
+def test_backbone_bf16_kernel_modes(cuda, ct_len, window, mode):
+    """The bf16 backbone kernel in each layer-1 mode at 1, T - 1 and T + 3
+    cutouts (T its cutouts a block; the last block partial), on weights
+    laid out once and on the pairs (equal to the bit), within the bf16 bar
+    of its plain version: K2 from the cutouts ("xla", and equal to the bit
+    to backbone_layer1 -> K2 on act1), K2 on act1 ("read") and K14's bf16
+    backbone ("conv3")."""
+    det = _model(ct_len, window, cuda).dr_spaam
+    layer1, tail = fold.backbone_stack_weights(det.backbone)
+    laid = conv_stack.backbone_weights_bf16(tail)
+    w_bb = fd.backbone_weights(det.backbone)
+    laid14 = fd.backbone_weights_bf16(w_bb)
+    gp = fold.fold_gate_params(det.gate, dtype=torch.bfloat16)
+    emb = (gp.w, gp.b)
+    tile = int8_tiles.backbone_bf16_geometry(ct_len, 2 if mode == "read"
+                                             else 0)[0]
+    rng = np.random.default_rng(13)
+    for n in (1, tile - 1, tile + 3):
+        cut = torch.tensor(rng.normal(0.0, 0.6, (n, ct_len)),
+                           dtype=torch.float32, device=cuda)
+        if mode == "conv3":
+            n0 = fd.fused_backbone.launches
+            got = (fd.fused_backbone(cut, laid14,
+                                     compute_dtype=torch.bfloat16),)
+            torch.cuda.synchronize()
+            assert fd.fused_backbone.launches == n0 + 1
+            pairs = (fd.fused_backbone(cut, w_bb,
+                                       compute_dtype=torch.bfloat16),)
+            ref = (fd.fused_backbone_plain(cut, w_bb,
+                                           compute_dtype=torch.bfloat16),)
+        elif mode == "read":
+            act1 = backbone_layer1(cut, layer1)
+            n0 = backbone_tail.launches
+            got = backbone_tail(act1, laid, emb, l=ct_len)
+            torch.cuda.synchronize()
+            assert backbone_tail.launches == n0 + 1
+            pairs = backbone_tail(act1, tail, emb, l=ct_len)
+            ref = backbone_tail_plain(act1, tail, emb, l=ct_len)
+        else:
+            n0 = backbone_bf16.launches
+            got = backbone_bf16(cut, layer1, laid, emb, l=ct_len)
+            torch.cuda.synchronize()
+            assert backbone_bf16.launches == n0 + 1
+            pairs = backbone_bf16(cut, layer1, tail, emb, l=ct_len)
+            ref = backbone_bf16_plain(cut, layer1, tail, emb, l=ct_len)
+            read = backbone_tail(backbone_layer1(cut, layer1), laid, emb,
+                                 l=ct_len)
+            assert all(torch.equal(g, r) for g, r in zip(got, read))
+        assert got[0].shape == ref[0].shape
+        for g, p, r in zip(got, pairs, ref):
+            assert torch.equal(g, p)
+            _close(g, r, BF16_REL)
 
 
 @pytest.mark.parametrize("ct,ct_valid,window,d", [(64, 60, 5, 1024),
