@@ -18,12 +18,13 @@ Phases:
 2. build every kernel from ``planar_optical_flow_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` report, the
    count of each source's ``C75xx`` notes (every note that says a wgmma
-   was serialized printed; the bf16 backbones may carry none) and each
-   kernel's dynamic shared memory; the launch geometry of K5, K9, K10, K7,
-   K4 (and K14's bf16 head, on K4's kernel), K2 in its three layer-1 modes
-   (and K14's bf16 backbone, on K2's kernel), K13 and K14 f32 (cutouts a
-   block, rows a cutout, shared memory) equal to ``int8_tiles``' and within
-   the card's 232,448 bytes;
+   was serialized printed; the bf16 backbones, K8 and K12 may carry none,
+   and K8 and K12 no spill) and each kernel's dynamic shared memory; the
+   launch geometry of K5, K9, K10, K7, K4 (and K14's bf16 head, on K4's
+   kernel), K2 in its three layer-1 modes (and K14's bf16 backbone, on K2's
+   kernel), K8, K12, K13 and K14 f32 (cutouts a block, rows a cutout,
+   shared memory) equal to ``int8_tiles``' and within the card's 232,448
+   bytes;
 3. the model, from a seeded ``torch.Generator``, with seeded BN stats, and
    the int8 calibration on ``scans[0][:8]`` (as ``bench.py`` calibrates);
 4. each kernel at the flagship shapes against its plain PyTorch version on
@@ -32,9 +33,10 @@ Phases:
    laid out once; against ``backbone_layer1`` -> ``backbone_tail_plain``,
    and equal to the bit to K2 on ``backbone_layer1``'s act1 and to a call
    on the pairs; K2 on act1 and the plain layer 1 timed beside it), K3
-   gate, K4 head (bf16: within 2e-2 x max|plain|), then K5 int8 backbone, K6 int8 gate, K7 int8 head (K5, K7,
-   K9, K10 and K13 on weights laid out once, as the step builder holds
-   them, each equal to the bit to a call on the triples); at the
+   gate, K4 head (bf16: within 2e-2 x max|plain|), then K5 int8 backbone,
+   K6 int8 gate, K7 int8 head (K5, K7-K10, K12 and K13 on weights laid out
+   once, as the step builder holds them, each equal to the bit to a call on
+   the triples); at the
    456 rows a stream of ``"flat"`` and ``"int8"``, K10 int8 backbone on
    the int8 layer 1 (int8 and bf16 feats) and K6 and K7 on K10's feats
    (K11 and K10's head); at the 480 rows a stream of ``"pm"``, K1, K9 int8
@@ -146,6 +148,10 @@ TOL_SERVE_F32 = 2e-4     # make_serve_step f32 vs module (test_fast_gate.py)
 QUANT_MEAN = 0.05        # mean |pred_cls| difference (tests/test_quantized.py)
 # the ptxas notes C75xx that say a wgmma was serialized
 SERIAL_NOTES = ("10", "11", "12", "13", "14", "15", "16", "18", "20")
+# the kernels (source -> entry names) that may carry no such note and no
+# spill
+CLEAN_KERNELS = {"conv_stack_int8": ("backbone_int8_cut_kernel",),
+                 "serve_cell": ("gate_head_int8_kernel",)}
 # the kernels line: name -> (source, the TPU kernel it replaces, wrapper,
 # the phase-5 run whose launches it reports)
 _CS = "planar_optical_flow_tpu/ops/pallas/conv_stack.py"
@@ -233,9 +239,9 @@ LAYOUTS = {
 
 
 def laid_weights(w):
-    """The int8 weights ``w`` with the wgmma convs' (K5/K9/K10, K7, K13)
-    laid out once, as ``make_serve_step_v3`` holds them (K8 and K12 read
-    their triples, ``.convs``)."""
+    """The int8 weights ``w`` with every int8 conv's (K5, K7-K10, K12, K13)
+    laid out once, as ``make_serve_step_v3`` holds them (the triples stay
+    in ``.convs``)."""
     from planar_optical_flow_tpu_torch.ops.kernels import conv_stack as cs
 
     return w._replace(backbone=cs.backbone_weights_int8(w.backbone),
@@ -250,6 +256,25 @@ def same_bits(name, got, ref):
     print(f"[kernel] {name}: {'bit-identical' if ok else 'DIFFER'}",
           flush=True)
     check(ok, f"{name} differ")
+
+
+def kernel_ptxas(log, kernel):
+    """(notes that a wgmma was serialized, bytes spilled) of the entry
+    function whose mangled name holds ``kernel``, from an ``-Xptxas -v``
+    log: a note names its function; the spill line follows the entry's
+    ``Compiling entry function`` line."""
+    serial, spills, entry = 0, 0, ""
+    for line in log.splitlines():
+        code = line.partition("(C75")[2][:2]
+        if code in SERIAL_NOTES and kernel in line:
+            serial += 1
+        if "Compiling entry function" in line:
+            entry = line
+        if kernel in entry and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            spills += sum(int(words[i - 2]) for i, w in enumerate(words)
+                          if w == "spill")
+    return serial, spills
 
 
 def check(cond, msg):
@@ -870,7 +895,8 @@ def fused_kernel_phase(model, scans, calib, device, iters):
     -> K5; K12 on p2's feats with scan 1's features as the carried template
     against its plain version and K6 -> K7; K13 at 480 rows with a carry
     made by K9 from scan 0, against its plain version and K9 -> K6 -> K7.
-    Each timed beside its plain version."""
+    Each on the weights laid out once, equal to the bit to a call on the
+    triples, and timed beside its plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -923,9 +949,14 @@ def fused_kernel_phase(model, scans, calib, device, iters):
         p_pad = -(-NUM_PTS // 8) * 8
         n = b * p_pad
         scan_p = F.pad(scans[0], (0, p_pad - NUM_PTS))
-        k8 = (scan_p, w.layer1, w.backbone.convs, w.embed)
+        # the weights laid out once, as make_serve_step_v3 holds them
+        k8 = (scan_p, w.layer1, w.backbone, w.embed)
         got = cs.backbone_int8_cut(*k8, **ckw)
         torch.cuda.synchronize()
+        same_bits("backbone_int8_cut on the laid-out weights and on the "
+                  "triples", got,
+                  cs.backbone_int8_cut(scan_p, w.layer1, w.backbone.convs,
+                                       w.embed, **ckw))
         ref = cs.backbone_int8_cut_plain(*k8, **ckw)
         record_int8(
             results, "backbone_int8_cut", [(got[0], ref[0])],
@@ -946,14 +977,18 @@ def fused_kernel_phase(model, scans, calib, device, iters):
         # K12 on p2's feats (scan 0) and scan 1's features as the template
         x, zx = got[0].reshape(n, d), got[1]
         feats2, zx2 = cs.backbone_int8_cut(
-            F.pad(scans[1], (0, p_pad - NUM_PTS)), w.layer1, w.backbone.convs,
+            F.pad(scans[1], (0, p_pad - NUM_PTS)), w.layer1, w.backbone,
             w.embed, **ckw)
         tmpl = carried(feats2, n)
         del feats2, got
-        k12 = (zx, zx2, x, tmpl, w.head.convs, head_w)
+        k12 = (zx, zx2, x, tmpl, w.head, head_w)
         kw12 = dict(gkw(p_pad), num_classes=1, l4=l4)
         got = gate_head_int8(*k12, **kw12)
         torch.cuda.synchronize()
+        same_bits("gate_head_int8 on the laid-out weights and on the "
+                  "triples", got,
+                  gate_head_int8(zx, zx2, x, tmpl, w.head.convs, head_w,
+                                 **kw12))
         ref = gate_head_int8_plain(*k12, **kw12)
         record_int8(
             results, "gate_head_int8", [(got[0], ref[0])],
@@ -1714,6 +1749,12 @@ def main(argv=None):
         check(name != "backbone_bf16"
               or not any(k[3:] in SERIAL_NOTES for k in notes),
               f"ptxas serialized a wgmma of {name}: {notes}")
+        for kernel in CLEAN_KERNELS.get(name, ()):
+            serial, spills = kernel_ptxas(rep["log"], kernel)
+            print(f"[ptxas {name}] {kernel}: {serial} notes that a wgmma "
+                  f"was serialized, {spills} bytes spilled", flush=True)
+            check(serial == 0 and spills == 0,
+                  f"ptxas serialized a wgmma or spilled in {kernel}")
 
     p_pad = -(-NUM_PTS // 8) * 8
     p_pm = -(-NUM_PTS // PM_TILE) * PM_TILE
@@ -1766,6 +1807,10 @@ def main(argv=None):
     geo13.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     geo2 = _build.load("backbone_bf16").backbone_bf16_geometry
     geo2.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    geo8 = _build.load("conv_stack_int8").backbone_int8_cut_geometry
+    geo8.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    geo12 = _build.load("serve_cell").gate_head_geometry
+    geo12.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
     for name, which, l, mode, want in (
             ("K5", 0, c, 0, int8_tiles.backbone_geometry(c, 0)),
             ("K9", 0, c, 1, int8_tiles.backbone_geometry(c, 1)),
@@ -1779,6 +1824,10 @@ def main(argv=None):
             ("K14 bf16 backbone", "bf16", c, 1,
              int8_tiles.backbone_bf16_geometry(c, 1)),
             ("K13", "cell", c, None, int8_tiles.cell_geometry(c)),
+            (f"K8 at {p_pad} beams a stream", "cut", c, p_pad,
+             int8_tiles.cut_geometry(c, p_pad)),
+            ("K12", "gate_head", c // 4, None,
+             int8_tiles.gate_head_geometry(c // 4)),
             ("K14 f32 backbone", "f32", c, 0,
              int8_tiles.fused_backbone_f32_geometry(c)),
             ("K14 f32 head", "f32", c // 4, 1,
@@ -1789,6 +1838,12 @@ def main(argv=None):
                  ctypes.byref(smem))
         elif which == "cell":
             geo13(l, ctypes.byref(tile), ctypes.byref(rows),
+                  ctypes.byref(smem))
+        elif which == "cut":
+            geo8(l, mode, ctypes.byref(tile), ctypes.byref(rows),
+                 ctypes.byref(smem))
+        elif which == "gate_head":
+            geo12(l, ctypes.byref(tile), ctypes.byref(rows),
                   ctypes.byref(smem))
         elif which == "f32":
             check(geo14(mode, l, ctypes.byref(tile), ctypes.byref(rows),

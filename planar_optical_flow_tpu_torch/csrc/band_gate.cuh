@@ -1,7 +1,7 @@
-// The band gate's device code, shared by gate.cu (K3, K6), serve_cell.cu
-// (K12), serve_cell_wg.cu (K13) and banded_mix.cu (K15): the banded attention of one row (the
+// The band gate's device code, shared by gate.cu (K3, K6), gate_head_wg.cuh
+// (K12, K13) and banded_mix.cu (K15): the banded attention of one row (the
 // JAX _attention_body), the z-carry mix and similarity band, and the int8
-// template mix with its requant. The attention and z mix take bf16 or f32
+// template mix's requant and operand staging. The attention and z mix take bf16 or f32
 // embeddings (K3's two modes). Every row reads only its own current embedding and the CARRIED
 // embedding and template rows i + o, |o| <= window / 2, of its stream, so a
 // block may own any rows, provided it writes new rows to fresh buffers.
@@ -100,10 +100,6 @@ __device__ __forceinline__ void store8(bf16* p, const float* f) {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ int sbyte(unsigned w, int b) {
-  return (int)(signed char)(w >> (8 * b));
 }
 
 // Row i's banded attention, one warp (the JAX _attention_body): lane
@@ -208,7 +204,7 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int k) {
 // Four template rows' 16 bytes (tr[e]: row e of a quad, columns c .. c +
 // 15) byte-transposed into the 16 words at dst: word c' holds the four
 // rows' bytes of column c + c', the K order of the B operand of the int8
-// mix's mma.m16n8k32 (K6, K13)
+// mix's mma.m16n8k32 (K6, K12, K13)
 __device__ __forceinline__ void transpose_quad(uint32_t* dst,
                                                const uint4 (&tr)[4]) {
 #pragma unroll
@@ -223,39 +219,6 @@ __device__ __forceinline__ void transpose_quad(uint32_t* dst,
         __byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
         __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632));
   }
-}
-
-// new_t[i] at columns col .. col + 15: the 2*hw+1 products of q (row i's
-// quantized attention, window entries) with the carried template rows i + o
-// of the stream (t: its row 0, rows of d int8) summed exactly in int32,
-// then blended with x[i] (xraw: its 16 int8 values) and requantized.
-__device__ __forceinline__ uint4 mix_requant16(
-    const int* q, const int8_t* __restrict__ t, int i, int window, size_t d,
-    size_t col, uint4 xraw, float alpha, float beta, float s_x, float s_t127,
-    float s_out) {
-  const int hw = window / 2;
-  int acc[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) acc[e] = 0;
-  for (int k = 0; k < window; ++k) {
-    const int qk = q[k];
-    if (qk != 0) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          t + (long long)(i + k - hw) * d + col);
-      const unsigned w4[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[e] += qk * sbyte(w4[e >> 2], e & 3);
-    }
-  }
-  const unsigned xw[4] = {xraw.x, xraw.y, xraw.z, xraw.w};
-  unsigned ow[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 16; ++e)
-    ow[e >> 2] |= ((unsigned)blend_requant(acc[e], sbyte(xw[e >> 2], e & 3),
-                                           alpha, beta, s_x, s_t127, s_out) &
-                   0xffu)
-                  << (8 * (e & 3));
-  return make_uint4(ow[0], ow[1], ow[2], ow[3]);
 }
 
 }  // namespace

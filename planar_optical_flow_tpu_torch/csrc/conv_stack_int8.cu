@@ -42,8 +42,8 @@
 //       over positions (a sequential sum, then one division); cls and reg
 //       from bf16(mean) and bf16 weights with f32 accumulation.
 //   K16: left[r] = x[r - 1] and right[r] = x[r + 1] of an int8 (rows, 128)
-//       array, zero at the ends of each length-L cutout, read through both
-//       tile layouts and tap addresses the int8 convs use (below).
+//       array, zero at the ends of each length-L cutout, read through the
+//       packed tile's loader and the tap addresses the int8 convs use.
 //
 // Design. Every kernel keeps a block's cutouts in shared memory across all
 // its layers: device memory sees the f32 cutouts (or the int8 template) in
@@ -51,38 +51,37 @@
 // lanes are TPU layout devices and are not carried over: the int32 sums are
 // the same in any layout.
 //
-// K5/K9/K10 and K7 run on wgmma_conv.cuh: 16 cutouts a block in the packed
-// tile (cutouts back to back, one or two zero rows between them), wgmma
-// m64nNk32 s8 products (N = 64-256) with both operands in shared memory,
-// the weights staged by cp.async into a 4 x 16 KB ring two chunks ahead of
-// use (the host lays them out in the descriptor's core-matrix order,
-// int8_tiles.wgmma_weights), two warp groups, 256 threads and one block per
-// SM. They work against the int8 tensor-core rate: one instruction covers
-// 64 rows x up to 256 channels, each weight byte crosses L2 once per 16
-// cutouts, off the critical path, and the 7-position head stage fills 7 of
-// 8 rows. The per-stage split (PERF.md) shows what is left: the epilogues,
-// which both warp groups run at once while the tensor cores idle, and a
-// barrier every chunk.
+// K5/K8/K9/K10 and K7 run on wgmma_conv.cuh: 16 cutouts a block in the
+// packed tile (cutouts back to back, one or two zero rows between them),
+// wgmma m64nNk32 s8 products (N = 64-256) with both operands in shared
+// memory, the weights staged by cp.async into a 4 x 16 KB ring two chunks
+// ahead of use (the host lays them out in the descriptor's core-matrix
+// order, int8_tiles.wgmma_weights), two warp groups, 256 threads and one
+// block per SM. They work against the int8 tensor-core rate: one
+// instruction covers 64 rows x up to 256 channels, each weight byte crosses
+// L2 once per 16 cutouts, off the critical path, and the 7-position head
+// stage fills 7 of 8 rows. The per-stage split (PERF.md) shows what is
+// left: the epilogues, which both warp groups run at once while the tensor
+// cores idle, and a barrier every chunk.
 
-// The gate embed of K5/K9/K10 is a second kernel, embed_kernel (embed.cuh,
-// shared with K2), launched by the same entry over all N cutouts on the
-// feats the first one wrote: 128 cutouts a block, We^T staged in shared
-// memory by cp.async, bf16 mma.sync.m16n8k16 with the contraction in
-// K-order, so that each zx is the same chain of products and f32 sums as
-// the embed of K8 (int8_stack.cuh's backbone_tail) and of K13
-// (serve_cell_wg.cu, on embed.cuh's embed_frag_a): K8 and K13 stay equal
-// to the bit to K1 -> K5 and K9 -> K6 -> K7.
+// The gate embed of K5/K8/K9/K10 is a second kernel, embed_kernel
+// (embed.cuh, shared with K2), launched by the same entry over all N
+// cutouts on the feats the first one wrote: 128 cutouts a block, We^T
+// staged in shared memory by cp.async, bf16 mma.sync.m16n8k16 with the
+// contraction in K-order, so that each zx is the same chain of products and
+// f32 sums as the embed of K13 (serve_cell_wg.cu, on embed.cuh's
+// embed_frag_a): K13 stays equal to the bit to K9 -> K6 -> K7.
 //
 // K10 fills the tile from its int8 input rows instead of computing layer 1;
 // with bf16 feats its last conv writes the bf16 rows straight to device
-// memory. K8's block loads its stream's whole scan (the taps of a close
-// beam reach ~180 beams away), computes the scan's prefix sum in area mode,
-// and the cutouts of its own 8 beams into the f32 cutout buffer its
-// backbone reads: the (N, L) cutout tensor never exists in device memory.
-// Its blocks never straddle two streams (the padded scan length is a
-// multiple of kTile). K16 is one small launch of the loaders and tap
-// addresses of both conv layouts on a known pattern: a byte where the two
-// disagree comes out as -128, which no pattern value is.
+// memory. K8 is K5's block with K1's cutout block in front: a block takes
+// 16 beams of one stream (grid: stream x tile), loads its stream's whole
+// scan (the taps of a close beam reach ~180 beams away), computes the
+// scan's prefix sum in area mode, and the cutouts of its own beams into the
+// f32 cutout buffer its layer 1 reads: the (N, L) cutout tensor never
+// exists in device memory, and K8's outputs are K1 -> K5's bits. K16 is
+// one small launch of the packed tile's loader and tap addresses on a
+// known pattern.
 //
 // Bound on this card (NVIDIA H100, 1,979 TOP/s int8, 989 TFLOP/s bf16):
 // tensor-core operations: about 15.1 M int8 operations per cutout for the
@@ -186,93 +185,96 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   cp_async_wait<0>();  // the zero copies past the last chunk
 }
 
-// K8: (B, p) f32 scans (p a multiple of kTile) -> K5's outputs for the B * p
-// beams, on int8_stack.cuh's backbone. Shared memory: two tiles of kTile * S
-// bytes and the f32 cutouts, then the stream's ranges (p), prefix sums (p +
-// 1), the prefix sum's row totals and the block's half-window angles
-// (kTile).
-__global__ void __launch_bounds__(kThreads)
+// K8 (K5 with K1's cutouts in front): the cutouts of T beams of one
+// stream, i0 .. i0 + T - 1 (grid: stream x tile; the last tile of a stream
+// may be partial), then K5's layer 1 and five tail convs. The block loads
+// its stream's scan (p floats: the taps of a close beam reach far), takes
+// its prefix sum in area mode (cutout.cuh scan_xla), and computes its
+// beams' taps with K1's arithmetic (cutout_tap) into the f32 cutouts that
+// layer 1 reads. Shared memory: the ring, two tile regions of R bytes, the
+// f32 cutouts (T x L), then the stream's ranges (p), prefix sums (p + 1),
+// the prefix sum's row totals and the block's half-window angles (T).
+__global__ void __launch_bounds__(kWgThreads, 1)
     backbone_int8_cut_kernel(const float* __restrict__ scans,
                              const CutoutCfg cfg, int p,
                              const float* __restrict__ w1,
                              const float* __restrict__ b1,
-                             const TailWeights tw,
-                             const bf16* __restrict__ we_t,
-                             const bf16* __restrict__ be,
-                             int8_t* __restrict__ feats,
-                             bf16* __restrict__ zx, int n, int S) {
+                             const __grid_constant__ TailWeights tw,
+                             int8_t* __restrict__ feats, int T, int R) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int L = cfg.c;
-  int8_t* buf0 = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* buf1 = buf0 + (size_t)kTile * S;
-  float* cut_s = reinterpret_cast<float*>(buf1 + (size_t)kTile * S);
-  float* r_s = cut_s + kTile * L;
+  const int L = cfg.c, L4 = L / 4;
+  float* sb = reinterpret_cast<float*>(smem_raw + kStages * kStageBytes);
+  int8_t* bufa = reinterpret_cast<int8_t*>(smem_raw + kRingBytes);
+  int8_t* bufb = bufa + R;
+  float* cut_s = reinterpret_cast<float*>(bufb + R);
+  float* r_s = cut_s + T * L;
   float* cs_s = r_s + p;  // cs_s[i] = sum of beams < i
   float* scratch = cs_s + p + 1;
   float* ha_s = scratch + scan_scratch_floats(p);
-  const int c0 = blockIdx.x * kTile;
-  const int nv = min(kTile, n - c0);
-  const int beam0 = c0 % p;
-  const float* scan = scans + (size_t)(c0 / p) * p;
+  const int i0 = blockIdx.y * T;
+  const int nv = min(T, p - i0);
+  const float* scan = scans + (size_t)blockIdx.x * p;
+  const int c0 = blockIdx.x * p + i0;  // the block's first row
+  // the weight chunks of the five convs, in the order they are used
+  auto sched = [&](int j, const int8_t*& src, int& bytes) {
+    return backbone_chunk(j, tw, L, T, src, bytes);
+  };
 
-  zero_smem(buf0, kTile * S);
-  zero_smem(buf1, kTile * S);
-  for (int i = threadIdx.x; i < p; i += kThreads) {
+  Ring ring = ring_start(smem_raw, sched);
+  zero_smem(bufa, R);
+  zero_smem(bufb, R);
+  for (int i = threadIdx.x; i < p; i += kWgThreads) {
     const float r = scan[i];
     r_s[i] = r;
     cs_s[i + 1] = r;
   }
   if (threadIdx.x < nv)
-    ha_s[threadIdx.x] = half_alpha_of(scan[beam0 + threadIdx.x],
+    ha_s[threadIdx.x] = half_alpha_of(scan[i0 + threadIdx.x],
                                       cfg.half_width);
   if (threadIdx.x == 0) cs_s[0] = 0.0f;
   __syncthreads();
   if (cfg.area_mode) scan_xla(cs_s + 1, p, scratch);
-
-  for (int idx = threadIdx.x; idx < nv * L; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < nv * L; idx += kWgThreads) {
     const int c = idx / L;
-    cut_s[idx] = cutout_tap(r_s, cs_s, beam0 + c, idx - c * L, ha_s[c], cfg);
+    cut_s[idx] = cutout_tap(r_s, cs_s, i0 + c, idx - c * L, ha_s[c], cfg);
   }
   __syncthreads();
-  layer1_tile<kFold>(cut_s, w1, b1, 1.0f, buf0, nv, L, S);
+  layer1_packed<kFold>(cut_s, w1, b1, 1.0f, bufa, nv, L, T);
   __syncthreads();
-  backbone_tail(buf0, buf1, tw, we_t, be, feats, zx + (size_t)c0 * 128, c0,
-                nv, L, S);
+  backbone_convs<kWgPoolRows>(bufa, bufb, R, nullptr, L, T, nv, c0, ring,
+                              sched, sb, tw);
+  __syncthreads();
+  // the block's feats rows, contiguous in device memory as in bufb
+  uint4* dst = reinterpret_cast<uint4*>(feats + (size_t)c0 * L4 * 256);
+  for (int idx = threadIdx.x; idx < nv * L4 * 16; idx += kWgThreads)
+    dst[idx] = reinterpret_cast<const uint4*>(bufb)[idx];
+  cp_async_wait<0>();  // the zero copies past the last chunk
 }
 
-
 // K16: x (n * L, 128) int8 -> left[r] = x[r - 1], right[r] = x[r + 1]
-// within each length-L cutout (zero at its ends), through both conv
-// layouts: int8_stack.cuh's (load_rows into cutouts of S bytes, TAP_ROW;
-// K8, K12) and wgmma_conv.cuh's packed tile (load_packed, packed_tap;
-// K5, K7, K9, K10, K13). A byte where the two disagree is
-// written as -128, which the known-answer pattern never holds.
-__global__ void __launch_bounds__(kThreads)
+// within each length-L cutout (zero at its ends), read through the packed
+// tile's loader and tap addresses (load_packed, packed_at), which every
+// int8 conv (K5, K7-K10, K12, K13) reads its taps through: blocks of
+// kWgTile cutouts.
+__global__ void __launch_bounds__(kWgThreads)
     row_shift_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ left,
-                     int8_t* __restrict__ right, int n, int L, int S) {
+                     int8_t* __restrict__ right, int n, int L) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int LD = ld_of(128);
-  int8_t* tile = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* ptile = tile + (size_t)kTile * S;
-  const int c0 = blockIdx.x * kTile;
-  const int nv = min(kTile, n - c0);
-  const int PS = pstride(L), rows = prows(L, kTile);
-  zero_smem(tile, kTile * S + ptile_bytes(L, 128, kTile));
+  int8_t* ptile = reinterpret_cast<int8_t*>(smem_raw);
+  const int c0 = blockIdx.x * kWgTile;
+  const int nv = min(kWgTile, n - c0);
+  const int PS = pstride(L), rows = prows(L, kWgTile);
+  zero_smem(ptile, ptile_bytes(L, 128, kWgTile));
   __syncthreads();
-  load_rows<128>(x, tile, c0, nv, L, S);
-  load_packed<128>(x, ptile, c0, nv, L, kTile);
+  load_packed<128>(x, ptile, c0, nv, L, kWgTile);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nv * L * 128; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < nv * L * 128; idx += kWgThreads) {
     const int c = idx / (L * 128);
     const int rem = idx - c * L * 128;
     const int p = rem >> 7, ch = rem & 127;
     const size_t o = ((size_t)(c0 + c) * L + p) * 128 + ch;
-    const int8_t l0 = TAP_ROW(tile, c, S, LD, 0, 0, p)[ch];
-    const int8_t r0 = TAP_ROW(tile, c, S, LD, 0, 2, p)[ch];
-    const int8_t l1 = *packed_at(ptile, rows, c * PS + p, ch);
-    const int8_t r1 = *packed_at(ptile, rows, c * PS + p + 2, ch);
-    left[o] = l0 == l1 ? l1 : (int8_t)-128;
-    right[o] = r0 == r1 ? r1 : (int8_t)-128;
+    left[o] = *packed_at(ptile, rows, c * PS + p, ch);
+    right[o] = *packed_at(ptile, rows, c * PS + p + 2, ch);
   }
 }
 
@@ -307,18 +309,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   cp_async_wait<0>();  // the zero copies past the last chunk
 }
 
-// K8: K5's two int8_stack.cuh tiles and f32 cutouts, and the scan's, at p
-// beams a stream
-size_t backbone_int8_cut_smem(int l, int p, int* S) {
-  *S = backbone_stride(l);
-  return 2 * (size_t)kTile * *S + (size_t)kTile * l * sizeof(float) +
-         ((size_t)2 * p + 1 + scan_scratch_floats(p) + kTile) * sizeof(float);
+// K8: K5's shared memory at T cutouts a block, and the scan's at p beams
+// a stream
+size_t cut_smem(int l, int p, int T) {
+  return backbone_smem(l, kFold, T) +
+         ((size_t)2 * p + 1 + scan_scratch_floats(p) + T) * sizeof(float);
 }
 
-// K16: the padded tile (kTile cutouts of S bytes) and the packed one
-size_t row_shift_smem(int l, int* S) {
-  *S = round16((pad16(l) + 2) * ld_of(128));
-  return (size_t)kTile * *S + ptile_bytes(l, 128, kTile);
+// cutouts a K8 block: the most (kWgTile, halved) whose shared memory fits
+int cut_tile(int l, int p) {
+  int T = kWgTile;
+  while (T > 1 && cut_smem(l, p, T) > kSmemMax) T /= 2;
+  return T;
 }
 
 TailWeights tail_weights(const void* const* p) {
@@ -385,8 +387,18 @@ extern "C" long long backbone_int8_smem_bytes(int l, int l1_mode,
 }
 
 extern "C" long long backbone_int8_cut_smem_bytes(int l, int p) {
-  int S;
-  return (long long)backbone_int8_cut_smem(l, p, &S);
+  return (long long)cut_smem(l, p, cut_tile(l, p));
+}
+
+// The launch geometry of K8 at cutout length l and p beams a stream:
+// cutouts a block, rows a cutout in the packed tile and dynamic shared
+// memory (bytes); int8_tiles.cut_geometry mirrors it
+extern "C" int backbone_int8_cut_geometry(int l, int p, int* tile, int* rows,
+                                          long long* smem) {
+  *tile = cut_tile(l, p);
+  *rows = pstride(l);
+  *smem = (long long)cut_smem(l, p, *tile);
+  return 0;
 }
 
 extern "C" long long head_int8_smem_bytes(int l4) {
@@ -428,7 +440,9 @@ extern "C" int backbone_int8_launch(const void* in, const void* w1,
 // K8: scans (b, p) f32 with p a multiple of 8 -> feats (b * p * l/4, 256)
 // int8 and zx (b * p, 128) bf16, as K1 (the cutout arguments as for
 // cutout_launch, with c = l) followed by K5 (w1, b1, tail, we_t, be as for
-// backbone_int8_launch in l1_mode 0).
+// backbone_int8_launch in l1_mode 0, each w of tail laid out by
+// int8_tiles.wgmma_weights). Two launches: the cutouts and the backbone,
+// then K5's gate embed on its feats.
 extern "C" int backbone_int8_cut_launch(
     const void* scans, int b, int p, int p_valid, int l, float window_width,
     float window_depth, float padding_val, float inv_c1, float inv_angle,
@@ -437,20 +451,23 @@ extern "C" int backbone_int8_cut_launch(
     void* feats, void* zx, void* stream) {
   const int n = b * p;
   if (n == 0) return (int)cudaSuccess;
-  if (p % kTile) return (int)cudaErrorInvalidValue;
-  int S;
-  const size_t smem = backbone_int8_cut_smem(l, p, &S);
+  if (p % 8) return (int)cudaErrorInvalidValue;
+  const int T = cut_tile(l, p);
+  const size_t smem = cut_smem(l, p, T);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   int err = set_smem((const void*)backbone_int8_cut_kernel, smem);
   if (err) return err;
   const CutoutCfg cfg = {p_valid, l, 0.5f * window_width, window_depth,
                          padding_val, inv_c1, inv_angle, inv_depth,
                          centered, area_mode};
-  backbone_int8_cut_kernel<<<n / kTile, kThreads, smem,
-                             (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  backbone_int8_cut_kernel<<<dim3(b, (p + T - 1) / T), kWgThreads, smem,
+                             st>>>(
       (const float*)scans, cfg, p, (const float*)w1, (const float*)b1,
-      tail_weights(tail), (const bf16*)we_t, (const bf16*)be, (int8_t*)feats,
-      (bf16*)zx, n, S);
-  return (int)cudaGetLastError();
+      tail_weights(tail), (int8_t*)feats, T, (int)backbone_region(l, T));
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_embed<int8_t>(feats, we_t, be, zx, n, l / 4 * 256, st);
 }
 
 // K16: x (rows, 128) int8, rows a multiple of l
@@ -458,13 +475,13 @@ extern "C" int row_shift_launch(const void* x, void* left, void* right,
                                 int rows, int l, void* stream) {
   const int n = rows / l;
   if (n == 0) return (int)cudaSuccess;
-  int S;
-  const size_t smem = row_shift_smem(l, &S);
+  const size_t smem = ptile_bytes(l, 128, kWgTile);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   int err = set_smem((const void*)row_shift_kernel, smem);
   if (err) return err;
-  const int grid = (n + kTile - 1) / kTile;
-  row_shift_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (int8_t*)left, (int8_t*)right, n, l, S);
+  const int grid = (n + kWgTile - 1) / kWgTile;
+  row_shift_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (int8_t*)left, (int8_t*)right, n, l);
   return (int)cudaGetLastError();
 }
 

@@ -51,7 +51,7 @@ constexpr size_t embed_smem() {
 // (K = L/4 * 256; int8 values are exact in bf16), we_t (128, K) bf16. Warp w
 // owns rows 32 (w % 4) .. + 31 and columns 64 (w / 4) .. + 63; each output
 // is one chain of mma.sync.m16n8k16 over k = 0, 16, ..., K - 16 from 0.0,
-// as the embed of int8_stack.cuh's backbone_tail computes it, then one f32
+// as K13's embed (serve_cell_wg.cu cell_embed) computes it, then one f32
 // add of the bias and one rounding to bf16.
 template <typename TA>
 __global__ void __launch_bounds__(256)

@@ -7,8 +7,8 @@
 // per_stream=True (kernel _gate_int8_pm_stream_kernel, _quantize_attn,
 // _mix_requant). Both share the front half, as the JAX kernels share
 // _attention_body: band_attention and z_mix_and_sim in band_gate.cuh, which
-// states the math and also holds the int8 mix (mix_requant16, K12's; K6 and
-// K13 take the same sums on the tensor cores). K3 mixes the bf16 template with the bf16-rounded attention:
+// states the math and also holds the int8 mix's requant (blend_requant; K6,
+// K12 and K13 take the mix's sums on the tensor cores). K3 mixes the bf16 template with the bf16-rounded attention:
 //   new_t[i] = alpha * x[i] + beta * sum_o bf16(attn[i, o]) * t[i + o]
 // and in its f32 mode (f32 embeddings, features and template; the JAX
 // mix_dtype f32) the f32 template with the f32 attention, every output f32.
@@ -24,8 +24,8 @@
 // template rows of the tile and its band's halo staged in shared memory
 // and the exact int32 mix taken on the int8 tensor cores (mma.m16n8k32,
 // the quantized band as A, the byte-transposed template rows as B); see
-// gate_int8_rows_kernel. Its arithmetic is mix_requant16's, so new_t is
-// the same bytes as before and as K12's and K13's.
+// gate_int8_rows_kernel. K12 and K13 run the same mix on one 16-row tile
+// (gate_head_wg.cuh), so their new_t is K6's bytes.
 //
 // new_t and new_z go to fresh buffers: the TPU kernels alias the carry,
 // but here a block writing row i while another reads row i +- hw of the
@@ -130,9 +130,9 @@ struct GateTiles {
 // ahead, are staged byte-transposed (word (quad, c) holds rows 4 quad ..
 // 4 quad + 3 of column c: the B operand's K order) by __byte_perm; x is
 // staged by cp.async one chunk ahead. The exact int32 mix of each 16-row x
-// 8-column tile is KT s8 mma products, and blend_requant (the epilogue of
-// mix_requant16, op for op) writes new_t over x in shared memory, from
-// where it leaves in 16-byte stores. Rows outside [0, ct) of the stream are
+// 8-column tile is KT s8 mma products, and blend_requant (band_gate.cuh,
+// the JAX _mix_requant's epilogue op for op) writes new_t over x in shared
+// memory, from where it leaves in 16-byte stores. Rows outside [0, ct) of the stream are
 // staged as zeros, so no block reads a neighbouring stream. The epilogue's
 // instructions, the IEEE division's above all, and their latency set the
 // pace more than the bytes do: the kernel is held to 64 registers so that

@@ -1,5 +1,6 @@
-// The int8 wgmma stacks' device code, shared by K5/K9/K10 and K7
-// (conv_stack_int8.cu) and K13 (serve_cell_wg.cu): the conv plans, the
+// The int8 wgmma stacks' device code, shared by K5/K8/K9/K10 and K7
+// (conv_stack_int8.cu), K12 (serve_cell.cu) and K13 (serve_cell_wg.cu),
+// the last two through gate_head_wg.cuh: the conv plans, the
 // backbone's layer 1 into the packed tile, the chunk schedules of the
 // backbone tail and the head, and the two stacks' conv sequences. The
 // convs themselves are wgmma_conv.cuh's, the gate embed's A fragment
@@ -54,8 +55,9 @@ inline size_t head_tiles(int l4, int T) {
 }
 
 // Backbone layer 1 from the block's f32 cutouts (nv x L in cut_s) into the
-// zeroed packed tile: layer1_tile's arithmetic, ((xl * w0 + x * w1) + xr *
-// w2) + b, leaky (kDivide: then one division by in_scale), rint, clip; each
+// zeroed packed tile: ((xl * w0 + x * w1) + xr * w2) + b, each f32 step
+// rounded once, leaky (kDivide: then one division by in_scale), rint, clip
+// (K5's and K8's weights have 1/in_scale folded in, kFold); each
 // consumer thread keeps the weights of 4 channels in registers and writes
 // them as one 4-byte store, 16 positions at a time.
 template <int L1>

@@ -14,8 +14,10 @@ gate API of the module-backbone serving step.
 * K12 :func:`gate_head_int8` replaces ``gate_head_fused_int8_pm`` (kernel
   ``_gate_head_int8_pm_stream_kernel``): K6, then the int8 head (K7,
   ``conv_stack.head_int8``) on the fresh template in the same kernel,
-  byte-identical to the two. Each block of 8 rows reads its neighbours'
-  carried rows and keeps its new template in shared memory for the head.
+  byte-identical to the two. It is K13's gate and head stage alone
+  (``csrc/gate_head_wg.cuh``): each block of 16 rows of one stream reads
+  its neighbours' carried rows, mixes on the int8 tensor cores and keeps
+  its new template in shared memory for the head's wgmma convs.
 * K15 :func:`banded_mix_update` replaces ``banded_mix_update`` (kernel
   ``_mix_kernel``): the standalone mix ``alpha * x + (1 - alpha) * sum_o
   attn[i, o] * template[(i + o) mod ct]``. On no serving path, as in JAX.
@@ -61,13 +63,12 @@ import ctypes
 import torch
 
 from planar_optical_flow_tpu_torch.models.blocks import rounded
-from planar_optical_flow_tpu_torch.ops.kernels import _build
+from planar_optical_flow_tpu_torch.ops.kernels import _build, int8_tiles
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
+    _wg_inputs,
     check_head_int8_weights,
     head_int8_plain,
     head_ptrs,
-    int8_convs,
-    int8_ptr_array,
 )
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import div_f32
 from planar_optical_flow_tpu_torch.ops.kernels.fold import GateParams
@@ -422,8 +423,10 @@ def gate_head_int8(zx, zt, x, template, head_conv_weights, head_weights, *,
 
     Gate arguments as for :func:`gate_int8` (``D = l4 * 256``; ``s_out``
     is the head's input scale); ``head_conv_weights``/``head_weights`` as
-    for ``conv_stack.head_int8``. A CUDA tensor launches K12; a CPU tensor
-    runs :func:`gate_head_int8_plain`.
+    for ``conv_stack.head_int8`` (the triples, laid out on every call, or
+    ``conv_stack.head_weights_int8``, laid out once). A CUDA tensor
+    launches K12 (blocks of 16 rows of one stream); a CPU tensor runs
+    :func:`gate_head_int8_plain`.
     """
     kw = dict(ct=ct, alpha=alpha, window_size=window_size, s_x=s_x, s_t=s_t,
               s_out=s_out, ct_valid=ct_valid)
@@ -440,21 +443,23 @@ def gate_head_int8(zx, zt, x, template, head_conv_weights, head_weights, *,
     head_weights = check_head_int8_weights("gate_head_int8",
                                            head_conv_weights, head_weights,
                                            num_classes, l4)
+    lib, laid, head = _wg_inputs("gate_head_int8", head_conv_weights, 1,
+                                 int8_tiles.gate_head_geometry(l4)[2],
+                                 "serve_cell")
     zx, zt, x, template = (t.contiguous() for t in (zx, zt, x, template))
     new_t = torch.empty_like(template)
     new_z = torch.empty_like(zx)
     sim = torch.empty(n, window_size, dtype=torch.float32, device=zx.device)
     cls = torch.empty(n, num_classes, dtype=torch.float32, device=zx.device)
     reg = torch.empty(n, 2, dtype=torch.float32, device=zx.device)
-    fn = _build.load("serve_cell").gate_head_int8_launch
+    fn = lib.gate_head_int8_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
         + [ctypes.c_float] * 5 + [ctypes.c_void_p]
     _build.check(fn(zx.data_ptr(), zt.data_ptr(), x.data_ptr(),
                     template.data_ptr(), new_t.data_ptr(), new_z.data_ptr(),
-                    sim.data_ptr(),
-                    int8_ptr_array(int8_convs(head_conv_weights)),
-                    *head_ptrs(head_weights), cls.data_ptr(), reg.data_ptr(),
+                    sim.data_ptr(), head, *head_ptrs(head_weights),
+                    cls.data_ptr(), reg.data_ptr(),
                     n, ct, ct_valid, window_size, l4, num_classes,
                     float(alpha), 1.0 - alpha, float(s_x), s_t / 127.0,
                     float(s_out), _build.stream_ptr(zx.device)),

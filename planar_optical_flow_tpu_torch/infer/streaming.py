@@ -847,8 +847,8 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             sanitize=sanitize_inputs, san_max=san_max, dev=dev)
     w = int8_weights(det, calib, dev, precision)
     check_row_shift(dev)
-    # the wgmma convs' weights (K5/K9/K10, K7, K13) laid out for their
-    # weight rings once, for every step; K8 and K12 read the triples
+    # the int8 convs' weights (K5, K7-K10, K12, K13) laid out for their
+    # weight rings once, for every step
     bb_laid, hd_laid = backbone_weights_int8(w.backbone), head_weights_int8(
         w.head)
 
@@ -897,7 +897,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     def features(padded):
         """(B, p_pad) scans -> (feats (N, D) int8, zx (N, 128) bf16)."""
         if p2c:
-            feats, zx = backbone_int8_cut(padded, w.layer1, w.backbone,
+            feats, zx = backbone_int8_cut(padded, w.layer1, bb_laid,
                                           w.embed, **cut_kw)
         else:
             feats, zx = backbone(cutout(padded, **cut_kw))
@@ -926,7 +926,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         elif fuse_gate_head:
             feats, zx = features(padded)
             template, z, sim, cls, reg = gate_head_int8(
-                zx, carry["z"], feats, carry["template"], w.head, hd_head_w,
+                zx, carry["z"], feats, carry["template"], hd_laid, hd_head_w,
                 s_t=tmpl_scale, num_classes=num_classes, l4=l4, **gate_kw)
         else:
             feats, zx = features(padded)

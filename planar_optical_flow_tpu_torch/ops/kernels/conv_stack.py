@@ -51,8 +51,8 @@ The int8 stacks, weights from ``quant.kernel_stack_weights``:
   rounded as ``clip(rint(leaky(acc) / in_scale))``, one true division, on
   the unscaled weights.
 * K8 :func:`backbone_int8_cut` replaces ``fused_backbone_int8_p2cut``: K1's
-  cutouts of the padded scans (``cutout_kernel.cutout``) and K5 in one
-  kernel, bit-identical to the two; the ``(N, L)`` cutouts never reach
+  cutouts of the padded scans (``cutout_kernel.cutout``) in front of K5's
+  block, bit-identical to the two; the ``(N, L)`` cutouts never reach
   device memory.
 * K10 :func:`backbone_int8_tail` replaces ``fused_backbone_int8`` (both
   ``conv_mode``s, which JAX makes bit-identical): K5's tail convs and embed
@@ -67,18 +67,17 @@ The int8 stacks, weights from ``quant.kernel_stack_weights``:
 * K16 :func:`row_shift` / :func:`check_row_shift` replace
   ``check_byte_shift``: the known-answer check of the k=3 tap rows.
 
-K5, K7, K9 and K10 (and K13, ``serve_cell``) run on ``wgmma`` s8 products
-over a packed tile of 16 cutouts, with the conv weights staged in shared
-memory by cp.async (``csrc/wgmma_conv.cuh``, ``csrc/int8_wg.cuh``); the
-host lays the weights out once per set of weights
-(:func:`backbone_weights_int8`, :func:`head_weights_int8`, held by the
-step builder; a caller passing the triples has them laid out on every
-call). The gate embed of K5/K9/K10 is a second kernel over all cutouts.
-K8 and K12 run on ``mma.sync`` int8 products (``csrc/int8_stack.cuh``)
-with the same embed arithmetic. ~15.1 M and 28.9 M int8 operations per
-cutout. The plain versions sum the int8 products in
-float64, which is exact (the 512-channel conv reaches 1536 * 127^2 > 2^24,
-beyond f32's exact integers).
+Every int8 conv stack (K5, K7-K10, and K12 and K13, ``fast_gate.
+gate_head_int8`` and ``serve_cell``) runs on ``wgmma`` s8 products over a
+packed tile of 16 cutouts, with the conv weights staged in shared memory by
+cp.async (``csrc/wgmma_conv.cuh``, ``csrc/int8_wg.cuh``); the host lays the
+weights out once per set of weights (:func:`backbone_weights_int8`,
+:func:`head_weights_int8`, held by the step builder; a caller passing the
+triples has them laid out on every call). The gate embed of K5/K8/K9/K10
+is a second kernel over all cutouts. ~15.1 M and 28.9 M int8 operations
+per cutout. The plain versions sum the int8 products in float64, which is
+exact (the 512-channel conv reaches 1536 * 127^2 > 2^24, beyond f32's
+exact integers).
 """
 
 from __future__ import annotations
@@ -629,15 +628,15 @@ def int8_convs(weights):
 
 def backbone_weights_int8(weights) -> Int8Laid:
     """Lay the int8 backbone tail (layers 2-6) out for the weight ring of
-    K5/K9/K10 and K13, once per set of weights: the step builder holds the
-    result and passes it on every call."""
+    K5/K8/K9/K10 and K13, once per set of weights: the step builder holds
+    the result and passes it on every call."""
     return Int8Laid(tuple(weights), tuple(
         int8_tiles.plan_weights(weights, int8_tiles.BACKBONE_PLAN)))
 
 
 def head_weights_int8(weights) -> Int8Laid:
-    """Lay the five int8 head convs out for the weight ring of K7 and K13,
-    once per set of weights."""
+    """Lay the five int8 head convs out for the weight ring of K7, K12 and
+    K13, once per set of weights."""
     return Int8Laid(tuple(weights), tuple(
         int8_tiles.plan_weights(weights, int8_tiles.HEAD_PLAN)))
 
@@ -671,14 +670,14 @@ def wg_laid(weights, which):
         weights).laid
 
 
-def _wg_inputs(what, weights, which, smem):
-    """The ``conv_stack_int8`` library and the pointer array of ``weights``
-    laid out for the ring of its wgmma kernel ``which`` (0: K5/K9/K10, 1:
-    K7), and the laid-out tensors (they must live until the launch is
-    queued). The first call checks the library's conv plans against
-    ``int8_tiles``'; raises if the launch's shared memory is over the
-    card's limit."""
-    lib = _build.load("conv_stack_int8")
+def _wg_inputs(what, weights, which, smem, source="conv_stack_int8"):
+    """The library of ``source`` and the pointer array of ``weights`` laid
+    out for the ring of its wgmma kernel ``which`` (0: the backbone tail of
+    K5/K8/K9/K10, 1: the head of K7 and K12), and the laid-out tensors (they
+    must live until the launch is queued). The first call checks the
+    library's conv plans against ``int8_tiles``'; raises if the launch's
+    shared memory is over the card's limit."""
+    lib = _build.load(source)
     check_int8_plans(lib, what)
     if smem > int8_tiles.SMEM_MAX:
         raise ValueError(f"{what}: {smem} bytes of shared memory at this "
@@ -840,9 +839,10 @@ def backbone_int8_cut(scans, layer1, weights, embed_weights, *,
     256)`` int8, zx ``(B*P, 128)`` bf16), ``l = num_cutout_pts``.
 
     The cutout arguments are :func:`cutout_kernel.cutout`'s, the weights
-    :func:`backbone_int8`'s (layer 1 with ``1/in_scale`` folded in). A
-    CUDA tensor launches K8; a CPU tensor runs
-    :func:`backbone_int8_cut_plain`.
+    :func:`backbone_int8`'s (layer 1 with ``1/in_scale`` folded in; the
+    tail as the triples or :func:`backbone_weights_int8`). A CUDA tensor
+    launches K8, blocks of 16 beams of one stream (and K5's embed kernel);
+    a CPU tensor runs :func:`backbone_int8_cut_plain`.
     """
     kw = dict(num_cutout_pts=num_cutout_pts, window_width=window_width,
               window_depth=window_depth, padding_val=padding_val,
@@ -864,11 +864,12 @@ def backbone_int8_cut(scans, layer1, weights, embed_weights, *,
     w1, b1, we_t, be = _check_backbone_weights(
         "backbone_int8_cut", layer1, weights, embed_weights, l)
     scans = scans.contiguous()
+    lib, laid, tail = _wg_inputs("backbone_int8_cut", weights, 0,
+                                 int8_tiles.cut_geometry(l, p)[2])
     feats = torch.empty(b * p * (l // 4), 256, dtype=torch.int8,
                         device=scans.device)
     zx = torch.empty(b * p, 128, dtype=torch.bfloat16, device=scans.device)
-    tail = int8_ptr_array(int8_convs(weights))
-    fn = _build.load("conv_stack_int8").backbone_int8_cut_launch
+    fn = lib.backbone_int8_cut_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
         + [ctypes.c_float] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
@@ -913,10 +914,9 @@ def row_shift(x, *, l: int):
     """K16: the k=3 tap rows of int8 ``x (rows, 128)``, rows grouped in
     cutouts of ``l`` -> (left, right), ``left[r] = x[r - 1]`` and
     ``right[r] = x[r + 1]``, zero at each cutout's ends. A CUDA tensor
-    launches K16, which reads the rows through both int8 tile layouts, each
-    with its loader and tap address (K8/K12's, and the packed tile of
-    K5/K7/K9/K10/K13), and writes -128 where the two disagree; a CPU tensor
-    runs the plain versions' tap construction."""
+    launches K16, which reads the rows through the packed tile's loader and
+    tap addresses (those of every int8 conv: K5, K7-K10, K12, K13); a CPU
+    tensor runs the plain versions' tap construction."""
     rows = x.shape[0]
     if rows % l:
         raise ValueError(f"row_shift: {rows} rows is not a multiple of l={l}")

@@ -36,6 +36,13 @@ operand and the launch geometry of the packed tile.
   embed's ``W^T (128, D)`` from L2 in chunks of ``EMBED_K`` columns of K,
   each ``[8-element K block][column][8 elements]``: the bf16 wgmma layout
   of ``nj = 2`` (:func:`embed_weights`).
+* **K12 and K8.** K12 (``csrc/serve_cell.cu``) is K13's gate and head
+  stage alone, on 16 rows of one stream: the same regions without the
+  backbone's tiles (:func:`gate_head_geometry`; the C side,
+  ``gate_head_geometry``). K8 (``csrc/conv_stack_int8.cu``) is K5's block
+  with K1's cutouts in front, 16 beams of one stream: K5's shared memory
+  and the stream's scan, prefix sums and half-window angles
+  (:func:`cut_geometry`; the C side, ``backbone_int8_cut_geometry``).
 * **K14 f32.** Each f32 weight ``w`` is held as two bf16 values, ``hi =
   bf16(w)`` and ``lo = bf16(w - hi)``; each conv's ``(Cout, 3*Cin)`` hi and
   lo are laid out as the bf16 weights are, in chunks of :func:`chunk_k_x3`,
@@ -168,8 +175,8 @@ def backbone_bf16_smem_bytes(l: int, l1_mode: int, tile: int) -> int:
 
 def cell_pitch(l4: int) -> int:
     """Bytes from one cutout's int8 feats rows (``l4 x 256``) to the next in
-    K13's shared memory: 16 more than the rows, so that the rows of an mma
-    fragment fall in different banks."""
+    K12's and K13's shared memory: 16 more than the rows, so that the rows
+    of an mma fragment fall in different banks."""
     return l4 * 256 + 16
 
 
@@ -258,6 +265,46 @@ def backbone_bf16_geometry(l: int, l1_mode: int = 0):
     backbone launch at cutout length ``l``: layer 1 from the cutouts
     (``l1_mode`` 0, K2; 1, K14) or read from act1 (2, K2)."""
     return _geometry(lambda t: backbone_bf16_smem_bytes(l, l1_mode, t), l)
+
+
+def gate_head_smem_bytes(l4: int, tile: int) -> int:
+    """Dynamic shared memory of a K12 block of ``tile`` cutouts: the ring,
+    two regions each holding the largest packed tile of the head, its f32
+    rows, the block's pitched feature rows and the staged template, then
+    the means, zx and the quantized band."""
+    region = _round128(max(ptile_bytes(l4, 256, tile),
+                           ptile_bytes(l4 // 2, 512, tile),
+                           tile * (l4 // 2) * 128 * 4,
+                           tile * cell_pitch(l4), _gate_tb_bytes(2)))
+    return (RING_BYTES + 2 * region + tile * 128 * (4 + 2)
+            + CELL_ROWS * CELL_MAX_WINDOW * 4)
+
+
+def scan_scratch_floats(p: int) -> int:
+    """Floats of the row totals of a prefix sum of ``p`` values in XLA's
+    order (``csrc/cutout.cuh`` ``scan_scratch_floats``)."""
+    return (p + 14) // 15 + 4
+
+
+def cut_smem_bytes(l: int, p: int, tile: int) -> int:
+    """Dynamic shared memory of a K8 block of ``tile`` cutouts at ``p``
+    beams a stream: K5's (:func:`backbone_smem_bytes`), then the stream's
+    ranges and prefix sums, the prefix sum's row totals and the block's
+    half-window angles."""
+    return (backbone_smem_bytes(l, 0, tile)
+            + (2 * p + 1 + scan_scratch_floats(p) + tile) * 4)
+
+
+def gate_head_geometry(l4: int):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a K12
+    launch at ``l4`` positions."""
+    return _geometry(lambda t: gate_head_smem_bytes(l4, t), l4)
+
+
+def cut_geometry(l: int, p: int):
+    """(cutouts a block, rows a cutout, shared-memory bytes) of a K8 launch
+    at cutout length ``l`` and ``p`` beams a stream."""
+    return _geometry(lambda t: cut_smem_bytes(l, p, t), l)
 
 
 def cell_geometry(l: int):

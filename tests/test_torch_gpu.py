@@ -563,6 +563,72 @@ def test_gate_head_int8_kernel(cuda, num_pts, ct_len, window):
         assert torch.equal(g, c)
 
 
+@pytest.mark.parametrize("num_pts,p,ct_len,window",
+                         [(37, 40, 16, 5), (37, 40, 56, 11),
+                          (450, 456, 56, 11)])
+def test_backbone_int8_cut_partial_tile(cuda, num_pts, p, ct_len, window):
+    """K8 at 40 and 456 beams a stream (blocks of 16 beams of one stream,
+    the last of 8): on the weights laid out once and on the triples, equal
+    to K1 then K5 to the bit, and within the bars of its plain version."""
+    w, _, _, cut_kw, scans = _fused_setup(cuda, num_pts, ct_len, window)
+    assert p % int8_tiles.cut_geometry(ct_len, p)[0]
+    padded = _pad(scans[0], p)
+    bb = conv_stack.backbone_weights_int8(w.backbone)
+    n0 = conv_stack.backbone_int8_cut.launches
+    got = conv_stack.backbone_int8_cut(padded, w.layer1, bb, w.embed,
+                                       **cut_kw)
+    torch.cuda.synchronize()
+    assert conv_stack.backbone_int8_cut.launches == n0 + 1
+    raw = conv_stack.backbone_int8_cut(padded, w.layer1, w.backbone, w.embed,
+                                       **cut_kw)
+    chain = backbone_int8(cutout(padded, **cut_kw), w.layer1, bb, w.embed,
+                          l=ct_len)
+    for g, r, c in zip(got, raw, chain):
+        assert torch.equal(g, r) and torch.equal(g, c)
+    ref = conv_stack.backbone_int8_cut_plain(padded, w.layer1, w.backbone,
+                                             w.embed, **cut_kw)
+    _int8_close(got[0], ref[0])
+    _close(got[1], ref[1], BF16_REL)
+
+
+@pytest.mark.parametrize("num_pts,ct,ct_len,window",
+                         [(37, 40, 16, 5), (37, 40, 56, 11),
+                          (37, 40, 16, 21), (450, 456, 56, 11)])
+def test_gate_head_int8_partial_tile(cuda, num_pts, ct, ct_len, window):
+    """K12 at 40 and 456 rows a stream (blocks of 16 rows of one stream, the
+    last of 8), window 5, 11 and 21 (two k32 steps of the band): on the
+    head laid out once and on the triples, equal to K6 then K7 to the bit,
+    and within the bars of its plain version."""
+    w, head_w, gp, cut_kw, scans = _fused_setup(cuda, num_pts, ct_len,
+                                                 window)
+    l4 = ct_len // 4
+    assert ct % int8_tiles.gate_head_geometry(l4)[0]
+    bb = conv_stack.backbone_weights_int8(w.backbone)
+    hd = conv_stack.head_weights_int8(w.head)
+    (f0, z0), (f1, z1) = (backbone_int8(cutout(_pad(s, ct), **cut_kw),
+                                        w.layer1, bb, w.embed, l=ct_len)
+                          for s in scans)
+    x = f0.reshape(z0.shape[0], -1)
+    tmpl = quant.quantize_int8(f1.float().reshape(x.shape) * w.feat_scale,
+                               w.tmpl_scale)
+    gkw = _gate_kw(w, gp, ct, num_pts)
+    kw = dict(gkw, num_classes=1, l4=l4)
+    n0 = gate_head_int8.launches
+    got = gate_head_int8(z0, z1, x, tmpl, hd, head_w, **kw)
+    torch.cuda.synchronize()
+    assert gate_head_int8.launches == n0 + 1
+    raw = gate_head_int8(z0, z1, x, tmpl, w.head, head_w, **kw)
+    chain = gate_int8(z0, z1, x, tmpl, **gkw)
+    chain += head_int8(chain[0].reshape(-1, 256), hd, head_w, num_classes=1,
+                       l4=l4)
+    for g, r, c in zip(got, raw, chain):
+        assert torch.equal(g, r) and torch.equal(g, c)
+    ref = gate_head_int8_plain(z0, z1, x, tmpl, w.head, head_w, **kw)
+    _int8_close(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        _close(g, r, BF16_REL)
+
+
 @pytest.mark.parametrize("num_pts,ct_len,window", FUSED_GEOMETRY)
 def test_serve_cell_int8_kernel(cuda, num_pts, ct_len, window):
     """K13 on a carried step against its plain version, and equal to K9,
