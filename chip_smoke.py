@@ -19,7 +19,10 @@ Phases:
    ``nvcc`` per source, in parallel), with the ``-Xptxas -v`` report, the
    count of each source's ``C75xx`` notes (every note that says a wgmma
    was serialized printed; the bf16 backbones, K8 and K12 may carry none,
-   and K8 and K12 no spill) and each kernel's dynamic shared memory; the
+   and K8, K12 and K3/K15's band_mix_kernel no spill) and each kernel's
+   dynamic shared memory; the launch geometry of band_mix_kernel (K3 bf16
+   and K15: rows a tile, tiles, ring stages, shared memory) equal to
+   ``fast_gate.band_mix_geometry``'s with two blocks an SM; the
    launch geometry of K5, K9, K10, K7, K4 (and K14's bf16 head, on K4's
    kernel), K2 in its three layer-1 modes (and K14's bf16 backbone, on K2's
    kernel), K8, K12, K13 and K14 f32 (cutouts a block, rows a cutout,
@@ -33,7 +36,10 @@ Phases:
    laid out once; against ``backbone_layer1`` -> ``backbone_tail_plain``,
    and equal to the bit to K2 on ``backbone_layer1``'s act1 and to a call
    on the pairs; K2 on act1 and the plain layer 1 timed beside it), K3
-   gate, K4 head (bf16: within 2e-2 x max|plain|), then K5 int8 backbone,
+   gate (its new template also equal to the bit to ``gate_mix_plain`` on
+   K3's own attention, read back through a probe template, and to
+   ``gate_plain``'s on every row whose bf16 attention the two compute
+   alike), K4 head (bf16: within 2e-2 x max|plain|), then K5 int8 backbone,
    K6 int8 gate, K7 int8 head (K5, K7-K10, K12 and K13 on weights laid out
    once, as the step builder holds them, each equal to the bit to a call on
    the triples); at the
@@ -60,9 +66,10 @@ Phases:
    once, each equal to the bit to a call on the pairs) on the module
    cutouts of the 450-beam streams, K3's f32 mode
    at ct=450 (template 2e-5, z and sim 2e-4, ``tests/test_fast_gate.py``),
-   and K15 in bf16 against its plain version and against K3's new template
-   on K3's own attention (read back through K3 with a probe template), each
-   within one bf16 ulp (or 2^-17 x max where the f32 sum cancels);
+   K3 in bf16 at ct=450 (the serve bf16 path's rows; its new template to
+   the bit as above), and K15 in bf16 on K3's own attention, equal to its
+   plain version to the bit and within one bf16 ulp (or 2^-17 x max where
+   the f32 sum cancels) of K3's new template;
 5. the slices, each for 1 bootstrap + 5 carried steps, every launch
    counter set to 0 just before and read just after:
    ``StreamingRunner(engine="v3")`` (K1-K4 launched, K2 from the cutouts,
@@ -151,7 +158,9 @@ SERIAL_NOTES = ("10", "11", "12", "13", "14", "15", "16", "18", "20")
 # the kernels (source -> entry names) that may carry no such note and no
 # spill
 CLEAN_KERNELS = {"conv_stack_int8": ("backbone_int8_cut_kernel",),
-                 "serve_cell": ("gate_head_int8_kernel",)}
+                 "serve_cell": ("gate_head_int8_kernel",),
+                 "gate": ("band_mix_kernel",),
+                 "banded_mix": ("band_mix_kernel",)}
 # the kernels line: name -> (source, the TPU kernel it replaces, wrapper,
 # the phase-5 run whose launches it reports)
 _CS = "planar_optical_flow_tpu/ops/pallas/conv_stack.py"
@@ -166,7 +175,9 @@ KERNELS = {
     # (layer 1 inside), backbone_tail being its JAX interface on act1
     "backbone_tail": (_SRC + "backbone_bf16.cu", _CS + ":302",
                       "backbone_bf16", "v3"),
-    "gate": (_SRC + "gate.cu", _FG + ":274", "gate", "v3"),
+    # K3 in bf16 and K15 run band_mix.cuh's kernel (gate.cu and
+    # banded_mix.cu launch it)
+    "gate": (_SRC + "band_mix.cuh", _FG + ":274", "gate", "v3"),
     "head": (_SRC + "head_bf16.cu", _CS + ":340", "head", "v3"),
     "backbone_int8": (_SRC + "conv_stack_int8.cu", _CS + ":1102",
                       "backbone_int8", "int8c"),
@@ -209,7 +220,7 @@ KERNELS = {
                         "fused_bf16"),
     "gate_f32": (_SRC + "gate.cu", _FG + ":274", "gate", "serve_f32"),
     # on no serving path, as in JAX: the launches of its phase-4 checks
-    "banded_mix": (_SRC + "banded_mix.cu", _FG + ":191", "banded_mix_update",
+    "banded_mix": (_SRC + "band_mix.cuh", _FG + ":191", "banded_mix_update",
                    "phase4"),
 }
 V3_KERNELS = ("cutout", "backbone_bf16", "gate", "head")
@@ -256,6 +267,35 @@ def same_bits(name, got, ref):
     print(f"[kernel] {name}: {'bit-identical' if ok else 'DIFFER'}",
           flush=True)
     check(ok, f"{name} differ")
+
+
+def k3_bits(name, new_t, ref_t, zx, zt, x, t, kw):
+    """K3's bf16 new template to the bit: equal to ``gate_mix_plain`` on
+    K3's own attention (read back through a probe template), and to
+    ``gate_plain``'s ``ref_t`` on every row whose bf16 attention the two
+    compute alike (the rest differ by the attention's rounding, not the
+    mix). Returns that attention ``(B, ct, window)``."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.infer import fast_gate as fg
+
+    ct, window = kw["ct"], kw["window_size"]
+    ct_valid = kw.get("ct_valid") or ct
+    a = fg.gate_attention_probe(zx, zt, ct=ct, ct_valid=ct_valid,
+                                window_size=window)
+    own = torch.equal(new_t, fg.gate_mix_plain(a, x, t, ct=ct,
+                                               ct_valid=ct_valid,
+                                               alpha=kw["alpha"]))
+    a_plain = fg._attention(zx, zt, ct=ct, ct_valid=ct_valid,
+                            window_size=window)[0].to(torch.bfloat16).float()
+    alike = (a_plain == a).all(-1).reshape(-1)
+    rows = torch.equal(new_t[alike], ref_t[alike])
+    print(f"[kernel] {name} new_t: equal to the bit to gate_plain's mix on "
+          f"K3's own attention: {own}; to gate_plain's new_t on the "
+          f"{int(alike.sum())} of {alike.numel()} rows whose bf16 attention "
+          f"the two compute alike: {rows}", flush=True)
+    check(own and rows, f"{name}: new_t differs from gate_plain's mix")
+    return a
 
 
 def kernel_ptxas(log, kernel):
@@ -505,6 +545,7 @@ def kernel_phase(model, scans, device, iters):
                time_ms(lambda: gate(zx, zx2, x, t, **gkw), iters),
                time_ms(lambda: gate_plain(zx, zx2, x, t, **gkw), 3, 1),
                bound(flops3, H100_F32_FLOPS, bytes3))
+        k3_bits("gate", got3[0], ref3[0], zx, zx2, x, t, gkw)
         del ref3
 
         # K4 on the gate's new template, its weights laid out once as the
@@ -1216,34 +1257,27 @@ def k14_k15_kernel_phase(model, scans, device):
                                    bound_by=k3[2][1])
         del got, ref
 
-        # K15 in bf16 on the same rows; K3 in bf16 at ct=450 gives the
-        # attention: with x = 0, alpha = 0.5 and a template whose row j is 1
-        # at the columns c = j mod window, new_t[i, c] = 0.5 * a[i, o] for
-        # the offset o with i + o = c mod window, exactly in bf16
+        # K3 in bf16 at ct=450 (the serve bf16 path's rows) on the same
+        # rows, its new template to the bit; K15 in bf16 on K3's own
+        # attention
         gp16 = fold.fold_gate_params(det.gate, dtype=torch.bfloat16)
         x16, t16 = x.to(torch.bfloat16), t.to(torch.bfloat16)
         del x, t, zx, zt
         zx16, zt16 = fg.embed(gp16, x16), fg.embed(gp16, t16)
-        hw = WINDOW // 2
-        rows = torch.arange(n, device=device) % NUM_PTS
-        probe = torch.zeros(n, d, dtype=torch.bfloat16, device=device)
-        probe[torch.arange(n, device=device), rows % WINDOW] = 1.0
-        probe_out = fg.gate(zx16, zt16, torch.zeros_like(x16), probe,
-                            ct=NUM_PTS, alpha=0.5, window_size=WINDOW)[0]
-        cols = (rows[:, None] + torch.arange(-hw, hw + 1, device=device)) \
-            % WINDOW
-        attn = (2.0 * torch.gather(probe_out[:, :WINDOW].float(), 1, cols))
-        del probe, probe_out
-        attn = attn.reshape(b, NUM_PTS, WINDOW)
+        kw16 = dict(ct=NUM_PTS, alpha=gp.alpha, window_size=WINDOW)
+        k3_t = fg.gate(zx16, zt16, x16, t16, **kw16)[0]
+        torch.cuda.synchronize()
+        attn = k3_bits(f"gate at ct={NUM_PTS}", k3_t,
+                       fg.gate_plain(zx16, zt16, x16, t16, **kw16)[0], zx16,
+                       zt16, x16, t16, kw16)
+        k3_t = k3_t.reshape(b, NUM_PTS, d)
         x3, t3 = x16.reshape(b, NUM_PTS, d), t16.reshape(b, NUM_PTS, d)
         fg.banded_mix_update.launches = 0
         got = fg.banded_mix_update(attn, x3, t3, gp.alpha, WINDOW)
         torch.cuda.synchronize()
-        ref = fg.banded_mix_update_plain(attn, x3, t3, gp.alpha, WINDOW)
-        k3_t = fg.gate(zx16, zt16, x16, t16, ct=NUM_PTS, alpha=gp.alpha,
-                       window_size=WINDOW)[0].reshape(b, NUM_PTS, d)
         launches = fg.banded_mix_update.launches
-        ok_plain, ok_k3 = within_bf16_ulp(got, ref), within_bf16_ulp(got, k3_t)
+        ref = fg.banded_mix_update_plain(attn, x3, t3, gp.alpha, WINDOW)
+        ok_plain, ok_k3 = torch.equal(got, ref), within_bf16_ulp(got, k3_t)
         err = max_err(got, ref)
         k15 = (time_ms(lambda: fg.banded_mix_update(attn, x3, t3, gp.alpha,
                                                     WINDOW), TIMED_ITERS),
@@ -1252,12 +1286,12 @@ def k14_k15_kernel_phase(model, scans, device):
                bound(2.0 * WINDOW * n * d + 3.0 * n * d, H100_F32_FLOPS,
                      3.0 * n * d * 2 + n * WINDOW * 4))
         print(f"[kernel] banded_mix (K15) at ({b}, {NUM_PTS}, {d}) bf16: "
-              f"max_abs_err={err:.3e} within 1 bf16 ulp of its plain version: "
-              f"{ok_plain}; of K3's new template on K3's attention: {ok_k3} "
-              f"(max diff {max_err(got, k3_t):.3e}) ms={k15[0]:.4f} "
-              f"plain_ms={k15[1]:.3f} bound_ms={k15[2][0]:.4f} "
-              f"({k15[2][1]})", flush=True)
-        check(ok_plain, "K15 disagrees with its plain version")
+              f"max_abs_err={err:.3e} equal to its plain version to the bit: "
+              f"{ok_plain}; within 1 bf16 ulp of K3's new template on K3's "
+              f"attention: {ok_k3} (max diff {max_err(got, k3_t):.3e}) "
+              f"ms={k15[0]:.4f} plain_ms={k15[1]:.3f} bound_ms="
+              f"{k15[2][0]:.4f} ({k15[2][1]})", flush=True)
+        check(ok_plain, "K15 differs from its plain version")
         check(ok_k3, "K15 disagrees with K3's mix on the same attention")
         results["banded_mix"] = dict(max_abs_err=err, ms=k15[0],
                                      plain_ms=k15[1], bound_ms=k15[2][0],
@@ -1626,7 +1660,7 @@ TRACE_KERNELS = {
               "K6": ("gate_int8_rows_kernel",), "K7": ("head_int8",)},
     "v3": {"K1": ("cutout_kernel",),
            "K2": ("backbone_bf16_kernel", "embed_kernel"),
-           "K3": ("gate_kernel",), "K4": ("head_bf16_kernel",)},
+           "K3": ("band_mix_kernel",), "K4": ("head_bf16_kernel",)},
 }
 
 
@@ -1718,6 +1752,7 @@ def main(argv=None):
     from planar_optical_flow_tpu_torch.infer.calibration import (
         calibrate_serve_v3,
     )
+    from planar_optical_flow_tpu_torch.infer import fast_gate
     from planar_optical_flow_tpu_torch.ops.kernels import _build, int8_tiles
 
     device = torch.device("cuda")
@@ -1766,7 +1801,6 @@ def main(argv=None):
              " (K2 on act1)"),
             ("backbone_bf16", "backbone_bf16_smem_bytes", (c, 1),
              " (K14 bf16)"),
-            ("gate", "gate_smem_bytes", (p_pad, WINDOW), " (K3)"),
             ("gate", "gate_int8_smem_bytes", (WINDOW,),
              " (K6, at any rows a stream)"),
             ("head_bf16", "head_bf16_smem_bytes", (c // 4,),
@@ -1785,8 +1819,7 @@ def main(argv=None):
             ("serve_cell", "gate_head_int8_smem_bytes", (c // 4,), " (K12)"),
             ("serve_cell_wg", "serve_cell_int8_smem_bytes", (c,), " (K13)"),
             ("gate", "gate_smem_bytes", (NUM_PTS, WINDOW),
-             f" at {NUM_PTS} rows a stream (K3 f32, make_serve_step; K15 "
-             "the same)"),
+             f" at {NUM_PTS} rows a stream (K3 f32, make_serve_step)"),
             ("fused_f32", "fused_backbone_f32_smem_bytes", (c,), " (K14 f32)"),
             ("fused_f32", "fused_head_f32_smem_bytes", (c // 4,),
              " (K14 f32)")):
@@ -1795,6 +1828,23 @@ def main(argv=None):
         f.argtypes = [ctypes.c_int] * len(arg)
         print(f"[smem] {fn[:-len('_smem_bytes')]}: {f(*arg)} bytes of "
               f"dynamic shared memory per block{note}")
+
+    # band_mix_kernel's launch (K3 bf16, K15) as fast_gate mirrors it
+    for lib, ct, note in (("gate", p_pad, "K3 bf16"),
+                          ("gate", NUM_PTS, "K3 bf16, serve bf16"),
+                          ("banded_mix", NUM_PTS, "K15")):
+        geo = _build.load(lib).band_mix_geometry
+        geo.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+        got = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
+               ctypes.c_longlong()]
+        geo(ct, WINDOW, *(ctypes.byref(v) for v in got))
+        got = tuple(v.value for v in got)
+        want = fast_gate.band_mix_geometry(ct, WINDOW)
+        print(f"[geometry] {note} at {ct} rows a stream: {got[0]} rows a "
+              f"tile, {got[1]} tiles, {got[2]} ring stages, {got[3]} bytes "
+              f"of shared memory (fast_gate: {want})", flush=True)
+        check(got == want and 2 * (got[3] + fast_gate.BLOCK_RESERVED)
+              <= fast_gate.SM_SMEM_BYTES, f"{note} launch geometry {got}")
 
     # the launch geometry of the wgmma kernels, as the host lays out for it
     geo = _build.load("conv_stack_int8").int8_wg_geometry

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's CUDA sources: the block shape of the
 // int8 stacks and gates, LeakyReLU 0.1, the int8 requant, warp reductions,
-// and the PTX wrappers of cp.async and the int8 mma.sync.
+// and the PTX wrappers of cp.async, mbarrier, cp.async.bulk and the int8
+// mma.sync.
 
 #pragma once
 
@@ -57,6 +58,57 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- PTX wrappers (mbarrier, cp.async.bulk) ----
+// An mbarrier's phase completes when `count` arrivals have been made and
+// the bytes announced by arrive_expect_tx have all landed; a waiter passes
+// once the phase of the given parity has completed (phases alternate 0, 1,
+// 0, ... from the init).
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// after the inits, before any thread or copy uses the barriers
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` more to land on the barrier
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory by the copy engine, completing on `bar`
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // D += A (16x32 s8, row) * B (32x8 s8, col), s32 accumulate

@@ -13,11 +13,19 @@
 // and in its f32 mode (f32 embeddings, features and template; the JAX
 // mix_dtype f32) the f32 template with the f32 attention, every output f32.
 //
-// K3's grid is (stream, D-chunk). Each block computes the stream's banded
-// attention from the (ct, 128) embeddings into shared memory (one warp per
-// row, channel dot products reduced with shuffles), then applies the band
-// to its D-chunk as 2*hw+1 multiply-adds per element. The TPU kernels'
-// dense (ct, ct) MXU matmul is not carried over.
+// K3's bf16 mode is band_mix_kernel (band_mix.cuh, K15's kernel too): a
+// block takes a tile of up to 32 rows of one stream, computes their
+// attention once, and walks D with the template rows of the tile and its
+// band's halo staged by cp.async.bulk into a ring of stages, the mix taken
+// in a register window of each warp's run of rows; new_t equals gate_plain
+// to the bit on the same attention.
+//
+// K3's f32 mode keeps gate_kernel: grid (stream, D-chunk); each block
+// computes the stream's banded attention from the (ct, 128) embeddings into
+// shared memory (one warp per row, channel dot products reduced with
+// shuffles), then applies the band to its D-chunk as 2*hw+1 multiply-adds
+// per element. The TPU kernels' dense (ct, ct) MXU matmul is not carried
+// over.
 //
 // K6's grid is (stream, tile of kGateRows rows): each block computes the
 // attention of its own rows once, then walks every column of them, the
@@ -34,28 +42,20 @@
 // Bound: device-memory bytes. Per cutout K3 reads x and the template (2 x 7
 // KB bf16 at D=3584, 2 x 14 KB in f32) and writes new_t (7 KB; 14 KB); K6
 // moves a third of the bf16 bytes in int8 (3 x 3.5 KB); all add the small
-// embeddings and sim. K3's blocks re-read the band's template rows from
+// embeddings and sim. K3's f32 blocks re-read the band's template rows from
 // L1/L2; K6 reads each template byte (64 + 16) / 64 times from device
 // memory and the band's 2*hw+1 times from shared memory.
 
 #include "band_gate.cuh"
+#include "band_mix.cuh"
 
 namespace {
 
-__device__ __forceinline__ float mix_operand(float attn, const bf16*) {
-  return bf16_round(attn);
-}
-
-__device__ __forceinline__ float mix_operand(float attn, const float*) {
-  return attn;
-}
-
-// T: bf16 or float, the dtype of every embedding, feature and template
-template <typename T>
+// K3's f32 mode: every embedding, feature and template f32
 __global__ void __launch_bounds__(kThreads)
-    gate_kernel(const T* __restrict__ zx, const T* __restrict__ zt,
-                const T* __restrict__ x, const T* __restrict__ t,
-                T* __restrict__ new_t, T* __restrict__ new_z,
+    gate_kernel(const float* __restrict__ zx, const float* __restrict__ zt,
+                const float* __restrict__ x, const float* __restrict__ t,
+                float* __restrict__ new_t, float* __restrict__ new_z,
                 float* __restrict__ sim, int ct, int ct_valid, int window,
                 int d, int d_chunk, float alpha, float beta) {
   extern __shared__ float attn_s[];  // (ct, window) attention, mix operand
@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(kThreads)
     const size_t row = row0 + i;
     const BandLane r = band_attention(zx + row * 128, zt + row0 * 128, i,
                                       ct_valid, window, lane);
-    const float a = mix_operand(r.attn, zx);
+    const float a = r.attn;
     if (lane < window) attn_s[i * window + lane] = a;
     if (blockIdx.y == 0)
       z_mix_and_sim(zx + row * 128, zt + row0 * 128, new_z + row * 128,
@@ -279,41 +279,33 @@ __global__ void __launch_bounds__(kThreads, 4)
 
 }  // namespace
 
-// dynamic shared memory of a K3 launch (bytes)
+// dynamic shared memory of a K3 f32 launch (bytes)
 extern "C" long long gate_smem_bytes(int ct, int window) {
   return (long long)ct * window * sizeof(float);
 }
 
-namespace {
-
-template <typename T>
-int launch_gate(const void* zx, const void* zt, const void* x, const void* t,
-                void* new_t, void* new_z, void* sim, int n, int d, int ct,
-                int ct_valid, int window, int d_chunk, float alpha,
-                float beta, void* stream) {
-  const size_t smem = (size_t)gate_smem_bytes(ct, window);
-  int err = set_smem((const void*)gate_kernel<T>, smem);
-  if (err) return err;
-  const dim3 grid(n / ct, d / d_chunk);
-  gate_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)zx, (const T*)zt, (const T*)x, (const T*)t, (T*)new_t,
-      (T*)new_z, (float*)sim, ct, ct_valid, window, d, d_chunk, alpha, beta);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// f32: 0 for bf16 arrays (the v3 step), 1 for f32 ones (make_serve_step
-// with compute_dtype=None)
+// f32: 0 for bf16 arrays (the v3 step; band_mix_kernel), 1 for f32 ones
+// (make_serve_step with compute_dtype=None; gate_kernel, in chunks of
+// d_chunk columns)
 extern "C" int gate_launch(const void* zx, const void* zt, const void* x,
                            const void* t, void* new_t, void* new_z, void* sim,
                            int n, int d, int ct, int ct_valid, int window,
                            int d_chunk, float alpha, float beta, int f32,
                            void* stream) {
   if (n == 0) return (int)cudaSuccess;
-  return (f32 ? launch_gate<float> : launch_gate<bf16>)(
-      zx, zt, x, t, new_t, new_z, sim, n, d, ct, ct_valid, window, d_chunk,
-      alpha, beta, stream);
+  if (!f32)
+    return launch_band_mix<bf16, false>(zx, zt, nullptr, x, t, new_t, new_z,
+                                        sim, n, d, ct, ct_valid, window,
+                                        alpha, beta, stream);
+  const size_t smem = (size_t)gate_smem_bytes(ct, window);
+  int err = set_smem((const void*)gate_kernel, smem);
+  if (err) return err;
+  const dim3 grid(n / ct, d / d_chunk);
+  gate_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)zx, (const float*)zt, (const float*)x, (const float*)t,
+      (float*)new_t, (float*)new_z, (float*)sim, ct, ct_valid, window, d,
+      d_chunk, alpha, beta);
+  return (int)cudaGetLastError();
 }
 
 // dynamic shared memory of a K6 launch (bytes)

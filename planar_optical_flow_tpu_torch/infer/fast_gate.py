@@ -4,7 +4,12 @@ gate API of the module-backbone serving step.
 
 * K3 :func:`gate` replaces ``planar_optical_flow_tpu/infer/fast_gate.py``
   ``gate_fused_flat`` (kernel ``_gate_fused_kernel``): bf16 features and
-  template, or f32 ones (the kernel computes in the features' dtype).
+  template, or f32 ones (the kernel computes in the features' dtype). In
+  bf16 it runs ``band_mix_kernel`` (``csrc/band_mix.cuh``, K15's kernel
+  too): tiles of :func:`band_mix_geometry` rows of one stream, their
+  attention computed once, D walked in chunks staged by ``cp.async.bulk``
+  and mixed in a register window; its new template equals
+  :func:`gate_plain`'s to the bit on the same attention.
 * K6 :func:`gate_int8` replaces ``gate_fused_int8_pm`` with
   ``per_stream=True`` (kernel ``_gate_int8_pm_stream_kernel``,
   ``_quantize_attn``, ``_mix_requant``): int8 features and template carry.
@@ -21,6 +26,8 @@ gate API of the module-backbone serving step.
 * K15 :func:`banded_mix_update` replaces ``banded_mix_update`` (kernel
   ``_mix_kernel``): the standalone mix ``alpha * x + (1 - alpha) * sum_o
   attn[i, o] * template[(i + o) mod ct]``. On no serving path, as in JAX.
+  It runs K3's bf16 mix kernel on the given attention, the halo rows
+  wrapped, equal to :func:`banded_mix_update_plain` to the bit.
 
 The gate API of ``make_serve_step`` (``infer/streaming.py``), as in JAX:
 :func:`embed`, :func:`gate_bootstrap`, :func:`gate_step` (K3 through
@@ -54,6 +61,8 @@ Bound on the H100: bytes: per cutout at D=3584, ~22.3 KB for K3 (x and
 template read, new_t written, bf16; twice that in f32), ~10.8 KB for K6
 (the same in int8) and ~21.5 KB for K15 in bf16. The kernels write their
 outputs to fresh buffers instead of over the carry as the TPU kernels do.
+K3's bf16 mix and K15 copy a tile's rows whole with ``cp.async.bulk``, so
+their wrappers raise on data that is not 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -89,11 +98,52 @@ def gate_halo(window_size: int) -> int:
     """Rows above a 16-row tile where K6's band operand starts."""
     return 8 if window_size // 2 <= 8 else 16
 
-__all__ = ["GateParams", "banded_mix_update", "banded_mix_update_plain",
-           "embed", "gate", "gate_bootstrap", "gate_fused", "gate_head_int8",
-           "gate_head_int8_plain", "gate_int8", "gate_int8_plain",
-           "int8_mix_plain",
-           "gate_plain", "gate_step"]
+
+# K3's bf16 mix and K15 (csrc/band_mix.cuh band_mix_kernel): a block takes
+# at most MIX_ROWS rows of one stream, each of its 8 warps a run of MIX_RUN
+# of them and one of MIX_SLICES slices of 256 bytes (8 a lane) of a staged
+# row chunk of MIX_PITCH bytes; the chunks are staged in a ring of 2-3
+# stages, after which come the (window, MIX_ROWS) f32 attention and
+# MIX_BAR_BYTES of barriers
+MIX_RUN = 8
+MIX_SLICES = 2
+MIX_ROWS = 8 // MIX_SLICES * MIX_RUN
+MIX_PITCH = MIX_SLICES * 256
+MIX_BAR_BYTES = 64
+SM_SMEM_BYTES = 233472  # shared memory of an H100 SM
+BLOCK_RESERVED = 1024   # of it, reserved for each resident block
+
+
+def band_mix_geometry(ct: int, window_size: int):
+    """The launch of ``band_mix_kernel`` (``csrc/band_mix.cuh``
+    ``band_mix_geometry``): (rows a tile, tiles a stream, ring stages,
+    bytes of dynamic shared memory a block). ``ct`` is cut into
+    ``ceil(ct / MIX_ROWS)`` tiles as even as they come; three stages where
+    two blocks still share an SM, else two."""
+    n = -(-ct // MIX_ROWS)
+    rows = -(-ct // n)
+
+    def smem(stages):
+        return (stages * (2 * MIX_ROWS + window_size - 1) * MIX_PITCH
+                + window_size * MIX_ROWS * 4 + MIX_BAR_BYTES)
+
+    stages = 3 if 2 * (smem(3) + BLOCK_RESERVED) <= SM_SMEM_BYTES else 2
+    return rows, -(-ct // rows), stages, smem(stages)
+
+
+def _check_aligned(what, *tensors):
+    """The bulk copies of ``band_mix_kernel`` need 16-byte aligned rows."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensor data not 16-byte aligned")
+
+
+__all__ = ["GateParams", "band_mix_geometry", "banded_mix_update",
+           "banded_mix_update_plain", "embed", "gate",
+           "gate_attention_probe", "gate_bootstrap", "gate_fused",
+           "gate_head_int8", "gate_head_int8_plain", "gate_int8",
+           "gate_int8_plain", "gate_mix_plain", "gate_plain", "gate_step",
+           "int8_mix_plain"]
 
 
 def _leaky(v):
@@ -266,6 +316,35 @@ def gate_plain(zx, zt, x, template, *, ct: int, alpha: float,
             _new_z(zx, zt, attn, rows, ct, alpha), s.reshape(n, -1))
 
 
+def gate_mix_plain(attn, x, template, *, ct: int, ct_valid: int,
+                   alpha: float):
+    """:func:`gate_plain`'s new template on a given mix operand ``attn
+    (B, ct, window)`` (bf16 values, f32 dtype; 0 off the valid band):
+    what K3's mix makes of the same attention, to the bit."""
+    n, d = template.shape
+    rows, _ = _band_rows(ct, ct_valid, attn.shape[-1], attn.device)
+    new_t = (alpha * x.float().reshape(attn.shape[0], ct, d)
+             + (1.0 - alpha) * _band_mix(attn, template, rows, ct))
+    return new_t.reshape(n, d).to(template.dtype)
+
+
+def gate_attention_probe(zx, zt, *, ct: int, window_size: int,
+                         ct_valid: int | None = None):
+    """K3's own bf16 mix operand ``(B, ct, window)``, read back through
+    :func:`gate` in bf16: with x = 0, alpha = 0 and a template whose row j
+    is 1 at column ``j mod window``, ``new_t[i, c]`` is exactly ``a[i, o]``
+    for the offset o with ``i + o = c mod window``."""
+    n, w, hw = zx.shape[0], window_size, window_size // 2
+    rows = torch.arange(n, device=zx.device) % ct
+    probe = torch.zeros(n, -(-w // 8) * 8, dtype=torch.bfloat16,
+                        device=zx.device)
+    probe[torch.arange(n, device=zx.device), rows % w] = 1.0
+    out = gate(zx, zt, torch.zeros_like(probe), probe, ct=ct, alpha=0.0,
+               window_size=w, ct_valid=ct_valid)[0]
+    cols = (rows[:, None] + torch.arange(-hw, hw + 1, device=zx.device)) % w
+    return torch.gather(out.float(), 1, cols).reshape(-1, ct, w)
+
+
 def _check_gate_args(what, zx, zt, x, template, ct, ct_valid, window_size,
                      dtype, d_mult, z_dtype=torch.bfloat16):
     n, d = template.shape
@@ -294,8 +373,8 @@ def gate(zx, zt, x, template, *, ct: int, alpha: float, window_size: int,
     features and of the template; ``x``/``template``: ``(N, D)``; all bf16,
     or all f32 (K3's f32 mode: f32 attention in both mixes). Returns
     new_template ``(N, D)`` and new_z ``(N, 128)`` in that dtype, sim ``(N,
-    window)`` f32. ``ct`` need not be a multiple of 8. A CUDA tensor
-    launches K3; a CPU tensor runs :func:`gate_plain`.
+    window)`` f32. ``ct`` need not be a multiple of 8; ``D`` must be. A
+    CUDA tensor launches K3; a CPU tensor runs :func:`gate_plain`.
     """
     kw = dict(ct=ct, alpha=alpha, window_size=window_size, ct_valid=ct_valid)
     if zx.device.type == "cpu":
@@ -307,6 +386,7 @@ def gate(zx, zt, x, template, *, ct: int, alpha: float, window_size: int,
     n, d, d_chunk = _check_gate_args("gate", zx, zt, x, template, ct,
                                      ct_valid, window_size, dtype, 8, dtype)
     zx, zt, x, template = (t.contiguous() for t in (zx, zt, x, template))
+    _check_aligned("gate", x, template)
     new_t = torch.empty_like(template)
     new_z = torch.empty_like(zx)
     sim = torch.empty(n, window_size, dtype=torch.float32, device=zx.device)
@@ -513,15 +593,15 @@ def banded_mix_update(attn, x, template, alpha: float, window_size: int,
                              f"{t.device}")
     attn = attn.float().contiguous()
     x, template = x.contiguous(), template.contiguous()
+    _check_aligned("banded_mix_update", x, template)
     out = torch.empty_like(x)
     fn = _build.load("banded_mix").banded_mix_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     _build.check(fn(attn.data_ptr(), x.data_ptr(), template.data_ptr(),
-                    out.data_ptr(), b * ct, d, ct, window,
-                    512 if d % 512 == 0 else d, float(alpha), 1.0 - alpha,
-                    int(x.dtype == torch.float32),
+                    out.data_ptr(), b * ct, d, ct, window, float(alpha),
+                    1.0 - alpha, int(x.dtype == torch.float32),
                     _build.stream_ptr(x.device)), "banded_mix_update")
     banded_mix_update.launches += 1
     return out
