@@ -32,12 +32,17 @@ Phases:
    the int8 calibration on ``scans[0][:8]`` (as ``bench.py`` calibrates);
 4. each kernel at the flagship shapes against its plain PyTorch version on
    the same inputs, then timed with CUDA events beside the plain version:
-   K1 cutout, K2 backbone from the cutouts (layer 1 inside, on weights
-   laid out once; against ``backbone_layer1`` -> ``backbone_tail_plain``,
-   and equal to the bit to K2 on ``backbone_layer1``'s act1 and to a call
-   on the pairs; K2 on act1 and the plain layer 1 timed beside it), K3
-   gate (its new template also equal to the bit to ``gate_mix_plain`` on
-   K3's own attention, read back through a probe template, and to
+   K1 cutout (its launch geometry equal to ``cutout_geometry``'s, with
+   ptxas's registers; its device time from a CUDA graph of its launches
+   beside the wrapper loop's; its cutouts against ``cutout_plain``'s to the bit on the
+   beams whose atanf the two compute alike, the count of those that differ
+   printed; the bar stays TOL_CUTOUT), K2 backbone from the cutouts (layer
+   1 inside, on weights laid out once; against ``backbone_layer1`` ->
+   ``backbone_tail_plain``, and equal to the bit to K2 on
+   ``backbone_layer1``'s act1 and to a call on the pairs; K2 on act1 and
+   the plain layer 1 timed beside it), K3 gate (its new template also
+   equal to the bit to ``gate_mix_plain`` on K3's own attention, read back
+   through a probe template, and to
    ``gate_plain``'s on every row whose bf16 attention the two compute
    alike), K4 head (bf16: within 2e-2 x max|plain|), then K5 int8 backbone,
    K6 int8 gate, K7 int8 head (K5, K7-K10, K12 and K13 on weights laid out
@@ -49,7 +54,8 @@ Phases:
    backbone with the divide-after-leaky layer 1, and K6 and K7 on K9's
    feats; and the K16 row-shift check (int8 outputs within 1 LSB with under
    5e-3 of them off by one, and the count of bytes that differ printed;
-   float outputs within 2e-2 x max|plain|); K9
+   float outputs within 2e-2 x max|plain|; its device time from a CUDA
+   graph of its launches beside the wrapper loop's); K9
    equal to the bit to layer 1 + K10, and within JAX's fold-vs-divide bar
    of K5 (at most 4 LSB, under 2% of the feats;
    ``tests/test_conv_stack_v2.py:292-299``); then the fused kernels, each
@@ -345,6 +351,47 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters):
+    """Mean device time (ms) of one of ``iters`` calls of ``fn`` captured in
+    one CUDA graph and replayed between two CUDA events: the launches with
+    no host work between them (the graph's gaps between launches
+    included). The profiler is not used here: after it has run, this
+    process's later launches cost more host time, which the step phases
+    would read."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def kernel_registers(log, kernel):
+    """Registers a thread of the entry function whose mangled name holds
+    ``kernel``, from an ``-Xptxas -v`` log (None if it is not there)."""
+    entry = ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif kernel in entry and "Used" in line and "registers" in line:
+            return int(line.split("Used")[1].split("registers")[0])
+    return None
+
+
 def max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
 
@@ -439,8 +486,10 @@ def kernel_phase(model, scans, device, iters):
         backbone_bf16, backbone_bf16_plain, backbone_layer1, backbone_tail,
         backbone_weights_bf16, head, head_plain, head_weights_bf16,
     )
+    from planar_optical_flow_tpu_torch.ops.kernels import _build
     from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
-        cutout, cutout_plain,
+        cutout, cutout_geometry, cutout_plain, div_f32, half_alpha_probe,
+        recip,
     )
 
     det = model.dr_spaam
@@ -478,7 +527,25 @@ def kernel_phase(model, scans, device, iters):
                              bound_by=bound_pair[1])
 
     with torch.inference_mode():
-        # K1
+        # K1: its launch geometry (as cutout_geometry mirrors it) and
+        # registers, then the kernel against its plain version
+        ww = CUTOUT_KW["window_width"]
+        got_geo = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
+                   ctypes.c_longlong()]
+        oversize = _build.load("cutout").cutout_geometry(
+            p_pad, c, ctypes.c_float(ww), ctypes.c_float(recip(
+                math.radians(0.5))), *(ctypes.byref(v) for v in got_geo))
+        got_geo = tuple(v.value for v in got_geo)
+        want = cutout_geometry(p_pad, c, ww)
+        regs = kernel_registers(_build.build_all(("cutout",))["cutout"]["log"],
+                                "cutout_kernel")
+        print(f"[geometry] K1 at {p_pad} rows a stream, C={c}: {got_geo[0]} "
+              f"beams a tile, {got_geo[1]} tiles a stream, {b * got_geo[1]} "
+              f"blocks at B={b}, a tap's reach {got_geo[2]} beams, "
+              f"{got_geo[3]} bytes of shared memory a block, {regs} "
+              f"registers a thread (ptxas); cutout_geometry: {want}",
+              flush=True)
+        check(oversize == 0 and got_geo == want, f"K1 geometry {got_geo}")
         scan_p = F.pad(scans[0], (0, p_pad - NUM_PTS))
         got = cutout(scan_p, **ckw)
         torch.cuda.synchronize()
@@ -488,6 +555,23 @@ def kernel_phase(model, scans, device, iters):
                time_ms(lambda: cutout_plain(scan_p, **ckw), 3, 1),
                bound(cutout_ops(scan_p, c, NUM_PTS), H100_F32_FLOPS,
                      4.0 * n + 4.0 * n * c))
+        dev = graph_ms(lambda: cutout(scan_p, **ckw), iters)
+        print(f"[kernel] cutout device time: {dev:.4f} ms a launch (a CUDA "
+              f"graph of {iters} launches, CUDA events); wrapper loop "
+              f"{results['cutout']['ms']:.4f} ms (CUDA events)", flush=True)
+        # to the bit, on the beams whose half-window angle (atanf) K1 and
+        # torch.atan compute alike; the bar stays TOL_CUTOUT
+        alike = (half_alpha_probe(scan_p, ww) == torch.atan(div_f32(
+            0.5 * ww, torch.clamp(scan_p, min=1e-2)))).reshape(-1)
+        rows_eq = (got == ref).all(-1)
+        print(f"[kernel] cutout vs cutout_plain at B={b}, {p_pad} rows, "
+              f"C={c}: {int(rows_eq[alike].sum())} of {int(alike.sum())} "
+              f"beams whose atanf the two compute alike equal to the bit "
+              f"({'bit-identical' if bool(rows_eq[alike].all()) else 'DIFFER'}"
+              f"); {int((~alike).sum())} beams' atanf differ, "
+              f"{int((~rows_eq[~alike]).sum())} of their cutouts differ; "
+              f"{int((~rows_eq).sum())} of {rows_eq.numel()} cutouts differ "
+              f"in all", flush=True)
 
         # K2 from this scan's cutouts (layer 1 inside), on its weights laid
         # out once as the v3 step holds them
@@ -925,6 +1009,11 @@ def layouts_kernel_phase(model, scans, calib, device, iters):
                     time_ms(lambda: cs.row_shift(x, l=l), iters),
                     time_ms(taps_plain, iters),
                     bound(0.0, H100_INT8_OPS, 3.0 * x.numel()))
+        dev = graph_ms(lambda: cs.row_shift(x, l=l), iters)
+        print(f"[kernel] row_shift (K16) device time: {dev:.4f} ms a launch "
+              f"(a CUDA graph of {iters} launches, CUDA events); wrapper "
+              f"loop {results['row_shift']['ms']:.4f} ms (CUDA events)",
+              flush=True)
     return results
 
 
@@ -1795,7 +1884,6 @@ def main(argv=None):
     p_pm = -(-NUM_PTS // PM_TILE) * PM_TILE
     c = CUTOUT_KW["num_cutout_pts"]
     for lib, fn, arg, note in (
-            ("cutout", "cutout_smem_bytes", (p_pad,), ""),
             ("backbone_bf16", "backbone_bf16_smem_bytes", (c, 0), " (K2)"),
             ("backbone_bf16", "backbone_bf16_smem_bytes", (c, 2),
              " (K2 on act1)"),

@@ -9,6 +9,13 @@
 // multiplies by their f32 reciprocals, the index and lerp multiply-adds are
 // fused (__fmaf_rn), and the area-mode band sum differences an f32 prefix
 // sum computed in XLA's order (scan_xla).
+//
+// A cutout splits in two: the beam's geometry (beam_geometry: its index,
+// half-window angle, tap spacing, clip bounds and, in area mode, whether its
+// window spans more than c beams and its band's half width), which K1
+// computes once a beam, and each tap's own work (beam_tap: its index, the
+// lerp or the band mean, padding, clip and centering). K8 calls both for
+// every tap (cutout_tap); the arithmetic is the same either way.
 
 #pragma once
 
@@ -39,13 +46,46 @@ __host__ __device__ inline int scan_scratch_floats(int p) {
   return (p + kScanBase - 2) / (kScanBase - 1) + 4;
 }
 
-// fractional beam index of tap k of beam i:
-//   i + (k * delta - half_alpha) / angle_inc,  delta = 2 * half_alpha / (c-1)
-__device__ __forceinline__ float tap_index(int i, int k, float half_alpha,
-                                           float inv_c1, float inv_angle) {
-  const float delta = __fmul_rn(__fmul_rn(2.0f, half_alpha), inv_c1);
-  const float off = __fmaf_rn((float)k, delta, -half_alpha);
-  return __fmaf_rn(off, inv_angle, (float)i);
+// One beam's geometry: everything of its cutout that is not a tap's own.
+struct __align__(16) BeamGeom {
+  float fi;        // the beam's index
+  float ha;        // its half-window angle
+  float delta;     // the tap spacing 2 * ha / (c - 1), rounded as XLA does
+  float half_tap;  // half the width of an area-mode band
+  float dist;      // the beam's range
+  float lo, hi;    // the clip bounds dist -+ window_depth
+  int area;        // area mode, and the window spans more than c beams
+};
+
+// fractional beam index of tap k (as a float) of beam g:
+//   i + (k * delta - half_alpha) / angle_inc
+__device__ __forceinline__ float tap_at(const BeamGeom& g, float k,
+                                        float inv_angle) {
+  const float off = __fmaf_rn(k, g.delta, -g.ha);
+  return __fmaf_rn(off, inv_angle, g.fi);
+}
+
+// the geometry of beam i at range dist with half-window angle ha
+__device__ __forceinline__ BeamGeom beam_geometry(int i, float dist,
+                                                  float ha,
+                                                  const CutoutCfg& cfg) {
+  BeamGeom g;
+  g.fi = (float)i;
+  g.ha = ha;
+  g.delta = __fmul_rn(__fmul_rn(2.0f, ha), cfg.inv_c1);
+  g.dist = dist;
+  g.lo = __fsub_rn(dist, cfg.window_depth);
+  g.hi = __fadd_rn(dist, cfg.window_depth);
+  g.area = 0;
+  g.half_tap = 0.0f;
+  if (cfg.area_mode) {
+    const float ind0 = tap_at(g, 0.0f, cfg.inv_angle);
+    const float ind1 = tap_at(g, (float)(cfg.c - 1), cfg.inv_angle);
+    const float span = __fsub_rn(ind1, ind0);
+    g.area = span > (float)cfg.c;
+    g.half_tap = __fmul_rn(0.5f, __fmul_rn(span, cfg.inv_c1));
+  }
+  return g;
 }
 
 // the half-window angle of a beam at range r
@@ -95,42 +135,51 @@ __device__ void scan_xla(float* v, int n, float* scratch) {
   }
 }
 
-// Tap k of beam i's cutout. r_s: the scan's ranges; cs_s: its prefix sums
-// with cs_s[j] = sum of beams < j (read in area mode only); ha: beam i's
-// half-window angle.
+// Tap kf (the tap's index as a float) of beam g's cutout. r[j]: the range
+// of beam j; cs(j): the sum of the ranges of beams < j (called in area mode
+// only). Every beam read lies within the beam's reach, clamped to
+// [0, p_valid - 1] (cs: [0, p_valid]), so the caller may stage a window of
+// them. kDupLast: r[p_valid] holds a copy of r[p_valid - 1], so the lerp's
+// upper beam min(low + 1, p_valid - 1) reads as r[low + 1].
+template <bool kDupLast, class PrefixAt>
+__device__ __forceinline__ float beam_tap(const BeamGeom& g, float kf,
+                                          const float* r, PrefixAt cs,
+                                          const CutoutCfg& cfg) {
+  const float hi_idx = (float)(cfg.p_valid - 1);
+  const float ind = tap_at(g, kf, cfg.inv_angle);
+  const bool outbound = ind < 0.0f || ind > hi_idx;
+  float ct;
+  if (g.area) {
+    // the mean over the beam band [rint(ind - tap_w/2), rint(ind + tap_w/2)]
+    const int a_lo = (int)rintf(clampf(__fsub_rn(ind, g.half_tap), 0.0f,
+                                       hi_idx));
+    const int a_hi = max((int)rintf(clampf(__fadd_rn(ind, g.half_tap), 0.0f,
+                                           hi_idx)), a_lo);
+    const float band = __fsub_rn(cs(a_hi + 1), cs(a_lo));
+    ct = __fdiv_rn(band, (float)(a_hi - a_lo + 1));
+  } else {
+    // (int)clamp(floor(ind), 0, hi_idx), and r[min(low + 1, p_valid - 1)]
+    const int low = min(max(__float2int_rd(ind), 0), cfg.p_valid - 1);
+    const float frac = clampf(__fsub_rn(ind, (float)low), 0.0f, 1.0f);
+    const float lo_v = r[low];
+    const float hi_v =
+        kDupLast || low < cfg.p_valid - 1 ? r[low + 1] : lo_v;
+    ct = __fmaf_rn(frac, __fsub_rn(hi_v, lo_v), lo_v);
+  }
+  if (outbound) ct = cfg.padding_val;
+  ct = clampf(ct, g.lo, g.hi);
+  if (cfg.centered) ct = __fmul_rn(__fsub_rn(ct, g.dist), cfg.inv_depth);
+  return ct;
+}
+
+// Tap k of beam i's cutout, its geometry computed with it (K8). r_s: the
+// scan's ranges; cs_s: its prefix sums with cs_s[j] = sum of beams < j
+// (read in area mode only); ha: beam i's half-window angle.
 __device__ __forceinline__ float cutout_tap(const float* r_s,
                                             const float* cs_s, int i, int k,
                                             float ha, const CutoutCfg& cfg) {
-  const int c = cfg.c;
-  const float hi_idx = (float)(cfg.p_valid - 1);
-  const float dist = r_s[i];
-  const float ind = tap_index(i, k, ha, cfg.inv_c1, cfg.inv_angle);
-  const bool outbound = ind < 0.0f || ind > hi_idx;
-  const int low = (int)clampf(floorf(ind), 0.0f, hi_idx);
-  const int high = min(low + 1, cfg.p_valid - 1);
-  const float frac = clampf(__fsub_rn(ind, (float)low), 0.0f, 1.0f);
-  const float lo_v = r_s[low];
-  float ct = __fmaf_rn(frac, __fsub_rn(r_s[high], lo_v), lo_v);
-  if (cfg.area_mode) {
-    const float ind0 = tap_index(i, 0, ha, cfg.inv_c1, cfg.inv_angle);
-    const float ind1 = tap_index(i, c - 1, ha, cfg.inv_c1, cfg.inv_angle);
-    const float span = __fsub_rn(ind1, ind0);
-    if (span > (float)c) {
-      const float tap_w = __fmul_rn(span, cfg.inv_c1);
-      const float half_tap = __fmul_rn(0.5f, tap_w);
-      const int a_lo = (int)rintf(clampf(__fsub_rn(ind, half_tap), 0.0f,
-                                         hi_idx));
-      const int a_hi = max((int)rintf(clampf(__fadd_rn(ind, half_tap), 0.0f,
-                                             hi_idx)), a_lo);
-      const float band = __fsub_rn(cs_s[a_hi + 1], cs_s[a_lo]);
-      ct = __fdiv_rn(band, (float)(a_hi - a_lo + 1));
-    }
-  }
-  if (outbound) ct = cfg.padding_val;
-  ct = clampf(ct, __fsub_rn(dist, cfg.window_depth),
-              __fadd_rn(dist, cfg.window_depth));
-  if (cfg.centered) ct = __fmul_rn(__fsub_rn(ct, dist), cfg.inv_depth);
-  return ct;
+  return beam_tap<false>(beam_geometry(i, r_s[i], ha, cfg), (float)k, r_s,
+                  [cs_s](int j) { return cs_s[j]; }, cfg);
 }
 
 }  // namespace

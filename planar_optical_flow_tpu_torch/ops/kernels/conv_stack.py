@@ -83,6 +83,7 @@ exact integers).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -910,6 +911,16 @@ def backbone_int8_tail(act1, weights, embed_weights, *, l: int,
     return out
 
 
+@functools.cache
+def _row_shift_fn():
+    """K16's launch entry, its signature set once."""
+    fn = _build.load("conv_stack_int8").row_shift_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    return fn
+
+
 def row_shift(x, *, l: int):
     """K16: the k=3 tap rows of int8 ``x (rows, 128)``, rows grouped in
     cutouts of ``l`` -> (left, right), ``left[r] = x[r - 1]`` and
@@ -926,12 +937,9 @@ def row_shift(x, *, l: int):
     _check_cuda(x, torch.int8, (rows, 128), "row_shift x")
     x = x.contiguous()
     left, right = torch.empty_like(x), torch.empty_like(x)
-    fn = _build.load("conv_stack_int8").row_shift_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
-    _build.check(fn(x.data_ptr(), left.data_ptr(), right.data_ptr(), rows, l,
-                    _build.stream_ptr(x.device)), "row_shift")
+    _build.check(_row_shift_fn()(x.data_ptr(), left.data_ptr(),
+                                 right.data_ptr(), rows, l,
+                                 _build.stream_ptr(x.device)), "row_shift")
     row_shift.launches += 1
     return left, right
 

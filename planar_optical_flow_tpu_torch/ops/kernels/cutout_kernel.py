@@ -22,14 +22,18 @@ frac change of ~3e-5, times a range step of up to ~20 m) into int8 flips,
 so the cutouts must agree to the bit, not to 1e-3.
 
 Bound on the H100: bytes. It reads 4 B and writes ``4*C`` B per beam (0.23
-KB at C=56), a few microseconds of HBM time at B=384; the kernel is one
-block per scan with the scan and its prefix sum in shared memory, so every
-tap's gather is a shared-memory read.
+KB at C=56), 11.7 us of HBM time at B=384 and 456 beams a stream. The
+kernel gives a block :data:`CUTOUT_TILE` beams of one stream; it stages the
+window of ranges its taps reach (:func:`cutout_geometry`) and, in area mode,
+their prefix sums in XLA's order, computes each beam's geometry once, runs a
+warp a beam over the taps and writes the tile's contiguous outputs with one
+bulk copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -149,6 +153,91 @@ def cutout_plain(scans, *, num_cutout_pts: int, window_width: float,
     return ct.reshape(b * p, c)
 
 
+CUTOUT_TILE = 128  # beams a block (csrc/cutout.cu kCutoutTile)
+SCAN_MAX_BEAMS = SCAN_BASE ** 4  # the prefix sum's levels (cutout.cuh)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def cutout_reach(p: int, c: int, window_width: float = 1.0,
+                 angle_inc: float = math.radians(0.5)) -> int:
+    """Beams beyond beam i that a tap of beam i may read, either side,
+    capped at ``p`` (``csrc/cutout.cu cutout_reach``): the widest half-window
+    ``atan(half_width / 0.01)`` over the beam step, an area band's half width
+    on top, and a margin for the f32 rounding of the index and the band's
+    ``rint``."""
+    half_width = float(np.float32(0.5) * np.float32(window_width))
+    reach = (math.atan(abs(half_width) / float(np.float32(1e-2)))
+             * abs(recip(angle_inc)))
+    r = math.ceil(reach * (1.0 + 1.0 / (c - 1)) * (1.0 + 1e-5)) + 4.0
+    return int(r) if r < p else p
+
+
+def cutout_geometry(p: int, c: int, window_width: float = 1.0,
+                    angle_inc: float = math.radians(0.5)):
+    """K1's launch at ``p`` beams a stream and ``c`` taps, as
+    ``csrc/cutout.cu cutout_geometry`` computes it: ``(beams a tile, tiles a
+    stream, reach, dynamic shared memory in bytes)``. The shared memory holds
+    the tile's outputs (shifted by up to 3 floats to their 16-byte
+    alignment), each beam's geometry (8 floats), the window of ranges and
+    prefix sums the tile reads (at most ``CUTOUT_TILE + 2 * reach + 16``
+    beams, capped at ``p``) and the prefix sum's row totals with the levels
+    above them."""
+    reach = cutout_reach(p, c, window_width, angle_inc)
+    window = _round4(min(p, CUTOUT_TILE + 2 * reach + 16))
+    n1 = -(-p // SCAN_BASE)
+    totals = n1 + (n1 + SCAN_BASE - 2) // (SCAN_BASE - 1) + 4
+    floats = (_round4(CUTOUT_TILE * c + 3) + CUTOUT_TILE * 8 + 2 * window + 4
+              + totals)
+    return CUTOUT_TILE, -(-p // CUTOUT_TILE), reach, 4 * floats
+
+
+@functools.cache
+def _lib():
+    """The K1 library, its entries' signatures set once."""
+    lib = _build.load("cutout")
+    lib.cutout_launch.restype = ctypes.c_int
+    lib.cutout_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.cutout_half_alpha_launch.restype = ctypes.c_int
+    lib.cutout_half_alpha_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_void_p]
+    lib.cutout_geometry.restype = ctypes.c_int
+    lib.cutout_geometry.argtypes = [ctypes.c_int] * 2 + [ctypes.c_float] * 2 \
+        + [ctypes.c_void_p] * 4
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_consts(c, window_width, window_depth, padding_val, centered,
+                   area_mode, angle_inc):
+    """The launch's arguments after ``p_valid``: the options and the three
+    f32 reciprocals, computed once a configuration."""
+    return (c, window_width, window_depth, padding_val, recip(c - 1),
+            recip(angle_inc), recip(window_depth), int(centered),
+            int(area_mode))
+
+
+def half_alpha_probe(scans, window_width: float = 1.0):
+    """The half-window angle of every range of ``scans`` as K1 computes it
+    (``atanf`` on the card), for checks that hold K1 against another
+    implementation of ``atan``. A CPU tensor gets :func:`cutout_plain`'s."""
+    if scans.device.type == "cpu":
+        return torch.atan(div_f32(0.5 * window_width,
+                                  torch.clamp(scans.float(), min=1e-2)))
+    if scans.dtype != torch.float32:
+        raise ValueError(f"half_alpha_probe: need float32, got {scans.dtype}")
+    scans = scans.contiguous()
+    out = torch.empty_like(scans)
+    _build.check(_lib().cutout_half_alpha_launch(
+        scans.data_ptr(), out.data_ptr(), scans.numel(), window_width,
+        _build.stream_ptr(scans.device)), "cutout_half_alpha")
+    return out
+
+
 def cutout(scans, *, num_cutout_pts: int = 56, window_width: float = 1.0,
            window_depth: float = 0.5, padding_val: float = 29.99,
            centered: bool = True, area_mode: bool = True,
@@ -157,7 +246,7 @@ def cutout(scans, *, num_cutout_pts: int = 56, window_width: float = 1.0,
 
     ``p_valid``: the real beam count when the scan is padded (beams from
     ``p_valid`` on are treated as out of range). A CUDA tensor launches the
-    kernel; a CPU tensor runs :func:`cutout_plain`.
+    kernel (``P`` up to 16^4); a CPU tensor runs :func:`cutout_plain`.
     """
     kw = dict(num_cutout_pts=num_cutout_pts, window_width=window_width,
               window_depth=window_depth, padding_val=padding_val,
@@ -177,18 +266,16 @@ def cutout(scans, *, num_cutout_pts: int = 56, window_width: float = 1.0,
     p_valid = p_valid or p
     if not 0 < p_valid <= p:
         raise ValueError(f"cutout: p_valid {p_valid} not in (0, {p}]")
+    if p > SCAN_MAX_BEAMS:
+        raise ValueError(f"cutout: {p} beams a stream, more than the "
+                         f"{SCAN_MAX_BEAMS} the prefix sum takes")
     out = torch.empty(b * p, num_cutout_pts, dtype=torch.float32,
                       device=scans.device)
-    lib = _build.load("cutout")
-    fn = lib.cutout_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
-        + [ctypes.c_float] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    _build.check(fn(scans.data_ptr(), out.data_ptr(), b, p, p_valid,
-                    num_cutout_pts, window_width, window_depth, padding_val,
-                    recip(num_cutout_pts - 1), recip(angle_inc),
-                    recip(window_depth), int(centered), int(area_mode),
-                    _build.stream_ptr(scans.device)), "cutout")
+    consts = _launch_consts(num_cutout_pts, window_width, window_depth,
+                            padding_val, centered, area_mode, angle_inc)
+    _build.check(_lib().cutout_launch(
+        scans.data_ptr(), out.data_ptr(), b, p, p_valid, *consts,
+        _build.stream_ptr(scans.device)), "cutout")
     cutout.launches += 1
     return out
 

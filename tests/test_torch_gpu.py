@@ -112,10 +112,15 @@ def _model(ct_len, window, device):
 
 
 @pytest.mark.parametrize("area_mode", [False, True])
-@pytest.mark.parametrize("p,p_valid,c", [(64, 60, 16), (456, 450, 56)])
-def test_cutout_kernel(cuda, area_mode, p, p_valid, c):
+@pytest.mark.parametrize("b,p,p_valid,c", [
+    (5, 64, 60, 16), (5, 456, 450, 56),
+    # C % 4 != 0 (scalar head and tail stores), partial last tiles of 16;
+    # a long scan, whose windows start past rows read from device memory
+    (3, 69, 66, 7), (2, 200, 197, 18), (1, 456, 450, 56),
+    (2, 4100, 4090, 18)])
+def test_cutout_kernel(cuda, area_mode, b, p, p_valid, c):
     rng = np.random.default_rng(0)
-    scans = torch.tensor(rng.uniform(0.3, 28.0, (5, p)), dtype=torch.float32,
+    scans = torch.tensor(rng.uniform(0.3, 28.0, (b, p)), dtype=torch.float32,
                          device=cuda)
     kw = dict(num_cutout_pts=c, window_width=1.0, window_depth=0.5,
               padding_val=29.99, centered=True, area_mode=area_mode,
@@ -126,6 +131,26 @@ def test_cutout_kernel(cuda, area_mode, p, p_valid, c):
     assert cutout.launches == n0 + 1
     ref = cutout_plain(scans, **kw)
     assert (got - ref).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("p,c,window_width,angle_deg", [
+    (64, 16, 1.0, 0.5), (456, 56, 1.0, 0.5), (69, 7, 2.0, 1.0),
+    (65536, 18, 1.0, 0.5)])
+def test_cutout_geometry(cuda, p, c, window_width, angle_deg):
+    """K1's launch geometry as the library computes it equals
+    ``cutout_geometry``'s mirror."""
+    import math
+
+    from planar_optical_flow_tpu_torch.ops.kernels import cutout_kernel as ck
+
+    got = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
+           ctypes.c_longlong()]
+    rc = ck._lib().cutout_geometry(
+        p, c, window_width, ck.recip(math.radians(angle_deg)),
+        *(ctypes.byref(v) for v in got))
+    assert rc == 0
+    assert tuple(v.value for v in got) == ck.cutout_geometry(
+        p, c, window_width, math.radians(angle_deg))
 
 
 @pytest.mark.parametrize("ct_len,window", [(16, 5), (56, 11)])
