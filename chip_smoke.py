@@ -101,12 +101,32 @@ Phases:
    each, ``make_quantized_stream_step`` (no kernel; mean |pred_cls - module|
    < 0.05, ``tests/test_quantized.py``), and ``make_serve_sequence_processor``
    over the int8c p2 step, equal to the bit to the per-step run;
-6. ``[trace]``: ``torch.profiler`` over 3 carried steps of the int8c
+6. ``[files]``: the serving CLI and the serving evaluators from files.
+   The model's weights saved with ``interop.checkpoint`` and the flagship
+   config (the keys of ``configs/dr_spaam.yaml``) written as JSON under
+   ``build/chip_smoke/files/`` (held equal to the YAML's where PyYAML is
+   installed); a synthetic ``val`` split of 4 x 200 450-beam frames;
+   ``cli.infer`` on one sequence with ``--engine int8c --save-calib``
+   (K1, K5, K6, K7 launched), ``--calib`` and ``--replay`` (identical
+   detections), and ``--engine v3`` (K1-K4; ``--replay`` identical);
+   ``DrowDetectionDataset`` with its targets on the card against the
+   CPU's (class and exclude mask exact, offsets and flow within 1e-5);
+   ``evaluate_detection_ap_batched`` at 64 frames a step for the module
+   (K3 in f32), v3 and int8c engines, each step built by
+   ``make_ap_step`` first (every frame scored, AP in [0, 1], the device
+   matcher's pool equal to ``match_detections`` on every frame), the
+   module engine at batch 1 over the first 100 frames against
+   ``evaluate_detection_ap`` on a module runner (within 1e-6), and
+   ``evaluate_flow_serving`` at 64 frames a step for module and int8c
+   (finite EPE and AAE, the frames dropped). No plain version of a kernel
+   may run in the phase (the plain band attention only in a bootstrap).
+   Each line gives frames/s and the card;
+7. ``[trace]``: ``torch.profiler`` over 3 carried steps of the int8c
    runner (the JAX serving default): the device busy share, the top device
    operations and the time a step spends outside K1/K5/K6/K7 ("not
    measured" where the profiler records no device time); ``[trace v3]``
    the same for the v3 runner, outside K1-K4;
-7. the kernels line, the card line and the result line.
+8. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
@@ -115,6 +135,7 @@ result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -1741,6 +1762,382 @@ def engines_slice_phase(model, scans, device, calib):
     return all_launches, all_ms
 
 
+# the "files" phase: the flagship config with the keys of
+# configs/dr_spaam.yaml (written as JSON: the card's machine may have no
+# PyYAML), a synthetic val split of FILES_SEQS x FILES_FRAMES 450-beam
+# frames, the evaluators at FILES_BATCH frames a step
+FLAGSHIP_CFG = {
+    "tag": "", "epochs": 50, "batch_size": 8, "grad_norm_clip": 0.0,
+    "num_workers": 0, "num_scans": 10, "use_data_augumentation": False,
+    "train_with_val": True, "focal_loss_gamma": 0.0,
+    "pedestrian_only": True, "compute_dtype": "bfloat16",
+    "data_dir": "./data/DROWv2-data", "log_dir": "./logs",
+    "network": "cutout_spatial",
+    "similarity_kwargs": {"alpha": 0.5, "window_size": WINDOW},
+    "cutout_kwargs": CUTOUT_KW,
+    "polar_grid_kwargs": {"min_range": 0.0, "max_range": 30.0,
+                          "range_bin_size": 0.1, "tsdf_clip": 1.0,
+                          "normalize": True},
+}
+FILES_SEQS, FILES_FRAMES = 4, 200
+FILES_BATCH = 64
+FILES_FIRST = 100       # frames of the batch-1 module check
+TOL_AP_LOOP = 1e-6      # batched module vs its runner loop (JAX's bar)
+TOL_TARGETS = 1e-5      # the dataset's float targets, card vs CPU
+# every plain version of a kernel: none may run on the card
+PLAIN = {
+    "ops.kernels.cutout_kernel": ("cutout_plain",),
+    "ops.kernels.conv_stack": (
+        "backbone_tail_plain", "head_plain", "backbone_bf16_plain",
+        "backbone_int8_plain", "backbone_int8_pm_plain",
+        "backbone_int8_tail_plain", "head_int8_plain",
+        "backbone_int8_cut_plain"),
+    "infer.fast_gate": ("gate_plain", "gate_int8_plain",
+                        "gate_head_int8_plain", "banded_mix_update_plain",
+                        "_band_attention", "_banded_mix_xla"),
+    "ops.kernels.serve_cell": ("serve_cell_int8_plain",),
+    "ops.kernels.fused_drow": ("fused_backbone_plain", "fused_head_plain"),
+}
+# the plain band attention also gives a stream's first scan its
+# self-similarity (``gate_bootstrap``, which has no kernel in the JAX
+# package either): it may run once for each bootstrap, and no more
+BOOTSTRAP = ("infer.streaming", "gate_bootstrap", "_band_attention")
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Every plain version of :data:`PLAIN`, and the bootstrap of
+    :data:`BOOTSTRAP`, replaced in its module's namespace (where its
+    callers look it up) by a counting call of itself. Yields a function
+    that returns the calls of plain versions so far, by name, less those
+    the bootstraps made."""
+    import importlib
+
+    saved, calls = {}, {}
+    for mod, names in (*PLAIN.items(), (BOOTSTRAP[0], BOOTSTRAP[1:2])):
+        m = importlib.import_module(f"planar_optical_flow_tpu_torch.{mod}")
+        for name in names:
+            saved[(m, name)] = fn = getattr(m, name)
+            calls[name] = 0
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                calls[_name] += 1
+                return _fn(*args, **kwargs)
+
+            setattr(m, name, counted)
+    def plain_calls():
+        out = dict(calls)
+        out[BOOTSTRAP[2]] -= out.pop(BOOTSTRAP[1])
+        return out
+
+    try:
+        yield plain_calls
+    finally:
+        for (m, name), fn in saved.items():
+            setattr(m, name, fn)
+
+
+def timed(step, events):
+    """``step`` with each call between two CUDA events appended to
+    ``events`` (host gaps inside the call included)."""
+    import torch
+
+    def run(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return run
+
+
+def host_seconds(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` between two device synchronizations -> (its
+    result, its seconds on the host clock)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def event_ms(events):
+    import torch
+
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events]
+
+
+class _FirstFrames:
+    """The first ``n`` samples of a detection dataset, as
+    ``evaluate_detection_ap`` reads one."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
+        self.scans_flat, self.cur_idx = ds.scans_flat, ds.cur_idx[:n]
+
+    def __len__(self):
+        return self.n
+
+    def gt_centers(self, i):
+        return self.ds.gt_centers(i)
+
+
+def same_frames(what, got, ref):
+    """Per-frame CLI results equal to the bit."""
+    check(len(got) == len(ref), f"{what}: {len(got)} vs {len(ref)} frames")
+    for i, (g, r) in enumerate(zip(got, ref)):
+        for k in ("dets", "conf", "flow"):
+            check(g[k].dtype == r[k].dtype and np.array_equal(g[k], r[k]),
+                  f"{what}: frame {i} {k} differs")
+
+
+def pool_matches(captured):
+    """Every frame's matched pool of the device matcher against
+    ``detection_ap.match_detections`` on the same detections
+    (``evaluator.match_frames``). Returns the frames checked."""
+    from planar_optical_flow_tpu_torch.eval import evaluator
+
+    args, got = captured
+    want = evaluator.match_frames(*args)
+    check(all(np.array_equal(g.cpu().numpy(), w) for g, w in zip(got, want)),
+          "device matcher: a frame's pool differs from match_detections")
+    return int(args[5].sum())
+
+
+def files_phase(model, device, seed, card):
+    """The ``[files]`` phase: the serving CLI and the serving evaluators
+    from files on the card, at the flagship working point."""
+    from planar_optical_flow_tpu_torch.data import (
+        list_sequences, write_synthetic_drow_split,
+    )
+    from planar_optical_flow_tpu_torch.interop.checkpoint import save_weights
+    from planar_optical_flow_tpu_torch.pipeline import normalize_config
+    from planar_optical_flow_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    root = os.path.join(BUILD_DIR, "files")
+    weights = save_weights(model, os.path.join(root, "weights.pt"))
+    cfg_path = os.path.join(root, "dr_spaam.json")
+    with open(cfg_path, "w") as f:
+        json.dump(FLAGSHIP_CFG, f, indent=1)
+    cfg = normalize_config(load_config(cfg_path))
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        note = "PyYAML not installed: configs/dr_spaam.yaml not read"
+    else:
+        yaml_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "configs", "dr_spaam.yaml")
+        check(normalize_config(load_config(yaml_path)) == cfg,
+              "configs/dr_spaam.yaml and the JSON config differ")
+        note = "equal to normalize_config(load_config(configs/dr_spaam.yaml))"
+    check(cfg["model"]["type"] == "flow_drow", "flagship model type")
+    print(f"[files] weights {weights}, config {cfg_path}: {note}; {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    data = os.path.join(root, "drow")
+    write_synthetic_drow_split(data, "val", num_sequences=FILES_SEQS,
+                               num_frames=FILES_FRAMES, seed=seed,
+                               num_pts=NUM_PTS)
+    stem = list_sequences(data, "val")[0]
+    print(f"[files] split: {FILES_SEQS} x {FILES_FRAMES} frames of {NUM_PTS} "
+          f"beams written in {time.perf_counter() - t0:.2f} s; {card}",
+          flush=True)
+
+    with counting_plain() as plain_calls:
+        _files_checks(model, device, card, cfg, cfg_path, weights, stem,
+                      data, root)
+        calls = plain_calls()
+    check(not any(calls.values()), f"a plain version ran on the card: "
+          f"{json.dumps({k: v for k, v in calls.items() if v})}")
+    print(f"[files] no plain version of a kernel ran in the phase; the "
+          f"phase took {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+
+
+def _files_checks(model, device, card, cfg, cfg_path, weights, stem, data,
+                  root):
+    """Steps 3-6 of the ``[files]`` phase."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.cli import infer as infer_cli
+    from planar_optical_flow_tpu_torch.data import DrowDetectionDataset
+    from planar_optical_flow_tpu_torch.eval import evaluator
+    from planar_optical_flow_tpu_torch.infer.streaming import StreamingRunner
+
+    ckw = cfg["dataset"]["cutout_kwargs"]
+
+    # 3. the serving CLI on one sequence
+    def cli(*extra):
+        for w in wrappers().values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, frames, loop_s = infer_cli.infer(
+            ["--cfg", cfg_path, "--ckpt", weights, "--sequence",
+             stem + ".csv", *extra])
+        total = time.perf_counter() - t0
+        check(rc == 0 and len(frames) == FILES_FRAMES, f"cli {extra}: rc "
+              f"{rc}, {len(frames)} frames")
+        launches = {k: w.launches for k, w in wrappers().items()}
+        return frames, loop_s, total, launches
+
+    calib_dir = os.path.join(root, "calib")
+    os.makedirs(calib_dir, exist_ok=True)
+    first, s_int8, tot, launches = cli("--engine", "int8c", "--save-calib",
+                                       calib_dir)
+    for k in INT8C_KERNELS:
+        check(launches[k] > 0, f"the int8c CLI run did not launch {k}")
+    for k in set(V3_KERNELS) - set(INT8C_KERNELS):
+        check(launches[k] == 0, f"bf16 kernel {k} ran on the int8c CLI run")
+    print(f"[files] cli int8c --save-calib: {FILES_FRAMES} frames, "
+          f"{FILES_FRAMES / s_int8:.1f} frames/s per frame ({s_int8:.3f} s "
+          f"of frame loop, {tot:.2f} s in all); launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+          f"{sum(len(f['dets']) for f in first)} detections; {card}",
+          flush=True)
+    again, s_calib, _, _ = cli("--engine", "int8c", "--calib", calib_dir)
+    same_frames("cli int8c --calib", again, first)
+    replay, s_replay, _, launches = cli("--engine", "int8c", "--calib",
+                                        calib_dir, "--replay")
+    same_frames("cli int8c --replay", replay, first)
+    for k in INT8C_KERNELS:
+        check(launches[k] > 0, f"the int8c --replay run did not launch {k}")
+    print(f"[files] cli int8c --calib: identical detections, "
+          f"{FILES_FRAMES / s_calib:.1f} frames/s per frame; --replay: "
+          f"identical, {FILES_FRAMES / s_replay:.1f} frames/s; {card}",
+          flush=True)
+    v3, s_v3, _, launches = cli("--engine", "v3")
+    for k in V3_KERNELS:
+        check(launches[k] > 0, f"the v3 CLI run did not launch {k}")
+    v3_replay, s_v3_replay, _, _ = cli("--engine", "v3", "--replay")
+    same_frames("cli v3 --replay", v3_replay, v3)
+    print(f"[files] cli v3: {FILES_FRAMES / s_v3:.1f} frames/s per frame, "
+          f"--replay {FILES_FRAMES / s_v3_replay:.1f} (identical); "
+          f"{sum(len(f['dets']) for f in v3)} detections; {card}",
+          flush=True)
+
+    # 4. the dataset's targets on the card against the CPU's
+    kw = dict(num_scans=cfg["dataset"]["num_scans"],
+              pedestrian_only=cfg["dataset"]["pedestrian_only"])
+    t0 = time.perf_counter()
+    ds = DrowDetectionDataset(data, "val", device=device, **kw)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = DrowDetectionDataset(data, "val", device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    for k in ("target_cls", "exclude_mask"):
+        check(getattr(ds, k).dtype == getattr(ref, k).dtype
+              and np.array_equal(getattr(ds, k), getattr(ref, k)),
+              f"dataset {k}: card and CPU differ in "
+              f"{int((getattr(ds, k) != getattr(ref, k)).sum())} points")
+    errs = {k: float(np.abs(getattr(ds, k) - getattr(ref, k)).max())
+            for k in ("target_reg", "target_flow")}
+    check(max(errs.values()) <= TOL_TARGETS, f"dataset targets {errs}")
+    print(f"[files] dataset: {len(ds)} samples of {kw['num_scans'] + 1} "
+          f"scans, built in {t_card:.2f} s (targets on the card), "
+          f"{t_cpu:.2f} s on the CPU; cls and exclude mask equal, max err "
+          f"{json.dumps(errs)}; {card}", flush=True)
+
+    # 5. detection AP, every engine, FILES_BATCH frames a step: each step
+    # built (and timed) first, then handed to the evaluator
+    steps = -(-len(ds) // FILES_BATCH)
+    all_frames = evaluator.DetectionEvalFrames.from_dataset(ds)
+    orig = evaluator.match_batched
+    for engine in ("module", "v3", "int8c"):
+        step, build_s = host_seconds(
+            evaluator.make_ap_step, model, ckw, engine, NUM_PTS,
+            calib_scans=all_frames.scans[:8], device=device)
+        events, captured = [], []
+
+        def spy(*args):
+            out = orig(*args)
+            captured.append((args, out))
+            return out
+
+        evaluator.match_batched = spy
+        try:
+            res, took = host_seconds(
+                evaluator.evaluate_detection_ap_batched, model, ckw,
+                all_frames, batch_streams=FILES_BATCH,
+                step=timed(step, events), device=device)
+        finally:
+            evaluator.match_batched = orig
+        check(res["num_frames"] == len(ds) and 0.0 <= res["ap"] <= 1.0,
+              f"AP {engine}: {res}")
+        check(len(captured) == 1, "one matcher call")
+        n = pool_matches(captured[0])
+        ms = event_ms(events)
+        check(len(ms) == steps, f"AP {engine}: {len(ms)} steps")
+        med = float(np.median(ms))
+        print(f"[files] ap {engine}: ap {res['ap']:.6f}, peak_f1 "
+              f"{res['peak_f1']:.6f}, eer {res['eer']:.6f} (random "
+              f"weights); the step build {build_s:.3f} s (with its "
+              f"calibration); {res['num_frames']} frames in {steps} steps "
+              f"of {FILES_BATCH}: the call {took:.3f} s = "
+              f"{res['num_frames'] / took:.1f} frames/s, a step median "
+              f"{med:.3f} ms (first {ms[0]:.3f}) = "
+              f"{FILES_BATCH / med * 1e3:.1f} frames/s; pool equal to "
+              f"match_detections on all {n} frames; {card}", flush=True)
+    first_n = _FirstFrames(ds, FILES_FIRST)
+    frames = evaluator.DetectionEvalFrames(
+        ds.scans_flat[ds.cur_idx[:FILES_FIRST]],
+        [ds.gt_centers(i) for i in range(FILES_FIRST)])
+    batched = evaluator.evaluate_detection_ap_batched(
+        model, ckw, frames, batch_streams=1, engine="module", device=device)
+    loop = evaluator.evaluate_detection_ap(
+        StreamingRunner(model, ckw, num_pts=NUM_PTS, engine="module",
+                        device=device), first_n)
+    check(batched["num_frames"] == loop["num_frames"] == FILES_FIRST
+          and abs(batched["ap"] - loop["ap"]) <= TOL_AP_LOOP,
+          f"batched module AP {batched} vs its runner loop {loop}")
+    print(f"[files] ap module, batch 1, first {FILES_FIRST} frames: batched "
+          f"{batched['ap']:.9f}, runner loop {loop['ap']:.9f} (bar "
+          f"{TOL_AP_LOOP}); {card}", flush=True)
+
+    # 6. flow through the serving engines: the runner built (and timed)
+    # as the evaluator builds it, one batch's steps timed on it, then the
+    # evaluator's call with its calibration
+    n_eval = len(ds) // FILES_BATCH * FILES_BATCH
+    first = ds.batch(np.arange(FILES_BATCH))["scans"]
+    for engine in ("module", "int8c"):
+        runner, build_s = host_seconds(
+            StreamingRunner, model, ckw, num_pts=NUM_PTS, with_nms=False,
+            engine=engine, calib_scans=(first[:, -1] if engine == "int8c"
+                                        else None), device=device)
+        events = []
+        run = timed(runner, events)
+        scans = torch.as_tensor(first, device=device)
+        for t in range(scans.shape[1]):
+            run(scans[:, t])
+        ms = event_ms(events)
+        med = float(np.median(ms))
+        res, took = host_seconds(
+            evaluator.evaluate_flow_serving, model, ckw, ds, engine=engine,
+            calib=runner.calibration, num_pts=NUM_PTS,
+            batch_streams=FILES_BATCH, device=device)
+        check(math.isfinite(res["epe"]) and math.isfinite(res["aae"])
+              and res["num_frames"] == n_eval
+              and res["frames_dropped"] == len(ds) - n_eval,
+              f"flow {engine}: {res}")
+        print(f"[files] flow {engine}: epe {res['epe']:.6f}, aae "
+              f"{res['aae']:.6f} (random weights); the runner build "
+              f"{build_s:.3f} s (with its calibration); {res['num_frames']} "
+              f"frames ({res['frames_dropped']} dropped), "
+              f"{kw['num_scans'] + 1} steps of {FILES_BATCH} a batch: the "
+              f"call with that calibration {took:.3f} s = "
+              f"{res['num_frames'] / took:.1f} frames/s, a step of the "
+              f"first batch median {med:.3f} ms (first {ms[0]:.3f}) = "
+              f"{FILES_BATCH / med * 1e3:.1f} scans/s; {card}", flush=True)
+
+
 # the device operations of each traced runner's kernels, by the names they
 # appear under in the profiler
 TRACE_KERNELS = {
@@ -2040,6 +2437,8 @@ def main(argv=None):
               f"median {carried:.3f} ms = {BATCH / carried * 1e3:.1f} "
               f"scans/s on {card}", flush=True)
 
+    torch.cuda.empty_cache()
+    files_phase(model, device, args.seed, card)
     torch.cuda.empty_cache()
     trace_phase(model, scans, device, calib)
     torch.cuda.empty_cache()

@@ -1,0 +1,224 @@
+"""Streaming joint detection + flow over a recorded DROW sequence, the
+port's counterpart of ``bin/infer.py``:
+
+    python -m planar_optical_flow_tpu_torch.cli.infer --cfg cfg.json \\
+        --ckpt w.pt --sequence seq.csv [--engine module|v3|int8c] [--cpu]
+
+Feeds each scan of the sequence through a ``StreamingRunner`` (cutout,
+backbone, template memory, head, flow head and NMS) on the card, or on the
+CPU with ``--cpu`` (the kernels' plain versions). ``--ckpt`` is a weight
+file of ``interop.checkpoint`` (a torch ``state_dict``); without it the
+model keeps its seeded initial weights. ``--video`` (ROADMAP item 18) and
+``--artifact`` (item 19) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPLAY_WINDOW = 16  # steps in flight under --replay
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m planar_optical_flow_tpu_torch.cli.infer")
+    parser.add_argument("--cfg", default=None,
+                        help="model config (.json, or .yaml with PyYAML)")
+    parser.add_argument("--artifact", default=None,
+                        help="not ported yet (ROADMAP item 19)")
+    parser.add_argument("--ckpt", default=None,
+                        help="weight file written by interop.checkpoint")
+    parser.add_argument("--sequence", required=True,
+                        help="path to a DROW .csv scan file (stem ok)")
+    parser.add_argument("--max-frames", type=int, default=0)
+    parser.add_argument("--video", default=None,
+                        help="not ported yet (ROADMAP item 18)")
+    parser.add_argument("--conf", type=float, default=0.5)
+    parser.add_argument("--world-frame", action="store_true",
+                        help="match odometry by timestamp and report "
+                             "detections and flow in the world frame")
+    parser.add_argument("--engine", choices=("module", "v3", "int8c"),
+                        default=None,
+                        help="default 'module' (f32); 'v3' = the bf16 "
+                             "serving kernels; 'int8c' = the int8 serving "
+                             "kernels (scales from calibration.json next "
+                             "to --ckpt if present, else calibrated on the "
+                             "sequence's first 8 scans)")
+    parser.add_argument("--calib", default=None,
+                        help="a calibration.json (or a directory holding "
+                             "one) for --engine int8c")
+    parser.add_argument("--save-calib", default=None,
+                        help="write the int8c calibration in use here")
+    parser.add_argument("--replay", action="store_true",
+                        help=f"keep {REPLAY_WINDOW} steps in flight and "
+                             "copy each window's stacked outputs to the "
+                             "host at once; the same outputs to the bit")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU (the kernels' plain versions) "
+                             "instead of the card")
+    return parser
+
+
+def _check_args(parser, args):
+    if args.artifact:
+        parser.error("--artifact is not ported yet (ROADMAP item 19: "
+                     "interop and export)")
+    if args.video:
+        parser.error("--video is not ported yet (ROADMAP item 18: "
+                     "utils/viz.py)")
+    if not args.cfg:
+        parser.error("--cfg is required")
+    if args.engine is None:
+        args.engine = "module"
+    if args.engine != "int8c":
+        if args.save_calib:
+            parser.error("--save-calib requires --engine int8c")
+        if args.calib:
+            parser.error("--calib requires --engine int8c")
+
+
+def _to_host(outs: dict) -> dict:
+    """Device tensors -> numpy arrays through one copy: their bytes
+    concatenated on the device, copied, split again on the host."""
+    keys = list(outs)
+    flat = [outs[k].contiguous().reshape(-1).view(torch.uint8) for k in keys]
+    host = torch.cat(flat).cpu().numpy()
+    got, at = {}, 0
+    for k, f in zip(keys, flat):
+        t = outs[k]
+        n = f.numel()
+        dtype = np.dtype(str(t.dtype).replace("torch.", ""))
+        got[k] = host[at:at + n].view(dtype).reshape(tuple(t.shape))
+        at += n
+    return got
+
+
+def frame_outputs(runner, scans, replay: bool = False):
+    """Each scan's runner outputs as numpy arrays, frame by frame; with
+    ``replay`` the steps run ``REPLAY_WINDOW`` at a time before one copy of
+    the window's stacked outputs."""
+    if not replay:
+        for scan in scans:
+            yield _to_host(runner(scan[None]))
+        return
+    pending = []
+    for i, scan in enumerate(scans):
+        pending.append(runner(scan[None]))
+        if len(pending) == REPLAY_WINDOW or i == len(scans) - 1:
+            got = _to_host({k: torch.stack([o[k] for o in pending])
+                            for k in pending[0]})
+            for t in range(len(pending)):
+                yield {k: v[t] for k, v in got.items()}
+            pending = []
+
+
+def serve_sequence(runner, scans, conf: float = 0.5, poses=None,
+                   replay: bool = False, log=print) -> list:
+    """The per-frame loop: each frame's kept detections above ``conf``
+    (``dets (N, 2)``, ``conf (N,)``) and its flow ``(P, 2)`` (None without a
+    flow head), in the world frame when ``poses (T, 3)`` are given."""
+    results = []
+    for i, out in enumerate(frame_outputs(runner, scans, replay)):
+        keep = out["det_keep"][0]
+        cls = out["det_cls"][0][:, 0]
+        sel = keep & (cls >= conf)
+        dets = out["det_xys"][0][sel]
+        flow = out["pred_flow"][0] if "pred_flow" in out else None
+        if poses is not None:
+            # sensor -> world: rotate by the heading, translate by the pose
+            x, y, h = poses[i]
+            c, s = np.cos(h), np.sin(h)
+            rot = np.array([[c, -s], [s, c]])
+            dets = dets @ rot.T + [x, y]
+            if flow is not None:
+                flow = flow @ rot.T
+        results.append({"dets": dets, "conf": cls[sel], "flow": flow})
+        if log is not None and i % 50 == 0:
+            log(f"frame {i}: {len(dets)} detections")
+    return results
+
+
+def infer(argv=None):
+    """The CLI's work: -> (exit code, per-frame results, seconds of the
+    frame loop)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    _check_args(parser, args)
+
+    from planar_optical_flow_tpu_torch import resolve_device
+    from planar_optical_flow_tpu_torch.data import drow_io
+    from planar_optical_flow_tpu_torch.infer import (
+        ServeCalibration,
+        StreamingRunner,
+    )
+    from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
+    from planar_optical_flow_tpu_torch.models import (
+        get_model,
+        num_cutout_pts_of,
+    )
+    from planar_optical_flow_tpu_torch.pipeline import normalize_config
+    from planar_optical_flow_tpu_torch.utils.config import load_config
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    stem = args.sequence[:-4] if args.sequence.endswith(".csv") \
+        else args.sequence
+    _, scan_t, scans = drow_io.load_scan_file(stem)
+    if args.max_frames:
+        scans = scans[: args.max_frames]
+        scan_t = scan_t[: args.max_frames]
+
+    poses = None
+    if args.world_frame:
+        _, odom_t, odom = drow_io.load_odometry_file(stem)
+        match = np.argmin(np.abs(scan_t[:, None] - odom_t[None, :]), axis=1)
+        poses = odom[match]  # (T, 3) world pose per scan
+
+    cfg = normalize_config(load_config(args.cfg))
+    model = get_model(cfg["model"], num_cutout_pts_of(cfg))
+    if args.ckpt:
+        load_weights(model, args.ckpt)
+
+    calib = calib_scans = None
+    if args.engine == "int8c":
+        if args.calib:
+            calib = ServeCalibration.load(args.calib)
+        elif args.ckpt:
+            calib = ServeCalibration.find(args.ckpt)
+        if calib is None:
+            # calibrate on the sequence's first scans
+            calib_scans = np.asarray(scans[:8], np.float32)
+
+    # only what this CLI reads: detections, and flow where the model has a
+    # flow head
+    fields = ["det_xys", "det_cls", "det_keep"]
+    if cfg["model"]["type"] == "flow_drow":
+        fields.append("pred_flow")
+    runner = StreamingRunner(model, cfg["dataset"].get("cutout_kwargs", {}),
+                             num_pts=scans.shape[1], engine=args.engine,
+                             calib=calib, calib_scans=calib_scans,
+                             output_fields=tuple(fields), device=device)
+    if args.save_calib:
+        if runner.calibration is None:
+            print("error: no calibration produced to save", file=sys.stderr)
+            return 1, [], 0.0
+        print(f"calibration saved to "
+              f"{runner.calibration.save(args.save_calib)}")
+
+    scans_dev = torch.as_tensor(scans, device=device)
+    t0 = time.perf_counter()
+    results = serve_sequence(runner, scans_dev, conf=args.conf, poses=poses,
+                             replay=args.replay)
+    return 0, results, time.perf_counter() - t0
+
+
+def main(argv=None) -> int:
+    return infer(argv)[0]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

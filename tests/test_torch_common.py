@@ -86,6 +86,18 @@ def assert_close_to_max(got, ref, rel, what=""):
     assert err <= lim, f"{what}: max abs err {err:.3g} > {lim:.3g}"
 
 
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for a module of tests that run many small ops
+    (one-stream serving steps, frame-by-frame loops): the suite runs six
+    workers on the machine's cores, and a worker's pool of threads then
+    costs more than the work it shares. Restores the count after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------------ guards
 
 
@@ -101,6 +113,19 @@ def test_package_imports_without_jax():
         "import planar_optical_flow_tpu_torch.ops.kernels.quant\n"
         "import planar_optical_flow_tpu_torch.interop\n"
         "import planar_optical_flow_tpu_torch.models\n"
+        "import planar_optical_flow_tpu_torch.models.registry\n"
+        "import planar_optical_flow_tpu_torch.interop.checkpoint\n"
+        "import planar_optical_flow_tpu_torch.utils.config\n"
+        "import planar_optical_flow_tpu_torch.pipeline\n"
+        "import planar_optical_flow_tpu_torch.ops.geometry\n"
+        "import planar_optical_flow_tpu_torch.ops.targets\n"
+        "import planar_optical_flow_tpu_torch.data.drow_io\n"
+        "import planar_optical_flow_tpu_torch.data.synthetic\n"
+        "import planar_optical_flow_tpu_torch.data.drow_detection\n"
+        "import planar_optical_flow_tpu_torch.eval.detection_ap\n"
+        "import planar_optical_flow_tpu_torch.eval.evaluator\n"
+        "import planar_optical_flow_tpu_torch.cli.infer\n"
+        "import planar_optical_flow_tpu_torch.cli.evaluate\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'flax', "
         "'planar_optical_flow_tpu.')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -120,8 +145,29 @@ def test_resolve_device_raises_without_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    import json
+
+    from planar_optical_flow_tpu_torch.cli import evaluate as evaluate_cli
+    from planar_optical_flow_tpu_torch.cli import infer as infer_cli
+    from planar_optical_flow_tpu_torch.data import (
+        DrowDetectionDataset,
+        write_synthetic_drow_split,
+    )
+    from planar_optical_flow_tpu_torch.eval import (
+        evaluate_detection_ap,
+        evaluate_detection_ap_batched,
+        evaluate_flow_serving,
+    )
     from planar_optical_flow_tpu_torch.infer.streaming import StreamingRunner
+
+    stem = write_synthetic_drow_split(str(tmp_path), "val", num_sequences=1,
+                                      num_frames=12, num_pts=NUM_PTS)[0]
+    ds = DrowDetectionDataset(str(tmp_path), "val", num_scans=2,
+                              device="cpu")
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"pedestrian_only": True,
+                               "cutout_kwargs": CUTOUT_KW}))
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     port = FlowDrow(window_size=WINDOW, pedestrian_only=True,
@@ -142,6 +188,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="cuda"):
             make_serve_step_v3(port, CUTOUT_KW, num_pts=NUM_PTS,
                                calib_scans=np.zeros((1, NUM_PTS)), **opts)
+    # the dataset, the evaluators and both CLIs without --cpu
+    with pytest.raises(RuntimeError, match="cuda"):
+        DrowDetectionDataset(str(tmp_path), "val", num_scans=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate_detection_ap(StreamingRunner(port, CUTOUT_KW,
+                                              num_pts=NUM_PTS), ds)
+    for engine in ("module", "v3", "int8c"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            evaluate_detection_ap_batched(port, CUTOUT_KW, ds, engine=engine)
+        with pytest.raises(RuntimeError, match="cuda"):
+            evaluate_flow_serving(port, CUTOUT_KW, ds, engine=engine,
+                                  num_pts=NUM_PTS)
+        with pytest.raises(RuntimeError, match="cuda"):
+            infer_cli.main(["--cfg", str(cfg), "--sequence", stem,
+                            "--engine", engine])
+        with pytest.raises(RuntimeError, match="cuda"):
+            evaluate_cli.main(["--cfg", str(cfg), "--ap", "--engine",
+                               engine])
 
 
 @pytest.mark.gpu

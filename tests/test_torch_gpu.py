@@ -9,7 +9,11 @@ are the test geometry (16 cutout points, window 5) and the flagship one
 max|plain|; int8 outputs within 1 LSB with under 5e-3 of them off by one;
 K14's f32 outputs within 1e-3 x |plain| + 1e-4 x max|plain|, K3's f32 mode
 at 2e-5 (template) and 2e-4 (z, sim); K3's bf16 template equal to the bit
-to the plain mix on its own attention, K15 to its plain version.
+to the plain mix on its own attention, K15 to its plain version. The
+detection dataset's targets computed on the card equal the CPU's (class
+and exclude mask exact, offsets and flow within 1e-5), and
+``evaluate_detection_ap_batched`` (v3, int8c) on the card scores the same
+frames as on the CPU, AP within 0.02.
 """
 
 from __future__ import annotations
@@ -849,3 +853,52 @@ def test_quantized_stack_on_the_card(cuda):
     q = cpu.quantize_input(x)
     assert torch.equal(card.quantize_input(x.to(cuda)).cpu(), q)
     assert torch.equal(card(q.to(cuda)).cpu(), cpu(q))
+
+
+def _drow_split(path, num_pts):
+    from planar_optical_flow_tpu_torch.data import write_synthetic_drow_split
+
+    write_synthetic_drow_split(str(path), "val", num_sequences=2,
+                               num_frames=30, num_people=8, seed=0,
+                               num_pts=num_pts)
+    return str(path)
+
+
+@pytest.mark.parametrize("num_pts", [64, 450])
+def test_dataset_targets_on_the_card(cuda, tmp_path, num_pts):
+    """The dataset's targets computed on the card equal the CPU's: class
+    and exclude mask exact, offsets and flow within 1e-5."""
+    from planar_optical_flow_tpu_torch.data import DrowDetectionDataset
+
+    root = _drow_split(tmp_path, num_pts)
+    kw = dict(num_scans=2, pedestrian_only=True)
+    card = DrowDetectionDataset(root, "val", device=cuda, **kw)
+    cpu = DrowDetectionDataset(root, "val", device="cpu", **kw)
+    for k in ("target_cls", "exclude_mask"):
+        assert getattr(card, k).dtype == getattr(cpu, k).dtype
+        np.testing.assert_array_equal(getattr(card, k), getattr(cpu, k))
+    for k in ("target_reg", "target_flow"):
+        np.testing.assert_allclose(getattr(card, k), getattr(cpu, k),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("engine", ["v3", "int8c"])
+def test_detection_ap_on_the_card(cuda, tmp_path, engine):
+    """evaluate_detection_ap_batched on the card against the same call on
+    the CPU (the kernels' plain versions): the same frames, AP within
+    0.02."""
+    from planar_optical_flow_tpu_torch.data import DrowDetectionDataset
+    from planar_optical_flow_tpu_torch.eval import (
+        evaluate_detection_ap_batched,
+    )
+
+    root = _drow_split(tmp_path, 64)
+    ds = DrowDetectionDataset(root, "val", num_scans=2, pedestrian_only=True,
+                              device="cpu")
+    kw = dict(fixed=True, centered=True, window_width=1.0, window_depth=0.5,
+              num_cutout_pts=16, padding_val=29.99, area_mode=True)
+    got = {dev: evaluate_detection_ap_batched(
+        _model(16, 5, dev), kw, ds, batch_streams=8, conf_thresh=0.3,
+        engine=engine, device=dev) for dev in (cuda, "cpu")}
+    assert got[cuda]["num_frames"] == got["cpu"]["num_frames"] == len(ds)
+    assert abs(got[cuda]["ap"] - got["cpu"]["ap"]) <= 0.02, got
