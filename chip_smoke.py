@@ -121,12 +121,31 @@ Phases:
    (finite EPE and AAE, the frames dropped). No plain version of a kernel
    may run in the phase (the plain band attention only in a bootstrap).
    Each line gives frames/s and the card;
-7. ``[trace]``: ``torch.profiler`` over 3 carried steps of the int8c
-   runner (the JAX serving default): the device busy share, the top device
-   operations and the time a step spends outside K1/K5/K6/K7 ("not
-   measured" where the profiler records no device time); ``[trace v3]``
+7. ``[train]``: training at the flagship config's full width (its keys,
+   ``epochs`` cut to 1) on a synthetic split of 2 x 20 train and 1 x 12 val
+   450-beam frames (``train_with_val``: 49 samples of 11 scans, 6 steps of
+   8; one val batch): ``cli.train`` on the detector config (``network:
+   cutout_gating``, ``DetectionTask``: K1 once a step, K2-K4 never) to its
+   final checkpoint; FlowDROW through ``Pipeline`` with that checkpoint
+   grafted by ``load_pretrained_detector``, on ``FlowDrowTask`` (K1 once a
+   step) and with ``fused_frozen_detector`` (``FlowDrowFusedTask``: K1 and
+   K2 once, K3 10 times and K4 never a step, as JAX's jitted step drops the
+   unread head); every launch count exact, no plain version of a kernel,
+   the detector's parameters equal to the bit to the checkpoint's after
+   each FlowDROW run, every loss finite, the fused task's first-batch loss
+   and similarity band at the bf16 bar of the module task's; a
+   ``request_stop()`` after 2 steps writes the sigterm checkpoint (rc 1)
+   and a resumed run completes the epoch. Each task's step ms (median after
+   the first) and the phase's seconds beside the card;
+8. ``[trace train]``: ``torch.profiler`` over 3 train steps of each
+   FlowDROW task (device busy share, top device operations, the time
+   outside K1, or K1-K3); ``[trace]``: the same over 3 carried steps of
+   the int8c runner (the JAX serving default): the device busy share, the
+   top device operations and the time a step spends outside K1/K5/K6/K7
+   ("not measured" where the profiler records no device time);
+   ``[trace v3]``
    the same for the v3 runner, outside K1-K4;
-8. the kernels line, the card line and the result line.
+9. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
@@ -140,6 +159,8 @@ import ctypes
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -2138,6 +2159,259 @@ def _files_checks(model, device, card, cfg, cfg_path, weights, stem, data,
               f"{FILES_BATCH / med * 1e3:.1f} scans/s; {card}", flush=True)
 
 
+# the "train" phase: the flagship config (epochs cut to 1) on a synthetic
+# split of TRAIN_SEQS x TRAIN_FRAMES train and 1 x VAL_FRAMES val frames
+TRAIN_SEQS, TRAIN_FRAMES, VAL_FRAMES = 2, 20, 12
+TRAIN_STOP = 2          # steps before the preemption
+
+
+def train_launches(num_scans):
+    """The launches a train step makes (cutout K1, backbone_bf16 K2, gate
+    K3, head K4) on each run; the fused task runs K3 once a carried scan."""
+    return {
+        "detector": dict(cutout=1, backbone_bf16=0, gate=0, head=0),
+        "flow_module": dict(cutout=1, backbone_bf16=0, gate=0, head=0),
+        "flow_fused": dict(cutout=1, backbone_bf16=1, gate=num_scans,
+                           head=0),
+    }
+
+
+def train_wrappers():
+    """The wrappers of the kernels a train step may launch (K1-K4)."""
+    from planar_optical_flow_tpu_torch.infer import fast_gate
+    from planar_optical_flow_tpu_torch.ops.kernels import (
+        conv_stack, cutout_kernel,
+    )
+
+    return {"cutout": cutout_kernel.cutout,
+            "backbone_bf16": conv_stack.backbone_bf16,
+            "gate": fast_gate.gate, "head": conv_stack.head}
+
+
+def train_counts(zero=False):
+    fns = train_wrappers()
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def run_scalars(run_dir, key):
+    with open(os.path.join(run_dir, "tb", "scalars.jsonl")) as f:
+        return [r["value"] for r in map(json.loads, f) if r["key"] == key]
+
+
+def check_launches(what, got, steps, per_step, extra_cutouts=0):
+    want = {k: n * steps for k, n in per_step.items()}
+    want["cutout"] += extra_cutouts
+    check(got == want, f"[train] {what}: launches {got}, want {want}")
+
+
+class _StopAfter:
+    """A loader that asks the trainer to stop after ``n`` batches."""
+
+    def __init__(self, loader, trainer, n):
+        self.loader, self.trainer, self.n = loader, trainer, n
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.loader):
+            if i == self.n:
+                self.trainer.request_stop()
+            yield batch
+
+
+def _bf16_bar(what, got, ref):
+    """JAX's bf16 bar: corr > 0.99, max |d| < 0.05 max(|ref|, 1)."""
+    got = np.asarray(got, np.float64).ravel()
+    ref = np.asarray(ref, np.float64).ravel()
+    err = float(np.abs(got - ref).max())
+    corr = float(np.corrcoef(got, ref)[0, 1]) if ref.size > 1 else 1.0
+    check(np.isfinite(got).all() and corr > 0.99
+          and err < 0.05 * max(np.abs(ref).max(), 1.0),
+          f"[train] {what}: corr {corr}, max abs err {err}")
+    return corr, err
+
+
+def train_phase(device, seed, card):
+    """The ``[train]`` phase: the detector through ``cli.train``, then
+    FlowDROW on its frozen checkpoint, on the module and the fused task."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.cli import train as train_cli
+    from planar_optical_flow_tpu_torch.data import write_synthetic_drow_split
+    from planar_optical_flow_tpu_torch.pipeline import (
+        Pipeline, normalize_config,
+    )
+    from planar_optical_flow_tpu_torch.train import tasks
+    from planar_optical_flow_tpu_torch.train.fused_frozen import (
+        frozen_detector_forward,
+    )
+    from planar_optical_flow_tpu_torch.train.trainer import to_device
+
+    t_phase = time.perf_counter()
+    root = os.path.join(BUILD_DIR, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    data, logs = os.path.join(root, "drow"), os.path.join(root, "logs")
+    write_synthetic_drow_split(data, "train", num_sequences=TRAIN_SEQS,
+                               num_frames=TRAIN_FRAMES, seed=seed,
+                               num_pts=NUM_PTS)
+    write_synthetic_drow_split(data, "val", num_sequences=1,
+                               num_frames=VAL_FRAMES, seed=seed + 1,
+                               num_pts=NUM_PTS)
+    flat = dict(FLAGSHIP_CFG, epochs=1, data_dir=data, log_dir=logs)
+    per_step = train_launches(flat["num_scans"])
+    cfg_path = os.path.join(root, "detector.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dict(flat, network="cutout_gating", tag="detector"), f)
+    ms = {}
+
+    with counting_plain() as plain_calls:
+        # 1. the detector through the CLI, to its final checkpoint
+        handlers = {s: signal.getsignal(s)
+                    for s in (signal.SIGINT, signal.SIGTERM)}
+        train_counts(zero=True)
+        t0 = time.perf_counter()
+        try:
+            rc = train_cli.main(["--cfg", cfg_path] + (
+                ["--cpu"] if torch.device(device).type == "cpu" else []))
+        finally:
+            for s, h in handlers.items():
+                signal.signal(s, h)
+        det_s = time.perf_counter() - t0
+        check(rc == 0, f"[train] cli.train on the detector: rc {rc}")
+        (run,) = [d for d in os.listdir(logs) if d.endswith("_detector")]
+        run_dir = os.path.join(logs, run)
+        det_ckpt = os.path.join(run_dir, "ckpt", "ckpt_final")
+        check(os.path.isfile(os.path.join(det_ckpt, "weights.pt")),
+              "[train] the detector's final checkpoint")
+        losses = run_scalars(run_dir, "TRAIN_loss")
+        steps = len(losses)
+        # the final evaluation encodes its val batch on K1 too
+        check_launches("detector", train_counts(), steps,
+                       per_step["detector"], extra_cutouts=1)
+        check(steps > 0 and np.isfinite(losses).all(),
+              f"[train] detector: {steps} steps, losses {losses}")
+        ms["detector"] = run_scalars(run_dir, "TRAIN_step_ms")
+        final = json.load(open(os.path.join(run_dir, "output",
+                                            "final_metrics.json")))
+        print(f"[train] detector: cli.train --cfg (network cutout_gating, "
+              f"dr-spaam, DetectionTask, bf16), {steps} steps of "
+              f"{flat['batch_size']} x {flat['num_scans'] + 1} scans of "
+              f"{NUM_PTS} beams, losses "
+              f"{json.dumps([round(x, 5) for x in losses])}, val "
+              f"{json.dumps({k: round(float(v), 5) for k, v in final.items()})}"
+              f", {det_s:.1f} s with its dataset and evaluation; {card}",
+              flush=True)
+
+        # 2./3. FlowDROW on the grafted detector: module task, fused task
+        det_state = torch.load(os.path.join(det_ckpt, "weights.pt"),
+                               map_location="cpu", weights_only=True)
+        pipes = {}
+        for what, fused in (("flow_module", False), ("flow_fused", True)):
+            cfg = normalize_config(dict(flat, tag=what,
+                                        fused_frozen_detector=fused))
+            cfg["model"]["pretrained_detector"] = det_ckpt
+            pipe = Pipeline(cfg, device=device, install_signal_handlers=False)
+            det = pipe.model.dr_spaam
+            for n, t in det.state_dict().items():
+                if not n.endswith("num_batches_tracked"):
+                    check(torch.equal(t.cpu(), det_state[n]),
+                          f"[train] {what}: {n} not grafted")
+            start = {n: p.detach().clone() for n, p in det.named_parameters()}
+            train_counts(zero=True)
+            rc = pipe.train()
+            got = train_counts()
+            run_dir = pipe.logger.run_dir
+            losses = run_scalars(run_dir, "TRAIN_loss")
+            check(rc == 0 and len(losses) == len(pipe.train_loader)
+                  and np.isfinite(losses).all(),
+                  f"[train] {what}: rc {rc}, losses {losses}")
+            check_launches(what, got, len(losses), per_step[what])
+            for n, p in det.named_parameters():
+                check(torch.equal(p, start[n]),
+                      f"[train] {what}: detector parameter {n} moved")
+            ms[what] = run_scalars(run_dir, "TRAIN_step_ms")
+            pipes[what] = (pipe, losses)
+            print(f"[train] {what}: {type(pipe.task).__name__}, "
+                  f"{len(losses)} steps, launches {json.dumps(got)} "
+                  f"({json.dumps(per_step[what])} a step), losses "
+                  f"{json.dumps([round(x, 5) for x in losses])}; the "
+                  f"detector's parameters equal to the bit to the "
+                  f"checkpoint's; {card}", flush=True)
+        calls = plain_calls()
+    check(not any(calls.values()), f"[train] a plain version ran: "
+          f"{json.dumps({k: v for k, v in calls.items() if v})}")
+
+    # the fused task against the module task: the first training loss of
+    # each run (the same weights and first batch, bf16), and on one batch
+    # the similarity band and loss of the f32 model
+    (pipe_m, loss_m), (pipe_f, loss_f) = pipes.values()
+    corr_l, err_l = _bf16_bar("first-batch loss", [loss_f[0]], [loss_m[0]])
+    batch = to_device(pipe_f.train_set.batch(np.arange(8)), device)
+    model = pipe_f.model
+    with torch.no_grad():
+        task_m = tasks.FlowDrowTask(**{k: getattr(pipe_f.task, k) for k in (
+            "cutout_kwargs", "focal_loss_gamma", "pedestrian_only",
+            "num_pts")})
+        sim_m = model.dr_spaam(task_m._encode(batch["scans"]), False)[2]
+        kw = pipe_f.cfg["dataset"]["cutout_kwargs"]
+        sim_f = frozen_detector_forward(
+            model.dr_spaam, batch["scans"], alpha=pipe_f.task.alpha,
+            window_size=pipe_f.task.window_size, num_pts=NUM_PTS,
+            ct_len=kw["num_cutout_pts"], window_width=kw["window_width"],
+            window_depth=kw["window_depth"], padding_val=kw["padding_val"],
+            centered=kw["centered"], area_mode=kw["area_mode"],
+            with_head=False)[2]
+        l_m = float(task_m.loss(model, batch, False)[0])
+        l_f = float(pipe_f.task.loss(model, batch, False)[0])
+    corr_s, err_s = _bf16_bar("sim_band", sim_f.cpu(), sim_m.cpu())
+    _bf16_bar("f32-model loss", [l_f], [l_m])
+    print(f"[train] fused vs module task: first training loss "
+          f"{loss_f[0]:.6f} vs {loss_m[0]:.6f}; on one batch of the f32 "
+          f"model sim_band corr {corr_s:.6f}, max abs err {err_s:.5f}, loss "
+          f"{l_f:.6f} vs {l_m:.6f} (bar: corr > 0.99, max |d| < 0.05 "
+          f"max(|ref|, 1)); {card}", flush=True)
+
+    # preemption: a stop after TRAIN_STOP steps, then a resume
+    cfg = normalize_config(dict(flat, tag="preempt",
+                                fused_frozen_detector=True))
+    cfg["model"]["pretrained_detector"] = det_ckpt
+    pipe = Pipeline(cfg, device=device, install_signal_handlers=False)
+    pipe.train_loader = _StopAfter(pipe.train_loader, pipe.trainer,
+                                   TRAIN_STOP)
+    rc = pipe.train()
+    check(rc == 1 and pipe.state.step == TRAIN_STOP
+          and pipe.sigterm_ckpt_exists(),
+          f"[train] preemption: rc {rc}, step {pipe.state.step}")
+    resumed = Pipeline(cfg, device=device, install_signal_handlers=False)
+    resumed.load_sigterm_ckpt()
+    check((resumed.state.step, resumed.state.epoch) == (TRAIN_STOP, 0),
+          "[train] the sigterm checkpoint's counters")
+    for n, t in pipe.model.state_dict().items():
+        check(torch.equal(resumed.model.state_dict()[n], t),
+              f"[train] the sigterm checkpoint's {n}")
+    rc = resumed.train()
+    n_steps = len(resumed.train_loader)
+    check(rc == 0 and resumed.state.epoch == 1
+          and resumed.state.step == TRAIN_STOP + n_steps,
+          f"[train] resume: rc {rc}, step {resumed.state.step}")
+    print(f"[train] preemption: request_stop() after {TRAIN_STOP} steps -> "
+          f"rc 1, {pipe.logger.sigterm_ckpt} written; restored equal to the "
+          f"bit, resumed to epoch 1 at step {resumed.state.step}; {card}",
+          flush=True)
+    for what, t in ms.items():
+        print(f"[train] {what} step_ms {json.dumps([round(x, 3) for x in t])}"
+              f" median after the first {float(np.median(t[1:])):.3f} ms "
+              f"(B={flat['batch_size']}, {flat['num_scans'] + 1} scans of "
+              f"{NUM_PTS} beams, bf16) on {card}", flush=True)
+    print(f"[train] the phase took {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}", flush=True)
+    return pipes
+
+
 # the device operations of each traced runner's kernels, by the names they
 # appear under in the profiler
 TRACE_KERNELS = {
@@ -2147,6 +2421,10 @@ TRACE_KERNELS = {
     "v3": {"K1": ("cutout_kernel",),
            "K2": ("backbone_bf16_kernel", "embed_kernel"),
            "K3": ("band_mix_kernel",), "K4": ("head_bf16_kernel",)},
+    "flow_module": {"K1": ("cutout_kernel",)},
+    "flow_fused": {"K1": ("cutout_kernel",),
+                   "K2": ("backbone_bf16_kernel", "embed_kernel"),
+                   "K3": ("band_mix_kernel",)},
 }
 
 
@@ -2160,7 +2438,6 @@ def trace_phase(model, scans, device, calib, engine="int8c", steps=3,
     int8c, K1-K4 for v3), or "not measured" where the profiler recorded no
     device time. Lines ``[trace]`` (int8c) or ``[trace v3]``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from planar_optical_flow_tpu_torch.infer.streaming import StreamingRunner
@@ -2170,7 +2447,6 @@ def trace_phase(model, scans, device, calib, engine="int8c", steps=3,
                              num_pts=NUM_PTS, device=device)
     tag = "[trace]" if engine == "int8c" else f"[trace {engine}]"
     ours = TRACE_KERNELS[engine]
-    names = "/".join(ours)
     runner(scans[0])
     runner(scans[1])
     torch.cuda.synchronize()
@@ -2181,6 +2457,20 @@ def trace_phase(model, scans, device, calib, engine="int8c", steps=3,
             runner(scan)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    what = "int8c p2" if engine == "int8c" else engine
+    print(f"{tag} {steps} carried {what} steps at B={scans.shape[1]}: "
+          f"{wall_ms:.3f} ms a step (host clock)", flush=True)
+    report_trace(tag, prof, wall_ms, steps, ours, top)
+
+
+def report_trace(tag, prof, wall_ms, steps, ours, top):
+    """The device busy share of a profiled window of ``steps`` steps, its
+    top device operations and each kernel's time a step (``ours``: label
+    -> device operation names), or "not measured" where the profiler
+    recorded no device time."""
+    from torch.autograd import DeviceType
+
+    names = "/".join(ours)
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -2189,9 +2479,6 @@ def trace_phase(model, scans, device, calib, engine="int8c", steps=3,
         spans.append((start, end))
         tot, cnt = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (tot + (end - start) / 1e3, cnt + 1)
-    what = "int8c p2" if engine == "int8c" else engine
-    print(f"{tag} {steps} carried {what} steps at B={scans.shape[1]}: "
-          f"{wall_ms:.3f} ms a step (host clock)", flush=True)
     if not spans:
         print(f"{tag} device busy share: not measured (the profiler "
               "recorded no device time); top device operations: not "
@@ -2221,6 +2508,40 @@ def trace_phase(model, scans, device, calib, engine="int8c", steps=3,
           + f"; outside {names} {wall_ms - inside:.4f} ms (other device "
           f"ops {other_dev:.4f} ms, device idle {wall_ms - busy:.4f} ms)",
           flush=True)
+
+
+def trace_train_phase(pipes, device, steps=3, top=12):
+    """``[trace train]``: ``torch.profiler`` over ``steps`` train steps of
+    each FlowDROW pipeline of the ``[train]`` phase (after one untraced
+    step), on the first batch of its train split: the device busy share,
+    the top device operations, and the time a step spends outside its
+    kernels (K1 for the module task, K1-K3 for the fused one). The steps
+    go on training the phase's models."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from planar_optical_flow_tpu_torch.train.trainer import to_device
+
+    for what, (pipe, _) in pipes.items():
+        tag = f"[trace train {what}]"
+        batch = to_device(pipe.train_set.batch(
+            np.arange(pipe.train_loader.batch_size)), device)
+        trainer, state = pipe.trainer, pipe.state
+        state, tb = trainer.train_step(state, batch)
+        float(tb["loss"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, tb = trainer.train_step(state, batch)
+                float(tb["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        print(f"{tag} {steps} steps of {type(pipe.task).__name__}: "
+              f"{wall_ms:.3f} ms a step (host clock, under the profiler)",
+              flush=True)
+        report_trace(tag, prof, wall_ms, steps, TRACE_KERNELS[what], top)
 
 
 def main(argv=None):
@@ -2439,6 +2760,10 @@ def main(argv=None):
 
     torch.cuda.empty_cache()
     files_phase(model, device, args.seed, card)
+    torch.cuda.empty_cache()
+    train_pipes = train_phase(device, args.seed, card)
+    trace_train_phase(train_pipes, device)
+    del train_pipes
     torch.cuda.empty_cache()
     trace_phase(model, scans, device, calib)
     torch.cuda.empty_cache()

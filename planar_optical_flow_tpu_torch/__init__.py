@@ -2,8 +2,9 @@
 
 The JAX package is the reference; this package computes the same functions
 with PyTorch around hand-written CUDA kernels for Hopper (``csrc/``). Its
-layout mirrors the JAX package (``ops/``, ``models/``, ``infer/``,
-``interop/``) so each counterpart is found by name.
+layout mirrors the JAX package (``ops/``, ``models/``, ``data/``,
+``train/``, ``eval/``, ``infer/``, ``interop/``, ``cli/``) so each
+counterpart is found by name.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; without
 a card they raise instead of falling back to the CPU. Pass ``device="cpu"``

@@ -9,8 +9,9 @@ the serving half of ``bin/evaluate.py``:
 ``--serve-flow`` flow EPE/AAE through ``evaluate_flow_serving`` (flow_drow
 models), on the config's ``val`` split, else its ``train`` split.
 ``--synthetic DIR`` first writes synthetic DROW splits there and scores
-those. The module-path metrics need the port's training (ROADMAP items 14b
-and 18); ``--artifact`` waits for item 19.
+those. The module-path metrics (``evaluate_flow`` and the task metrics
+over a trained state) are ROADMAP item 14b; ``--artifact`` waits for item
+19.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ def evaluate(argv=None) -> dict:
                      "interop and export)")
     if not (args.ap or args.serve_flow):
         parser.error("pass --ap and/or --serve-flow: the module-path "
-                     "metrics need the port's training (ROADMAP items 14b "
+                     "metrics are not ported yet (ROADMAP items 14b "
                      "and 18)")
 
     from planar_optical_flow_tpu_torch import resolve_device
@@ -108,6 +109,7 @@ def evaluate(argv=None) -> dict:
     )
     from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
     from planar_optical_flow_tpu_torch.models import (
+        STREAMING_MODEL_TYPES,
         get_model,
         num_cutout_pts_of,
     )
@@ -116,6 +118,9 @@ def evaluate(argv=None) -> dict:
 
     cfg = normalize_config(load_config(args.cfg, tag=args.tag))
     mtype = cfg["model"]["type"]
+    if mtype not in STREAMING_MODEL_TYPES:
+        parser.error(f"model type {mtype!r} does not serve through the "
+                     f"streaming engines ({'/'.join(STREAMING_MODEL_TYPES)})")
     if args.serve_flow and mtype != "flow_drow":
         parser.error("--serve-flow needs a flow-headed model "
                      f"(flow_drow), not {mtype!r}")

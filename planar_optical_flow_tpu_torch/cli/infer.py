@@ -158,6 +158,7 @@ def infer(argv=None):
     )
     from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
     from planar_optical_flow_tpu_torch.models import (
+        STREAMING_MODEL_TYPES,
         get_model,
         num_cutout_pts_of,
     )
@@ -179,6 +180,10 @@ def infer(argv=None):
         poses = odom[match]  # (T, 3) world pose per scan
 
     cfg = normalize_config(load_config(args.cfg))
+    if cfg["model"]["type"] not in STREAMING_MODEL_TYPES:
+        parser.error(f"model type {cfg['model']['type']!r} does not serve "
+                     f"through the streaming engines "
+                     f"({'/'.join(STREAMING_MODEL_TYPES)})")
     model = get_model(cfg["model"], num_cutout_pts_of(cfg))
     if args.ckpt:
         load_weights(model, args.ckpt)

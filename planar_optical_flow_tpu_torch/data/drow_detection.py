@@ -15,9 +15,13 @@ Counterpart of ``planar_optical_flow_tpu/data/drow_detection.py``
 The targets of all samples are computed at construction in one batched pass
 of tensor ops (``ops/targets.py``) on ``device`` (default ``"cuda"``; it
 raises without a card, ``device="cpu"`` runs on the host), where JAX jits a
-vmapped f32 program on its default device. The pass runs in float64 from
-the f32 data, so the card and the host give the same classes and masks;
-the targets are kept as numpy arrays (float32, int32). A point within
+vmapped f32 program on its default device. The classes, offsets and masks
+run in float64 from the f32 data, so the card and the host give the same
+classes and masks; the flow target runs in f32 in the order of JAX's jitted
+pass on the CPU (:func:`_flow_target_f32`), so that the ~1e-8 m targets of
+frames whose two poses coincide point where JAX's do (wherever the sine and
+cosine of the two poses' angles agree to the bit with XLA's). The targets
+are kept as numpy arrays (float32, int32). A point within
 about one f32 ulp of a radius (2.4e-7 m at 2 m) can therefore take
 another class or mask value than in JAX's f32 pass: in f32 the host's
 last bits of a sine, cosine or root decide it, and the card's can differ
@@ -82,19 +86,55 @@ def _pad_frame_dets(wcs, was, wps, pedestrian_only, pad_to):
     return rphi, cls_r, dyn_r, label, cls_valid, dyn_valid
 
 
+def _fma(a, b, c):
+    """``a * b + c`` rounded once to f32 (the f32 product is exact in
+    float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _dot2(a0, b0, a1, b1):
+    """A two-term f32 dot product as XLA's CPU dot accumulates it:
+    ``fma(a1, b1, a0 * b0)``."""
+    return _fma(a1, b1, a0 * b0)
+
+
+def _flow_target_f32(scans, phi, odom0, odom1):
+    """The ego-motion flow target ``(N, P, 2)`` in f32, operation by
+    operation as JAX's jitted ``_targets_batched`` computes it on the CPU:
+    ``xy @ (I - R0^T R1)^T - R0^T (t1 - t0)`` with each 2x2 product an XLA
+    dot (:func:`_dot2`), then the canonical rotation with its multiply-adds
+    fused as LLVM fuses them. Where the two poses coincide the target is the
+    ~1e-8 m rounding residual of ``R0^T R1``, whose direction these roundings
+    decide."""
+    c, s = torch.cos(phi), torch.sin(phi)
+    x, y = scans * c, scans * s
+    c0, s0 = torch.cos(odom0[:, 2]), torch.sin(odom0[:, 2])
+    c1, s1 = torch.cos(odom1[:, 2]), torch.sin(odom1[:, 2])
+    r0 = ((c0, -s0), (s0, c0))
+    r1 = ((c1, -s1), (s1, c1))
+    rot = [[(1.0 if i == j else 0.0)
+            - _dot2(r0[0][i], r1[0][j], r0[1][i], r1[1][j])
+            for j in range(2)] for i in range(2)]
+    t = odom1[:, :2] - odom0[:, :2]
+    fx, fy = (_dot2(x, rot[i][0][:, None], y, rot[i][1][:, None])
+              - _dot2(r0[0][i], t[:, 0], r0[1][i], t[:, 1])[:, None]
+              for i in range(2))
+    return torch.stack((_fma(c, fx, -(s * fy)), _fma(s, fx, c * fy)), dim=-1)
+
+
 @torch.inference_mode()
 def _targets_batched(scans, phi, dets_rphi, cls_radius, dyn_radius, labels,
                      cls_valid, dyn_valid, odom0, odom1):
     """Every sample's targets in one pass: scans ``(N, P)``, ``phi (P,)``,
     padded detections ``(N, D, ...)``, poses ``(N, 3)``, the float ones in
-    float64. Returns (cls (N, P) int32, reg (N, P, 2), flow (N, P, 2), mask
+    float64 (the flow from their f32 values). Returns (cls (N, P) int32, reg (N, P, 2), flow (N, P, 2), mask
     (N, P)), the float ones in float32."""
     cls, reg = tgt_ops.regression_targets(scans, phi, dets_rphi, cls_radius,
                                           labels, cls_valid)
     xy = torch.stack((scans * torch.cos(phi), scans * torch.sin(phi)),
                      dim=-1)
-    flow = tgt_ops.displacement_from_odometry(xy, odom0, odom1)
-    flow = global_to_canonical_flow(flow, phi)
+    flow = _flow_target_f32(scans.float(), phi.float(), odom0.float(),
+                            odom1.float())
     dets_xy = torch.stack((dets_rphi[..., 0] * torch.cos(dets_rphi[..., 1]),
                            dets_rphi[..., 0] * torch.sin(dets_rphi[..., 1])),
                           dim=-1)

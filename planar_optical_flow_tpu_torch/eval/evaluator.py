@@ -8,8 +8,8 @@ and :func:`evaluate_flow_serving` (flow through a serving engine). The
 module model holds its weights, so no ``variables`` argument; ``device``
 (default ``"cuda"``, raising without a card) replaces JAX's ``interpret``:
 ``device="cpu"`` runs the kernels' plain versions. The evaluators that take
-a training task (``evaluate_flow``, ``evaluate_box_regression``) wait for
-the port's training (ROADMAP item 14b).
+a training task (``evaluate_flow``, ``evaluate_box_regression``) are
+ROADMAP item 14b.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ writes a model's ``state_dict``, :func:`load_weights` reads it on the CPU
 (``weights_only=True``: tensors only, no pickled code) and loads it with
 ``strict=True``, so a missing or unused key raises. An int8c
 ``calibration.json`` saved beside the file is found by
-``ServeCalibration.find(path)``. Converting an orbax checkpoint waits for
-the port's training (ROADMAP item 13), which writes this format; until then
-flax weights come across with ``interop.variables_to_state_dict``.
+``ServeCalibration.find(path)``. The port's training checkpoints
+(``train/checkpoint.py``) are directories that hold such a file,
+:data:`WEIGHTS_FILE`; :func:`load_weights` takes either. An orbax
+checkpoint of the JAX package is not read: flax weights come across with
+``interop.variables_to_state_dict``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import os
 
 import torch
 from torch import nn
+
+WEIGHTS_FILE = "weights.pt"  # a training checkpoint's weights
 
 
 def save_weights(model: nn.Module, path) -> str:
@@ -31,9 +35,12 @@ def save_weights(model: nn.Module, path) -> str:
 
 
 def load_weights(model: nn.Module, path) -> nn.Module:
-    """Load the ``state_dict`` at ``path`` into ``model`` (every key must
-    match). Returns the model."""
-    state = torch.load(os.fspath(path), map_location="cpu",
-                       weights_only=True)
+    """Load the ``state_dict`` at ``path`` (a weights file, or a training
+    checkpoint directory) into ``model`` (every key must match). Returns
+    the model."""
+    path = os.fspath(path)
+    if os.path.isdir(path):
+        path = os.path.join(path, WEIGHTS_FILE)
+    state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state, strict=True)
     return model

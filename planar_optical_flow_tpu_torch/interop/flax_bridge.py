@@ -4,8 +4,8 @@
 The port names its modules after the flax ones, so the mapping is
 mechanical:
 
-* ``ConvBlock_i`` -> ``blocks.i``, ``Conv_0`` -> ``conv``,
-  ``BatchNorm_0`` -> ``bn``; every other module name (``dr_spaam``,
+* ``ConvBlock_i`` -> ``blocks.i``, ``Conv_0`` -> ``conv``, ``Dense_0`` ->
+  ``dense`` (a ``DenseBlock``'s), ``BatchNorm_0`` -> ``bn``; every other module name (``dr_spaam``,
   ``backbone``, ``block1..4``, ``gate``, ``embed``, ``embed_bn``, ``head``,
   ``cls``, ``reg``, ``flow_conv1..3``, ``flow_out``) is kept;
 * conv ``kernel (K, Cin, Cout)`` -> ``weight (Cout, Cin, K)``; dense
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-_RENAME = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+_RENAME = {"Conv_0": "conv", "Dense_0": "dense", "BatchNorm_0": "bn"}
 _LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",
          ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
          ("batch_stats", "var"): "running_var"}

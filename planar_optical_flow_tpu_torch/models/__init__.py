@@ -1,7 +1,15 @@
-"""Model modules of the port (eval-mode inference) and their registry."""
+"""Model modules of the port (eval and train mode) and their registry."""
 
-from planar_optical_flow_tpu_torch.models.blocks import ConvBlock, ConvStack
-from planar_optical_flow_tpu_torch.models.drow import DrowBackbone, DrowHead
+from planar_optical_flow_tpu_torch.models.blocks import (
+    ConvBlock,
+    ConvStack,
+    DenseBlock,
+)
+from planar_optical_flow_tpu_torch.models.drow import (
+    Drow,
+    DrowBackbone,
+    DrowHead,
+)
 from planar_optical_flow_tpu_torch.models.flow_drow import FlowDrow
 from planar_optical_flow_tpu_torch.models.registry import (
     STREAMING_MODEL_TYPES,
@@ -13,6 +21,7 @@ from planar_optical_flow_tpu_torch.models.spatial_drow import (
     SpatialDrow,
 )
 
-__all__ = ["ConvBlock", "ConvStack", "DrowBackbone", "DrowHead", "FlowDrow",
+__all__ = ["ConvBlock", "ConvStack", "DenseBlock", "Drow", "DrowBackbone",
+           "DrowHead", "FlowDrow",
            "STREAMING_MODEL_TYPES", "SpatialAttentionGate", "SpatialDrow",
            "get_model", "num_cutout_pts_of"]

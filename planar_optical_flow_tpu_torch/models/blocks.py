@@ -1,8 +1,17 @@
-"""Shared building blocks, eval-mode inference.
+"""Shared building blocks, in eval and in train mode.
 
 Counterpart of ``planar_optical_flow_tpu/models/blocks.py``. The public
 functions are channels-last ``(B, L, C)`` as in JAX; the conv stacks
 transpose to PyTorch's ``(B, C, L)`` once inside and back at the end.
+
+Every forward takes ``train`` (default False) where flax takes it: in train
+mode BatchNorm normalises on the batch's statistics and advances its
+running statistics as flax 0.12.3's ``nn.BatchNorm(momentum=0.9)`` does
+(:func:`batch_norm_train`), and dropout draws its mask from the
+``torch.Generator`` passed as ``rng`` (:func:`dropout`). Running statistics
+are replaced by attribute assignment, so the trainer can hand them in cast
+to its compute dtype and read the updated ones back, as flax's mutable
+``batch_stats`` collection is. :func:`remat` is ``nn.remat``.
 
 Initialization mirrors the JAX modules: Kaiming-normal for leaky-ReLU
 (``a=0.1``) conv kernels and the gate embedding, lecun-normal for the
@@ -15,15 +24,19 @@ global generator.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 NEGATIVE_SLOPE = 0.1
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's convention: ra = 0.9 * ra + 0.1 * batch stat
 
 
 def kaiming_leaky_(weight: torch.Tensor, fan_in: int,
@@ -94,6 +107,125 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d,
     return (x - mean) * mul.view(shape) + bn.bias.to(dt).view(shape)
 
 
+_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Inside the block, train-mode BatchNorm normalises on the batch's
+    statistics but leaves the running statistics as they are: what a
+    rematerialized forward (:func:`remat`'s recompute) must do."""
+    prev = getattr(_STATS, "frozen", False)
+    _STATS.frozen = True
+    try:
+        yield
+    finally:
+        _STATS.frozen = prev
+
+
+def batch_moments(x: torch.Tensor, dims) -> tuple:
+    """flax 0.12.3's ``_compute_stats``: ``x`` promoted to f32, mean and
+    biased variance over ``dims`` by the fast formula ``E[x^2] - E[x]^2``
+    clipped at 0; a mean is the f32 sum times the f32 reciprocal of the
+    count, as XLA computes ``jnp.mean``."""
+    xf = x.float()
+    count = math.prod(x.shape[d] for d in dims)
+    recip = rounded(1.0 / rounded(count, torch.float32), torch.float32)
+    mean = xf.sum(dim=dims) * recip
+    mean2 = (xf * xf).sum(dim=dims) * recip
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
+def running_update(ra: torch.Tensor, stat: torch.Tensor) -> torch.Tensor:
+    """flax's ``momentum * ra + (1 - momentum) * stat``: the first product
+    in the running value's own dtype (bf16 where the trainer hands in cast
+    statistics: 0.9 rounded to bf16, the product rounded), the second and
+    the sum in f32, so the result is f32. ``torch.nn.BatchNorm1d`` instead
+    takes the unbiased variance and its momentum the other way round."""
+    first = ra * rounded(BN_MOMENTUM, ra.dtype)
+    return first.float() + stat * rounded(1.0 - BN_MOMENTUM, torch.float32)
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
+                     channel_dim: int) -> torch.Tensor:
+    """Train-mode BatchNorm as flax 0.12.3 computes it: the batch's f32
+    statistics (:func:`batch_moments`), ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias`` in f32 with ``scale`` and ``bias`` in ``x``'s dtype,
+    rounded once to ``x``'s dtype. The running statistics advance by
+    :func:`running_update` (gradients do not reach them) unless
+    :func:`frozen_running_stats` is active."""
+    dims = tuple(d for d in range(x.ndim) if d != channel_dim)
+    mean, var = batch_moments(x, dims)
+    if not getattr(_STATS, "frozen", False):
+        bn.running_mean = running_update(bn.running_mean, mean.detach())
+        bn.running_var = running_update(bn.running_var, var.detach())
+    shape = [1] * x.ndim
+    shape[channel_dim] = -1
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.to(x.dtype).float()
+    y = ((x.float() - mean.view(shape)) * mul.view(shape)
+         + bn.bias.to(x.dtype).float().view(shape))
+    return y.to(x.dtype)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, channel_dim: int,
+               train: bool = False) -> torch.Tensor:
+    """:func:`batch_norm_train` in train mode, else
+    :func:`batch_norm_eval`."""
+    if train:
+        return batch_norm_train(x, bn, channel_dim)
+    return batch_norm_eval(x, bn, channel_dim)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            rng: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate, deterministic=not train)``: each element kept
+    with probability ``1 - rate`` and divided by it (in ``x``'s dtype), the
+    mask drawn from ``rng``. flax's masks come from its own RNG, so only
+    the statistics agree."""
+    if not train or rate <= 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout in train mode needs an rng generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / rounded(keep, x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def child_seed(rng: torch.Generator | None) -> int | None:
+    """A seed drawn from ``rng`` (None for None): a rematerialized block
+    makes its own generator from it, so that its recompute draws the same
+    dropout masks."""
+    if rng is None:
+        return None
+    return int(torch.randint(0, 2 ** 62, (1,), generator=rng,
+                             device=rng.device).item())
+
+
+def generator_from(seed: int | None, device) -> torch.Generator | None:
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` through ``torch.utils.checkpoint`` (flax ``nn.remat``):
+    its activations are recomputed in the backward instead of kept. The
+    recompute runs under :func:`frozen_running_stats`, so the running
+    statistics advance once. ``fn`` must draw any randomness from a
+    generator it makes itself (:func:`generator_from`)."""
+    ran = []
+
+    def run(*a):
+        if ran:
+            with frozen_running_stats():
+                return fn(*a)
+        ran.append(True)
+        return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+
+
 class ConvBlock(nn.Module):
     """Conv1d (torch-style padding ``((k-1)//2, k//2)``) + BatchNorm (eps
     1e-5) + LeakyReLU 0.1. Runs in the input's dtype (weights are cast),
@@ -112,18 +244,37 @@ class ConvBlock(nn.Module):
             self.conv.bias.zero_()
         self.bn = make_batch_norm(features)
 
-    def forward_ncl(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_ncl(self, x: torch.Tensor, train: bool = False
+                    ) -> torch.Tensor:
         k = self.kernel_size
         if k > 1:
             x = F.pad(x, ((k - 1) // 2, k // 2))
         # the bias after the rounded product, as flax's Conv adds it
         y = (F.conv1d(x, self.conv.weight.to(x.dtype), stride=self.stride)
              + self.conv.bias.to(x.dtype)[:, None])
-        return leaky_relu(batch_norm_eval(y, self.bn, 1))
+        return leaky_relu(batch_norm(y, self.bn, 1, train))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """``(B, L, Cin)`` -> ``(B, L', Cout)``."""
-        return self.forward_ncl(x.transpose(1, 2)).transpose(1, 2)
+        return self.forward_ncl(x.transpose(1, 2), train).transpose(1, 2)
+
+
+class DenseBlock(nn.Module):
+    """Linear + optional BatchNorm + optional LeakyReLU 0.1 (flax
+    ``DenseBlock``) on ``(..., in_features)``."""
+
+    def __init__(self, in_features: int, features: int, use_bn: bool = True,
+                 use_act: bool = True, *, generator: torch.Generator):
+        super().__init__()
+        self.use_bn, self.use_act = use_bn, use_act
+        self.dense = make_linear(in_features, features, generator)
+        self.bn = make_batch_norm(features) if use_bn else None
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = linear(x, self.dense)
+        if self.use_bn:
+            y = batch_norm(y, self.bn, y.ndim - 1, train)
+        return leaky_relu(y) if self.use_act else y
 
 
 class ConvStack(nn.Module):
@@ -138,13 +289,14 @@ class ConvStack(nn.Module):
                       generator=generator)
             for i in range(len(features)))
 
-    def forward_ncl(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_ncl(self, x: torch.Tensor, train: bool = False
+                    ) -> torch.Tensor:
         for block in self.blocks:
-            x = block.forward_ncl(x)
+            x = block.forward_ncl(x, train)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.forward_ncl(x.transpose(1, 2)).transpose(1, 2)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.forward_ncl(x.transpose(1, 2), train).transpose(1, 2)
 
 
 def max_pool1d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
@@ -166,3 +318,10 @@ def mean_over(x: torch.Tensor, dim: int) -> torch.Tensor:
 def avg_pool_full(x: torch.Tensor) -> torch.Tensor:
     """Average over the entire length axis: ``(B, L, C) -> (B, C)``."""
     return mean_over(x, -2)
+
+
+def upsample_nearest(x: torch.Tensor, new_len: int) -> torch.Tensor:
+    """Nearest-neighbour resize along the length axis of ``(B, L, C)``
+    (``F.interpolate(mode='nearest')``'s indices)."""
+    idx = (torch.arange(new_len, device=x.device) * x.shape[1]) // new_len
+    return x[:, idx, :]

@@ -1,4 +1,4 @@
-"""DR-SPAAM: spatial-attention auto-regressive template memory, eval mode.
+"""DR-SPAAM: spatial-attention auto-regressive template memory.
 
 Counterpart of ``planar_optical_flow_tpu/models/spatial_drow.py``:
 
@@ -13,6 +13,13 @@ Counterpart of ``planar_optical_flow_tpu/models/spatial_drow.py``:
 
 This is the dense path (the JAX ``banded_chunk=0`` default); the serving
 engine's banded form lives in ``infer/fast_gate.py``.
+
+``SpatialDrow.forward`` is the training unroll: the template from scan 0,
+the gate through scans 1..S-1 (a single scan takes the self-attention
+bootstrap), the head on the last template. In train mode the gate's
+``embed_bn`` runs on batch statistics twice a step, on x and then on the
+template, so its running statistics advance 2(S-1) times a forward, in that
+order, as flax's do.
 """
 
 from __future__ import annotations
@@ -24,13 +31,17 @@ import torch
 from torch import nn
 
 from planar_optical_flow_tpu_torch.models.blocks import (
-    batch_norm_eval,
+    batch_norm,
     leaky_relu,
     linear,
     make_batch_norm,
     make_linear,
 )
-from planar_optical_flow_tpu_torch.models.drow import DrowBackbone, DrowHead
+from planar_optical_flow_tpu_torch.models.drow import (
+    DrowBackbone,
+    DrowHead,
+    encode_cutouts,
+)
 
 EMBED_DIM = 128
 FEAT_CHANNELS = 256  # DrowBackbone block2 output channels
@@ -77,24 +88,26 @@ class SpatialAttentionGate(nn.Module):
         self.embed = make_linear(d_feat, EMBED_DIM, generator)
         self.embed_bn = make_batch_norm(EMBED_DIM)
 
-    def embedding(self, f: torch.Tensor) -> torch.Tensor:
+    def embedding(self, f: torch.Tensor, train: bool = False) -> torch.Tensor:
         """``(B, ct, D)`` -> leaky-ReLU embedding ``(B, ct, 128)``."""
         b, ct, d = f.shape
-        e = batch_norm_eval(linear(f.reshape(b * ct, d), self.embed),
-                            self.embed_bn, 1)
+        e = batch_norm(linear(f.reshape(b * ct, d), self.embed),
+                       self.embed_bn, 1, train)
         return leaky_relu(e).reshape(b, ct, EMBED_DIM)
 
-    def forward(self, x: torch.Tensor, template: torch.Tensor):
+    def forward(self, x: torch.Tensor, template: torch.Tensor,
+                train: bool = False):
         """Returns (new_template ``(B, ct, D)``, sim_band ``(B, ct, window)``)."""
         b, ct, _ = x.shape
-        emb_x = self.embedding(x)
-        emb_t = self.embedding(template)
+        emb_x = self.embedding(x, train)
+        emb_t = self.embedding(template, train)
         sim = torch.einsum("bic,bjc->bij", emb_x, emb_t)
         band, mask = band_tensors(ct, self.window_size, x.device, sim.dtype)
         sim_band = torch.gather(sim, 2, band[None].expand(b, -1, -1))
-        # the softmax op by op, as jax.nn.softmax (bf16 rounds each step)
+        # the softmax op by op, as jax.nn.softmax (bf16 rounds each step;
+        # no gradient through the max, which jax.nn.softmax stops)
         masked = sim - 1e10 * (1.0 - mask)
-        e = torch.exp(masked - masked.amax(dim=-1, keepdim=True))
+        e = torch.exp(masked - masked.amax(dim=-1, keepdim=True).detach())
         attn = e / e.sum(dim=-1, keepdim=True) * mask
         attn = attn / torch.clamp(attn.sum(dim=-1, keepdim=True), min=1e-20)
         mixed = torch.einsum("bij,bjd->bid", attn, template)
@@ -110,29 +123,48 @@ class SpatialDrow(nn.Module):
 
     def __init__(self, alpha: float = 0.5, window_size: int = 7,
                  pedestrian_only: bool = False, num_cutout_pts: int = 48,
+                 dropout: float = 0.0, remat: bool = False,
                  *, generator: torch.Generator):
         super().__init__()
         self.alpha = alpha
         self.window_size = window_size
         self.num_cutout_pts = num_cutout_pts
-        self.backbone = DrowBackbone(generator=generator)
+        self.remat = remat
+        self.backbone = DrowBackbone(dropout, generator=generator)
         self.gate = SpatialAttentionGate(
             (num_cutout_pts // 4) * FEAT_CHANNELS, alpha, window_size,
             generator=generator)
-        self.head = DrowHead(1 if pedestrian_only else 4, generator=generator)
+        self.head = DrowHead(1 if pedestrian_only else 4, dropout,
+                             generator=generator)
 
-    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+    def _encode(self, x: torch.Tensor, train: bool = False,
+                rng: torch.Generator | None = None) -> torch.Tensor:
         """``(B, ct, S, pts)`` -> ``(S, B, ct, L*C)`` flat features."""
         b, ct, s, p = x.shape
         xt = x.permute(2, 0, 1, 3).reshape(s * b * ct, p, 1)
-        f = self.backbone(xt)
+        f = encode_cutouts(self.backbone, xt, train, rng, self.remat)
         return f.reshape(s, b, ct, f.shape[-2] * f.shape[-1])
 
-    def _head(self, fused_flat: torch.Tensor):
+    def _head(self, fused_flat: torch.Tensor, train: bool = False,
+              rng: torch.Generator | None = None):
         b, ct, d = fused_flat.shape
         cls, reg = self.head(fused_flat.reshape(b * ct, d // FEAT_CHANNELS,
-                                                FEAT_CHANNELS))
+                                                FEAT_CHANNELS), train, rng)
         return cls.reshape(b, ct, -1), reg.reshape(b, ct, 2)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: torch.Generator | None = None):
+        """``(B, ct, S, pts)`` cutouts -> (cls, reg, sim_band): the template
+        starts as scan 0's features and the gate runs through scans
+        1..S-1."""
+        feats = self._encode(x, train, rng)  # (S, B, ct, D)
+        template, sim_band = feats[0], None
+        for i in range(1, feats.shape[0]):
+            template, sim_band = self.gate(feats[i], template, train)
+        if sim_band is None:  # a single scan: self-attention bootstrap
+            template, sim_band = self.gate(template, template, train)
+        pred_cls, pred_reg = self._head(template, train, rng)
+        return pred_cls, pred_reg, sim_band
 
     def stream_step(self, x: torch.Tensor, template: torch.Tensor | None = None):
         """One scan: ``x (B, ct, pts)`` cutouts, ``template (B, ct, L*C)`` or

@@ -1,5 +1,6 @@
-"""Host utilities of the port: the config loader."""
+"""Host utilities of the port: the config loader and the run logger."""
 
 from planar_optical_flow_tpu_torch.utils.config import load_config
+from planar_optical_flow_tpu_torch.utils.logger import RunLogger
 
-__all__ = ["load_config"]
+__all__ = ["RunLogger", "load_config"]

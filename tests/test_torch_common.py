@@ -126,6 +126,13 @@ def test_package_imports_without_jax():
         "import planar_optical_flow_tpu_torch.eval.evaluator\n"
         "import planar_optical_flow_tpu_torch.cli.infer\n"
         "import planar_optical_flow_tpu_torch.cli.evaluate\n"
+        "import planar_optical_flow_tpu_torch.cli.train\n"
+        "import planar_optical_flow_tpu_torch.train\n"
+        "import planar_optical_flow_tpu_torch.train.fused_frozen\n"
+        "import planar_optical_flow_tpu_torch.ops.losses\n"
+        "import planar_optical_flow_tpu_torch.data.loader\n"
+        "import planar_optical_flow_tpu_torch.data.prepare\n"
+        "import planar_optical_flow_tpu_torch.utils.logger\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'flax', "
         "'planar_optical_flow_tpu.')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

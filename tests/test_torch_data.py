@@ -34,7 +34,7 @@ from planar_optical_flow_tpu_torch.interop import variables_to_state_dict
 from planar_optical_flow_tpu_torch.models import get_model
 from planar_optical_flow_tpu_torch.models.registry import (
     NOT_PORTED,
-    STREAMING_MODEL_TYPES,
+    PORTED_MODEL_TYPES,
 )
 from planar_optical_flow_tpu_torch.ops import geometry as geo
 from planar_optical_flow_tpu_torch.ops import targets as tgt
@@ -98,10 +98,11 @@ def test_yaml_without_pyyaml_says_json(monkeypatch, tmp_path):
 # ---------------------------------------------------------------- registry
 
 
-@pytest.mark.parametrize("mtype", STREAMING_MODEL_TYPES)
+@pytest.mark.parametrize("mtype", PORTED_MODEL_TYPES)
 def test_registry_streaming_types_take_jax_weights(mtype):
-    """The port's model of each streaming type takes the JAX model's
-    weights with no missing or unused key (the bridge raises on either)."""
+    """The port's model of each ported type (the streaming ones and
+    ``"drow"``) takes the JAX model's weights with no missing or unused key
+    (the bridge raises on either)."""
     cfg = {"type": mtype, "window_size": 5, "pedestrian_only": True,
            "alpha": 0.5, "dropout": 0.1, "remat": True, "banded_chunk": 8,
            "freeze_detector": False}
