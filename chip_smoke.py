@@ -144,8 +144,26 @@ Phases:
    top device operations and the time a step spends outside K1/K5/K6/K7
    ("not measured" where the profiler records no device time);
    ``[trace v3]``
-   the same for the v3 runner, outside K1-K4;
-9. the kernels line, the card line and the result line.
+   the same for the v3 runner, outside K1-K4 (``[trace]`` and ``[trace
+   v3]`` run after ``[flow]``);
+9. ``[flow]`` (after ``[trace train]``): the flow U-Net at its full width
+   (64/128/256 channels, 450 beams), ``configs/prototype_flow.yaml`` read
+   and written as JSON with ``epochs`` cut to 1, through ``cli.train --synthetic``
+   (2 x 40 train and 1 x 15 val frames) in f32 with ``profile_steps``
+   (2, 5) and in bf16: finite losses, the final checkpoint, the step ms
+   (median after the first); ``[trace flow]`` reads the f32 run's trace
+   back from ``run_dir/profile`` (device busy share, top device operations;
+   the U-Net launches no kernel of the port); ``cli.evaluate --ckpt``
+   (the module path) on the card within 1e-4 relative of ``evaluate_flow``
+   on the CPU, which collects one flow field a frame; the eval-mode
+   forward at B = 8, 256 and 1024 scan pairs in f32 and bf16 (wrapper
+   loop and CUDA-graph device ms, scan pairs/s, the bound from
+   ``flow_macs``, which counts the correlation's band; f32 at B=8 within
+   1e-4 x max of the CPU's); and the
+   ``[train]`` phase's detector checkpoint through ``cli.evaluate
+   --synthetic`` on the module path (finite metrics, K1 once an evaluation
+   batch, K2-K4 never, no plain version);
+10. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
@@ -2409,7 +2427,7 @@ def train_phase(device, seed, card):
               f"{NUM_PTS} beams, bf16) on {card}", flush=True)
     print(f"[train] the phase took {time.perf_counter() - t_phase:.1f} s on "
           f"{card}", flush=True)
-    return pipes
+    return pipes, cfg_path, det_ckpt
 
 
 # the device operations of each traced runner's kernels, by the names they
@@ -2470,15 +2488,21 @@ def report_trace(tag, prof, wall_ms, steps, ours, top):
     recorded no device time."""
     from torch.autograd import DeviceType
 
-    names = "/".join(ours)
+    report_spans(tag, [(ev.name, ev.time_range.start, ev.time_range.end)
+                       for ev in prof.events()
+                       if ev.device_type == DeviceType.CUDA],
+                 wall_ms, steps, ours, top)
+
+
+def report_spans(tag, events, wall_ms, steps, ours, top):
+    """:func:`report_trace` on ``(name, start us, end us)`` device
+    events."""
+    names = "/".join(ours) or "the port's kernels"
     spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        start, end = ev.time_range.start, ev.time_range.end
+    for name, start, end in events:
         spans.append((start, end))
-        tot, cnt = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (tot + (end - start) / 1e3, cnt + 1)
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + (end - start) / 1e3, cnt + 1)
     if not spans:
         print(f"{tag} device busy share: not measured (the profiler "
               "recorded no device time); top device operations: not "
@@ -2542,6 +2566,264 @@ def trace_train_phase(pipes, device, steps=3, top=12):
               f"{wall_ms:.3f} ms a step (host clock, under the profiler)",
               flush=True)
         report_trace(tag, prof, wall_ms, steps, TRACE_KERNELS[what], top)
+
+
+# the "flow" phase: configs/prototype_flow.yaml (epochs cut to 1, written
+# as JSON) through cli.train and cli.evaluate on the synthetic split of
+# cli.train --synthetic (2 x 40 train and 1 x 15 val frames of 450 beams),
+# in f32 and in bf16; the eval-mode forward at the working points of
+# experiments/bench_workloads.py:69-99
+FLOW_YAML = os.path.join("configs", "prototype_flow.yaml")
+FLOW_PROFILE = (2, 5)   # profile_steps of the f32 run
+FLOW_BATCHES = (8, 256, 1024)
+FLOW_ITERS = 20         # timed forward calls a batch and dtype
+TOL_FLOW_EVAL = 1e-4    # EPE/AAE, card against the CPU (relative)
+TOL_FLOW_FWD = 1e-4     # the f32 forward at B=8, card against the CPU
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def flow_macs(model, num_pts):
+    """Multiply-adds of one scan pair's forward: every conv block's
+    ``L_out * C_out * C_in * k`` (the encoders twice) and the banded patch
+    correlation at the bottleneck, ``P x (2d+1) x 3C`` (what the function
+    needs, not the ``P x P`` product that the port computes)."""
+    lens, macs = {}, 0
+    length = num_pts
+    for name in ("encoder_0", "encoder_1", "encoder_2"):
+        conv = getattr(model, name).conv
+        length = (length - 1) // conv.stride[0] + 1
+        lens[name] = length
+        macs += 2 * length * conv.weight.numel()
+    macs += (lens["encoder_2"] * (2 * model.max_displacement + 1) * 3
+             * model.encoder_2.conv.out_channels)
+    macs += lens["encoder_1"] * model.decoder_1.conv.weight.numel()
+    macs += lens["encoder_0"] * model.decoder_0.conv.weight.numel()
+    head = (model.flow_reg_linear.weight if model.linear_head
+            else model.flow_reg.conv.weight)
+    return macs + num_pts * head.numel()
+
+
+def run_dir_of(logs, tag):
+    (run,) = [d for d in os.listdir(logs) if d.endswith(f"_{tag}")]
+    return os.path.join(logs, run)
+
+
+def trace_flow(run_dir, step_ms, top=12):
+    """``[trace flow]``: the f32 run's ``profile_steps`` trace, read back
+    from ``{run_dir}/profile``: its device busy share against the host
+    clock of the profiled steps, the top device operations and the time
+    outside the port's kernels (the U-Net launches none)."""
+    start, stop = FLOW_PROFILE
+    path = os.path.join(run_dir, "profile",
+                        f"steps_{start}_{stop}.pt.trace.json")
+    check(os.path.isfile(path) and os.path.getsize(path) > 0,
+          f"[flow] no profile_steps trace at {path}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+           for e in events
+           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    # TRAIN_step_ms of the steps that ran inside the window
+    wall_ms = sum(step_ms[start:stop]) / (stop - start)
+    print(f"[trace flow] profile_steps {list(FLOW_PROFILE)}: "
+          f"{stop - start} f32 steps of FlowUNetTask, {wall_ms:.3f} ms a "
+          f"step (host clock, under the profiler); trace {path} "
+          f"({os.path.getsize(path)} bytes, {len(events)} events)",
+          flush=True)
+    report_spans("[trace flow]", dev, wall_ms, stop - start, {}, top)
+
+
+def flow_phase(device, card, det_cfg, det_ckpt):
+    """The ``[flow]`` phase: the flow U-Net trained through ``cli.train``
+    (f32, with a ``profile_steps`` window, and bf16), its final checkpoint
+    scored through ``cli.evaluate``'s module path against ``evaluate_flow``
+    on the CPU, the eval-mode forward timed at ``FLOW_BATCHES``, and the
+    ``[train]`` phase's detector scored on the module path with exact K1
+    launches."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.cli import evaluate as evaluate_cli
+    from planar_optical_flow_tpu_torch.cli import train as train_cli
+    from planar_optical_flow_tpu_torch.data import (
+        BatchLoader, FlowScanPairDataset,
+    )
+    from planar_optical_flow_tpu_torch.eval import evaluate_flow
+    from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
+    from planar_optical_flow_tpu_torch.models import get_model
+    from planar_optical_flow_tpu_torch.pipeline import normalize_config
+    from planar_optical_flow_tpu_torch.train import (
+        Trainer, create_train_state, make_optimizer, tasks,
+    )
+    from planar_optical_flow_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    root = os.path.join(BUILD_DIR, "flow")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    data, logs = os.path.join(root, "drow"), os.path.join(root, "logs")
+    flow_cfg = load_config(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), FLOW_YAML))
+    batch = flow_cfg["batch_size"]
+
+    def cfg_file(name, **trainer):
+        cfg = normalize_config(dict(flow_cfg, epochs=1, log_dir=logs,
+                                    compute_dtype=trainer.pop("dtype")))
+        cfg["pipeline"]["Logger"]["tag"] = name
+        cfg["pipeline"]["Trainer"].update(trainer)
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return cfg, path
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                 signal.SIGTERM)}
+    runs = {}
+    with counting_plain() as plain_calls:
+        for what, dtype, profile in (("f32", None, FLOW_PROFILE),
+                                     ("bf16", "bfloat16", ())):
+            cfg, path = cfg_file(f"flow_{what}", dtype=dtype,
+                                 profile_steps=list(profile))
+            t0 = time.perf_counter()
+            try:
+                rc = train_cli.main(["--cfg", path, "--synthetic", data])
+            finally:
+                for s, h in handlers.items():
+                    signal.signal(s, h)
+            secs = time.perf_counter() - t0
+            run_dir = run_dir_of(logs, f"flow_{what}")
+            losses = run_scalars(run_dir, "TRAIN_loss")
+            ckpt = os.path.join(run_dir, "ckpt", "ckpt_final")
+            check(rc == 0 and len(losses) > FLOW_PROFILE[1]
+                  and np.isfinite(losses).all()
+                  and os.path.isfile(os.path.join(ckpt, "weights.pt")),
+                  f"[flow] cli.train {what}: rc {rc}, losses {losses}")
+            ms = run_scalars(run_dir, "TRAIN_step_ms")
+            final = json.load(open(os.path.join(run_dir, "output",
+                                                "final_metrics.json")))
+            runs[what] = (run_dir, ckpt, ms)
+            print(f"[flow] cli.train --cfg {FLOW_YAML} (epochs 1) "
+                  f"--synthetic, {what}: {len(losses)} steps of "
+                  f"{batch} scan pairs of {NUM_PTS} beams, "
+                  f"losses {json.dumps([round(x, 5) for x in losses])}, val "
+                  f"{json.dumps({k: round(float(v), 5) for k, v in final.items()})}"
+                  f", final checkpoint {ckpt}; {secs:.1f} s with its data "
+                  f"and evaluation", flush=True)
+            print(f"[flow] {what} step_ms "
+                  f"{json.dumps([round(x, 3) for x in ms])} median after "
+                  f"the first {float(np.median(ms[1:])):.3f} ms (B="
+                  f"{batch}, {NUM_PTS} beams, {what}) on "
+                  f"{card}", flush=True)
+        trace_flow(runs["f32"][0], runs["f32"][2])
+
+        # the f32 checkpoint through cli.evaluate's module path, on the card
+        _, eval_path = cfg_file("flow_eval", dtype=None)
+        ckpt = runs["f32"][1]
+        t0 = time.perf_counter()
+        got = evaluate_cli.evaluate(["--cfg", eval_path, "--ckpt", ckpt,
+                                     "--synthetic", data])
+        eval_s = time.perf_counter() - t0
+        calls = plain_calls()
+    check(not any(calls.values()), f"[flow] a plain version ran: "
+          f"{json.dumps({k: v for k, v in calls.items() if v})}")
+
+    # ... and by evaluate_flow on the CPU, from the same files
+    model_cfg = normalize_config(flow_cfg)["model"]
+    cpu_model = load_weights(get_model(model_cfg), ckpt)
+    val = FlowScanPairDataset(data, "val")
+    loader = BatchLoader(val, batch, shuffle=False)
+    state = create_train_state(cpu_model, make_optimizer(
+        {"scheduler_kwargs": flow_cfg["scheduler_kwargs"]}, 1))
+    ref, outs = evaluate_flow(tasks.FlowUNetTask(), state, loader,
+                              collect_outputs=True)
+    flows = np.concatenate([o["pred_flow"] for o in outs])
+    check(set(got) == set(ref) == {"epe", "aae"}
+          and all(math.isfinite(v) for v in got.values()),
+          f"[flow] cli.evaluate: {got}")
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ref}
+    check(all(r <= TOL_FLOW_EVAL for r in rel.values()),
+          f"[flow] cli.evaluate {got} vs the CPU's evaluate_flow {ref}")
+    check(flows.shape == (len(loader) * batch, NUM_PTS, 2)
+          and np.isfinite(flows).all(),
+          f"[flow] evaluate_flow collected {flows.shape}")
+    print(f"[flow] cli.evaluate --ckpt {ckpt} (module path, card): "
+          f"{json.dumps(got)} in {eval_s:.1f} s; evaluate_flow on the CPU "
+          f"(TF32 off on the card): {json.dumps(ref)}, relative difference "
+          f"{json.dumps(rel)} (bar {TOL_FLOW_EVAL}); collect_outputs: "
+          f"{flows.shape[0]} flow fields of {flows.shape[1:]} for "
+          f"{len(loader) * batch} frames; {card}",
+          flush=True)
+
+    # the eval-mode forward at the bench's working points
+    model = load_weights(get_model(model_cfg), ckpt).to(device)
+    pairs = val.batch(np.arange(max(FLOW_BATCHES)) % len(val))["scan_pair"]
+    macs = flow_macs(model, NUM_PTS)
+    with torch.no_grad():
+        for b in FLOW_BATCHES:
+            x = torch.as_tensor(pairs[:b], device=device)
+            for dtype in (torch.float32, torch.bfloat16):
+                a, c = x[:, 0].to(dtype), x[:, 1].to(dtype)
+                out = model(a, c)
+                ms = time_ms(lambda: model(a, c), FLOW_ITERS)
+                dev_ms = graph_ms(lambda: model(a, c), FLOW_ITERS)
+                check(out.shape == (b, NUM_PTS, 2) and out.dtype == dtype
+                      and bool(torch.isfinite(out).all()),
+                      f"[flow] forward B={b} {dtype}")
+                peak = (H100_F32_FLOPS if dtype == torch.float32
+                        else H100_BF16_FLOPS)
+                note = ""
+                if b == FLOW_BATCHES[0] and dtype == torch.float32:
+                    ref_out = cpu_model(x[:, 0].cpu(), x[:, 1].cpu())
+                    err = max_err(out.cpu(), ref_out)
+                    top = float(ref_out.abs().max())
+                    check(err <= TOL_FLOW_FWD * top,
+                          f"[flow] forward B={b}: {err} vs the CPU's")
+                    note = (f"; max |card - CPU| {err:.3g} = "
+                            f"{err / top:.3g} x max (bar {TOL_FLOW_FWD})")
+                print(f"[flow] forward B={b} {str(dtype)[6:]}: {ms:.4f} ms "
+                      f"a call = {b / ms * 1e3:.1f} scan pairs/s (wrapper "
+                      f"loop); device {dev_ms:.4f} ms (a CUDA graph of "
+                      f"{FLOW_ITERS} calls) = {b / dev_ms * 1e3:.1f}; "
+                      f"{macs * b / 1e9:.3f} GMAC, bound "
+                      f"{2 * macs * b / peak * 1e3:.4f} ms at "
+                      f"{peak / 1e12:g} TFLOP/s{note}; {card}", flush=True)
+
+    # the [train] phase's detector on the module path: K1 once a batch
+    n_eval = [0]
+    eval_step = Trainer.eval_step
+
+    def counted(self, st, batch):
+        n_eval[0] += 1
+        return eval_step(self, st, batch)
+
+    with counting_plain() as plain_calls:
+        Trainer.eval_step = counted
+        train_counts(zero=True)
+        try:
+            t0 = time.perf_counter()
+            det = evaluate_cli.evaluate(["--cfg", det_cfg, "--ckpt",
+                                         det_ckpt, "--synthetic",
+                                         os.path.join(root, "det")])
+            det_s = time.perf_counter() - t0
+        finally:
+            Trainer.eval_step = eval_step
+        got_launches = train_counts()
+        calls = plain_calls()
+    check(not any(calls.values()), f"[flow] a plain version ran on the "
+          f"DROW module path: "
+          f"{json.dumps({k: v for k, v in calls.items() if v})}")
+    want = dict(cutout=n_eval[0], backbone_bf16=0, gate=0, head=0)
+    check(n_eval[0] > 0 and got_launches == want,
+          f"[flow] DROW module path: launches {got_launches}, want {want}")
+    check(set(det) == {"cls_loss", "reg_loss", "fg_ratio"}
+          and all(math.isfinite(v) for v in det.values()),
+          f"[flow] DROW module path: {det}")
+    print(f"[flow] cli.evaluate --cfg detector --ckpt {det_ckpt} "
+          f"--synthetic (module path, card): {json.dumps(det)}, "
+          f"{n_eval[0]} batches, launches {json.dumps(got_launches)} (K1 "
+          f"once a batch, no plain version) in {det_s:.1f} s; {card}",
+          flush=True)
+    print(f"[flow] the phase took {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}", flush=True)
 
 
 def main(argv=None):
@@ -2761,9 +3043,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     files_phase(model, device, args.seed, card)
     torch.cuda.empty_cache()
-    train_pipes = train_phase(device, args.seed, card)
+    train_pipes, det_cfg, det_ckpt = train_phase(device, args.seed, card)
     trace_train_phase(train_pipes, device)
     del train_pipes
+    torch.cuda.empty_cache()
+    flow_phase(device, card, det_cfg, det_ckpt)
     torch.cuda.empty_cache()
     trace_phase(model, scans, device, calib)
     torch.cuda.empty_cache()

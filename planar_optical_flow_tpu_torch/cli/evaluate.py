@@ -1,23 +1,30 @@
-"""Scoring the serving engines on a DROW split, the port's counterpart of
-the serving half of ``bin/evaluate.py``:
+"""Evaluation entry point, the port's counterpart of ``bin/evaluate.py``:
 
     python -m planar_optical_flow_tpu_torch.cli.evaluate --cfg cfg.json \\
-        --ckpt w.pt [--synthetic DIR] --ap [--serve-flow] \\
+        [--ckpt CKPT] [--synthetic DIR] [--ap] [--serve-flow] \\
         [--engine auto|module|v3|int8c] [--cpu]
 
-``--ap`` scores detection AP through ``evaluate_detection_ap_batched``,
-``--serve-flow`` flow EPE/AAE through ``evaluate_flow_serving`` (flow_drow
-models), on the config's ``val`` split, else its ``train`` split.
-``--synthetic DIR`` first writes synthetic DROW splits there and scores
-those. The module-path metrics (``evaluate_flow`` and the task metrics
-over a trained state) are ROADMAP item 14b; ``--artifact`` waits for item
-19.
+Without ``--ap``/``--serve-flow`` it takes the module path: the
+``Pipeline`` of the config (any ported model type: the flow U-Net's, the
+DROW family's), the weights of ``--ckpt`` loaded (a training checkpoint
+directory, or a weights file), and ``Pipeline.evaluate``'s means of the task's metrics
+over the ``val`` split, else the ``train`` split, printed rounded to 6
+places. ``--synthetic DIR`` first writes synthetic DROW splits there, with
+their ``.difodom``/``.flow`` files, and scores those.
+
+With ``--ap`` (detection AP through ``evaluate_detection_ap_batched``)
+and/or ``--serve-flow`` (flow EPE/AAE through ``evaluate_flow_serving``,
+flow_drow models) it scores a streaming type's serving engines, ``--ckpt``
+being its weights, on the ``val`` split, else ``train``. The box baseline
+of box-regression models waits for ROADMAP item 16, ``--artifact`` for
+item 19.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
 
 def _resolve_ap_engine(engine, ckpt):
     """``--engine``: "auto" picks "int8c" when a calibration.json sits
@@ -31,18 +38,6 @@ def _resolve_ap_engine(engine, ckpt):
     if engine == "auto":
         engine = "int8c" if calib is not None else "v3"
     return engine, calib
-
-
-def make_synthetic(out_dir: str) -> str:
-    """The synthetic DROW splits of ``bin/train.py``: ``train`` (2
-    sequences x 40 frames) and ``val`` (1 x 15, seed 9)."""
-    from planar_optical_flow_tpu_torch.data import write_synthetic_drow_split
-
-    write_synthetic_drow_split(out_dir, "train", num_sequences=2,
-                               num_frames=40)
-    write_synthetic_drow_split(out_dir, "val", num_sequences=1,
-                               num_frames=15, seed=9)
-    return out_dir
 
 
 def eval_dataset(cfg: dict, data_dir: str, device):
@@ -74,11 +69,12 @@ def evaluate(argv=None) -> dict:
         prog="python -m planar_optical_flow_tpu_torch.cli.evaluate")
     parser.add_argument("--cfg", required=True)
     parser.add_argument("--ckpt", default=None,
-                        help="weight file written by interop.checkpoint")
+                        help="a training checkpoint directory, or a weight "
+                             "file written by interop.checkpoint")
     parser.add_argument("--tag", default="")
     parser.add_argument("--synthetic", default=None,
-                        help="write synthetic DROW splits to this "
-                             "directory and score them")
+                        help="write synthetic DROW splits (with their "
+                             "flow files) to this directory and score them")
     parser.add_argument("--ap", action="store_true",
                         help="score streaming detection AP")
     parser.add_argument("--serve-flow", action="store_true",
@@ -98,11 +94,10 @@ def evaluate(argv=None) -> dict:
         parser.error("--artifact is not ported yet (ROADMAP item 19: "
                      "interop and export)")
     if not (args.ap or args.serve_flow):
-        parser.error("pass --ap and/or --serve-flow: the module-path "
-                     "metrics are not ported yet (ROADMAP items 14b "
-                     "and 18)")
+        return _module_metrics(args)
 
     from planar_optical_flow_tpu_torch import resolve_device
+    from planar_optical_flow_tpu_torch.cli.train import make_synthetic
     from planar_optical_flow_tpu_torch.eval import (
         evaluate_detection_ap_batched,
         evaluate_flow_serving,
@@ -126,7 +121,7 @@ def evaluate(argv=None) -> dict:
                      f"(flow_drow), not {mtype!r}")
     device = resolve_device("cpu" if args.cpu else "cuda")
 
-    data_dir = (make_synthetic(args.synthetic) if args.synthetic
+    data_dir = (make_synthetic(args.synthetic, device) if args.synthetic
                 else cfg["dataset"]["data_dir"])
     model = get_model(cfg["model"], num_cutout_pts_of(cfg))
     if args.ckpt:
@@ -150,6 +145,30 @@ def evaluate(argv=None) -> dict:
             num_pts=ds.scans_flat.shape[-1], device=device), "serve_")
         print(flow)
         metrics.update(flow)
+    return metrics
+
+
+def _module_metrics(args) -> dict:
+    """The module path: ``Pipeline.evaluate`` after ``--ckpt``."""
+    from planar_optical_flow_tpu_torch import resolve_device
+    from planar_optical_flow_tpu_torch.cli.train import make_synthetic
+    from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
+    from planar_optical_flow_tpu_torch.pipeline import (
+        Pipeline,
+        normalize_config,
+    )
+    from planar_optical_flow_tpu_torch.utils.config import load_config
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    cfg = normalize_config(load_config(args.cfg, tag=args.tag))
+    synthetic_dir = (make_synthetic(args.synthetic, device)
+                     if args.synthetic else None)
+    pipeline = Pipeline(cfg, synthetic_dir=synthetic_dir, device=device,
+                        install_signal_handlers=False)
+    if args.ckpt:
+        load_weights(pipeline.model, args.ckpt)
+    metrics = _rounded(pipeline.evaluate(tb_prefix="VAL"))
+    print(metrics)
     return metrics
 
 

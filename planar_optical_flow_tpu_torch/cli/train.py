@@ -44,7 +44,7 @@ def main(argv=None) -> int:
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = normalize_config(load_config(args.cfg, tag=args.tag))
-    synthetic_dir = (_make_synthetic(args.synthetic, device)
+    synthetic_dir = (make_synthetic(args.synthetic, device)
                      if args.synthetic else None)
     pipeline = Pipeline(cfg, synthetic_dir=synthetic_dir, device=device)
     if args.ckpt:
@@ -64,7 +64,10 @@ def main(argv=None) -> int:
     return rc
 
 
-def _make_synthetic(out_dir: str, device) -> str:
+def make_synthetic(out_dir: str, device) -> str:
+    """The synthetic DROW splits of ``bin/train.py`` under ``out_dir``:
+    ``train`` (2 sequences x 40 frames) and ``val`` (1 x 15, seed 9), with
+    their ``.difodom``/``.flow`` files (computed on ``device``)."""
     from planar_optical_flow_tpu_torch.data import write_synthetic_drow_split
     from planar_optical_flow_tpu_torch.data.prepare import prepare_split
 

@@ -5,11 +5,14 @@ Counterpart of ``planar_optical_flow_tpu/data/drow_io.py``:
 * ``<seq>.csv``        per scan: ``seq_id, timestamp, r_0 ... r_P-1``;
 * ``<seq>.wc/.wa/.wp`` per annotated scan: ``seq_id,[[r, phi], ...]`` (a
   JSON list) for wheelchairs, walking aids and pedestrians;
-* ``<seq>.odom2``      per odometry sample: ``seq_id, timestamp, x, y, phi``.
+* ``<seq>.odom2``      per odometry sample: ``seq_id, timestamp, x, y, phi``;
+* ``<seq>.difodom``    per sample: ``dt, dx, dy, dphi`` (``data/prepare.py``);
+* ``<seq>.flow``       per scan: ``P * 2`` floats, the flow targets
+  (``data/prepare.py``).
 
 Numbers are parsed with ``np.loadtxt`` (float64, then cast). The JAX reader
-tries its ctypes CSV reader first; that reader is not ported yet (ROADMAP
-item 12).
+tries its ctypes CSV reader (``data/native.py``) first; that reader is not
+ported yet (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -87,3 +90,20 @@ def load_odometry_file(seq_stem: str):
         data[:, 1].astype(np.float32),
         data[:, 2:5].astype(np.float32),
     )
+
+
+def load_diff_odometry_file(seq_stem: str):
+    """``.difodom`` -> (dt (T,), dpose (T, 3))."""
+    data = _require_cols(_read_csv_floats(seq_stem + ".difodom"), 4,
+                         seq_stem + ".difodom")
+    return data[:, 0].astype(np.float32), data[:, 1:4].astype(np.float32)
+
+
+def load_flow_file(seq_stem: str, num_pts: int = 450):
+    """``.flow`` -> (T, P, 2) float32 flow targets."""
+    data = _read_csv_floats(seq_stem + ".flow")
+    if data.size % (num_pts * 2):
+        raise ValueError(
+            f"malformed flow file {seq_stem}.flow: {data.size} values is "
+            f"not a whole number of scans at {num_pts} pts x 2")
+    return data.reshape(-1, num_pts, 2).astype(np.float32)

@@ -1,15 +1,15 @@
 """Evaluation of the serving engines: detection AP and flow EPE/AAE.
 
-Counterpart of the serving half of ``planar_optical_flow_tpu/eval/
-evaluator.py``: :func:`evaluate_detection_ap_batched` (``batch_streams``
-frames a step through a serving step, the greedy matcher on the step's
-device), :func:`evaluate_detection_ap` (a ``StreamingRunner`` loop, batch 1)
-and :func:`evaluate_flow_serving` (flow through a serving engine). The
-module model holds its weights, so no ``variables`` argument; ``device``
-(default ``"cuda"``, raising without a card) replaces JAX's ``interpret``:
-``device="cpu"`` runs the kernels' plain versions. The evaluators that take
-a training task (``evaluate_flow``, ``evaluate_box_regression``) are
-ROADMAP item 14b.
+Counterpart of ``planar_optical_flow_tpu/eval/evaluator.py``:
+:func:`evaluate_flow` (a training task's metrics over a loader, the module
+path), :func:`evaluate_detection_ap_batched` (``batch_streams`` frames a
+step through a serving step, the greedy matcher on the step's device),
+:func:`evaluate_detection_ap` (a ``StreamingRunner`` loop, batch 1) and
+:func:`evaluate_flow_serving` (flow through a serving engine). The module
+model holds its weights, so no ``variables`` argument; ``device`` (default
+``"cuda"``, raising without a card) replaces JAX's ``interpret``:
+``device="cpu"`` runs the kernels' plain versions. ``evaluate_box_
+regression`` comes with box regression (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -32,6 +32,28 @@ from planar_optical_flow_tpu_torch.ops.geometry import (
 )
 
 DET_FIELDS = ("det_xys", "det_cls", "det_keep")
+
+
+@torch.no_grad()
+def evaluate_flow(task, state, loader, collect_outputs: bool = False):
+    """Each of ``task.metrics``' values averaged over the loader's batches
+    (``FlowUNetTask``: EPE and AAE; ``FlowDrowTask``/``FlowDrowFusedTask``
+    the same through the DROW model), on the device of the state's model.
+    With ``collect_outputs``, also the outputs of every batch as numpy
+    (each frame's ``pred_flow``): returns ``(metrics, [outputs, ...])``."""
+    from planar_optical_flow_tpu_torch.train.trainer import to_device
+
+    device = next(state.model.parameters()).device
+    sums, n, outs = {}, 0, []
+    for batch in loader:
+        metrics, rtn = task.metrics(state.model, to_device(batch, device))
+        for k, v in metrics.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        n += 1
+        if collect_outputs:
+            outs.append({k: v.detach().cpu().numpy() for k, v in rtn.items()})
+    result = {k: v / max(n, 1) for k, v in sums.items()}
+    return (result, outs) if collect_outputs else result
 
 
 def evaluate_flow_serving(model, cutout_kwargs, frames, engine: str = "module",

@@ -5,11 +5,15 @@ The port names its modules after the flax ones, so the mapping is
 mechanical:
 
 * ``ConvBlock_i`` -> ``blocks.i``, ``Conv_0`` -> ``conv``, ``Dense_0`` ->
-  ``dense`` (a ``DenseBlock``'s), ``BatchNorm_0`` -> ``bn``; every other module name (``dr_spaam``,
-  ``backbone``, ``block1..4``, ``gate``, ``embed``, ``embed_bn``, ``head``,
-  ``cls``, ``reg``, ``flow_conv1..3``, ``flow_out``) is kept;
+  ``dense`` (a ``DenseBlock``'s), ``BatchNorm_0`` -> ``bn``; every other
+  module name (``dr_spaam``, ``backbone``, ``block1..4``, ``gate``,
+  ``embed``, ``embed_bn``, ``head``, ``cls``, ``reg``, ``flow_conv1..3``,
+  ``flow_out``; the flow U-Net's ``encoder_0..2``, ``decoder_0..1``,
+  ``flow_reg``, ``flow_reg_linear``, ``conv1..4``) is kept;
 * conv ``kernel (K, Cin, Cout)`` -> ``weight (Cout, Cin, K)``; dense
-  ``kernel (in, out)`` -> ``weight (out, in)``; ``bias`` -> ``bias``;
+  ``kernel (in, out)`` -> ``weight (out, in)`` (a bare flax ``Dense``, such
+  as ``flow_reg_linear``, maps to an ``nn.Linear`` of that name);
+  ``bias`` -> ``bias``;
 * BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var``.
 

@@ -11,7 +11,13 @@ from planar_optical_flow_tpu_torch.models.drow import (
     DrowHead,
 )
 from planar_optical_flow_tpu_torch.models.flow_drow import FlowDrow
+from planar_optical_flow_tpu_torch.models.flow_unet import (
+    FlowUNet,
+    FlowUNetAdditive,
+    correlation_cost_volume,
+)
 from planar_optical_flow_tpu_torch.models.registry import (
+    FLOW_MODEL_TYPES,
     STREAMING_MODEL_TYPES,
     get_model,
     num_cutout_pts_of,
@@ -22,6 +28,7 @@ from planar_optical_flow_tpu_torch.models.spatial_drow import (
 )
 
 __all__ = ["ConvBlock", "ConvStack", "DenseBlock", "Drow", "DrowBackbone",
-           "DrowHead", "FlowDrow",
-           "STREAMING_MODEL_TYPES", "SpatialAttentionGate", "SpatialDrow",
+           "DrowHead", "FLOW_MODEL_TYPES", "FlowDrow", "FlowUNet",
+           "FlowUNetAdditive", "STREAMING_MODEL_TYPES",
+           "SpatialAttentionGate", "SpatialDrow", "correlation_cost_volume",
            "get_model", "num_cutout_pts_of"]

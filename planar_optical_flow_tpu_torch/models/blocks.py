@@ -76,12 +76,13 @@ def rounded(value: float, dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU 0.1 as JAX computes it: ``where(x >= 0, x, slope * x)``
-    with the slope rounded to ``x``'s dtype first; ``F.leaky_relu``
-    multiplies by the f32 slope, which rounds a bf16 result differently on
-    about a fifth of the negatives."""
-    return torch.where(x >= 0, x, x * rounded(NEGATIVE_SLOPE, x.dtype))
+def leaky_relu(x: torch.Tensor,
+               negative_slope: float = NEGATIVE_SLOPE) -> torch.Tensor:
+    """LeakyReLU (slope 0.1 by default) as JAX computes it: ``where(x >= 0,
+    x, slope * x)`` with the slope rounded to ``x``'s dtype first;
+    ``F.leaky_relu`` multiplies by the f32 slope, which rounds a bf16
+    result differently on about a fifth of the negatives."""
+    return torch.where(x >= 0, x, x * rounded(negative_slope, x.dtype))
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -228,14 +229,17 @@ def remat(fn, *args):
 
 class ConvBlock(nn.Module):
     """Conv1d (torch-style padding ``((k-1)//2, k//2)``) + BatchNorm (eps
-    1e-5) + LeakyReLU 0.1. Runs in the input's dtype (weights are cast),
-    as flax does on variables cast by ``cast_variables``."""
+    1e-5) + LeakyReLU (``negative_slope``, 0.1 by default). Runs in the
+    input's dtype (weights are cast), as flax does on variables cast by
+    ``cast_variables``."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, *, generator: torch.Generator):
+                 stride: int = 1, *, generator: torch.Generator,
+                 negative_slope: float = NEGATIVE_SLOPE):
         super().__init__()
         self.kernel_size = kernel_size
         self.stride = stride
+        self.negative_slope = negative_slope
         self.conv = nn.utils.skip_init(nn.Conv1d, in_features, features,
                                        kernel_size, stride=stride)
         kaiming_leaky_(self.conv.weight, in_features * kernel_size,
@@ -252,7 +256,8 @@ class ConvBlock(nn.Module):
         # the bias after the rounded product, as flax's Conv adds it
         y = (F.conv1d(x, self.conv.weight.to(x.dtype), stride=self.stride)
              + self.conv.bias.to(x.dtype)[:, None])
-        return leaky_relu(batch_norm(y, self.bn, 1, train))
+        return leaky_relu(batch_norm(y, self.bn, 1, train),
+                          self.negative_slope)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """``(B, L, Cin)`` -> ``(B, L', Cout)``."""

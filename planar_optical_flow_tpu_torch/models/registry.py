@@ -1,9 +1,12 @@
 """Model registry: config dict -> port module.
 
 Counterpart of ``planar_optical_flow_tpu/models/registry.py`` for the DROW
-family: the streaming types the serving engines run, ``"flow_drow"`` ->
-:class:`FlowDrow` and ``"dr-spaam"``/``"spatial_drow"`` ->
-:class:`SpatialDrow`, and ``"drow"`` -> :class:`Drow`. The training keys
+family and the flow U-Net: the streaming types the serving engines run,
+``"flow_drow"`` -> :class:`FlowDrow` and ``"dr-spaam"``/``"spatial_drow"``
+-> :class:`SpatialDrow`, ``"drow"`` -> :class:`Drow`, and the flow types
+``"flow_unet"``/``"prototype"`` -> :class:`FlowUNet` (``in_channels``,
+``max_displacement``, ``linear_head``) and ``"prototype_test"`` ->
+:class:`FlowUNetAdditive`. The DROW training keys
 ``dropout``, ``remat`` and ``freeze_detector`` are passed on;
 ``banded_chunk`` is accepted and computes the dense gate, which is the
 same function (ROADMAP item 11b ports the banded form).
@@ -23,18 +26,22 @@ import torch
 
 from planar_optical_flow_tpu_torch.models.drow import Drow
 from planar_optical_flow_tpu_torch.models.flow_drow import FlowDrow
+from planar_optical_flow_tpu_torch.models.flow_unet import (
+    FlowUNet,
+    FlowUNetAdditive,
+)
 from planar_optical_flow_tpu_torch.models.spatial_drow import SpatialDrow
 
 # model types whose forward carries template state across scans: these
 # serve through the streaming engines
 STREAMING_MODEL_TYPES = ("flow_drow", "dr-spaam", "spatial_drow")
-PORTED_MODEL_TYPES = (*STREAMING_MODEL_TYPES, "drow")
+DROW_MODEL_TYPES = (*STREAMING_MODEL_TYPES, "drow")
+# the scan-pair flow nets: stateless, trained on FlowScanPairDataset
+FLOW_MODEL_TYPES = ("flow_unet", "prototype", "prototype_test")
+PORTED_MODEL_TYPES = (*DROW_MODEL_TYPES, *FLOW_MODEL_TYPES)
 
 # the JAX registry's other types -> the ROADMAP.md item that ports them
 NOT_PORTED = {
-    "flow_unet": "15",
-    "prototype": "15",
-    "prototype_test": "15",
     "box_reg": "16",
     "fc1d": "17",
     "fc1d_fea": "17",
@@ -53,7 +60,8 @@ def get_model(cfg: dict, num_cutout_pts: int = 48,
     """Build the module of ``cfg["type"]`` (the ``model`` section of a
     nested config), in eval mode (its forward trains only when called with
     ``train=True``). ``generator`` seeds the initial weights (default: seed
-    0); load trained ones with ``load_state_dict``."""
+    0); load trained ones with ``load_state_dict``. The flow types do not
+    read ``num_cutout_pts``."""
     mtype = cfg["type"]
     if mtype in NOT_PORTED:
         raise NotImplementedError(
@@ -66,6 +74,14 @@ def get_model(cfg: dict, num_cutout_pts: int = 48,
             f"{sorted((*PORTED_MODEL_TYPES, *NOT_PORTED))}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if mtype == "prototype_test":
+        return FlowUNetAdditive(in_channels=cfg.get("in_channels", 2),
+                                generator=generator).eval()
+    if mtype in FLOW_MODEL_TYPES:
+        return FlowUNet(in_channels=cfg.get("in_channels", 2),
+                        max_displacement=cfg.get("max_displacement", 5),
+                        linear_head=cfg.get("linear_head", False),
+                        generator=generator).eval()
     common = dict(dropout=cfg.get("dropout", 0.0),
                   pedestrian_only=cfg.get("pedestrian_only", False),
                   remat=cfg.get("remat", False), generator=generator)

@@ -5,13 +5,15 @@ Counterpart of ``planar_optical_flow_tpu/pipeline.py``:
 ``epochs / batch_size / num_scans / network / cutout_kwargs /
 similarity_kwargs / ...``) into the nested pipeline config (``dataset /
 dataloader / model / pipeline.{Trainer,Optim,Logger}``); a nested one is
-returned as it is. :class:`Pipeline` builds the model, the DROW datasets,
-the task, the optimizer and the trainer from it, on ``device`` (default
-``"cuda"``; it raises without a card, ``device="cpu"`` runs the plain
-versions of the kernels), and trains, evaluates and checkpoints.
+returned as it is. :class:`Pipeline` builds the model, the datasets
+(``FlowScanPairDataset`` for the flow U-Net types, ``DrowDetectionDataset``
+for the DROW family), the task, the optimizer and the trainer from it, on
+``device`` (default ``"cuda"``; it raises without a card, ``device="cpu"``
+runs the plain versions of the kernels), and trains, evaluates and
+checkpoints.
 
-The DROW family only: the other model types raise in the registry, naming
-their ROADMAP item. ``pipeline.mesh`` raises, naming item 20.
+Box regression and the fc encodings raise in the registry, naming their
+ROADMAP items (16, 17). ``pipeline.mesh`` raises, naming item 20.
 """
 
 from __future__ import annotations
@@ -93,10 +95,13 @@ def normalize_config(cfg: dict) -> dict:
 def _build_task(cfg: dict, model=None, num_pts: int | None = None):
     """The task of ``cfg["model"]["type"]``; ``num_pts`` is the beam count
     of the corpus loaded (the detection tasks' beam geometry)."""
+    from planar_optical_flow_tpu_torch.models import FLOW_MODEL_TYPES
     from planar_optical_flow_tpu_torch.train import tasks
 
     mtype = cfg["model"]["type"]
     ds = cfg["dataset"]
+    if mtype in FLOW_MODEL_TYPES:
+        return tasks.FlowUNetTask()
     common = dict(
         cutout_kwargs=ds.get("cutout_kwargs", {}),
         focal_loss_gamma=cfg["model"].get("focal_loss_gamma", 0.0),
@@ -114,12 +119,25 @@ def _build_task(cfg: dict, model=None, num_pts: int | None = None):
 
 def _build_datasets(cfg: dict, synthetic_dir: str | None = None,
                     device="cuda"):
-    """(train, val or None) DROW detection datasets (the registry builds
-    only DROW types); their targets are computed on ``device``."""
-    from planar_optical_flow_tpu_torch.data import DrowDetectionDataset
+    """(train, val or None): scan-pair flow datasets for the flow U-Net
+    types, else DROW detection datasets, whose targets are computed on
+    ``device``."""
+    from planar_optical_flow_tpu_torch.data import (
+        DrowDetectionDataset,
+        FlowScanPairDataset,
+    )
+    from planar_optical_flow_tpu_torch.models import FLOW_MODEL_TYPES
 
     ds = cfg["dataset"]
     data_dir = synthetic_dir or ds["data_dir"]
+    if cfg["model"]["type"] in FLOW_MODEL_TYPES:
+        train = FlowScanPairDataset(
+            data_dir, "train", train_with_val=ds.get("train_with_val", False))
+        try:
+            val = FlowScanPairDataset(data_dir, "val")
+        except FileNotFoundError:
+            val = None
+        return train, val
     kwargs = dict(num_scans=ds.get("num_scans", 5),
                   pedestrian_only=ds.get("pedestrian_only", False),
                   use_augmentation=ds.get("use_augmentation", False),

@@ -1,5 +1,6 @@
 """Training layer: the train state, the optimizer and its schedule, the
-preemption-safe trainer loop, checkpoints, and the DROW-family tasks."""
+preemption-safe trainer loop, checkpoints, and the tasks (the flow U-Net's
+and the DROW family's)."""
 
 from planar_optical_flow_tpu_torch.train.optim import (
     Optimizer,

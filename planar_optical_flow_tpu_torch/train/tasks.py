@@ -1,8 +1,10 @@
 """Per-workload losses and metrics ("tasks").
 
-Counterpart of ``planar_optical_flow_tpu/train/tasks.py`` for the DROW
-family: :class:`DetectionTask` (``"drow"``, ``"dr-spaam"``) with the
-cutout encoding, :class:`FlowDrowTask` and :class:`FlowDrowFusedTask`
+Counterpart of ``planar_optical_flow_tpu/train/tasks.py`` for the flow
+U-Net and the DROW family: :class:`FlowUNetTask` (``"flow_unet"``,
+``"prototype"``, ``"prototype_test"``) on scan pairs,
+:class:`DetectionTask` (``"drow"``, ``"dr-spaam"``) with the cutout
+encoding, :class:`FlowDrowTask` and :class:`FlowDrowFusedTask`
 (``"flow_drow"``). Each task's ``loss(model, batch, train, rng)`` returns
 ``(loss, tb_dict, outputs, new_batch_stats)`` and ``metrics(model, batch)``
 ``(metrics, outputs)``, as in JAX; the input encoding runs inside the step
@@ -17,8 +19,7 @@ as JAX casts them to the cast parameters' dtype. The losses run in f32.
 (the frozen detector's included), as flax's mutable collection is.
 
 The fc encodings (``fc1d``, ``fc1d_fea``, ``fc2d``) are ROADMAP item 17;
-``FlowUNetTask`` item 15, ``BoxRegressionTask`` item 16, and
-``loss_pipelined`` item 20.
+``BoxRegressionTask`` item 16, and ``loss_pipelined`` item 20.
 """
 
 from __future__ import annotations
@@ -52,6 +53,30 @@ def _apply(model, args, train: bool, rng=None):
     forward when training, else None)."""
     out = model(*args, train=train, rng=rng)
     return out, (dict(named_stats(model)) if train else None)
+
+
+@dataclass(frozen=True)
+class FlowUNetTask:
+    """Scan-pair planar flow: the EPE of the predicted flow, over the
+    ``exclude_mask`` when ``masked``. :meth:`metrics` runs the model on the
+    uncast f32 pair, as JAX does (bf16 parameters then compute in f32)."""
+
+    masked: bool = False
+
+    def loss(self, model, batch, train, rng=None):
+        dt = _model_dtype(model)
+        pair = batch["scan_pair"]
+        pred, new_stats = _apply(model, (pair[:, 0].to(dt), pair[:, 1].to(dt)),
+                                 train, rng)
+        mask = batch.get("exclude_mask") if self.masked else None
+        loss = losses.epe_loss(pred, batch["flow_target"], mask)
+        return loss, {"loss": loss}, {"pred_flow": pred}, new_stats
+
+    def metrics(self, model, batch):
+        pair = batch["scan_pair"]
+        pred, _ = _apply(model, (pair[:, 0], pair[:, 1]), False)
+        epe, aae = losses.epe_aae(pred, batch["flow_target"])
+        return {"epe": epe.mean(), "aae": aae.mean()}, {"pred_flow": pred}
 
 
 @dataclass(frozen=True)

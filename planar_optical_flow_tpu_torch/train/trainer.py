@@ -15,13 +15,20 @@ Counterpart of ``planar_optical_flow_tpu/train/trainer.py`` ``Trainer``:
 * periodic epoch checkpoints and evaluations; scalars ``TRAIN_step_ms``
   (host clock, the step until its loss is read back), ``TRAIN_lr``,
   ``TRAIN_loss``, ``TRAIN_epoch``, the task's other values and the global
-  gradient and parameter norms.
+  gradient and parameter norms;
+* ``profile_steps: [start, stop]`` runs steps ``start`` .. ``stop - 1``
+  (counted from 0 over the run) under ``torch.profiler`` (host, and the
+  card's kernels on a card) and writes the Chrome trace to
+  ``{run_dir}/profile/steps_{start}_{stop}.pt.trace.json`` when the window
+  closes (or the run ends first); an empty tuple, the default, turns it
+  off.
 
 There is one device and no mesh: a mesh raises, naming ROADMAP item 20.
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import time
 
@@ -70,6 +77,8 @@ class Trainer:
         self._max_epoch = cfg.get("epoch", cfg.get("epochs", 1))
         self._log_norms = bool(cfg.get("log_norms", True))
         self._compute_dtype = compute_dtype_of(cfg.get("compute_dtype"))
+        self._profile_steps = tuple(cfg.get("profile_steps") or ())
+        self._profiler = None
         # the dropout masks' generator, on the device
         self._rng = torch.Generator(device=self._device).manual_seed(seed)
         self._sigterm = False
@@ -135,6 +144,7 @@ class Trainer:
             for ib, batch in enumerate(train_loader):
                 if self._sigterm:
                     return self._preempt(state)
+                self._maybe_profile(int(state.step))
                 t_step = time.time()
                 state, tb = self.train_step(
                     state, to_device(batch, self._device))
@@ -165,6 +175,7 @@ class Trainer:
                     epoch + 1, self._eval_interval):
                 self.evaluate(state, eval_loader, tb_prefix="VAL")
             self._logger.flush()
+        self._stop_profile()
         return state, 0
 
     def evaluate(self, state, eval_loader, tb_prefix="VAL") -> dict:
@@ -183,7 +194,41 @@ class Trainer:
             self._logger.info(f"{tb_prefix} {k}: {v:.6f}")
         return means
 
+    def _maybe_profile(self, step: int):
+        """Start or stop the ``profile_steps`` window before ``step``."""
+        if not self._profile_steps:
+            return
+        start, stop = self._profile_steps
+        if step == start:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self._device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+            self._logger.info(f"profiler trace started at step {step} -> "
+                              f"{self._logger.run_dir}/profile")
+        elif step == stop:
+            self._stop_profile()
+
+    def _stop_profile(self):
+        """Close an open ``profile_steps`` window and write its trace."""
+        if self._profiler is None:
+            return
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        self._profiler.stop()
+        start, stop = self._profile_steps
+        trace_dir = os.path.join(self._logger.run_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"steps_{start}_{stop}.pt.trace.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler, self._profile_steps = None, ()
+        self._logger.info(f"profiler trace stopped -> {path}")
+
     def _preempt(self, state):
+        self._stop_profile()
         ckpt_lib.save_checkpoint(self._logger.sigterm_ckpt, state)
         self._logger.info(
             f"sigterm checkpoint saved: {self._logger.sigterm_ckpt}")

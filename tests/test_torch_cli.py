@@ -196,8 +196,15 @@ def test_evaluate_cli_synthetic(served, tmp_path):
     assert 0.0 <= metrics["ap"] <= 1.0 and metrics["num_frames"] > 0
     assert np.isfinite(metrics["serve_epe"]) and metrics[
         "serve_engine"] == "v3"
-    with pytest.raises(SystemExit):
-        evaluate_cli.main(["--cfg", cfg, "--cpu"])  # neither --ap nor flow
+    # neither --ap nor --serve-flow: the module path (FlowDrowTask metrics)
+    module_cfg = tmp_path / "module.json"
+    module_cfg.write_text(json.dumps(dict(FLAT_CFG,
+                                          log_dir=str(tmp_path / "logs"))))
+    module = evaluate_cli.evaluate(["--cfg", str(module_cfg), "--ckpt", ckpt,
+                                    "--synthetic", str(tmp_path / "syn"),
+                                    "--cpu"])
+    assert set(module) == {"epe", "aae"}
+    assert all(np.isfinite(v) for v in module.values())
     with pytest.raises(SystemExit):
         evaluate_cli.main(["--cfg", cfg, "--ap", "--artifact", "x", "--cpu"])
 

@@ -133,6 +133,8 @@ def test_package_imports_without_jax():
         "import planar_optical_flow_tpu_torch.data.loader\n"
         "import planar_optical_flow_tpu_torch.data.prepare\n"
         "import planar_optical_flow_tpu_torch.utils.logger\n"
+        "import planar_optical_flow_tpu_torch.models.flow_unet\n"
+        "import planar_optical_flow_tpu_torch.data.drow_flow\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'flax', "
         "'planar_optical_flow_tpu.')) and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

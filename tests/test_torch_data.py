@@ -33,8 +33,8 @@ from planar_optical_flow_tpu_torch.data import drow_io, synthetic
 from planar_optical_flow_tpu_torch.interop import variables_to_state_dict
 from planar_optical_flow_tpu_torch.models import get_model
 from planar_optical_flow_tpu_torch.models.registry import (
+    DROW_MODEL_TYPES,
     NOT_PORTED,
-    PORTED_MODEL_TYPES,
 )
 from planar_optical_flow_tpu_torch.ops import geometry as geo
 from planar_optical_flow_tpu_torch.ops import targets as tgt
@@ -98,7 +98,7 @@ def test_yaml_without_pyyaml_says_json(monkeypatch, tmp_path):
 # ---------------------------------------------------------------- registry
 
 
-@pytest.mark.parametrize("mtype", PORTED_MODEL_TYPES)
+@pytest.mark.parametrize("mtype", DROW_MODEL_TYPES)
 def test_registry_streaming_types_take_jax_weights(mtype):
     """The port's model of each ported type (the streaming ones and
     ``"drow"``) takes the JAX model's weights with no missing or unused key
