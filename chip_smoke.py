@@ -163,7 +163,27 @@ Phases:
    ``[train]`` phase's detector checkpoint through ``cli.evaluate
    --synthetic`` on the module path (finite metrics, K1 once an evaluation
    batch, K2-K4 never, no plain version);
-10. the kernels line, the card line and the result line.
+10. ``[box]`` (after ``[flow]``): the PointNet box regressor at the full
+   width of ``configs/train_3d_box_regression.yaml`` (B=256 segments of
+   256 points, input_dim 4, target_dim 5, dropout 0.3, augmentation on),
+   read and written as JSON with ``epoch`` cut to 1, on a synthetic JRDB
+   tree of ``data.write_synthetic_jrdb`` (2 train sequences and 1 val
+   sequence of 40 frames x 8 boxes: the samples after augmentation and the
+   B=256 steps printed, at least 4), with the LZF decoder and the CSV
+   reader that served; ``cli.train`` in f32 with ``profile_steps`` (1, 4)
+   (``[trace box]``: device busy share, top device operations) and in
+   bf16: finite losses, the final checkpoint, the step ms (median after
+   the first); ``cli.evaluate --ckpt`` on the card (metrics and
+   ``baseline_*``) within 1e-4 relative of ``evaluate_box_regression`` and
+   ``mean_box_baseline`` on the CPU; ``BoxRegressor.from_checkpoint`` on a
+   val frame at every box centre (boxes within 1e-4 of the CPU's, ``ok``
+   masks equal); the eval-mode forward at B = 256, 1024 and 4096 segments
+   in f32 and bf16 (wrapper loop and CUDA-graph device ms, segments/s, the
+   bound from ``box_macs``; f32 at B=256 within 1e-4 x max of the CPU's);
+   the metrics' rotated IoU of 256 predictions against 8 neighbours each
+   (ms, within 1e-5 of the CPU's). No kernel of the port launches in the
+   phase and no plain version of one runs;
+11. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
@@ -2608,31 +2628,6 @@ def run_dir_of(logs, tag):
     return os.path.join(logs, run)
 
 
-def trace_flow(run_dir, step_ms, top=12):
-    """``[trace flow]``: the f32 run's ``profile_steps`` trace, read back
-    from ``{run_dir}/profile``: its device busy share against the host
-    clock of the profiled steps, the top device operations and the time
-    outside the port's kernels (the U-Net launches none)."""
-    start, stop = FLOW_PROFILE
-    path = os.path.join(run_dir, "profile",
-                        f"steps_{start}_{stop}.pt.trace.json")
-    check(os.path.isfile(path) and os.path.getsize(path) > 0,
-          f"[flow] no profile_steps trace at {path}")
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-           for e in events
-           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    # TRAIN_step_ms of the steps that ran inside the window
-    wall_ms = sum(step_ms[start:stop]) / (stop - start)
-    print(f"[trace flow] profile_steps {list(FLOW_PROFILE)}: "
-          f"{stop - start} f32 steps of FlowUNetTask, {wall_ms:.3f} ms a "
-          f"step (host clock, under the profiler); trace {path} "
-          f"({os.path.getsize(path)} bytes, {len(events)} events)",
-          flush=True)
-    report_spans("[trace flow]", dev, wall_ms, stop - start, {}, top)
-
-
 def flow_phase(device, card, det_cfg, det_ckpt):
     """The ``[flow]`` phase: the flow U-Net trained through ``cli.train``
     (f32, with a ``profile_steps`` window, and bf16), its final checkpoint
@@ -2713,7 +2708,8 @@ def flow_phase(device, card, det_cfg, det_ckpt):
                   f"the first {float(np.median(ms[1:])):.3f} ms (B="
                   f"{batch}, {NUM_PTS} beams, {what}) on "
                   f"{card}", flush=True)
-        trace_flow(runs["f32"][0], runs["f32"][2])
+        trace_window("[trace flow]", runs["f32"][0], FLOW_PROFILE,
+                     runs["f32"][2], "f32 steps of FlowUNetTask")
 
         # the f32 checkpoint through cli.evaluate's module path, on the card
         _, eval_path = cfg_file("flow_eval", dtype=None)
@@ -2824,6 +2820,324 @@ def flow_phase(device, card, det_cfg, det_ckpt):
           flush=True)
     print(f"[flow] the phase took {time.perf_counter() - t_phase:.1f} s on "
           f"{card}", flush=True)
+
+
+# the "box" phase: configs/train_3d_box_regression.yaml (epoch cut to 1,
+# written as JSON) on a synthetic JRDB tree of the port's
+# write_synthetic_jrdb (2 train sequences and 1 val sequence of
+# BOX_FRAMES x BOX_BOXES), through cli.train in f32 (a profile_steps window)
+# and bf16, cli.evaluate and BoxRegressor; the eval-mode forward at
+# BOX_BATCHES segments
+BOX_YAML = os.path.join("configs", "train_3d_box_regression.yaml")
+BOX_FRAMES, BOX_BOXES = 40, 8
+BOX_PROFILE = (1, 4)    # profile_steps of the f32 run
+BOX_BATCHES = (256, 1024, 4096)
+BOX_ITERS = 10          # timed forward calls a batch and dtype
+TOL_BOX_EVAL = 1e-4     # metrics and baseline, card against the CPU
+TOL_BOX_INFER = 1e-4    # BoxRegressor boxes, card against the CPU
+TOL_BOX_FWD = 1e-4      # the f32 forward at B=256, x max |CPU|
+TOL_BOX_IOU = 1e-5      # the rotated IoU, card against the CPU
+
+
+def box_macs(model, num_points):
+    """Multiply-adds of one segment's forward: the per-point Dense layers
+    on each of ``num_points`` points, then the head on the pooled
+    feature."""
+    from torch import nn
+
+    def macs(module):
+        return sum(m.weight.numel() for m in module.modules()
+                   if isinstance(m, nn.Linear))
+
+    return (macs(model.backbone) * num_points
+            + sum(macs(getattr(model, f)) for f in ("fc1", "fc2", "fc3")))
+
+
+def trace_window(tag, run_dir, window, step_ms, what, card=""):
+    """A run's ``profile_steps`` trace, read back from ``{run_dir}/
+    profile``: its device busy share against the host clock of the
+    profiled steps, the top device operations and the time outside the
+    port's kernels."""
+    start, stop = window
+    path = os.path.join(run_dir, "profile",
+                        f"steps_{start}_{stop}.pt.trace.json")
+    check(os.path.isfile(path) and os.path.getsize(path) > 0,
+          f"{tag} no profile_steps trace at {path}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+           for e in events
+           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    # TRAIN_step_ms of the steps that ran inside the window
+    wall_ms = sum(step_ms[start:stop]) / (stop - start)
+    print(f"{tag} profile_steps {list(window)}: {stop - start} {what}, "
+          f"{wall_ms:.3f} ms a step (host clock, under the profiler); trace "
+          f"{path} ({os.path.getsize(path)} bytes, {len(events)} events)"
+          + (f"; {card}" if card else ""), flush=True)
+    report_spans(tag, dev, wall_ms, stop - start, {}, 12)
+
+
+def box_phase(device, card):
+    """The ``[box]`` phase: the PointNet box regressor trained through
+    ``cli.train`` (f32 with a ``profile_steps`` window, and bf16) on a
+    synthetic JRDB tree, its final checkpoint scored through
+    ``cli.evaluate`` (metrics and the mean-box baseline) against the CPU,
+    served through ``BoxRegressor`` against the CPU, the eval-mode forward
+    timed at ``BOX_BATCHES`` and the rotated IoU of the metrics timed. No
+    kernel of the port and no plain version of one may run."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.cli import evaluate as evaluate_cli
+    from planar_optical_flow_tpu_torch.cli import train as train_cli
+    from planar_optical_flow_tpu_torch.data import (
+        BatchLoader, JrdbBoxRegressionDataset, JrdbHandle, native,
+        write_synthetic_jrdb,
+    )
+    from planar_optical_flow_tpu_torch.eval import (
+        evaluate_box_regression, mean_box_baseline,
+    )
+    from planar_optical_flow_tpu_torch.infer import BoxRegressor
+    from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
+    from planar_optical_flow_tpu_torch.models import get_model
+    from planar_optical_flow_tpu_torch.ops.rotated_iou import (
+        rotated_iou_3d_paired,
+    )
+    from planar_optical_flow_tpu_torch.train import (
+        create_train_state, make_optimizer, tasks,
+    )
+    from planar_optical_flow_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    root = os.path.join(BUILD_DIR, "box")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    data, logs = os.path.join(root, "jrdb"), os.path.join(root, "logs")
+    t0 = time.perf_counter()
+    seqs = write_synthetic_jrdb(data, num_frames=BOX_FRAMES,
+                                boxes_per_frame=BOX_BOXES)
+    box_cfg = load_config(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), BOX_YAML))
+    ds_cfg = dict(box_cfg["dataset"], data_dir=data)
+    batch = box_cfg["dataloader"]["batch_size"]
+    train_set = JrdbBoxRegressionDataset("train", ds_cfg)
+    n_steps = len(train_set) // batch
+    print(f"[box] synthetic JRDB {seqs} ({BOX_FRAMES} frames x {BOX_BOXES} "
+          f"boxes a sequence) in {time.perf_counter() - t0:.1f} s: "
+          f"{len(train_set)} train samples after augmentation = {n_steps} "
+          f"steps of B={batch} (input_size "
+          f"{ds_cfg['input_size']}, dropout {box_cfg['model']['dropout']}); "
+          f"LZF decoder and CSV reader: {native.status()} (else the Python "
+          f"decoder and np.loadtxt); {card}", flush=True)
+    check(n_steps >= 4, f"[box] {n_steps} train steps of B={batch}")
+
+    def cfg_file(name, **trainer):
+        cfg = json.loads(json.dumps(box_cfg))
+        cfg["dataset"]["data_dir"] = data
+        cfg["pipeline"]["Trainer"].update(epoch=1, **trainer)
+        cfg["pipeline"]["Logger"].update(log_dir=logs, tag=name)
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return cfg, path
+
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                 signal.SIGTERM)}
+    runs = {}
+    with counting_plain() as plain_calls:
+        for what, dtype, profile in (("f32", None, BOX_PROFILE),
+                                     ("bf16", "bfloat16", ())):
+            _, path = cfg_file(f"box_{what}", compute_dtype=dtype,
+                               profile_steps=list(profile))
+            t0 = time.perf_counter()
+            try:
+                rc = train_cli.main(["--cfg", path])
+            finally:
+                for s, h in handlers.items():
+                    signal.signal(s, h)
+            secs = time.perf_counter() - t0
+            run_dir = run_dir_of(logs, f"box_{what}")
+            losses = run_scalars(run_dir, "TRAIN_loss")
+            ckpt = os.path.join(run_dir, "ckpt", "ckpt_final")
+            check(rc == 0 and len(losses) == n_steps
+                  and np.isfinite(losses).all()
+                  and os.path.isfile(os.path.join(ckpt, "weights.pt")),
+                  f"[box] cli.train {what}: rc {rc}, losses {losses}")
+            ms = run_scalars(run_dir, "TRAIN_step_ms")
+            with open(os.path.join(run_dir, "output",
+                                   "final_metrics.json")) as f:
+                final = {k: round(float(v), 5) for k, v in json.load(f)
+                         .items()}
+            runs[what] = (run_dir, ckpt, ms)
+            print(f"[box] cli.train --cfg {BOX_YAML} (epoch 1), {what}: "
+                  f"{len(losses)} steps of {batch} segments of "
+                  f"{ds_cfg['input_size']} points, losses "
+                  f"{json.dumps([round(x, 5) for x in losses])}, val "
+                  f"{json.dumps(final)}, final checkpoint {ckpt}; "
+                  f"{secs:.1f} s with its data and evaluation; {card}",
+                  flush=True)
+            print(f"[box] {what} step_ms "
+                  f"{json.dumps([round(x, 3) for x in ms])} median after "
+                  f"the first {float(np.median(ms[1:])):.3f} ms = "
+                  f"{batch / float(np.median(ms[1:])) * 1e3:.1f} segments/s "
+                  f"(B={batch}, {what}) on {card}", flush=True)
+        trace_window("[trace box]", runs["f32"][0], BOX_PROFILE,
+                     runs["f32"][2], "f32 steps of BoxRegressionTask", card)
+
+        # the f32 checkpoint through cli.evaluate's module path, on the card
+        ckpt = runs["f32"][1]
+        _, eval_path = cfg_file("box_eval", compute_dtype=None)
+        t0 = time.perf_counter()
+        got = evaluate_cli.evaluate(["--cfg", eval_path, "--ckpt", ckpt])
+        eval_s = time.perf_counter() - t0
+
+        # BoxRegressor on one val frame's cloud, at every box centre
+        frame = JrdbHandle("val", ds_cfg)[0]
+        centers = frame["boxes"][:, :3]
+        oris = frame["boxes"][:, -1]
+        reg = BoxRegressor.from_checkpoint(ckpt, ds_cfg, device=device)
+        t0 = time.perf_counter()
+        boxes, ok = reg(frame["points"], centers, oris)
+        infer_ms = (time.perf_counter() - t0) * 1e3
+
+        # the eval-mode forward and the metrics' rotated IoU
+        model = load_weights(get_model(box_cfg["model"]), ckpt).to(device)
+        val = JrdbBoxRegressionDataset("val", ds_cfg)
+        segs = val.batch(np.arange(max(BOX_BATCHES)) % len(val))
+        macs = box_macs(model, ds_cfg["input_size"])
+        fwd = {}
+        with torch.no_grad():
+            for b in BOX_BATCHES:
+                x32 = torch.as_tensor(segs["input"][:b], device=device)
+                for dt in (torch.float32, torch.bfloat16):
+                    x = x32.to(dt)
+                    out = model(x)
+                    check(out.shape == (b, 5) and out.dtype == dt
+                          and bool(torch.isfinite(out).all()),
+                          f"[box] forward B={b} {dt}")
+                    fwd[b, dt] = (out, time_ms(lambda: model(x), BOX_ITERS),
+                                  graph_ms(lambda: model(x), BOX_ITERS))
+                    del out
+                torch.cuda.empty_cache()
+            nb = torch.as_tensor(segs["target_neighbor"][:batch],
+                                 device=device)
+            pred = fwd[batch, torch.float32][0]
+            dc = torch.as_tensor(segs["det_center"][:batch], device=device)
+            ori = pred[:, -1] + torch.as_tensor(segs["input"][:batch, 0, -1],
+                                                device=device)
+            pboxes = torch.cat([dc[:, :2], (pred[:, 0] + dc[:, -1])[:, None],
+                                pred[:, 1:-1], ori[:, None]], dim=1)
+            # the targets de-canonicalized the same way: boxes whose IoU
+            # with their neighbours is live (1 with themselves), where a
+            # briefly trained model's predictions may overlap nothing
+            tgt = torch.as_tensor(segs["target"][:batch], device=device)
+            bc = torch.as_tensor(segs["box_center"][:batch], device=device)
+            tboxes = torch.cat([bc[:, :2], (tgt[:, 0] + dc[:, -1])[:, None],
+                                tgt[:, 1:-1],
+                                (tgt[:, -1] + ori - pred[:, -1])[:, None]],
+                               dim=1)
+            both = torch.cat([pboxes, tboxes])[:, None]
+            iou = rotated_iou_3d_paired(both, torch.cat([nb, nb]))
+            iou_ms = time_ms(lambda: rotated_iou_3d_paired(pboxes[:, None],
+                                                           nb), BOX_ITERS)
+            iou_dev = graph_ms(lambda: rotated_iou_3d_paired(
+                pboxes[:, None], nb), BOX_ITERS)
+        calls = plain_calls()
+    launched = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    check(not launched, f"[box] a kernel of the port launched: {launched}")
+    check(not any(calls.values()), f"[box] a plain version ran: "
+          f"{json.dumps({k: v for k, v in calls.items() if v})}")
+
+    # ... and the same on the CPU, from the same files
+    cpu_model = load_weights(get_model(box_cfg["model"]), ckpt)
+    cpu_val = JrdbBoxRegressionDataset("val", ds_cfg)
+    state = create_train_state(cpu_model, make_optimizer(
+        box_cfg["pipeline"]["Optim"], 1))
+    ref = evaluate_box_regression(
+        tasks.BoxRegressionTask(is_3d=ds_cfg.get("is_3d", True)), state,
+        BatchLoader(cpu_val, batch, shuffle=False))
+    ref.update({"baseline_" + k: v for k, v in
+                mean_box_baseline(cpu_val, device="cpu").items()})
+    check(set(got) == set(ref) and len(got) == 8
+          and all(math.isfinite(v) for v in got.values()),
+          f"[box] cli.evaluate: {got} vs {ref}")
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in ref}
+    check(all(got[k] == round(ref[k], 6) or r <= TOL_BOX_EVAL
+              for k, r in rel.items()),
+          f"[box] cli.evaluate {got} vs the CPU's {ref}")
+    print(f"[box] cli.evaluate --ckpt {ckpt} (module path, card): "
+          f"{json.dumps(got)} in {eval_s:.1f} s; evaluate_box_regression "
+          f"and mean_box_baseline on the CPU: "
+          f"{json.dumps({k: round(v, 6) for k, v in ref.items()})}, "
+          f"relative difference {json.dumps(rel)} (bar {TOL_BOX_EVAL}, or "
+          f"equal to 6 places); {card}", flush=True)
+
+    ref_boxes, ref_ok = BoxRegressor.from_checkpoint(
+        ckpt, ds_cfg, device="cpu")(frame["points"], centers, oris)
+    err = float(np.abs(boxes - ref_boxes).max())
+    check(np.array_equal(ok, ref_ok) and ok.all()
+          and err <= TOL_BOX_INFER, f"[box] BoxRegressor: max |card - CPU| "
+          f"{err}, ok {ok} vs {ref_ok}")
+    print(f"[box] BoxRegressor.from_checkpoint on val frame 0 "
+          f"({len(frame['points'])} points, {len(centers)} box centres): "
+          f"{infer_ms:.1f} ms a call (host clock, crop and resample on the "
+          f"host included), boxes within {err:.3g} of the CPU's (bar "
+          f"{TOL_BOX_INFER}), ok masks equal; {card}", flush=True)
+
+    for (b, dt), (out, ms, dev_ms) in fwd.items():
+        peak = H100_F32_FLOPS if dt == torch.float32 else H100_BF16_FLOPS
+        note = ""
+        if b == batch and dt == torch.float32:
+            with torch.no_grad():
+                ref_out = cpu_model(torch.as_tensor(segs["input"][:b]))
+            err = max_err(out.cpu(), ref_out)
+            top = float(ref_out.abs().max())
+            check(err <= TOL_BOX_FWD * top,
+                  f"[box] forward B={b}: {err} vs the CPU's")
+            note = (f"; max |card - CPU| {err:.3g} = {err / top:.3g} x max "
+                    f"(bar {TOL_BOX_FWD})")
+        print(f"[box] forward B={b} {str(dt)[6:]}: {ms:.4f} ms a call = "
+              f"{b / ms * 1e3:.1f} segments/s (wrapper loop); device "
+              f"{dev_ms:.4f} ms (a CUDA graph of {BOX_ITERS} calls) = "
+              f"{b / dev_ms * 1e3:.1f}; {macs * b / 1e9:.3f} GMAC, bound "
+              f"{2 * macs * b / peak * 1e3:.4f} ms at {peak / 1e12:g} "
+              f"TFLOP/s = {dev_ms / (2 * macs * b / peak * 1e3):.2f} x the "
+              f"bound{note}; {card}", flush=True)
+
+    ref_iou = rotated_iou_3d_paired(both.cpu(), torch.cat([nb, nb]).cpu())
+    # a briefly trained model predicts some boxes of negative volume, whose
+    # "IoU" (as in JAX) divides by a clamped difference of volumes, so ulps
+    # of the card's sin/cos move it by any amount: the bar holds the rows
+    # of positive volume (the targets' and most predictions')
+    diff = (iou.cpu() - ref_iou).abs()
+    posed = (both[:, 0, 3:6].prod(dim=1) > 0).cpu()
+    err = float(diff[posed].max())
+    ill, ill_top = 0.0, 0.0
+    if (~posed).any():
+        ill_top = float(ref_iou[~posed].abs().max())
+        ill = float((diff[~posed] / ref_iou[~posed].abs().clamp(min=1.0))
+                    .max())
+    valid = torch.as_tensor(segs["target_neighbor_valid"][:batch])
+    best = torch.where(valid, ref_iou[batch:], -1.0).amax(dim=1)
+    check(iou.shape == (2 * batch, nb.shape[1]) and err <= TOL_BOX_IOU
+          and bool(posed[batch:].all()) and bool((best > 0.999).all()),
+          f"[box] rotated IoU: max |card - CPU| {err}, the targets' best "
+          f"{best.min()}")
+    print(f"[box] rotated_iou_3d_paired of {batch} predictions x "
+          f"{nb.shape[1]} neighbours: {iou_ms:.4f} ms a call (wrapper "
+          f"loop), device {iou_dev:.4f} ms (a CUDA graph of {BOX_ITERS} "
+          f"calls); on the predictions and on the targets (the targets' "
+          f"best IoU over their valid neighbours {float(best.mean()):.6f} "
+          f"on average): max |card - CPU| {err:.3g} on the "
+          f"{int(posed.sum())} boxes of positive volume (bar "
+          f"{TOL_BOX_IOU}); {int((~posed).sum())} predictions of negative "
+          f"volume, whose values reach {ill_top:.4g}, differ by up to "
+          f"{ill:.3g} x max(|CPU|, 1); {card}", flush=True)
+    print(f"[box] launches of the port's kernels in the phase: 0 of "
+          f"{len(kernels)} wrappers, no plain version; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
 
 
 def main(argv=None):
@@ -3048,6 +3362,8 @@ def main(argv=None):
     del train_pipes
     torch.cuda.empty_cache()
     flow_phase(device, card, det_cfg, det_ckpt)
+    torch.cuda.empty_cache()
+    box_phase(device, card)
     torch.cuda.empty_cache()
     trace_phase(model, scans, device, calib)
     torch.cuda.empty_cache()

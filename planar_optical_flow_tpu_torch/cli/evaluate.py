@@ -6,18 +6,22 @@
 
 Without ``--ap``/``--serve-flow`` it takes the module path: the
 ``Pipeline`` of the config (any ported model type: the flow U-Net's, the
-DROW family's), the weights of ``--ckpt`` loaded (a training checkpoint
-directory, or a weights file), and ``Pipeline.evaluate``'s means of the task's metrics
-over the ``val`` split, else the ``train`` split, printed rounded to 6
-places. ``--synthetic DIR`` first writes synthetic DROW splits there, with
-their ``.difodom``/``.flow`` files, and scores those.
+DROW family's, the box regressor's), the weights of ``--ckpt`` loaded (a
+training checkpoint directory, or a weights file), and
+``Pipeline.evaluate``'s means of the task's metrics over the ``val``
+split, else the ``train`` split, printed rounded to 6 places. For
+``box_reg`` it then prints the mean-box baseline of the same split
+(``eval.mean_box_baseline``), its keys prefixed ``baseline_``: the floor
+the model's ``iou`` and ``loss_*`` must beat. ``--synthetic DIR`` first
+writes the synthetic corpus of ``cli.train --synthetic`` there (JRDB for
+``box_reg``, else DROW splits with their ``.difodom``/``.flow`` files) and
+scores that.
 
 With ``--ap`` (detection AP through ``evaluate_detection_ap_batched``)
 and/or ``--serve-flow`` (flow EPE/AAE through ``evaluate_flow_serving``,
 flow_drow models) it scores a streaming type's serving engines, ``--ckpt``
-being its weights, on the ``val`` split, else ``train``. The box baseline
-of box-regression models waits for ROADMAP item 16, ``--artifact`` for
-item 19.
+being its weights, on the ``val`` split, else ``train``. ``--artifact``
+waits for ROADMAP item 19.
 """
 
 from __future__ import annotations
@@ -73,8 +77,8 @@ def evaluate(argv=None) -> dict:
                              "file written by interop.checkpoint")
     parser.add_argument("--tag", default="")
     parser.add_argument("--synthetic", default=None,
-                        help="write synthetic DROW splits (with their "
-                             "flow files) to this directory and score them")
+                        help="write the synthetic corpus of cli.train "
+                             "--synthetic to this directory and score it")
     parser.add_argument("--ap", action="store_true",
                         help="score streaming detection AP")
     parser.add_argument("--serve-flow", action="store_true",
@@ -149,9 +153,11 @@ def evaluate(argv=None) -> dict:
 
 
 def _module_metrics(args) -> dict:
-    """The module path: ``Pipeline.evaluate`` after ``--ckpt``."""
+    """The module path: ``Pipeline.evaluate`` after ``--ckpt``, and the
+    mean-box baseline of box-regression models."""
     from planar_optical_flow_tpu_torch import resolve_device
     from planar_optical_flow_tpu_torch.cli.train import make_synthetic
+    from planar_optical_flow_tpu_torch.eval import mean_box_baseline
     from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
     from planar_optical_flow_tpu_torch.pipeline import (
         Pipeline,
@@ -161,7 +167,8 @@ def _module_metrics(args) -> dict:
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = normalize_config(load_config(args.cfg, tag=args.tag))
-    synthetic_dir = (make_synthetic(args.synthetic, device)
+    mtype = cfg["model"]["type"]
+    synthetic_dir = (make_synthetic(args.synthetic, device, mtype)
                      if args.synthetic else None)
     pipeline = Pipeline(cfg, synthetic_dir=synthetic_dir, device=device,
                         install_signal_handlers=False)
@@ -169,6 +176,12 @@ def _module_metrics(args) -> dict:
         load_weights(pipeline.model, args.ckpt)
     metrics = _rounded(pipeline.evaluate(tb_prefix="VAL"))
     print(metrics)
+    if mtype == "box_reg":
+        base = _rounded(mean_box_baseline(
+            pipeline.val_set or pipeline.train_set, device=device),
+            "baseline_")
+        print(base)
+        metrics.update(base)
     return metrics
 
 

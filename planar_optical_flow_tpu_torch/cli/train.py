@@ -7,10 +7,12 @@ Counterpart of ``bin/train.py``, with its flags::
 
 ``--ckpt`` restores a training checkpoint directory (``train/checkpoint.py``)
 before training or evaluating; ``--cont`` resumes from the sigterm
-checkpoint of a preempted run; ``--synthetic DIR`` writes a synthetic DROW
-corpus under DIR (2 x 40 train frames, 15 val frames, with their
-``.difodom``/``.flow`` files) and trains on it. It runs on the card unless
-``--cpu`` is given. A ``.json`` config needs no PyYAML. Returns the
+checkpoint of a preempted run; ``--synthetic DIR`` writes a synthetic
+corpus under DIR and trains on it: for ``box_reg`` a JRDB tree
+(``data.jrdb.write_synthetic_jrdb``: two train sequences and one val
+sequence of 3 frames x 4 boxes), else DROW splits (2 x 40 train frames, 15
+val frames, with their ``.difodom``/``.flow`` files). It runs on the card
+unless ``--cpu`` is given. A ``.json`` config needs no PyYAML. Returns the
 trainer's rc: 0, or 1 after a preemption (the sigterm checkpoint written).
 """
 
@@ -44,7 +46,8 @@ def main(argv=None) -> int:
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = normalize_config(load_config(args.cfg, tag=args.tag))
-    synthetic_dir = (make_synthetic(args.synthetic, device)
+    synthetic_dir = (make_synthetic(args.synthetic, device,
+                                    cfg["model"]["type"])
                      if args.synthetic else None)
     pipeline = Pipeline(cfg, synthetic_dir=synthetic_dir, device=device)
     if args.ckpt:
@@ -64,12 +67,20 @@ def main(argv=None) -> int:
     return rc
 
 
-def make_synthetic(out_dir: str, device) -> str:
-    """The synthetic DROW splits of ``bin/train.py`` under ``out_dir``:
-    ``train`` (2 sequences x 40 frames) and ``val`` (1 x 15, seed 9), with
-    their ``.difodom``/``.flow`` files (computed on ``device``)."""
+def make_synthetic(out_dir: str, device, model_type: str | None = None
+                   ) -> str:
+    """The synthetic corpus of ``bin/train.py`` under ``out_dir``: for
+    ``model_type`` ``"box_reg"`` the JRDB tree of ``write_synthetic_jrdb``
+    with its defaults; else the DROW splits ``train`` (2 sequences x 40
+    frames) and ``val`` (1 x 15, seed 9), with their ``.difodom``/``.flow``
+    files (computed on ``device``)."""
     from planar_optical_flow_tpu_torch.data import write_synthetic_drow_split
+    from planar_optical_flow_tpu_torch.data.jrdb import write_synthetic_jrdb
     from planar_optical_flow_tpu_torch.data.prepare import prepare_split
+
+    if model_type == "box_reg":
+        write_synthetic_jrdb(out_dir)
+        return out_dir
 
     write_synthetic_drow_split(out_dir, "train", num_sequences=2,
                                num_frames=40)

@@ -10,9 +10,9 @@ Counterpart of ``planar_optical_flow_tpu/data/drow_io.py``:
 * ``<seq>.flow``       per scan: ``P * 2`` floats, the flow targets
   (``data/prepare.py``).
 
-Numbers are parsed with ``np.loadtxt`` (float64, then cast). The JAX reader
-tries its ctypes CSV reader (``data/native.py``) first; that reader is not
-ported yet (ROADMAP item 12).
+Numbers are parsed as float64, then cast: by the native CSV reader
+(``data/native.py``; ``native.status()`` says whether it serves) where it
+is available, as JAX reads them, else by ``np.loadtxt``.
 """
 
 from __future__ import annotations
@@ -23,8 +23,15 @@ from glob import glob
 
 import numpy as np
 
+from planar_optical_flow_tpu_torch.data import native
+
 
 def _read_csv_floats(path: str) -> np.ndarray:
+    """A comma-separated float matrix: the native reader first, else
+    ``np.loadtxt`` (also for a file the native reader refuses)."""
+    out = native.read_csv(path)
+    if out is not None:
+        return out
     return np.loadtxt(path, delimiter=",", dtype=np.float64, ndmin=2)
 
 

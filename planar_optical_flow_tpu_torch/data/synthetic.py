@@ -1,11 +1,12 @@
-"""Synthetic DROW data, in the DROWv2 on-disk formats.
+"""Synthetic DROW and JRDB data.
 
-Counterpart of the DROW half of ``planar_optical_flow_tpu/data/synthetic.py``
-(numpy only; the JRDB generator waits for ROADMAP item 16). The repo ships
-no DROW corpus, so tests and the smoke run write stand-ins: a robot with
-odometry drives through a square room while cylindrical people walk about;
-scans are ray-cast at the SICK S300 geometry (0.5 deg a beam). For the same
-seed the files are byte-identical to the JAX package's.
+Counterpart of ``planar_optical_flow_tpu/data/synthetic.py`` (numpy only).
+The repo ships no corpus, so tests and the smoke run write stand-ins. DROW:
+a robot with odometry drives through a square room while cylindrical
+people walk about; scans are ray-cast at the SICK S300 geometry (0.5 deg a
+beam). JRDB (:func:`make_synthetic_jrdb`): 3D boxes with points sampled
+inside them over background clutter. For the same seed the data, and the
+files written from them, are byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -138,3 +139,33 @@ def write_synthetic_drow_split(data_dir, split="train", num_sequences=2,
                 for sid, dets in zip(seq["seq_ids"], seq[key]):
                     f.write(f"{sid},{json.dumps(dets)}\n")
     return stems
+
+
+def make_synthetic_jrdb(num_frames=4, boxes_per_frame=5, pts_per_box=64,
+                        seed=0, is_3d=True):
+    """Synthetic JRDB-style frames: per frame a list of 3D boxes
+    ``[cx, cy, cz, l, w, h, rot_z]`` and a point cloud sampled inside them
+    plus background clutter (the structure of a JRDB handle's frame)."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for _ in range(num_frames):
+        boxes = []
+        pts = [rng.uniform(-8, 8, size=(256, 3)) * np.array([1, 1, 0.2])]
+        for _ in range(boxes_per_frame):
+            cx, cy = rng.uniform(-5, 5, size=2)
+            cz = rng.uniform(-0.3, 0.3)
+            l, w, h = (rng.uniform(0.4, 1.2), rng.uniform(0.3, 0.8),
+                       rng.uniform(1.4, 1.9))
+            rot = rng.uniform(-np.pi, np.pi)
+            boxes.append([cx, cy, cz, l, w, h, rot])
+            # points sampled in the oriented box
+            local = rng.uniform(-0.5, 0.5, size=(pts_per_box, 3)) * [l, w, h]
+            c, s = np.cos(rot), np.sin(rot)
+            world = np.stack(
+                [c * local[:, 0] - s * local[:, 1] + cx,
+                 s * local[:, 0] + c * local[:, 1] + cy,
+                 local[:, 2] + cz], axis=1)
+            pts.append(world)
+        frames.append({"points": np.concatenate(pts).astype(np.float32),
+                       "boxes": np.asarray(boxes, dtype=np.float32)})
+    return frames

@@ -1,15 +1,16 @@
-"""Evaluation of the serving engines: detection AP and flow EPE/AAE.
+"""Evaluation of the serving engines (detection AP and flow EPE/AAE) and of
+the module path.
 
 Counterpart of ``planar_optical_flow_tpu/eval/evaluator.py``:
-:func:`evaluate_flow` (a training task's metrics over a loader, the module
-path), :func:`evaluate_detection_ap_batched` (``batch_streams`` frames a
+:func:`evaluate_flow` and :func:`evaluate_box_regression` (a training
+task's metrics over a loader, the module path),
+:func:`evaluate_detection_ap_batched` (``batch_streams`` frames a
 step through a serving step, the greedy matcher on the step's device),
 :func:`evaluate_detection_ap` (a ``StreamingRunner`` loop, batch 1) and
 :func:`evaluate_flow_serving` (flow through a serving engine). The module
 model holds its weights, so no ``variables`` argument; ``device`` (default
 ``"cuda"``, raising without a card) replaces JAX's ``interpret``:
-``device="cpu"`` runs the kernels' plain versions. ``evaluate_box_
-regression`` comes with box regression (ROADMAP item 16).
+``device="cpu"`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -54,6 +55,13 @@ def evaluate_flow(task, state, loader, collect_outputs: bool = False):
             outs.append({k: v.detach().cpu().numpy() for k, v in rtn.items()})
     result = {k: v / max(n, 1) for k, v in sums.items()}
     return (result, outs) if collect_outputs else result
+
+
+def evaluate_box_regression(task, state, loader) -> dict:
+    """``BoxRegressionTask.metrics``' mean IoU and z, dims and ori errors,
+    each the mean of the per-batch means over the loader's batches, on the
+    device of the state's model."""
+    return evaluate_flow(task, state, loader)
 
 
 def evaluate_flow_serving(model, cutout_kwargs, frames, engine: str = "module",

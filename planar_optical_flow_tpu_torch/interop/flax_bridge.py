@@ -9,7 +9,9 @@ mechanical:
   module name (``dr_spaam``, ``backbone``, ``block1..4``, ``gate``,
   ``embed``, ``embed_bn``, ``head``, ``cls``, ``reg``, ``flow_conv1..3``,
   ``flow_out``; the flow U-Net's ``encoder_0..2``, ``decoder_0..1``,
-  ``flow_reg``, ``flow_reg_linear``, ``conv1..4``) is kept;
+  ``flow_reg``, ``flow_reg_linear``, ``conv1..4``; the box regressor's
+  ``backbone``, ``fc1..3`` and the ``DenseBlock_i`` of its ``PointNet``,
+  and of ``TNet``) is kept;
 * conv ``kernel (K, Cin, Cout)`` -> ``weight (Cout, Cin, K)``; dense
   ``kernel (in, out)`` -> ``weight (out, in)`` (a bare flax ``Dense``, such
   as ``flow_reg_linear``, maps to an ``nn.Linear`` of that name);
@@ -18,8 +20,8 @@ mechanical:
   ``running_mean``/``running_var``.
 
 Works for any port module given the matching flax sub-tree (a whole
-``FlowDrow`` or e.g. one ``ConvBlock``). Raises on a missing or unused key
-and on a shape mismatch. Load with
+``FlowDrow`` or ``BoundingBoxRegressor``, or e.g. one ``ConvBlock``).
+Raises on a missing or unused key and on a shape mismatch. Load with
 ``model.load_state_dict(variables_to_state_dict(variables_np, model))``.
 """
 

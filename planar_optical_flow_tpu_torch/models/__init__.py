@@ -16,6 +16,11 @@ from planar_optical_flow_tpu_torch.models.flow_unet import (
     FlowUNetAdditive,
     correlation_cost_volume,
 )
+from planar_optical_flow_tpu_torch.models.pointnet import (
+    BoundingBoxRegressor,
+    PointNet,
+    TNet,
+)
 from planar_optical_flow_tpu_torch.models.registry import (
     FLOW_MODEL_TYPES,
     STREAMING_MODEL_TYPES,
@@ -27,8 +32,9 @@ from planar_optical_flow_tpu_torch.models.spatial_drow import (
     SpatialDrow,
 )
 
-__all__ = ["ConvBlock", "ConvStack", "DenseBlock", "Drow", "DrowBackbone",
-           "DrowHead", "FLOW_MODEL_TYPES", "FlowDrow", "FlowUNet",
-           "FlowUNetAdditive", "STREAMING_MODEL_TYPES",
-           "SpatialAttentionGate", "SpatialDrow", "correlation_cost_volume",
-           "get_model", "num_cutout_pts_of"]
+__all__ = ["BoundingBoxRegressor", "ConvBlock", "ConvStack", "DenseBlock",
+           "Drow", "DrowBackbone", "DrowHead", "FLOW_MODEL_TYPES",
+           "FlowDrow", "FlowUNet", "FlowUNetAdditive", "PointNet",
+           "STREAMING_MODEL_TYPES", "SpatialAttentionGate", "SpatialDrow",
+           "TNet", "correlation_cost_volume", "get_model",
+           "num_cutout_pts_of"]

@@ -1,12 +1,14 @@
 """Model registry: config dict -> port module.
 
 Counterpart of ``planar_optical_flow_tpu/models/registry.py`` for the DROW
-family and the flow U-Net: the streaming types the serving engines run,
-``"flow_drow"`` -> :class:`FlowDrow` and ``"dr-spaam"``/``"spatial_drow"``
--> :class:`SpatialDrow`, ``"drow"`` -> :class:`Drow`, and the flow types
-``"flow_unet"``/``"prototype"`` -> :class:`FlowUNet` (``in_channels``,
-``max_displacement``, ``linear_head``) and ``"prototype_test"`` ->
-:class:`FlowUNetAdditive`. The DROW training keys
+family, the flow U-Net and the box regressor: the streaming types the
+serving engines run, ``"flow_drow"`` -> :class:`FlowDrow` and
+``"dr-spaam"``/``"spatial_drow"`` -> :class:`SpatialDrow`, ``"drow"`` ->
+:class:`Drow`, the flow types ``"flow_unet"``/``"prototype"`` ->
+:class:`FlowUNet` (``in_channels``, ``max_displacement``,
+``linear_head``) and ``"prototype_test"`` -> :class:`FlowUNetAdditive`,
+and ``"box_reg"`` -> :class:`BoundingBoxRegressor` (``input_dim``,
+``target_dim``, ``dropout``). The DROW training keys
 ``dropout``, ``remat`` and ``freeze_detector`` are passed on;
 ``banded_chunk`` is accepted and computes the dense gate, which is the
 same function (ROADMAP item 11b ports the banded form).
@@ -30,6 +32,7 @@ from planar_optical_flow_tpu_torch.models.flow_unet import (
     FlowUNet,
     FlowUNetAdditive,
 )
+from planar_optical_flow_tpu_torch.models.pointnet import BoundingBoxRegressor
 from planar_optical_flow_tpu_torch.models.spatial_drow import SpatialDrow
 
 # model types whose forward carries template state across scans: these
@@ -38,11 +41,10 @@ STREAMING_MODEL_TYPES = ("flow_drow", "dr-spaam", "spatial_drow")
 DROW_MODEL_TYPES = (*STREAMING_MODEL_TYPES, "drow")
 # the scan-pair flow nets: stateless, trained on FlowScanPairDataset
 FLOW_MODEL_TYPES = ("flow_unet", "prototype", "prototype_test")
-PORTED_MODEL_TYPES = (*DROW_MODEL_TYPES, *FLOW_MODEL_TYPES)
+PORTED_MODEL_TYPES = (*DROW_MODEL_TYPES, *FLOW_MODEL_TYPES, "box_reg")
 
 # the JAX registry's other types -> the ROADMAP.md item that ports them
 NOT_PORTED = {
-    "box_reg": "16",
     "fc1d": "17",
     "fc1d_fea": "17",
     "fc2d": "17",
@@ -60,8 +62,8 @@ def get_model(cfg: dict, num_cutout_pts: int = 48,
     """Build the module of ``cfg["type"]`` (the ``model`` section of a
     nested config), in eval mode (its forward trains only when called with
     ``train=True``). ``generator`` seeds the initial weights (default: seed
-    0); load trained ones with ``load_state_dict``. The flow types do not
-    read ``num_cutout_pts``."""
+    0); load trained ones with ``load_state_dict``. The flow types and the
+    box regressor do not read ``num_cutout_pts``."""
     mtype = cfg["type"]
     if mtype in NOT_PORTED:
         raise NotImplementedError(
@@ -74,6 +76,11 @@ def get_model(cfg: dict, num_cutout_pts: int = 48,
             f"{sorted((*PORTED_MODEL_TYPES, *NOT_PORTED))}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if mtype == "box_reg":
+        return BoundingBoxRegressor(input_dim=cfg.get("input_dim", 4),
+                                    target_dim=cfg.get("target_dim", 5),
+                                    dropout=cfg.get("dropout", 0.3),
+                                    generator=generator).eval()
     if mtype == "prototype_test":
         return FlowUNetAdditive(in_channels=cfg.get("in_channels", 2),
                                 generator=generator).eval()

@@ -7,13 +7,14 @@ similarity_kwargs / ...``) into the nested pipeline config (``dataset /
 dataloader / model / pipeline.{Trainer,Optim,Logger}``); a nested one is
 returned as it is. :class:`Pipeline` builds the model, the datasets
 (``FlowScanPairDataset`` for the flow U-Net types, ``DrowDetectionDataset``
-for the DROW family), the task, the optimizer and the trainer from it, on
+for the DROW family, ``JrdbBoxRegressionDataset`` for ``box_reg``), the
+task, the optimizer and the trainer from it, on
 ``device`` (default ``"cuda"``; it raises without a card, ``device="cpu"``
 runs the plain versions of the kernels), and trains, evaluates and
 checkpoints.
 
-Box regression and the fc encodings raise in the registry, naming their
-ROADMAP items (16, 17). ``pipeline.mesh`` raises, naming item 20.
+The fc encodings raise in the registry, naming their ROADMAP item (17).
+``pipeline.mesh`` raises, naming item 20.
 """
 
 from __future__ import annotations
@@ -102,6 +103,8 @@ def _build_task(cfg: dict, model=None, num_pts: int | None = None):
     ds = cfg["dataset"]
     if mtype in FLOW_MODEL_TYPES:
         return tasks.FlowUNetTask()
+    if mtype == "box_reg":
+        return tasks.BoxRegressionTask(is_3d=ds.get("is_3d", True))
     common = dict(
         cutout_kwargs=ds.get("cutout_kwargs", {}),
         focal_loss_gamma=cfg["model"].get("focal_loss_gamma", 0.0),
@@ -120,11 +123,15 @@ def _build_task(cfg: dict, model=None, num_pts: int | None = None):
 def _build_datasets(cfg: dict, synthetic_dir: str | None = None,
                     device="cuda"):
     """(train, val or None): scan-pair flow datasets for the flow U-Net
-    types, else DROW detection datasets, whose targets are computed on
-    ``device``."""
+    types, JRDB box-regression datasets for ``box_reg`` (the config's
+    ``dataset`` section is their config), else DROW detection datasets,
+    whose targets are computed on ``device``."""
     from planar_optical_flow_tpu_torch.data import (
         DrowDetectionDataset,
         FlowScanPairDataset,
+    )
+    from planar_optical_flow_tpu_torch.data.jrdb import (
+        JrdbBoxRegressionDataset,
     )
     from planar_optical_flow_tpu_torch.models import FLOW_MODEL_TYPES
 
@@ -135,6 +142,14 @@ def _build_datasets(cfg: dict, synthetic_dir: str | None = None,
             data_dir, "train", train_with_val=ds.get("train_with_val", False))
         try:
             val = FlowScanPairDataset(data_dir, "val")
+        except FileNotFoundError:
+            val = None
+        return train, val
+    if cfg["model"]["type"] == "box_reg":
+        jrdb_cfg = {**ds, "data_dir": data_dir}
+        train = JrdbBoxRegressionDataset("train", jrdb_cfg)
+        try:
+            val = JrdbBoxRegressionDataset("val", jrdb_cfg)
         except FileNotFoundError:
             val = None
         return train, val
@@ -187,8 +202,9 @@ class Pipeline:
             self.device)
         self.train_set, self.val_set = _build_datasets(cfg, synthetic_dir,
                                                        self.device)
-        # the beam count comes from the corpus
-        num_pts = len(self.train_set.phi_grid)
+        # the beam count comes from the corpus (the scan datasets')
+        phi_grid = getattr(self.train_set, "phi_grid", None)
+        num_pts = None if phi_grid is None else len(phi_grid)
         self.task = _build_task(cfg, self.model, num_pts=num_pts)
 
         bsz = cfg["dataloader"]["batch_size"]

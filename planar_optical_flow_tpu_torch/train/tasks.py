@@ -1,11 +1,12 @@
 """Per-workload losses and metrics ("tasks").
 
 Counterpart of ``planar_optical_flow_tpu/train/tasks.py`` for the flow
-U-Net and the DROW family: :class:`FlowUNetTask` (``"flow_unet"``,
-``"prototype"``, ``"prototype_test"``) on scan pairs,
+U-Net, the DROW family and the box regressor: :class:`FlowUNetTask`
+(``"flow_unet"``, ``"prototype"``, ``"prototype_test"``) on scan pairs,
 :class:`DetectionTask` (``"drow"``, ``"dr-spaam"``) with the cutout
 encoding, :class:`FlowDrowTask` and :class:`FlowDrowFusedTask`
-(``"flow_drow"``). Each task's ``loss(model, batch, train, rng)`` returns
+(``"flow_drow"``), and :class:`BoxRegressionTask` (``"box_reg"``) on
+point segments. Each task's ``loss(model, batch, train, rng)`` returns
 ``(loss, tb_dict, outputs, new_batch_stats)`` and ``metrics(model, batch)``
 ``(metrics, outputs)``, as in JAX; the input encoding runs inside the step
 on the batch's device (K1 on the card).
@@ -18,8 +19,8 @@ as JAX casts them to the cast parameters' dtype. The losses run in f32.
 ``new_batch_stats`` is the whole statistics collection after the forward
 (the frozen detector's included), as flax's mutable collection is.
 
-The fc encodings (``fc1d``, ``fc1d_fea``, ``fc2d``) are ROADMAP item 17;
-``BoxRegressionTask`` item 16, and ``loss_pipelined`` item 20.
+The fc encodings (``fc1d``, ``fc1d_fea``, ``fc2d``) are ROADMAP item 17,
+and ``loss_pipelined`` item 20.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.nn.functional as F
 
-from planar_optical_flow_tpu_torch.ops import losses
+from planar_optical_flow_tpu_torch.ops import losses, rotated_iou
 from planar_optical_flow_tpu_torch.ops.cutout import area_s_for, scans_to_cutout
 from planar_optical_flow_tpu_torch.ops.geometry import get_laser_phi
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
@@ -250,3 +251,52 @@ class FlowDrowFusedTask(FlowDrowTask):
         new_stats = dict(named_stats(model)) if train else None
         loss, tb = _flow_losses(pred_flow, batch)
         return loss, tb, {"pred_flow": pred_flow}, new_stats
+
+
+@dataclass(frozen=True)
+class BoxRegressionTask:
+    """PointNet box regression: the L1 box loss (``ops.losses.
+    box_regression_loss``) in training; in :meth:`metrics` the z, dims and
+    ori errors and, for each de-canonicalized prediction, the max rotated
+    IoU against its padded neighbour boxes (invalid ones masked to
+    ``-inf``), all samples in one batched call. :meth:`metrics` runs the
+    model on the uncast f32 input, as JAX does."""
+
+    alpha: float = 0.5
+    is_3d: bool = True
+
+    def loss(self, model, batch, train, rng=None):
+        x = batch["input"].to(_model_dtype(model))
+        pred, new_stats = _apply(model, (x,), train, rng)
+        loss = losses.box_regression_loss(pred, batch["target"], self.alpha)
+        return loss, {"loss": loss}, {"pred": pred}, new_stats
+
+    def metrics(self, model, batch):
+        pred, _ = _apply(model, (batch["input"],), False)
+        target = batch["target"]
+        det_center = batch["det_center"]
+        input_angle = batch["input"][:, 0, -1]
+        ori = pred[:, -1] + input_angle
+        if self.is_3d:
+            cz = pred[:, 0] + det_center[:, -1]
+            loss_z = (cz - (target[:, 0] + det_center[:, -1])).abs()
+            loss_dim = (pred[:, 1:-1] - target[:, 1:-1]).abs().sum(dim=1)
+            # (B, 7): cx cy cz l w h rot
+            boxes = torch.cat([det_center[:, :2], cz[:, None],
+                               pred[:, 1:-1], ori[:, None]], dim=1)
+            iou_fn = rotated_iou.rotated_iou_3d_paired
+        else:
+            loss_z = torch.zeros_like(ori)
+            loss_dim = (pred[:, :-1] - target[:, :-1]).abs().sum(dim=1)
+            # (B, 5): cx cy l w rot
+            boxes = torch.cat([det_center[:, :2], pred[:, :-1],
+                               ori[:, None]], dim=1)
+            iou_fn = rotated_iou.rotated_iou_paired
+        loss_ori = (ori - batch["rot_z"]).abs()
+        # each prediction against its (K, 7|5) neighbours: (B, K)
+        iou = iou_fn(boxes[:, None, :], batch["target_neighbor"])
+        ious = torch.where(batch["target_neighbor_valid"], iou,
+                           -torch.inf).amax(dim=1)
+        return ({"iou": ious.mean(), "loss_z": loss_z.mean(),
+                 "loss_dim": loss_dim.mean(), "loss_ori": loss_ori.mean()},
+                {"pred": pred})
