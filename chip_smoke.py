@@ -183,7 +183,24 @@ Phases:
    the metrics' rotated IoU of 256 predictions against 8 neighbours each
    (ms, within 1e-5 of the CPU's). No kernel of the port launches in the
    phase and no plain version of one runs;
-11. the kernels line, the card line and the result line.
+11. ``[export]`` (last, after the ``[trace]`` lines): the int8c p2 and v3
+   steps exported at B=384 (``infer.export_serving_engine``: export
+   seconds, MB) and every other ``make_serve_step_v3`` configuration
+   (``"int8"``, pm, flat, p2c, cell, p2 fused) at B=8, the flow U-Net and
+   the box regressor at B=256 and the box regressor at B=8
+   (``export_model``); a fresh process (``python3 chip_smoke.py
+   --load-artifacts DIR``, which the phase starts) loads each through
+   ``StreamingRunner.from_artifact``/``load_model`` (load seconds) and runs
+   1 bootstrap + 5 carried steps on the phase's scans (the NaN included)
+   and the forwards on the same inputs, and ``BoxRegressor.from_artifact``
+   on 8 centres: its outputs equal the live ones and its carries' SHA-256
+   the live carries' at every step, with the same launch counts (K1, K5,
+   K6, K7 and K1-K4 6 times each at B=384), the forwards and boxes equal;
+   the carried-step medians loaded and live; the flagship detector
+   written as a reference ``.pth`` envelope, imported by
+   ``cli.import_checkpoint`` and served on the int8c runner at B=384,
+   equal to its source weights to the bit;
+12. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
@@ -1850,7 +1867,7 @@ PLAIN = {
         "backbone_tail_plain", "head_plain", "backbone_bf16_plain",
         "backbone_int8_plain", "backbone_int8_pm_plain",
         "backbone_int8_tail_plain", "head_int8_plain",
-        "backbone_int8_cut_plain"),
+        "backbone_int8_cut_plain", "row_shift_plain"),
     "infer.fast_gate": ("gate_plain", "gate_int8_plain",
                         "gate_head_int8_plain", "banded_mix_update_plain",
                         "_band_attention", "_banded_mix_xla"),
@@ -3140,11 +3157,346 @@ def box_phase(device, card):
           f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
 
 
+# the [export] phase: the serving configurations other than int8c p2 and
+# v3 (exported at B=EXPORT_SMALL), the stateless models' batch, the box
+# regressor's centres, and the reference detector's checkpoint
+EXPORT_SMALL = 8
+EXPORT_LAYOUTS = ("int8", "pm", "flat", "p2c", "cell", "p2_fused")
+EXPORT_MODEL_BATCH = 256
+EXPORT_BOX_CENTRES = 8
+EXPORT_LOAD_TIMEOUT = 600  # seconds for the loading process
+
+
+def carry_digests(carry):
+    """SHA-256 of every carry tensor's bytes, by name: the loading process
+    and this one compare their carries through these (a B=384 carry is
+    0.67-1.3 GB a step)."""
+    import hashlib
+
+    import torch
+
+    return {k: hashlib.sha256(v.contiguous().view(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        for k, v in sorted(carry.items())}
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_serving(step_or_runner, scans, is_runner):
+    """Bootstrap + carried steps on ``scans``: every launch counter set to
+    0 just before and read just after. Returns (outputs on the host,
+    carry digests, step ms, launches)."""
+    for w in wrappers().values():
+        w.launches = 0
+    outs, digests, step_ms, carry = [], [], [], None
+    for scan in scans:
+        sync(scan.device)
+        t0 = time.perf_counter()
+        if is_runner:
+            out = step_or_runner(scan)
+            carry = step_or_runner._carry
+        else:
+            carry, out = step_or_runner(carry, scan)
+        sync(scan.device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append({k: v.cpu() for k, v in out.items()})
+        digests.append(carry_digests(carry))
+    launches = {k: w.launches for k, w in wrappers().items()}
+    return outs, digests, step_ms, launches
+
+
+def reference_state_dict(detector):
+    """A SpatialDrow's ``state_dict`` under the reference's keys and
+    layouts, as ``FlowDROW_pretrained`` holds it (``dr_spaam.`` + the
+    reference DROW names: conv blocks ``conv_block_{1-4}.{i}.{0 conv, 1
+    BatchNorm}``, ``conv_cls``/``conv_reg`` pointwise convs ``(out, in,
+    1)``, the gate embedding a full-width conv ``(128, 256, L)``)."""
+    import re
+
+    out = {}
+    for key, v in detector.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        v = v.detach().cpu()
+        m = re.fullmatch(r"(?:backbone|head)\.block(\d)\.blocks\.(\d+)\."
+                         r"(conv|bn)\.(\w+)", key)
+        if m:
+            idx = 0 if m.group(3) == "conv" else 1
+            ref = f"conv_block_{m.group(1)}.{m.group(2)}.{idx}.{m.group(4)}"
+        elif key.startswith(("head.cls.", "head.reg.")):
+            ref = "conv_" + key[len("head."):]
+            v = v[:, :, None] if v.ndim == 2 else v
+        elif key == "gate.embed.weight":  # columns over (l, c)
+            ref = "gate.conv.0.weight"
+            v = v.reshape(v.shape[0], -1, 256).permute(0, 2, 1)
+        elif key.startswith("gate.embed."):
+            ref = "gate.conv.0." + key.rsplit(".", 1)[1]
+        elif key.startswith("gate.embed_bn."):
+            ref = "gate.conv.1." + key.rsplit(".", 1)[1]
+        else:
+            raise KeyError(f"no reference name for {key}")
+        out["dr_spaam." + ref] = v.contiguous().clone()
+    return out
+
+
+def export_phase(model, scans, device, calib, card):
+    """The ``[export]`` phase: the int8c p2 and v3 steps at B=384, every
+    other ``make_serve_step_v3`` configuration at B=8, the flow U-Net and
+    the box regressor (``export_model``) exported; loaded in a fresh
+    process (``python3 chip_smoke.py --load-artifacts DIR``: no live step
+    is reused there) and held to the live steps and forwards to the bit,
+    with the same launches; the flagship detector written as a reference
+    ``.pth``, imported by ``cli.import_checkpoint`` and served on the int8c
+    runner to the bit of the source weights."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.cli import (
+        import_checkpoint as import_cli,
+    )
+    from planar_optical_flow_tpu_torch.infer import (
+        BoxRegressor, StreamingRunner, export_model, export_serving_engine,
+        make_serve_step_v3,
+    )
+    from planar_optical_flow_tpu_torch.interop.checkpoint import (
+        load_weights, save_weights,
+    )
+    from planar_optical_flow_tpu_torch.models import get_model
+    from planar_optical_flow_tpu_torch.pipeline import normalize_config
+
+    t_phase = time.perf_counter()
+    root = os.path.join(BUILD_DIR, "export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.save(scans.cpu(), os.path.join(root, "scans.pt"))
+    spec = {"serving": [], "models": []}
+    live = {}
+
+    def size_mb(path):
+        return sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path)) / 1e6
+
+    def export(name, opts, batch):
+        step = make_serve_step_v3(model, CUTOUT_KW, num_pts=NUM_PTS,
+                                  device=device, **opts)
+        path = os.path.join(root, name)
+        t0 = time.perf_counter()
+        export_serving_engine(path, step, (batch, NUM_PTS),
+                              meta={"engine": name})
+        secs = time.perf_counter() - t0
+        live[name] = dict(zip(("outs", "digests", "ms", "launches"),
+                              run_serving(step, scans[:, :batch], False)),
+                          export_s=secs, mb=size_mb(path))
+        spec["serving"].append({"name": name, "path": path, "batch": batch})
+        del step
+        torch.cuda.empty_cache()
+
+    export("int8c", dict(precision="int8c", calib=calib), BATCH)
+    export("v3", dict(precision="bf16"), BATCH)
+    for name in EXPORT_LAYOUTS:
+        export(name, dict(LAYOUTS[name][0], calib=calib), EXPORT_SMALL)
+
+    # the stateless models at their full widths, seeded weights
+    gen = torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(7)
+    flow = get_model({"type": "flow_unet"}, generator=gen).to(device).eval()
+    box = get_model({"type": "box_reg"}, generator=gen).to(device).eval()
+    box_cfg = {"is_3d": True, "input_size": 256, "radius_segment": 0.5,
+               "input_with_angle": True, "min_segment_size": 1}
+    model_inputs = {
+        "flow_unet": (flow, tuple(torch.tensor(rng.normal(
+            0, 3, (EXPORT_MODEL_BATCH, NUM_PTS, 2)), dtype=torch.float32,
+            device=device) for _ in range(2))),
+        "box_reg": (box, (torch.tensor(rng.normal(
+            0, 1, (EXPORT_MODEL_BATCH, 256, 4)), dtype=torch.float32,
+            device=device),)),
+        "box_reg_b8": (box, (torch.zeros(EXPORT_BOX_CENTRES, 256, 4,
+                                         device=device),)),
+    }
+    with torch.no_grad():
+        for name, (net, inputs) in model_inputs.items():
+            path = os.path.join(root, name)
+            t0 = time.perf_counter()
+            export_model(path, net, inputs, meta={
+                "model_type": name.split("_b")[0]})
+            live[name] = dict(export_s=time.perf_counter() - t0,
+                              mb=size_mb(path), out=net(*inputs).cpu())
+            torch.save([t.cpu() for t in inputs],
+                       os.path.join(path + ".inputs.pt"))
+            spec["models"].append({"name": name, "path": path})
+    weights = save_weights(box, os.path.join(root, "box_weights.pt"))
+    points = rng.uniform(-3, 3, (4000, 3)).astype(np.float32)
+    centres = rng.uniform(-2, 2, (EXPORT_BOX_CENTRES, 3)).astype(np.float32)
+    np.savez(os.path.join(root, "box_frame.npz"), points=points,
+             centres=centres)
+    boxes, ok = BoxRegressor.from_checkpoint(weights, box_cfg,
+                                             device=device)(points, centres)
+    spec["box"] = {"path": os.path.join(root, "box_reg_b8"),
+                   "cfg": box_cfg}
+    spec["device"] = str(device)
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(spec, f)
+
+    # the programs in a fresh process
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--load-artifacts",
+         root], capture_output=True, text=True, timeout=EXPORT_LOAD_TIMEOUT)
+    load_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f"[export] the loading process exited "
+          f"{proc.returncode}")
+    loaded = torch.load(os.path.join(root, "loaded.pt"), weights_only=False)
+
+    for job in spec["serving"]:
+        name = job["name"]
+        want, got = live[name], loaded[name]
+        for i, (o_l, o_e) in enumerate(zip(want["outs"], got["outs"])):
+            check(set(o_l) == set(o_e), f"[export] {name} step {i} keys")
+            for k in o_l:
+                check(o_l[k].dtype == o_e[k].dtype
+                      and torch.equal(o_l[k], o_e[k]),
+                      f"[export] {name} step {i} {k} differs from the live "
+                      "step")
+        check(want["digests"] == got["digests"],
+              f"[export] {name}: the loaded carries differ from the live "
+              "step's")
+        check(want["launches"] == got["launches"],
+              f"[export] {name} launches: live {want['launches']}, loaded "
+              f"{got['launches']}")
+        ran = {k: v for k, v in want["launches"].items() if v}
+        if name in ("int8c", "v3"):
+            need = INT8C_KERNELS if name == "int8c" else V3_KERNELS
+            check(device.type != "cuda"
+                  or all(ran.get(k) == STEPS for k in need),
+                  f"[export] {name}: launches {ran}")
+            ms_l = float(np.median(want["ms"][1:]))
+            ms_e = float(np.median(got["ms"][1:]))
+            print(f"[export] {name} B={BATCH}: export {want['export_s']:.1f} "
+                  f"s, {want['mb']:.1f} MB, load {got['load_s']:.1f} s; "
+                  f"{STEPS} steps equal to the live step to the bit, "
+                  f"launches {json.dumps(ran)} both; carried median live "
+                  f"{ms_l:.3f} ms = {BATCH / ms_l * 1e3:.1f} scans/s, "
+                  f"loaded {ms_e:.3f} ms = {BATCH / ms_e * 1e3:.1f} scans/s "
+                  f"on {card}", flush=True)
+    small = {job["name"]: round(live[job["name"]]["export_s"], 1)
+             for job in spec["serving"] if job["batch"] == EXPORT_SMALL}
+    print(f"[export] B={EXPORT_SMALL}, each equal to its live step to the "
+          f"bit with the same launches (export s): {json.dumps(small)}",
+          flush=True)
+    for job in spec["models"]:
+        name = job["name"]
+        check(torch.equal(live[name]["out"], loaded[name]["out"]),
+              f"[export] {name}: the loaded forward differs from the live "
+              "one")
+    got_boxes, got_ok = loaded["box"]
+    check(np.array_equal(got_ok, ok) and np.array_equal(got_boxes, boxes),
+          "[export] BoxRegressor.from_artifact differs from "
+          "from_checkpoint")
+    print(f"[export] export_model equal to the live forward: flow_unet "
+          f"B={EXPORT_MODEL_BATCH} ({live['flow_unet']['mb']:.1f} MB), "
+          f"box_reg B={EXPORT_MODEL_BATCH} ({live['box_reg']['mb']:.1f} "
+          f"MB); BoxRegressor.from_artifact on {EXPORT_BOX_CENTRES} centres "
+          f"equal to from_checkpoint; the loading process {load_wall:.1f} s",
+          flush=True)
+
+    # a reference .pth of the flagship detector through cli.import_checkpoint
+    cfg_path = os.path.join(root, "flagship.json")
+    with open(cfg_path, "w") as f:
+        json.dump(FLAGSHIP_CFG, f)
+    model_cfg = normalize_config(dict(FLAGSHIP_CFG))["model"]
+    source = get_model(model_cfg, CUTOUT_KW["num_cutout_pts"])
+    source.dr_spaam.load_state_dict(model.dr_spaam.state_dict())
+    ref = reference_state_dict(source.dr_spaam)
+    # the reference's own flow head, which the importer skips
+    ref["flow_conv1.0.weight"] = torch.zeros(128, WINDOW, 3)
+    pth = os.path.join(root, "flagship.pth")
+    torch.save({"epoch": 40, "it": 40000.0, "model_state": ref,
+                "optimizer_state": {}}, pth)
+    out_dir = os.path.join(root, "imported")
+    check(import_cli.main(["--pth", pth, "--cfg", cfg_path, "--out",
+                           out_dir]) == 0, "[export] cli.import_checkpoint")
+    imported = load_weights(get_model(model_cfg,
+                                      CUTOUT_KW["num_cutout_pts"]), out_dir)
+    runs = []
+    for net in (source, imported):
+        runner = StreamingRunner(net, CUTOUT_KW, num_pts=NUM_PTS,
+                                 engine="int8c", calib=calib, device=device)
+        runs.append(run_serving(runner, scans, True)[:2])
+        del runner
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(runs[0][0],
+                                                       runs[1][0])
+               for k in a) and runs[0][1] == runs[1][1]
+    check(same, "[export] the imported checkpoint serves other outputs "
+          "than its source weights")
+    print(f"[export] reference .pth ({len(ref)} tensors) -> "
+          f"cli.import_checkpoint -> int8c runner at B={BATCH}: {STEPS} "
+          f"steps equal to the source weights' to the bit; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def load_artifacts(root):
+    """``--load-artifacts DIR``: the loading side of the ``[export]``
+    phase, in a process of its own. Runs every serving artifact of
+    ``DIR/spec.json`` through ``StreamingRunner.from_artifact`` on the
+    saved scans, every model artifact on its saved inputs and
+    ``BoxRegressor.from_artifact`` on the saved frame; writes
+    ``DIR/loaded.pt``."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.infer import (
+        BoxRegressor, StreamingRunner, load_model,
+    )
+
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    device = torch.device(spec["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 1
+    # as the exporting process runs: f32 convolutions and products in f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scans = torch.load(os.path.join(root, "scans.pt")).to(device)
+    results = {}
+    for job in spec["serving"]:
+        t0 = time.perf_counter()
+        runner = StreamingRunner.from_artifact(job["path"])
+        load_s = time.perf_counter() - t0
+        outs, digests, step_ms, launches = run_serving(
+            runner, scans[:, :job["batch"]], True)
+        results[job["name"]] = dict(outs=outs, digests=digests, ms=step_ms,
+                                    launches=launches, load_s=load_s)
+        del runner
+        torch.cuda.empty_cache()
+    for job in spec["models"]:
+        engine = load_model(job["path"])
+        inputs = torch.load(job["path"] + ".inputs.pt")
+        results[job["name"]] = {"out": engine(*inputs).cpu()}
+    frame = np.load(os.path.join(root, "box_frame.npz"))
+    results["box"] = BoxRegressor.from_artifact(
+        spec["box"]["path"], spec["box"]["cfg"])(frame["points"],
+                                                 frame["centres"])
+    torch.save(results, os.path.join(root, "loaded.pt"))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, BN statistics and scans")
+    ap.add_argument("--load-artifacts", default=None, metavar="DIR",
+                    help="the [export] phase's loading process (run by the "
+                         "phase itself)")
     args = ap.parse_args(argv)
+    if args.load_artifacts:
+        return load_artifacts(args.load_artifacts)
 
     import torch
 
@@ -3368,6 +3720,8 @@ def main(argv=None):
     trace_phase(model, scans, device, calib)
     torch.cuda.empty_cache()
     trace_phase(model, scans, device, calib, engine="v3")
+    torch.cuda.empty_cache()
+    export_phase(model, scans, device, calib, card)
 
     kernels = []
     for name, (src, replaces, wrapper, run) in KERNELS.items():

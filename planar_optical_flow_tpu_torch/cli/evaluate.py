@@ -20,14 +20,40 @@ scores that.
 With ``--ap`` (detection AP through ``evaluate_detection_ap_batched``)
 and/or ``--serve-flow`` (flow EPE/AAE through ``evaluate_flow_serving``,
 flow_drow models) it scores a streaming type's serving engines, ``--ckpt``
-being its weights, on the ``val`` split, else ``train``. ``--artifact``
-waits for ROADMAP item 19.
+being its weights, on the ``val`` split, else ``train``. With
+``--artifact DIR`` they score a serving artifact of ``cli.export_serving``
+instead of ``--ckpt``'s weights: the exact programs that ship (``--cfg``
+still names the dataset; ``--engine`` and ``--ckpt`` do not apply). The
+artifact's batch is the largest that fits the frames for ``--ap`` and the
+one that scores the most frames for ``--serve-flow``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+
+def _artifact_eval_batch(meta, n_frames, num_pts, parser,
+                         pick: str = "fit"):
+    """The batch to score a serving artifact at, its scan width checked
+    first. ``pick="fit"``: the largest exported batch that is at most
+    ``n_frames`` (the AP evaluator pads the sequence to whole chunks);
+    ``"coverage"``: the one that scores the most frames, ties to the larger
+    (the flow evaluator drops the frames past whole batches)."""
+    if int(meta["num_pts"]) != int(num_pts):
+        parser.error(
+            f"artifact was exported for num_pts={meta['num_pts']} but the "
+            f"dataset has {num_pts}-beam scans")
+    batches = meta.get("batches") or [meta["batch"]]
+    fit = [int(b) for b in batches if int(b) <= n_frames]
+    if not fit:
+        parser.error(
+            f"artifact batches {sorted(batches)} all exceed the "
+            f"{n_frames} eval frames; re-export with a smaller --batch")
+    if pick == "coverage":
+        return max(fit, key=lambda b: ((n_frames // b) * b, b))
+    return max(fit)
 
 
 def _resolve_ap_engine(engine, ckpt):
@@ -90,13 +116,23 @@ def evaluate(argv=None) -> dict:
                              "calibration.json sits next to --ckpt, else "
                              "'v3'; 'module' is the f32 engine")
     parser.add_argument("--artifact", default=None,
-                        help="not ported yet (ROADMAP item 19)")
+                        help="serving artifact directory (cli."
+                             "export_serving): score its programs with "
+                             "--ap/--serve-flow; conflicts with --engine "
+                             "and --ckpt (the artifact holds both)")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU instead of the card")
     args = parser.parse_args(argv)
     if args.artifact:
-        parser.error("--artifact is not ported yet (ROADMAP item 19: "
-                     "interop and export)")
+        if args.engine != "auto":
+            parser.error("--engine conflicts with --artifact (the "
+                         "artifact's engine is baked in)")
+        if args.ckpt:
+            parser.error("--ckpt conflicts with --artifact (the artifact's "
+                         "weights are baked in)")
+        if not (args.ap or args.serve_flow):
+            parser.error("--artifact only affects the serving-path "
+                         "evaluations; pass --ap and/or --serve-flow")
     if not (args.ap or args.serve_flow):
         return _module_metrics(args)
 
@@ -124,6 +160,10 @@ def evaluate(argv=None) -> dict:
         parser.error("--serve-flow needs a flow-headed model "
                      f"(flow_drow), not {mtype!r}")
     device = resolve_device("cpu" if args.cpu else "cuda")
+    if args.artifact:
+        # loaded before the data is made, so that a missing, foreign or
+        # wrong-device artifact fails at once
+        return _artifact_metrics(parser, args, cfg, device)
 
     data_dir = (make_synthetic(args.synthetic, device) if args.synthetic
                 else cfg["dataset"]["data_dir"])
@@ -147,6 +187,51 @@ def evaluate(argv=None) -> dict:
         flow = _rounded(evaluate_flow_serving(
             model, cutout_kwargs, ds, engine=engine, calib=calib,
             num_pts=ds.scans_flat.shape[-1], device=device), "serve_")
+        print(flow)
+        metrics.update(flow)
+    return metrics
+
+
+def _artifact_metrics(parser, args, cfg, device) -> dict:
+    """``--ap``/``--serve-flow`` on the serving artifact's programs."""
+    from planar_optical_flow_tpu_torch.cli.train import make_synthetic
+    from planar_optical_flow_tpu_torch.eval import (
+        evaluate_detection_ap_batched,
+        evaluate_flow_serving,
+    )
+    from planar_optical_flow_tpu_torch.eval.evaluator import (
+        DetectionEvalFrames,
+    )
+    from planar_optical_flow_tpu_torch.infer import StreamingRunner
+    from planar_optical_flow_tpu_torch.infer.export import (
+        load_serving_engine,
+    )
+
+    engine = load_serving_engine(args.artifact)
+    if engine.device.type != device.type:
+        parser.error(f"artifact runs on {engine.device.type}, this run on "
+                     f"{device.type} (--cpu selects the CPU)")
+    data_dir = (make_synthetic(args.synthetic, device) if args.synthetic
+                else cfg["dataset"]["data_dir"])
+    ds = eval_dataset(cfg, data_dir, device)
+    print({"ap_engine": "artifact", "artifact": args.artifact})
+    metrics = {}
+    if args.ap:
+        frames = DetectionEvalFrames.from_dataset(ds)
+        b = _artifact_eval_batch(engine.meta, len(frames),
+                                 frames.scans.shape[1], parser)
+        ap = _rounded(evaluate_detection_ap_batched(
+            None, None, frames, batch_streams=b, step=engine,
+            device=device))
+        print(ap)
+        metrics.update(ap)
+    if args.serve_flow:
+        num_pts = int(ds.scans_flat.shape[-1])
+        b = _artifact_eval_batch(engine.meta, len(ds), num_pts, parser,
+                                 pick="coverage")
+        flow = _rounded(evaluate_flow_serving(
+            None, None, ds, runner=StreamingRunner.from_artifact(engine),
+            num_pts=num_pts, batch_streams=b, device=device), "serve_")
         print(flow)
         metrics.update(flow)
     return metrics

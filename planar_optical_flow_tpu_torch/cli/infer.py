@@ -8,8 +8,12 @@ Feeds each scan of the sequence through a ``StreamingRunner`` (cutout,
 backbone, template memory, head, flow head and NMS) on the card, or on the
 CPU with ``--cpu`` (the kernels' plain versions). ``--ckpt`` is a weight
 file of ``interop.checkpoint`` (a torch ``state_dict``); without it the
-model keeps its seeded initial weights. ``--video`` (ROADMAP item 18) and
-``--artifact`` (item 19) are not ported yet.
+model keeps its seeded initial weights. ``--artifact DIR`` serves an
+artifact of ``cli.export_serving`` instead (``--cfg``, ``--ckpt``,
+``--engine`` and the calibration flags do not apply; the artifact must
+hold batch 1 and the sequence's beam count, and ``--cpu`` must match the
+device it was exported on). ``--video`` (ROADMAP item 18) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,9 +32,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m planar_optical_flow_tpu_torch.cli.infer")
     parser.add_argument("--cfg", default=None,
-                        help="model config (.json, or .yaml with PyYAML)")
+                        help="model config (.json, or .yaml with PyYAML); "
+                             "required unless --artifact")
     parser.add_argument("--artifact", default=None,
-                        help="not ported yet (ROADMAP item 19)")
+                        help="serving artifact directory (cli."
+                             "export_serving); replaces --cfg, --ckpt and "
+                             "--engine: the artifact is self-contained")
     parser.add_argument("--ckpt", default=None,
                         help="weight file written by interop.checkpoint")
     parser.add_argument("--sequence", required=True,
@@ -65,14 +72,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_args(parser, args):
-    if args.artifact:
-        parser.error("--artifact is not ported yet (ROADMAP item 19: "
-                     "interop and export)")
     if args.video:
         parser.error("--video is not ported yet (ROADMAP item 18: "
                      "utils/viz.py)")
-    if not args.cfg:
-        parser.error("--cfg is required")
+    if args.artifact:
+        # the artifact is self-contained: these would do nothing, or
+        # contradict what is baked into it
+        for flag, name in ((args.cfg, "--cfg"), (args.ckpt, "--ckpt"),
+                           (args.engine, "--engine"),
+                           (args.calib, "--calib"),
+                           (args.save_calib, "--save-calib")):
+            if flag:
+                parser.error(f"{name} is incompatible with --artifact")
+    elif not args.cfg:
+        parser.error("--cfg is required (unless --artifact is given)")
     if args.engine is None:
         args.engine = "module"
     if args.engine != "int8c":
@@ -152,18 +165,6 @@ def infer(argv=None):
 
     from planar_optical_flow_tpu_torch import resolve_device
     from planar_optical_flow_tpu_torch.data import drow_io
-    from planar_optical_flow_tpu_torch.infer import (
-        ServeCalibration,
-        StreamingRunner,
-    )
-    from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
-    from planar_optical_flow_tpu_torch.models import (
-        STREAMING_MODEL_TYPES,
-        get_model,
-        num_cutout_pts_of,
-    )
-    from planar_optical_flow_tpu_torch.pipeline import normalize_config
-    from planar_optical_flow_tpu_torch.utils.config import load_config
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     stem = args.sequence[:-4] if args.sequence.endswith(".csv") \
@@ -178,6 +179,60 @@ def infer(argv=None):
         _, odom_t, odom = drow_io.load_odometry_file(stem)
         match = np.argmin(np.abs(scan_t[:, None] - odom_t[None, :]), axis=1)
         poses = odom[match]  # (T, 3) world pose per scan
+
+    if args.artifact:
+        runner = _artifact_runner(parser, args.artifact, scans.shape[1],
+                                  device)
+    else:
+        runner = _model_runner(parser, args, scans, device)
+    if args.save_calib:
+        if runner.calibration is None:
+            print("error: no calibration produced to save", file=sys.stderr)
+            return 1, [], 0.0
+        print(f"calibration saved to "
+              f"{runner.calibration.save(args.save_calib)}")
+
+    scans_dev = torch.as_tensor(scans, device=device)
+    t0 = time.perf_counter()
+    results = serve_sequence(runner, scans_dev, conf=args.conf, poses=poses,
+                             replay=args.replay)
+    return 0, results, time.perf_counter() - t0
+
+
+def _artifact_runner(parser, path, num_pts, device):
+    """A runner on the serving artifact at ``path``, checked against what
+    the sequence needs: batch 1, ``num_pts`` beams, ``device``."""
+    from planar_optical_flow_tpu_torch.infer import StreamingRunner
+
+    runner = StreamingRunner.from_artifact(path)
+    meta = runner.meta
+    batches = meta.get("batches") or [meta.get("batch")]
+    if 1 not in batches:
+        parser.error(f"artifact was exported for batch(es) {batches}; "
+                     "per-frame inference needs one that includes --batch 1")
+    if meta.get("num_pts") != num_pts:
+        parser.error(f"artifact expects {meta.get('num_pts')}-pt scans, "
+                     f"sequence has {num_pts}")
+    if runner.meta["platforms"] != [device.type]:
+        parser.error(f"artifact runs on {runner.meta['platforms']}, this "
+                     f"run on {device.type} (--cpu selects the CPU)")
+    return runner
+
+
+def _model_runner(parser, args, scans, device):
+    """The runner of ``--cfg``/``--ckpt``/``--engine``."""
+    from planar_optical_flow_tpu_torch.infer import (
+        ServeCalibration,
+        StreamingRunner,
+    )
+    from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
+    from planar_optical_flow_tpu_torch.models import (
+        STREAMING_MODEL_TYPES,
+        get_model,
+        num_cutout_pts_of,
+    )
+    from planar_optical_flow_tpu_torch.pipeline import normalize_config
+    from planar_optical_flow_tpu_torch.utils.config import load_config
 
     cfg = normalize_config(load_config(args.cfg))
     if cfg["model"]["type"] not in STREAMING_MODEL_TYPES:
@@ -203,22 +258,10 @@ def infer(argv=None):
     fields = ["det_xys", "det_cls", "det_keep"]
     if cfg["model"]["type"] == "flow_drow":
         fields.append("pred_flow")
-    runner = StreamingRunner(model, cfg["dataset"].get("cutout_kwargs", {}),
-                             num_pts=scans.shape[1], engine=args.engine,
-                             calib=calib, calib_scans=calib_scans,
-                             output_fields=tuple(fields), device=device)
-    if args.save_calib:
-        if runner.calibration is None:
-            print("error: no calibration produced to save", file=sys.stderr)
-            return 1, [], 0.0
-        print(f"calibration saved to "
-              f"{runner.calibration.save(args.save_calib)}")
-
-    scans_dev = torch.as_tensor(scans, device=device)
-    t0 = time.perf_counter()
-    results = serve_sequence(runner, scans_dev, conf=args.conf, poses=poses,
-                             replay=args.replay)
-    return 0, results, time.perf_counter() - t0
+    return StreamingRunner(model, cfg["dataset"].get("cutout_kwargs", {}),
+                           num_pts=scans.shape[1], engine=args.engine,
+                           calib=calib, calib_scans=calib_scans,
+                           output_fields=tuple(fields), device=device)
 
 
 def main(argv=None) -> int:

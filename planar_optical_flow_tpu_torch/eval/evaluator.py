@@ -66,7 +66,8 @@ def evaluate_box_regression(task, state, loader) -> dict:
 
 def evaluate_flow_serving(model, cutout_kwargs, frames, engine: str = "module",
                           calib=None, calib_scans=None, num_pts: int = 450,
-                          batch_streams: int = 8, device="cuda"):
+                          batch_streams: int = 8, runner=None,
+                          device="cuda"):
     """Flow EPE/AAE through a serving engine (module / v3 / int8c).
 
     Each frame's scan stack is stepped through a ``StreamingRunner``
@@ -79,6 +80,11 @@ def evaluate_flow_serving(model, cutout_kwargs, frames, engine: str = "module",
     ``batch_streams`` (``frames_dropped`` says by how many). Flip
     augmentation is suspended for the call. int8c without ``calib`` or
     ``calib_scans`` calibrates on the last scans of the first batch.
+    ``runner``: a ``StreamingRunner`` built before, e.g.
+    ``StreamingRunner.from_artifact`` of a shipped serving artifact;
+    ``engine``, ``calib`` and ``calib_scans`` are then not read (the
+    result's ``engine`` is the runner's) and ``batch_streams`` must be a
+    batch the runner takes.
     """
     dev = resolve_device(device)
     n_eval = (len(frames) // batch_streams) * batch_streams
@@ -88,14 +94,18 @@ def evaluate_flow_serving(model, cutout_kwargs, frames, engine: str = "module",
     was_aug = getattr(frames, "use_augmentation", False)
     frames.use_augmentation = False
     try:
-        if calib_scans is None and engine == "int8c" and calib is None:
-            calib_scans = np.asarray(
-                frames.batch(np.arange(batch_streams))["scans"][:, -1])
-        # the NMS outputs are never read here: pred_flow comes from the
-        # epilogue, so the runner skips the vote NMS
-        runner = StreamingRunner(model, cutout_kwargs, num_pts=num_pts,
-                                 with_nms=False, engine=engine, calib=calib,
-                                 calib_scans=calib_scans, device=dev)
+        if runner is not None:
+            engine = getattr(runner, "_engine", "custom")
+        else:
+            if calib_scans is None and engine == "int8c" and calib is None:
+                calib_scans = np.asarray(
+                    frames.batch(np.arange(batch_streams))["scans"][:, -1])
+            # the NMS outputs are never read here: pred_flow comes from the
+            # epilogue, so the runner skips the vote NMS
+            runner = StreamingRunner(model, cutout_kwargs, num_pts=num_pts,
+                                     with_nms=False, engine=engine,
+                                     calib=calib, calib_scans=calib_scans,
+                                     device=dev)
         phi = torch.as_tensor(get_laser_phi(num_pts=num_pts),
                               dtype=torch.float32)
         epe_sum, ang_sum, n_pts = 0.0, 0.0, 0

@@ -78,10 +78,91 @@ class BoxRegressor:
         return self
 
     @classmethod
-    def from_artifact(cls, path: str, cfg: dict, **kw):
-        raise NotImplementedError(
-            "BoxRegressor.from_artifact is not ported yet (ROADMAP.md queue "
-            "1 item 19: interop and export); use from_checkpoint")
+    def from_artifact(cls, path: str, cfg: dict, seed: int = 0,
+                      device=None):
+        """The box-regression API (radius crop, resample,
+        de-canonicalization) on an exported network (``infer.export.
+        export_model``, ``cli.export_model``), with no weights or model
+        code: the artifact's programs run on its own device.
+
+        Detection counts need not match the exported batch sizes: a frame's
+        segments are padded to the smallest exported batch that fits, or
+        chunked over the largest, and the pad rows dropped (exact: the
+        eval-mode forward treats each sample alone). Raises where the
+        artifact is not a box regressor or does not take and give the
+        shapes ``cfg`` implies, or where ``device`` is not the artifact's."""
+        from planar_optical_flow_tpu_torch.infer.export import load_model
+
+        engine = load_model(path)
+        if device is not None and (torch.device(device).type
+                                   != engine.device.type):
+            raise ValueError(f"artifact {path} runs on {engine.device}, not "
+                             f"{device}")
+        self = cls(None, cfg, seed=seed, device=engine.device)
+        mtype = engine.meta.get("model_type")
+        if mtype is not None and mtype != "box_reg":
+            raise ValueError(f"artifact {path} holds a {mtype!r} model, not "
+                             "a box regressor")
+        for sig in engine.meta.get("input_shapes", {}).values():
+            if len(sig) != 1 or len(sig[0]["shape"]) != 3:
+                raise ValueError(
+                    f"artifact {path} is not a box-regression export "
+                    f"(expected one (B, num_pts, dim) input, got "
+                    f"{[s['shape'] for s in sig]})")
+            want = list(sig[0]["shape"][1:])
+            if want != [self.input_size, self.in_dim]:
+                raise ValueError(
+                    f"artifact {path} expects segments of shape (B, "
+                    f"{want[0]}, {want[1]}) but the config implies (B, "
+                    f"{self.input_size}, {self.in_dim})")
+        # the input width alone cannot tell a 2D+angle export from a 3D
+        # config without the angle (both 3): the predicted width can
+        tgt_dim = 5 if self.is_3d else 3
+        for osig in engine.meta.get("output_shapes", {}).values():
+            oshape = osig[0]["shape"] if len(osig) == 1 else None
+            if oshape is None or len(oshape) != 2 or oshape[1] != tgt_dim:
+                raise ValueError(
+                    f"artifact {path} predicts shape {oshape or osig} but "
+                    f"the config (is_3d={self.is_3d}) implies (B, "
+                    f"{tgt_dim}) boxes")
+        self.model = None
+        self._engine = engine
+        self._exported = sorted(int(b) for b in engine.meta["batches"])
+        return self
+
+    def _forward(self, x):
+        """The network on ``(N, input_size, in_dim)`` segments -> ``(N,
+        target_dim)``: the live model, or the artifact's programs (each
+        chunk padded, by repeating its first row, to the exported batch
+        that costs the fewest rows; ties to fewer calls)."""
+        if self.model is not None:
+            return self.model(x)
+        exported, engine = self._exported, self._engine
+        n = x.shape[0]
+        if n == 0:
+            # the smallest program on dummy rows, none of them kept: the
+            # width and dtype come from the export
+            dummy = x.new_zeros((exported[0],) + tuple(x.shape[1:]))
+            return engine(dummy)[:0]
+        outs, i = [], 0
+        while i < n:
+            rem = n - i
+            fit = next((e for e in exported if e >= rem), None)
+            le = [e for e in exported if e <= rem]
+            # pad the whole rest iff that costs no more rows than chunking
+            # it at the largest size that fits (ties: fewer calls)
+            if fit is not None and (not le
+                                    or fit <= le[-1] * -(-rem // le[-1])):
+                b, take = fit, rem
+            else:
+                b = take = le[-1]
+            chunk = x[i:i + take]
+            if take < b:
+                chunk = torch.cat([chunk, chunk[:1].expand(
+                    b - take, *chunk.shape[1:])])
+            outs.append(engine(chunk)[:take])
+            i += take
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     def generate_segments(self, points: np.ndarray, det_centers: np.ndarray):
         """Radius-crop and resample one segment per detection centre ->
@@ -127,7 +208,7 @@ class BoxRegressor:
             inputs = np.concatenate([inputs, ang], axis=-1)
 
         x = torch.as_tensor(inputs, dtype=torch.float32, device=self.device)
-        pred = self.model(x).cpu().numpy()
+        pred = self._forward(x).cpu().numpy()
         rot = pred[:, -1] + det_oris
         if self.is_3d:
             cz = pred[:, 0] + det_centers[:, 2]

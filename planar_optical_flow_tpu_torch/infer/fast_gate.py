@@ -73,6 +73,7 @@ import torch
 
 from planar_optical_flow_tpu_torch.models.blocks import rounded
 from planar_optical_flow_tpu_torch.ops.kernels import _build, int8_tiles
+from planar_optical_flow_tpu_torch.ops.kernels import library
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     _wg_inputs,
     check_head_int8_weights,
@@ -373,12 +374,16 @@ def gate(zx, zt, x, template, *, ct: int, alpha: float, window_size: int,
     features and of the template; ``x``/``template``: ``(N, D)``; all bf16,
     or all f32 (K3's f32 mode: f32 attention in both mixes). Returns
     new_template ``(N, D)`` and new_z ``(N, 128)`` in that dtype, sim ``(N,
-    window)`` f32. ``ct`` need not be a multiple of 8; ``D`` must be. A
-    CUDA tensor launches K3; a CPU tensor runs :func:`gate_plain`.
+    window)`` f32. ``ct`` need not be a multiple of 8; ``D`` must be. Runs
+    ``pof_torch::gate``: K3 on a CUDA tensor, :func:`gate_plain` on a CPU
+    tensor.
     """
-    kw = dict(ct=ct, alpha=alpha, window_size=window_size, ct_valid=ct_valid)
-    if zx.device.type == "cpu":
-        return gate_plain(zx, zt, x, template, **kw)
+    return torch.ops.pof_torch.gate(zx, zt, x, template, ct, float(alpha),
+                                    window_size, ct_valid)
+
+
+def _cuda_gate(zx, zt, x, template, *, ct, alpha, window_size, ct_valid):
+    """K3's launch: the CUDA kernel of ``pof_torch::gate``."""
     ct_valid = ct_valid or ct
     dtype = template.dtype
     if dtype not in (torch.bfloat16, torch.float32):
@@ -450,13 +455,17 @@ def gate_int8(zx, zt, x, template, *, ct: int, alpha: float,
     ``s_t``. Returns new_template ``(N, D)`` int8 at ``s_out``, new_z
     ``(N, 128)`` bf16, sim ``(N, window)`` f32. A CUDA tensor launches K6
     (blocks of :data:`GATE_ROWS` rows of one stream walking the template in
-    chunks of :data:`GATE_COLS` columns); a CPU tensor runs
-    :func:`gate_int8_plain`.
+    chunks of :data:`GATE_COLS` columns), a CPU tensor
+    :func:`gate_int8_plain`, both as the op ``pof_torch::gate_int8``.
     """
-    kw = dict(ct=ct, alpha=alpha, window_size=window_size, s_x=s_x, s_t=s_t,
-              s_out=s_out, ct_valid=ct_valid)
-    if zx.device.type == "cpu":
-        return gate_int8_plain(zx, zt, x, template, **kw)
+    return torch.ops.pof_torch.gate_int8(
+        zx, zt, x, template, ct, float(alpha), window_size, float(s_x),
+        float(s_t), float(s_out), ct_valid)
+
+
+def _cuda_gate_int8(zx, zt, x, template, *, ct, alpha, window_size, s_x, s_t,
+                    s_out, ct_valid):
+    """K6's launch: the CUDA kernel of ``pof_torch::gate_int8``."""
     ct_valid = ct_valid or ct
     n, d, _ = _check_gate_args("gate_int8", zx, zt, x, template, ct,
                                ct_valid, window_size, torch.int8, 16)
@@ -505,15 +514,21 @@ def gate_head_int8(zx, zt, x, template, head_conv_weights, head_weights, *,
     is the head's input scale); ``head_conv_weights``/``head_weights`` as
     for ``conv_stack.head_int8`` (the triples, laid out on every call, or
     ``conv_stack.head_weights_int8``, laid out once). A CUDA tensor
-    launches K12 (blocks of 16 rows of one stream); a CPU tensor runs
-    :func:`gate_head_int8_plain`.
+    launches K12 (blocks of 16 rows of one stream), a CPU tensor
+    :func:`gate_head_int8_plain`, both as the op
+    ``pof_torch::gate_head_int8``.
     """
-    kw = dict(ct=ct, alpha=alpha, window_size=window_size, s_x=s_x, s_t=s_t,
-              s_out=s_out, ct_valid=ct_valid)
-    if zx.device.type == "cpu":
-        return gate_head_int8_plain(zx, zt, x, template, head_conv_weights,
-                                    head_weights, num_classes=num_classes,
-                                    l4=l4, **kw)
+    convs, laid = library.int8_stack(head_conv_weights)
+    return torch.ops.pof_torch.gate_head_int8(
+        zx, zt, x, template, convs, laid, list(head_weights), ct,
+        float(alpha), window_size, float(s_x), float(s_t), float(s_out),
+        num_classes, l4, ct_valid)
+
+
+def _cuda_gate_head_int8(zx, zt, x, template, head_conv_weights,
+                         head_weights, *, ct, alpha, window_size, s_x, s_t,
+                         s_out, num_classes, l4, ct_valid):
+    """K12's launch: the CUDA kernel of ``pof_torch::gate_head_int8``."""
     ct_valid = ct_valid or ct
     n, d, _ = _check_gate_args("gate_head_int8", zx, zt, x, template, ct,
                                ct_valid, window_size, torch.int8, 16)
@@ -574,11 +589,16 @@ def banded_mix_update(attn, x, template, alpha: float, window_size: int,
     or f32 (the same). The roll is circular within each stream, as in the
     TPU kernel: equal to the zero-padded band wherever ``attn`` is 0 at the
     offsets that leave the stream. ``d_chunk`` is accepted for API parity
-    only. A CUDA tensor launches K15; a CPU tensor runs
-    :func:`banded_mix_update_plain`.
+    only. Runs ``pof_torch::banded_mix_update``: K15 on a CUDA tensor,
+    :func:`banded_mix_update_plain` on a CPU tensor.
     """
-    if x.device.type == "cpu":
-        return banded_mix_update_plain(attn, x, template, alpha, window_size)
+    del d_chunk
+    return torch.ops.pof_torch.banded_mix_update(attn, x, template,
+                                                 float(alpha), window_size)
+
+
+def _cuda_banded_mix_update(attn, x, template, *, alpha, window_size):
+    """K15's launch: the CUDA kernel of ``pof_torch::banded_mix_update``."""
     b, ct, d = template.shape
     window = window_size // 2 * 2 + 1
     if x.dtype not in (torch.bfloat16, torch.float32) or d % 8:

@@ -742,7 +742,9 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     sigmoid, canonical->global flow and the top-64 vote NMS.
     ``output_fields`` restricts the outputs dict to the named keys. Returns
     ``step(carry, scan) -> (carry', outputs)``; ``step.calibration`` holds
-    the int8 scales in effect (None for bf16).
+    the int8 scales in effect (None for bf16), ``step.raw_step`` the same
+    step outside ``torch.inference_mode`` (what ``infer.export.
+    export_serving_engine`` traces).
     """
     pm = _check_v3_options(precision, layout, fuse_gate_head, gate_per_stream,
                            pm_tile, conv_mode, int8_conv_mode, p2_l1_mode)
@@ -811,7 +813,6 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         hd_conv_w = head_weights_bf16(
             fold.prepare_stack_weights(fold.head_conv_blocks(det.head)))
 
-        @torch.inference_mode()
         def step(carry, scan):
             scan, flat = encode(scan)
             b = scan.shape[0]
@@ -830,8 +831,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
                             hd_head_w, num_classes=num_classes, l4=l4)
             return finish(scan, b, template, z, sim, cls, reg)
 
-        step.calibration = None
-        return step
+        return _serving(step, None, dev, precision)
 
     # ---- int8 / int8c: quantized from the f32 folded weights ----
     if calib is not None:
@@ -870,7 +870,6 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             out_dtype=torch.int8 if precision == "int8c" else torch.bfloat16)
 
     if precision == "int8":
-        @torch.inference_mode()
         def step(carry, scan):
             scan, flat = encode(scan)
             b = scan.shape[0]
@@ -887,8 +886,7 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
                 template.reshape(-1, FEAT_CHANNELS), w.tmpl_scale))
             return finish(scan, b, template, z, sim, cls, reg)
 
-        step.calibration = calib
-        return step
+        return _serving(step, calib, dev, precision)
 
     feat_scale, tmpl_scale = w.feat_scale, w.tmpl_scale
     gate_kw.update(s_x=feat_scale, s_out=tmpl_scale)
@@ -903,7 +901,6 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             feats, zx = backbone(cutout(padded, **cut_kw))
         return feats.reshape(zx.shape[0], l4 * FEAT_CHANNELS), zx
 
-    @torch.inference_mode()
     def step(carry, scan):
         scan, padded = prepare(scan)
         b = scan.shape[0]
@@ -936,7 +933,19 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             cls, reg = head_of(template.reshape(-1, FEAT_CHANNELS))
         return finish(scan, b, template, z, sim, cls, reg)
 
-    step.calibration = calib
+    return _serving(step, calib, dev, precision)
+
+
+def _serving(raw, calibration, device, precision):
+    """The live step: ``raw`` under ``torch.inference_mode``, with
+    ``raw_step`` (``raw`` itself, the body ``infer.export`` traces under
+    ``torch.no_grad``), ``calibration`` (the int8 scales, or None),
+    ``device`` and ``precision`` on it."""
+    step = torch.inference_mode()(raw)
+    step.raw_step = raw
+    step.calibration = calibration
+    step.device = device
+    step.precision = precision
     return step
 
 
@@ -950,7 +959,8 @@ class StreamingRunner:
     ``ServeCalibration`` or a path to a ``calibration.json`` or its
     directory) or from ``calib_scans``; with neither, the runner
     calibrates on the first batch it sees. ``runner.calibration`` holds the
-    scales in effect.
+    scales in effect. :meth:`from_artifact` runs a serving artifact
+    instead of a model.
     """
 
     def __init__(self, model, cutout_kwargs, num_pts: int = 450,
@@ -986,6 +996,31 @@ class StreamingRunner:
             self._step = self._build(calib=calib, calib_scans=calib_scans)
             self.calibration = self._step.calibration
         # else: int8c calibrates on the first batch (built in __call__)
+
+    @classmethod
+    def from_artifact(cls, path) -> "StreamingRunner":
+        """A runner on a serving artifact (``infer.export.
+        export_serving_engine``, ``cli.export_serving``): the engine
+        directory is the whole deployment unit, with no model, weights or
+        calibration. The batch sizes and scan width are the artifact's
+        (``runner.meta``), its outputs those it was exported with.
+        ``path``: the directory, or a ``ServingEngine`` already loaded.
+        Per-stream ``reset`` works as on a live runner."""
+        from planar_optical_flow_tpu_torch.infer.export import (
+            ServingEngine,
+            load_serving_engine,
+        )
+
+        runner = cls.__new__(cls)
+        runner._engine = "artifact"
+        runner._carry = None
+        runner._pending_reset = None
+        runner._output_fields = None
+        runner.calibration = None
+        runner._step = (path if isinstance(path, ServingEngine)
+                        else load_serving_engine(path))
+        runner.meta = runner._step.meta
+        return runner
 
     def reset(self, streams=None):
         """``streams=None`` restarts every stream (the next call

@@ -92,6 +92,7 @@ import torch
 import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build, int8_tiles
+from planar_optical_flow_tpu_torch.ops.kernels import library
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
     cutout_plain,
     div_f32,
@@ -251,12 +252,16 @@ def head(feats, conv_weights, head_weights, *, num_classes: int, l4: int):
     ``conv_weights``: :func:`head_weights_bf16` of ``fold.
     head_stack_weights``' conv weights (a caller that passes the pairs
     themselves has them laid out on every call); ``head_weights`` the
-    cls/reg weights. A CUDA tensor launches K4; a CPU tensor runs
-    :func:`head_plain`.
+    cls/reg weights. Runs ``pof_torch::head``: K4 on a CUDA tensor,
+    :func:`head_plain` on a CPU tensor.
     """
-    if feats.device.type == "cpu":
-        return head_plain(feats, _bf16_convs(conv_weights), head_weights,
-                          l4=l4)
+    convs, laid = library.bf16_stack(conv_weights)
+    return torch.ops.pof_torch.head(feats, convs, laid, list(head_weights),
+                                    num_classes, l4)
+
+
+def _cuda_head(feats, conv_weights, head_weights, *, num_classes, l4):
+    """K4's launch: the CUDA kernel of ``pof_torch::head``."""
     if l4 % 2 or not 2 <= l4 <= 32:
         raise ValueError(f"head: l4={l4} must be even and in [2, 32]")
     if not 1 <= num_classes <= 8:
@@ -406,12 +411,17 @@ def backbone_bf16(cutouts, layer1, weights, embed_weights, *, l: int):
     :func:`backbone_layer1` computes it (each f32 operation rounded once,
     leaky, bf16); ``weights``: :func:`backbone_weights_bf16` of the tail
     (a caller that passes the pairs has them laid out on every call);
-    ``embed_weights``: ``(W (l/4*256, 128) bf16, b (128,) bf16)``. A CUDA
-    tensor launches K2; a CPU tensor runs :func:`backbone_bf16_plain`.
+    ``embed_weights``: ``(W (l/4*256, 128) bf16, b (128,) bf16)``. Runs
+    ``pof_torch::backbone_bf16``: K2 on a CUDA tensor,
+    :func:`backbone_bf16_plain` on a CPU tensor.
     """
-    if cutouts.device.type == "cpu":
-        return backbone_bf16_plain(cutouts, layer1, weights, embed_weights,
-                                   l=l)
+    convs, laid = library.bf16_stack(weights)
+    return torch.ops.pof_torch.backbone_bf16(
+        cutouts, list(layer1), convs, laid, list(embed_weights), l)
+
+
+def _cuda_backbone_bf16(cutouts, layer1, weights, embed_weights, *, l):
+    """K2's launch: the CUDA kernel of ``pof_torch::backbone_bf16``."""
     out = _launch_k2("backbone_bf16", cutouts, layer1, weights,
                      embed_weights, l, L1_XLA)
     backbone_bf16.launches += 1
@@ -425,12 +435,18 @@ def backbone_tail(act1, weights, embed_weights, *, l: int):
 
     ``weights``: the tail from ``fold.backbone_stack_weights``, or its
     :func:`backbone_weights_bf16`; ``embed_weights`` as for
-    :func:`backbone_bf16`. A CUDA tensor launches K2's kernel reading the
-    act1 rows; a CPU tensor runs :func:`backbone_tail_plain`.
+    :func:`backbone_bf16`. Runs ``pof_torch::backbone_tail``: on a CUDA
+    tensor K2's kernel reading the act1 rows, on a CPU tensor
+    :func:`backbone_tail_plain`.
     """
-    if act1.device.type == "cpu":
-        return backbone_tail_plain(act1, _bf16_convs(weights), embed_weights,
-                                   l=l)
+    convs, laid = library.bf16_stack(weights)
+    return torch.ops.pof_torch.backbone_tail(act1, convs, laid,
+                                             list(embed_weights), l)
+
+
+def _cuda_backbone_tail(act1, weights, embed_weights, *, l):
+    """K2's launch on act1: the CUDA kernel of ``pof_torch::backbone_tail``.
+    """
     out = _launch_k2("backbone_tail", act1, None, weights, embed_weights, l,
                      L1_READ)
     backbone_tail.launches += 1
@@ -780,11 +796,16 @@ def backbone_int8(cutouts, layer1, weights, embed_weights, *, l: int):
     ``1/in_scale`` folded in); ``weights``: the 5 tail convs from
     ``quant.kernel_stack_weights``; ``embed_weights``: ``(W^T (128,
     l/4*256) bf16, b (128,) bf16)`` with the feats scale folded into ``W``.
-    A CUDA tensor launches K5; a CPU tensor runs :func:`backbone_int8_plain`.
+    Runs ``pof_torch::backbone_int8``: K5 on a CUDA tensor,
+    :func:`backbone_int8_plain` on a CPU tensor.
     """
-    if cutouts.device.type == "cpu":
-        return backbone_int8_plain(cutouts, layer1, weights, embed_weights,
-                                   l=l)
+    convs, laid = library.int8_stack(weights)
+    return torch.ops.pof_torch.backbone_int8(
+        cutouts, list(layer1), convs, laid, list(embed_weights), l)
+
+
+def _cuda_backbone_int8(cutouts, layer1, weights, embed_weights, *, l):
+    """K5's launch: the CUDA kernel of ``pof_torch::backbone_int8``."""
     out = _launch_backbone_int8("backbone_int8", cutouts, layer1, weights,
                                 embed_weights, l, _L1_FOLD)
     backbone_int8.launches += 1
@@ -798,12 +819,18 @@ def backbone_int8_pm(cutouts, layer1, weights, embed_weights, *, l: int,
     division, on the unscaled layer-1 weights ``layer1 = (w (3, 64), b
     (64,))`` f32 (``Int8Weights.layer1_div``). Same other arguments and
     outputs; rows stay cutout-major (the JAX kernel's position-major rows
-    are a TPU layout device). A CUDA tensor launches K9; a CPU tensor runs
-    :func:`backbone_int8_pm_plain`.
+    are a TPU layout device). Runs ``pof_torch::backbone_int8_pm``: K9 on
+    a CUDA tensor, :func:`backbone_int8_pm_plain` on a CPU tensor.
     """
-    if cutouts.device.type == "cpu":
-        return backbone_int8_pm_plain(cutouts, layer1, weights, embed_weights,
-                                      l=l, in_scale=in_scale)
+    convs, laid = library.int8_stack(weights)
+    return torch.ops.pof_torch.backbone_int8_pm(
+        cutouts, list(layer1), convs, laid, list(embed_weights), l,
+        float(in_scale))
+
+
+def _cuda_backbone_int8_pm(cutouts, layer1, weights, embed_weights, *, l,
+                           in_scale):
+    """K9's launch: the CUDA kernel of ``pof_torch::backbone_int8_pm``."""
     out = _launch_backbone_int8("backbone_int8_pm", cutouts, layer1, weights,
                                 embed_weights, l, _L1_DIVIDE, in_scale)
     backbone_int8_pm.launches += 1
@@ -842,16 +869,23 @@ def backbone_int8_cut(scans, layer1, weights, embed_weights, *,
     The cutout arguments are :func:`cutout_kernel.cutout`'s, the weights
     :func:`backbone_int8`'s (layer 1 with ``1/in_scale`` folded in; the
     tail as the triples or :func:`backbone_weights_int8`). A CUDA tensor
-    launches K8, blocks of 16 beams of one stream (and K5's embed kernel);
-    a CPU tensor runs :func:`backbone_int8_cut_plain`.
+    launches K8, blocks of 16 beams of one stream (and K5's embed kernel),
+    a CPU tensor :func:`backbone_int8_cut_plain`, both as the op
+    ``pof_torch::backbone_int8_cut``.
     """
-    kw = dict(num_cutout_pts=num_cutout_pts, window_width=window_width,
-              window_depth=window_depth, padding_val=padding_val,
-              centered=centered, area_mode=area_mode, p_valid=p_valid,
-              angle_inc=angle_inc)
-    if scans.device.type == "cpu":
-        return backbone_int8_cut_plain(scans, layer1, weights, embed_weights,
-                                       **kw)
+    convs, laid = library.int8_stack(weights)
+    return torch.ops.pof_torch.backbone_int8_cut(
+        scans, list(layer1), convs, laid, list(embed_weights),
+        num_cutout_pts, float(window_width), float(window_depth),
+        float(padding_val), bool(centered), bool(area_mode),
+        float(angle_inc), p_valid)
+
+
+def _cuda_backbone_int8_cut(scans, layer1, weights, embed_weights, *,
+                            num_cutout_pts, window_width, window_depth,
+                            padding_val, centered, area_mode, p_valid,
+                            angle_inc):
+    """K8's launch: the CUDA kernel of ``pof_torch::backbone_int8_cut``."""
     l = num_cutout_pts
     if scans.ndim != 2:
         raise ValueError(f"backbone_int8_cut: need (B, P) scans, got "
@@ -895,15 +929,20 @@ def backbone_int8_tail(act1, weights, embed_weights, *, l: int,
     :func:`backbone_int8`). ``torch.bfloat16``: ``weights`` from
     ``quantize_stack_int8(dequant_last=True)``, feats the bf16 of the last
     layer's f32 output, ``embed_weights`` the unscaled ``(W^T (128,
-    l/4*256) bf16, b (128,) bf16)``. A CUDA tensor launches K10; a CPU
-    tensor runs :func:`backbone_int8_tail_plain`.
+    l/4*256) bf16, b (128,) bf16)``. Runs ``pof_torch::backbone_int8_tail``:
+    K10 on a CUDA tensor, :func:`backbone_int8_tail_plain` on a CPU tensor.
     """
     if out_dtype not in (torch.int8, torch.bfloat16):
         raise ValueError(f"backbone_int8_tail: out_dtype {out_dtype} is not "
                          "torch.int8 or torch.bfloat16")
-    if act1.device.type == "cpu":
-        return backbone_int8_tail_plain(act1, weights, embed_weights, l=l,
-                                        out_dtype=out_dtype)
+    convs, laid = library.int8_stack(weights)
+    return torch.ops.pof_torch.backbone_int8_tail(
+        act1, convs, laid, list(embed_weights), l,
+        out_dtype == torch.bfloat16)
+
+
+def _cuda_backbone_int8_tail(act1, weights, embed_weights, *, l, out_dtype):
+    """K10's launch: the CUDA kernel of ``pof_torch::backbone_int8_tail``."""
     out = _launch_backbone_int8("backbone_int8_tail", act1, None, weights,
                                 embed_weights, l, _L1_READ,
                                 out_dtype=out_dtype)
@@ -927,13 +966,24 @@ def row_shift(x, *, l: int):
     ``right[r] = x[r + 1]``, zero at each cutout's ends. A CUDA tensor
     launches K16, which reads the rows through the packed tile's loader and
     tap addresses (those of every int8 conv: K5, K7-K10, K12, K13); a CPU
-    tensor runs the plain versions' tap construction."""
+    tensor runs :func:`row_shift_plain`, both as the op
+    ``pof_torch::row_shift``."""
+    if x.shape[0] % l:
+        raise ValueError(f"row_shift: {x.shape[0]} rows is not a multiple of "
+                         f"l={l}")
+    return torch.ops.pof_torch.row_shift(x, l)
+
+
+def row_shift_plain(x, *, l: int):
+    """Plain PyTorch version of :func:`row_shift`: the plain versions' tap
+    construction."""
+    left, right = _taps_plain(x.reshape(-1, l, x.shape[1]))
+    return left.reshape(x.shape), right.reshape(x.shape)
+
+
+def _cuda_row_shift(x, *, l):
+    """K16's launch: the CUDA kernel of ``pof_torch::row_shift``."""
     rows = x.shape[0]
-    if rows % l:
-        raise ValueError(f"row_shift: {rows} rows is not a multiple of l={l}")
-    if x.device.type == "cpu":
-        left, right = _taps_plain(x.reshape(-1, l, x.shape[1]))
-        return left.reshape(x.shape), right.reshape(x.shape)
     _check_cuda(x, torch.int8, (rows, 128), "row_shift x")
     x = x.contiguous()
     left, right = torch.empty_like(x), torch.empty_like(x)
@@ -988,11 +1038,17 @@ def head_int8(template, conv_weights, head_weights, *, num_classes: int,
 
     ``conv_weights``: the 5 head convs from ``quant.kernel_stack_weights``
     (the last one dequantized); ``head_weights``: the cls/reg weights of
-    ``fold.head_stack_weights``. A CUDA tensor launches K7; a CPU tensor
-    runs :func:`head_int8_plain`.
+    ``fold.head_stack_weights``. Runs ``pof_torch::head_int8``: K7 on a
+    CUDA tensor, :func:`head_int8_plain` on a CPU tensor.
     """
-    if template.device.type == "cpu":
-        return head_int8_plain(template, conv_weights, head_weights, l4=l4)
+    convs, laid = library.int8_stack(conv_weights)
+    return torch.ops.pof_torch.head_int8(template, convs, laid,
+                                         list(head_weights), num_classes, l4)
+
+
+def _cuda_head_int8(template, conv_weights, head_weights, *, num_classes,
+                    l4):
+    """K7's launch: the CUDA kernel of ``pof_torch::head_int8``."""
     n = template.shape[0] // l4
     _check_cuda(template, torch.int8, (n * l4, 256), "head_int8 template")
     head_weights = check_head_int8_weights("head_int8", conv_weights,

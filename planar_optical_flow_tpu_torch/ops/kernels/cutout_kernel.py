@@ -40,6 +40,8 @@ import numpy as np
 import torch
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build
+# registers the pof_torch ops that the wrappers call
+from planar_optical_flow_tpu_torch.ops.kernels import library  # noqa: F401
 
 
 def div_f32(a, b):
@@ -245,17 +247,21 @@ def cutout(scans, *, num_cutout_pts: int = 56, window_width: float = 1.0,
     """``(B, P)`` f32 scans -> ``(B*P, C)`` f32 cutouts.
 
     ``p_valid``: the real beam count when the scan is padded (beams from
-    ``p_valid`` on are treated as out of range). A CUDA tensor launches the
-    kernel (``P`` up to 16^4); a CPU tensor runs :func:`cutout_plain`.
+    ``p_valid`` on are treated as out of range). Runs the op
+    ``pof_torch::cutout`` (``library``): on a CUDA tensor K1 (``P`` up to
+    16^4), on a CPU tensor :func:`cutout_plain`.
     """
-    kw = dict(num_cutout_pts=num_cutout_pts, window_width=window_width,
-              window_depth=window_depth, padding_val=padding_val,
-              centered=centered, area_mode=area_mode, angle_inc=angle_inc,
-              p_valid=p_valid)
-    if scans.device.type == "cpu":
-        return cutout_plain(scans, **kw)
-    if scans.device.type != "cuda":
+    if scans.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cutout: unsupported device {scans.device}")
+    return torch.ops.pof_torch.cutout(
+        scans, num_cutout_pts, float(window_width), float(window_depth),
+        float(padding_val), bool(centered), bool(area_mode),
+        float(angle_inc), p_valid)
+
+
+def _cuda_cutout(scans, *, num_cutout_pts, window_width, window_depth,
+                 padding_val, centered, area_mode, angle_inc, p_valid):
+    """K1's launch: the CUDA kernel of ``pof_torch::cutout``."""
     if scans.dtype != torch.float32 or scans.ndim != 2:
         raise ValueError(f"cutout: need (B, P) float32, got "
                          f"{tuple(scans.shape)} {scans.dtype}")

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from planar_optical_flow_tpu_torch.ops.kernels import _build, fold, int8_tiles
+from planar_optical_flow_tpu_torch.ops.kernels import library
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     L1_CONV3,
     check_head_bf16_plan,
@@ -294,13 +295,26 @@ def fused_backbone(cutouts, weights, tile: int = 64,
     ``weights``: :func:`backbone_weights`, or their layout for
     ``compute_dtype`` (:func:`backbone_weights_f32`,
     :func:`backbone_weights_bf16`). ``tile`` is accepted for API parity
-    with the JAX function (the kernel picks its own tile). A CUDA tensor
-    launches K14's backbone; a CPU tensor runs :func:`fused_backbone_plain`.
+    with the JAX function (the kernel picks its own tile). Runs
+    ``pof_torch::fused_backbone``: K14's backbone on a CUDA tensor,
+    :func:`fused_backbone_plain` on a CPU tensor.
     """
-    if cutouts.device.type == "cpu":
-        return fused_backbone_plain(cutouts, _pairs(weights), tile,
-                                    compute_dtype)
     dt = _dtype(compute_dtype)
+    return torch.ops.pof_torch.fused_backbone(
+        cutouts, library.flat(_pairs(weights)), _laid_list(weights, dt),
+        dt == torch.bfloat16)
+
+
+def _laid_list(weights, dt):
+    """The laid-out tensors of ``weights`` if they are laid out for
+    ``dt``, else ``[]`` (the op's CUDA kernel lays the pairs out)."""
+    return list(weights.tensors) if _laid_for(weights, dt) else []
+
+
+def _cuda_fused_backbone(cutouts, weights, *, compute_dtype):
+    """K14's backbone launch: the CUDA kernel of
+    ``pof_torch::fused_backbone``."""
+    dt = compute_dtype
     n, l = cutouts.shape
     if l % 4 or l < 4:
         raise ValueError(f"fused_backbone: L={l} must be a positive multiple "
@@ -338,13 +352,18 @@ def fused_head(feats, weights, num_classes: int = 1, tile: int = 64,
 
     ``weights``: :func:`head_weights`, or their layout for ``compute_dtype``
     (:func:`head_weights_f32`, :func:`head_weights_bf16`); ``tile`` as for
-    :func:`fused_backbone`. A CUDA tensor launches K14's head; a CPU tensor
-    runs :func:`fused_head_plain`.
+    :func:`fused_backbone`. Runs ``pof_torch::fused_head``: K14's head on a
+    CUDA tensor, :func:`fused_head_plain` on a CPU tensor.
     """
-    if feats.device.type == "cpu":
-        return fused_head_plain(feats, _pairs(weights), num_classes, tile,
-                                compute_dtype)
     dt = _dtype(compute_dtype)
+    return torch.ops.pof_torch.fused_head(
+        feats, library.flat(_pairs(weights)), _laid_list(weights, dt),
+        num_classes, dt == torch.bfloat16)
+
+
+def _cuda_fused_head(feats, weights, *, num_classes, compute_dtype):
+    """K14's head launch: the CUDA kernel of ``pof_torch::fused_head``."""
+    dt = compute_dtype
     n, l4, c = feats.shape
     if c != 256 or l4 % 2 or not 2 <= l4 <= 32:
         raise ValueError(f"fused_head: feats (N, L4, 256) with L4 even in "

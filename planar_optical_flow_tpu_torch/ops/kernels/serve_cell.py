@@ -36,6 +36,7 @@ from planar_optical_flow_tpu_torch.infer.fast_gate import (
     gate_int8_plain,
 )
 from planar_optical_flow_tpu_torch.ops.kernels import _build, int8_tiles
+from planar_optical_flow_tpu_torch.ops.kernels import library
 from planar_optical_flow_tpu_torch.ops.kernels.conv_stack import (
     _check_backbone_int8_args,
     backbone_int8_pm_plain,
@@ -108,16 +109,27 @@ def serve_cell_int8(cutouts, zt, template, layer1, weights, embed_weights,
     the gate's arguments as for ``fast_gate.gate_int8`` (``s_out`` the
     head's input scale). Returns (new_template ``(N, l/4 * 256)`` int8,
     new_z ``(N, 128)`` bf16, sim ``(N, window)`` f32, cls ``(N,
-    num_classes)`` f32, reg ``(N, 2)`` f32), in fresh buffers. A CUDA
-    tensor launches K13; a CPU tensor runs :func:`serve_cell_int8_plain`.
+    num_classes)`` f32, reg ``(N, 2)`` f32), in fresh buffers. Runs
+    ``pof_torch::serve_cell_int8``: K13 on a CUDA tensor,
+    :func:`serve_cell_int8_plain` on a CPU tensor.
     """
-    kw = dict(l=l, ct=ct, alpha=alpha, window_size=window_size,
-              in_scale=in_scale, s_x=s_x, s_t=s_t, s_out=s_out,
-              num_classes=num_classes, ct_valid=ct_valid)
-    if cutouts.device.type == "cpu":
-        return serve_cell_int8_plain(cutouts, zt, template, layer1, weights,
-                                     embed_weights, head_conv_weights,
-                                     head_weights, **kw)
+    convs, laid = library.int8_stack(weights)
+    head_convs, head_laid = library.int8_stack(head_conv_weights)
+    embed_laid = ([embed_weights.laid] if isinstance(embed_weights, CellEmbed)
+                  else [])
+    return torch.ops.pof_torch.serve_cell_int8(
+        cutouts, zt, template, list(layer1), convs, laid,
+        list(_embed_pair(embed_weights)), embed_laid, head_convs, head_laid,
+        list(head_weights), l, ct, float(alpha), window_size,
+        float(in_scale), float(s_x), float(s_t), float(s_out), num_classes,
+        ct_valid)
+
+
+def _cuda_serve_cell_int8(cutouts, zt, template, layer1, weights,
+                          embed_weights, head_conv_weights, head_weights, *,
+                          l, ct, alpha, window_size, in_scale, s_x, s_t,
+                          s_out, num_classes, ct_valid):
+    """K13's launch: the CUDA kernel of ``pof_torch::serve_cell_int8``."""
     ct_valid = ct_valid or ct
     cutouts, w1, b1, we_t, be = _check_backbone_int8_args(
         "serve_cell_int8", cutouts, layer1, weights,

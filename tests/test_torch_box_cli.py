@@ -163,5 +163,6 @@ def test_box_regressor_from_checkpoint_matches_jax(tmp_path):
     np.testing.assert_allclose(boxes, ref_boxes, rtol=1e-4, atol=1e-5)
     empty, none = reg(frame["points"], np.zeros((0, 3), np.float32))
     assert empty.shape == (0, 7) and none.shape == (0,)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    # a directory that holds no artifact
+    with pytest.raises(FileNotFoundError, match="model.json"):
         BoxRegressor.from_artifact(str(tmp_path), ds_cfg, device="cpu")

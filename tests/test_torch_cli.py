@@ -178,7 +178,7 @@ def test_infer_cli_saved_calibration(served, tmp_path):
     (("--calib", "c.json"), "--calib requires --engine int8c"),
     (("--save-calib", "c.json"), "--save-calib requires --engine int8c"),
     (("--video", "out.mp4"), "item 18"),
-    (("--artifact", "engine_dir"), "item 19"),
+    (("--artifact", "engine_dir"), "--cfg is incompatible with --artifact"),
 ])
 def test_infer_cli_parser_errors(served, extra, message, capsys):
     with pytest.raises(SystemExit) as exit_:
@@ -205,8 +205,9 @@ def test_evaluate_cli_synthetic(served, tmp_path):
                                     "--cpu"])
     assert set(module) == {"epe", "aae"}
     assert all(np.isfinite(v) for v in module.values())
-    with pytest.raises(SystemExit):
-        evaluate_cli.main(["--cfg", cfg, "--ap", "--artifact", "x", "--cpu"])
+    with pytest.raises(SystemExit):  # the artifact holds the weights
+        evaluate_cli.main(["--cfg", cfg, "--ckpt", ckpt, "--ap",
+                           "--artifact", "x", "--cpu"])
 
 
 def test_evaluate_cli_serve_flow_rejects_flowless_model(tmp_path):
