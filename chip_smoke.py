@@ -183,7 +183,25 @@ Phases:
    the metrics' rotated IoU of 256 predictions against 8 neighbours each
    (ms, within 1e-5 of the CPU's). No kernel of the port launches in the
    phase and no plain version of one runs;
-11. ``[export]`` (last, after the ``[trace]`` lines): the int8c p2 and v3
+11. ``[fc]`` (after ``[box]``): the fc detectors at the flagship config's
+   full width (its keys, ``network`` fc1d, fc1d_fea and fc2d, ``epochs``
+   cut to 1; B=8, 11 scans, 450 beams, bf16, 56 area-mode cutout points,
+   the 301-bin polar grid, ``hidden`` 256) through ``cli.train`` on
+   ``[train]``'s split sizes with ``profile_steps`` (2, 4): finite losses,
+   the final checkpoint, exact launches (``fc1d_fea`` K1 once a step and
+   once for the final evaluation; ``fc1d`` and ``fc2d`` none), no plain
+   version, the step ms (median after the first, outside the profiled
+   steps) beside the forward's bound (``fc_macs``) and ``[trace fc ...]``
+   (device busy share, top device operations); each checkpoint's f32
+   forward and train-mode loss on one batch within 1e-4 x max of the
+   CPU's; the module cutout with ``fixed=False``, ``stride=2`` and
+   ``area_fast`` on 8 x 11 x 450 scans (ms; equal to the bit to the CPU's
+   on every beam whose ``atan`` the two compute alike); ``SpatialDrow``'s train forward with ``banded_chunk=45`` and
+   dense (ms each, within 1e-4 + 1e-4 |dense|); ``cli.export_model`` of
+   ``fc2d`` and ``drow`` at B=8 loaded in a fresh process (``--load-
+   artifacts``), equal to the live forward to the bit; AdaBoost fitted
+   and run on the host (seconds, recall above 0.5);
+12. ``[export]`` (last, after the ``[trace]`` lines): the int8c p2 and v3
    steps exported at B=384 (``infer.export_serving_engine``: export
    seconds, MB) and every other ``make_serve_step_v3`` configuration
    (``"int8"``, pm, flat, p2c, cell, p2 fused) at B=8, the flow U-Net and
@@ -2870,11 +2888,12 @@ def box_macs(model, num_points):
             + sum(macs(getattr(model, f)) for f in ("fc1", "fc2", "fc3")))
 
 
-def trace_window(tag, run_dir, window, step_ms, what, card=""):
+def trace_window(tag, run_dir, window, step_ms, what, card="", ours=None):
     """A run's ``profile_steps`` trace, read back from ``{run_dir}/
     profile``: its device busy share against the host clock of the
     profiled steps, the top device operations and the time outside the
-    port's kernels."""
+    port's kernels (``ours``: their device operations by kernel, as
+    :data:`TRACE_KERNELS` names them)."""
     start, stop = window
     path = os.path.join(run_dir, "profile",
                         f"steps_{start}_{stop}.pt.trace.json")
@@ -2891,7 +2910,7 @@ def trace_window(tag, run_dir, window, step_ms, what, card=""):
           f"{wall_ms:.3f} ms a step (host clock, under the profiler); trace "
           f"{path} ({os.path.getsize(path)} bytes, {len(events)} events)"
           + (f"; {card}" if card else ""), flush=True)
-    report_spans(tag, dev, wall_ms, stop - start, {}, 12)
+    report_spans(tag, dev, wall_ms, stop - start, ours or {}, 12)
 
 
 def box_phase(device, card):
@@ -3155,6 +3174,340 @@ def box_phase(device, card):
     print(f"[box] launches of the port's kernels in the phase: 0 of "
           f"{len(kernels)} wrappers, no plain version; the phase took "
           f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+
+
+# the [fc] phase: the fc detectors at the flagship config's full width (its
+# keys with network fc1d / fc1d_fea / fc2d, epochs cut to 1: B=8, 11 scans,
+# 56 area-mode cutout points with the matmul gather, the 301-bin polar grid
+# from 0 to 30 m, hidden 256, bf16) on [train]'s split sizes; the cutout's
+# training options, the banded gate, the stateless export and AdaBoost
+FC_NETWORKS = ("fc1d", "fc1d_fea", "fc2d")
+FC_PROFILE = (2, 4)     # profile_steps of each run
+FC_BANDED_CHUNK = 45    # banded_chunk of the gate check (450 = 10 x 45)
+FC_ITERS = 5            # timed calls of the cutout options and the gate
+TOL_FC = 1e-4           # card against the CPU, x max |CPU| ([flow], [box])
+TOL_BANDED = 1e-4       # banded against dense (tests/test_models_shapes.py)
+ADA_RECALL = 0.5        # AdaBoost's recall bar (tests/test_adaboost.py)
+
+
+def fc_macs(model):
+    """Multiply-adds of one beam's forward of a ``PolarGridDetector``: the
+    embedding of its ``S*R`` column, the two k=3 convs and the heads."""
+    return sum(m.weight.numel() for m in (model.embed, model.ctx1.conv,
+                                          model.ctx2.conv, model.cls,
+                                          model.reg))
+
+
+def fc_phase(device, seed, card):
+    """The ``[fc]`` phase: ``cli.train`` on each fc network with exact
+    launches (``fc1d_fea`` K1 once a step and once for the final
+    evaluation, the others none) and a ``profile_steps`` window; one f32
+    forward and train-mode loss of each checkpoint on the card against the
+    CPU; the module cutout with ``fixed=False``, ``stride=2`` and
+    ``area_fast`` against the CPU; ``SpatialDrow``'s train forward banded
+    against dense; ``cli.export_model`` of ``fc2d`` and ``drow`` loaded in a
+    fresh process, equal to the live forward to the bit; AdaBoost on the
+    host."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.cli import (
+        export_model as export_cli,
+    )
+    from planar_optical_flow_tpu_torch.cli import train as train_cli
+    from planar_optical_flow_tpu_torch.data import (
+        DrowDetectionDataset, write_synthetic_drow_split,
+    )
+    from planar_optical_flow_tpu_torch.data.synthetic import (
+        make_synthetic_drow_sequence,
+    )
+    from planar_optical_flow_tpu_torch.interop.checkpoint import (
+        load_weights, save_weights,
+    )
+    from planar_optical_flow_tpu_torch.models import (
+        AdaBoostPersonDetector, SpatialDrow, fc_in_features_of, get_model,
+    )
+    from planar_optical_flow_tpu_torch.ops import (
+        scans_to_cutout, scans_to_polar_grid,
+    )
+    from planar_optical_flow_tpu_torch.ops.geometry import get_laser_phi
+    from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
+        div_f32,
+    )
+    from planar_optical_flow_tpu_torch.pipeline import normalize_config
+    from planar_optical_flow_tpu_torch.train import tasks
+    from planar_optical_flow_tpu_torch.train.trainer import to_device
+
+    t_phase = time.perf_counter()
+    root = os.path.join(BUILD_DIR, "fc")
+    shutil.rmtree(root, ignore_errors=True)
+    data, logs = os.path.join(root, "drow"), os.path.join(root, "logs")
+    write_synthetic_drow_split(data, "train", num_sequences=TRAIN_SEQS,
+                               num_frames=TRAIN_FRAMES, seed=seed,
+                               num_pts=NUM_PTS)
+    write_synthetic_drow_split(data, "val", num_sequences=1,
+                               num_frames=VAL_FRAMES, seed=seed + 1,
+                               num_pts=NUM_PTS)
+    flat = dict(FLAGSHIP_CFG, epochs=1, data_dir=data, log_dir=logs)
+    b, s = flat["batch_size"], flat["num_scans"] + 1
+    cpu_flag = ["--cpu"] if torch.device(device).type == "cpu" else []
+
+    # 1. cli.train on each network, launches counted from 0 before each run
+    kernels = wrappers()
+    handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGINT,
+                                                       signal.SIGTERM)}
+    runs = {}
+    with counting_plain() as plain_calls:
+        for net in FC_NETWORKS:
+            cfg = normalize_config(dict(flat, network=net, tag=net))
+            cfg["pipeline"]["Trainer"]["profile_steps"] = list(FC_PROFILE)
+            path = os.path.join(root, f"{net}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            try:
+                rc = train_cli.main(["--cfg", path] + cpu_flag)
+            finally:
+                for sig, h in handlers.items():
+                    signal.signal(sig, h)
+            secs = time.perf_counter() - t0
+            launched = {k: fn.launches for k, fn in kernels.items()
+                        if fn.launches}
+            run_dir = run_dir_of(logs, net)
+            losses = run_scalars(run_dir, "TRAIN_loss")
+            ms = run_scalars(run_dir, "TRAIN_step_ms")
+            ckpt = os.path.join(run_dir, "ckpt", "ckpt_final")
+            check(rc == 0 and len(losses) > FC_PROFILE[1]
+                  and np.isfinite(losses).all()
+                  and os.path.isfile(os.path.join(ckpt, "weights.pt")),
+                  f"[fc] cli.train {net}: rc {rc}, losses {losses}")
+            # fc1d_fea encodes on K1 (fixed=True, stride 1) once a step and
+            # once for the final evaluation's val batch
+            want = {"cutout": len(losses) + 1} if net == "fc1d_fea" else {}
+            check(launched == want, f"[fc] {net}: launches {launched}, "
+                  f"want {want}")
+            model = get_model(cfg["model"], in_features=fc_in_features_of(cfg))
+            macs = fc_macs(model)
+            r = fc_in_features_of(cfg) // s
+            nbytes = 2 * (b * s * r * NUM_PTS + sum(
+                p.numel() for p in model.parameters()) + b * NUM_PTS * 3)
+            t_bound, by = bound(2 * macs * b * NUM_PTS, H100_BF16_FLOPS,
+                                nbytes)
+            clean = ms[1:FC_PROFILE[0]] + ms[FC_PROFILE[1]:]
+            med = float(np.median(clean))
+            runs[net] = (cfg, path, ckpt)
+            print(f"[fc] cli.train --cfg (network {net}, PolarGridDetector "
+                  f"on S*R = {s} x {r} = {s * r} features a beam, hidden "
+                  f"{model.embed.out_features}, bf16): {len(losses)} steps "
+                  f"of {b} x {s} scans of {NUM_PTS} beams, losses "
+                  f"{json.dumps([round(x, 5) for x in losses])}, final "
+                  f"checkpoint {ckpt}, launches {json.dumps(launched)} "
+                  f"(want {json.dumps(want)}); {secs:.1f} s with its "
+                  f"dataset and evaluation; {card}", flush=True)
+            print(f"[fc] {net} step_ms {json.dumps([round(x, 3) for x in ms])}"
+                  f" median after the first, outside the profiled steps "
+                  f"{list(range(*FC_PROFILE))}: {med:.3f} ms; the forward "
+                  f"{macs * b * NUM_PTS / 1e9:.3f} GMAC ({macs} a beam), "
+                  f"bound {t_bound:.4f} ms ({by}: bf16 at "
+                  f"{H100_BF16_FLOPS / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB "
+                  f"at {H100_HBM_BYTES / 1e12:g} TB/s); {card}", flush=True)
+            trace_window(f"[trace fc {net}]", run_dir, FC_PROFILE, ms,
+                         f"steps of DetectionTask ({net}, bf16)", card,
+                         {"K1": ("cutout_kernel",)} if want else None)
+        calls = plain_calls()
+    check(not any(calls.values()), f"[fc] a plain version ran: "
+          f"{json.dumps({k: v for k, v in calls.items() if v})}")
+
+    # 2. each checkpoint in f32, one batch: the forward and the train-mode
+    # loss on the card against the CPU (fc1d_fea's CPU side takes the
+    # card's K1 columns: K1 is held against its plain version in phase 4)
+    ds = DrowDetectionDataset(data, "train", num_scans=flat["num_scans"],
+                              pedestrian_only=True, train_with_val=True,
+                              device=device)
+    batch = ds.batch(np.arange(b))
+    on = {"card": to_device(batch, device), "cpu": to_device(batch, "cpu")}
+    for net, (cfg, _, ckpt) in runs.items():
+        task = tasks.DetectionTask(
+            cutout_kwargs=cfg["dataset"]["cutout_kwargs"],
+            pedestrian_only=True, num_pts=NUM_PTS, encoding=net,
+            polar_grid_kwargs=cfg["dataset"]["polar_grid_kwargs"])
+        res = {}
+        for where, dev in (("card", device), ("cpu", "cpu")):
+            model = load_weights(get_model(
+                cfg["model"], in_features=fc_in_features_of(cfg)),
+                ckpt).to(dev)
+            bt = on[where]
+            with torch.no_grad():
+                enc = (res["card"][0].cpu() if where == "cpu"
+                       and net == "fc1d_fea" else task._encode(bt["scans"]))
+                fwd = model(enc, False)
+                cls, reg, _ = task._losses(*model(enc, True), bt)
+            res[where] = (enc, fwd, float(cls + reg))
+        (_, f_card, l_card), (_, f_cpu, l_cpu) = res["card"], res["cpu"]
+        err = max(max_err(g.cpu(), r) for g, r in zip(f_card, f_cpu))
+        top = max(float(r.abs().max()) for r in f_cpu)
+        l_err = abs(l_card - l_cpu)
+        check(err <= TOL_FC * top and l_err <= TOL_FC * abs(l_cpu),
+              f"[fc] {net} card vs CPU: forward {err} (max {top}), loss "
+              f"{l_card} vs {l_cpu}")
+        print(f"[fc] {net} f32 on one batch of {b}: forward max |card - "
+              f"CPU| {err:.3g} = {err / top:.3g} x max; train-mode loss "
+              f"{l_card:.7f} vs {l_cpu:.7f} (bar {TOL_FC} x max); {card}",
+              flush=True)
+
+    # 3. the module cutout's training options on B x S scans, card vs CPU:
+    # every division is one IEEE division on both devices (div_f32), so the
+    # cutouts are equal to the bit on the beams whose window angle (atan)
+    # the two compute alike; a beam whose atan differs in an ulp may move a
+    # tap's band edge by one beam
+    rng = np.random.default_rng(seed)
+    scans = torch.tensor(rng.uniform(0.5, 25.0, (b, s, NUM_PTS)),
+                         dtype=torch.float32)
+    scans_d = scans.to(device)
+    phi = get_laser_phi(num_pts=NUM_PTS)
+    ww = CUTOUT_KW["window_width"]
+    for name, opts in (("fixed=False", dict(fixed=False)),
+                       ("stride=2", dict(stride=2)),
+                       ("area_fast", dict(gather_mode="gather",
+                                          area_fast=True))):
+        kw = dict(CUTOUT_KW, **opts)
+        got = scans_to_cutout(scans_d, phi, **kw).cpu()
+        ref = scans_to_cutout(scans, phi, **kw)
+        dists = scans_d[..., ::kw.get("stride", 1)]
+        if not kw["fixed"]:
+            dists = dists[..., -1:, :].expand(dists.shape)
+        alike = (torch.atan(div_f32(0.5 * ww, torch.clamp(
+            dists, min=1e-2))).cpu() == torch.atan(div_f32(
+                0.5 * ww, torch.clamp(dists.cpu(), min=1e-2))))
+        alike = alike.transpose(-1, -2)  # (B, P', S), as the cutouts
+        rows_eq = (got == ref).all(-1)
+        err = max_err(got, ref)
+        err_other = max_err(got[~alike], ref[~alike]) if (~alike).any() \
+            else 0.0
+        check(got.shape == ref.shape and bool(rows_eq[alike].all())
+              and bool(torch.isfinite(got).all()),
+              f"[fc] cutout {name}: {int((~rows_eq[alike]).sum())} beams "
+              f"whose atan agrees differ")
+        ms = time_ms(lambda: scans_to_cutout(scans_d, phi, **kw), FC_ITERS)
+        print(f"[fc] module cutout {name} (gather_mode "
+              f"{kw['gather_mode']}, area mode) on {b} x {s} x {NUM_PTS} "
+              f"scans -> {tuple(got.shape)}: {ms:.3f} ms a call; card against "
+              f"CPU: the {int(alike.sum())} beams whose atan agrees equal to "
+              f"the bit, {int((~alike).sum())} beams' atan differ (max |card "
+              f"- CPU| there {err_other:.3g}, {int((~rows_eq).sum())} "
+              f"cutouts differ in all; max {err:.3g}); {card}", flush=True)
+
+    # 4. SpatialDrow's train forward, the banded gate against the dense one
+    gen = torch.Generator().manual_seed(seed)
+    cut = CUTOUT_KW["num_cutout_pts"]
+    dense = SpatialDrow(0.5, WINDOW, True, cut, generator=gen).to(device)
+    banded = SpatialDrow(0.5, WINDOW, True, cut,
+                         banded_chunk=FC_BANDED_CHUNK, generator=gen)
+    banded = banded.to(device)
+    banded.load_state_dict(dense.state_dict())
+    x = scans_to_cutout(scans_d, phi, **CUTOUT_KW)  # (B, P, S, C)
+    with torch.no_grad():
+        out_d = dense(x, True)
+        out_b = banded(x, True)
+        ms_d = time_ms(lambda: dense(x, True), FC_ITERS, warmup=1)
+        ms_b = time_ms(lambda: banded(x, True), FC_ITERS, warmup=1)
+    for name, g, r in zip(("cls", "reg", "sim_band"), out_b, out_d):
+        excess = float(((g - r).abs() - TOL_BANDED * r.abs()).max())
+        check(excess <= TOL_BANDED, f"[fc] banded {name}: {excess}")
+    errs = [max_err(g, r) for g, r in zip(out_b, out_d)]
+    print(f"[fc] SpatialDrow train forward on {tuple(x.shape)} cutouts, "
+          f"window {WINDOW}, f32: banded_chunk={FC_BANDED_CHUNK} "
+          f"{ms_b:.3f} ms, dense {ms_d:.3f} ms a call; max |banded - dense| "
+          f"cls {errs[0]:.3g}, reg {errs[1]:.3g}, sim_band {errs[2]:.3g} "
+          f"(bar {TOL_BANDED} + {TOL_BANDED} x |dense|); {card}", flush=True)
+    del dense, banded, out_d, out_b
+    torch.cuda.empty_cache()
+
+    # 5. cli.export_model of fc2d (its checkpoint) and drow (seeded
+    # weights) at B=8, loaded in a fresh process
+    out_root = os.path.join(root, "export")
+    os.makedirs(out_root)
+    drow_cfg = normalize_config(dict(flat, network="cutout", tag="drow"))
+    drow_path = os.path.join(root, "drow.json")
+    with open(drow_path, "w") as f:
+        json.dump(drow_cfg, f)
+    drow_w = save_weights(get_model(drow_cfg["model"], cut, generator=gen),
+                          os.path.join(root, "drow_weights.pt"))
+    fc_cfg, fc_path, fc_ckpt = runs["fc2d"]
+    grid = scans_to_polar_grid(scans_d, **fc_cfg["dataset"][
+        "polar_grid_kwargs"])
+    spec = {"models": [], "device": str(device)}
+    live = {}
+    for name, cfg, path, weights, x_in in (
+            ("fc2d", fc_cfg, fc_path, fc_ckpt, grid),
+            ("drow", drow_cfg, drow_path, drow_w, x)):
+        out = os.path.join(out_root, name)
+        t0 = time.perf_counter()
+        check(export_cli.main(["--cfg", path, "--ckpt", weights, "--out",
+                               out, "--batch", str(b), "--num-pts",
+                               str(NUM_PTS)] + cpu_flag) == 0,
+              f"[fc] cli.export_model {name}")
+        secs = time.perf_counter() - t0
+        model = load_weights(get_model(
+            cfg["model"], cut, in_features=fc_in_features_of(cfg)),
+            weights).to(device).eval()
+        with torch.no_grad():
+            live[name] = (tuple(o.cpu() for o in model(x_in)), secs,
+                          tuple(x_in.shape))
+        torch.save([x_in.cpu()], out + ".inputs.pt")
+        spec["models"].append({"name": name, "path": out})
+    with open(os.path.join(out_root, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--load-artifacts",
+         out_root], capture_output=True, text=True,
+        timeout=EXPORT_LOAD_TIMEOUT)
+    load_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f"[fc] the loading process exited "
+          f"{proc.returncode}")
+    loaded = torch.load(os.path.join(out_root, "loaded.pt"),
+                        weights_only=False)
+    for name, (want, secs, shape) in live.items():
+        got = loaded[name]["out"]
+        check(len(got) == len(want) and all(
+            g.dtype == w.dtype and torch.equal(g, w)
+            for g, w in zip(got, want)),
+            f"[fc] {name}: the loaded forward differs from the live one")
+        print(f"[fc] cli.export_model {name} at B={b} (input {shape}): "
+              f"{secs:.1f} s; loaded in a fresh process, its (cls, reg) "
+              f"equal to the live forward to the bit; {card}", flush=True)
+    print(f"[fc] the loading process {load_wall:.1f} s", flush=True)
+
+    # 6. AdaBoost on the host (float64 numpy, as in JAX)
+    seq = make_synthetic_drow_sequence(num_frames=40, num_people=3, seed=3)
+    phi = get_laser_phi(num_pts=seq["scans"].shape[-1])
+    t0 = time.perf_counter()
+    ada = AdaBoostPersonDetector(n_estimators=20)
+    ada.fit(seq["scans"][:30], seq["wps"][:30])
+    fit_s = time.perf_counter() - t0
+    hits = total = 0
+    frames = [t for t in range(1, 40) if len(seq["wps"][t])]
+    t0 = time.perf_counter()
+    for t in frames:
+        xy, _ = ada.detect(seq["scans"][t], phi, prev_scan=seq["scans"][t - 1])
+        for rr, a in seq["wps"][t]:
+            g = np.array([rr * np.cos(a), rr * np.sin(a)])
+            total += 1
+            hits += bool(len(xy)) and bool(
+                np.linalg.norm(xy - g, axis=1).min() < 0.6)
+    det_s = time.perf_counter() - t0
+    check(total > 0 and hits / total > ADA_RECALL,
+          f"[fc] AdaBoost recall {hits}/{total}")
+    print(f"[fc] AdaBoost (host numpy): fit {len(ada.clf.stumps)} stumps on "
+          f"30 frames in {fit_s:.3f} s, detect {det_s / len(frames) * 1e3:.2f}"
+          f" ms a frame; recall {hits}/{total} = {hits / total:.3f} (bar "
+          f"> {ADA_RECALL})", flush=True)
+    print(f"[fc] the phase took {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}", flush=True)
 
 
 # the [export] phase: the serving configurations other than int8c p2 and
@@ -3442,12 +3795,12 @@ def export_phase(model, scans, device, calib, card):
 
 
 def load_artifacts(root):
-    """``--load-artifacts DIR``: the loading side of the ``[export]``
-    phase, in a process of its own. Runs every serving artifact of
-    ``DIR/spec.json`` through ``StreamingRunner.from_artifact`` on the
-    saved scans, every model artifact on its saved inputs and
-    ``BoxRegressor.from_artifact`` on the saved frame; writes
-    ``DIR/loaded.pt``."""
+    """``--load-artifacts DIR``: the loading side of the ``[export]`` and
+    ``[fc]`` phases, in a process of its own. Runs every serving artifact
+    of ``DIR/spec.json`` through ``StreamingRunner.from_artifact`` on the
+    saved scans, every model artifact on its saved inputs and, where the
+    spec names one, ``BoxRegressor.from_artifact`` on the saved frame;
+    writes ``DIR/loaded.pt``."""
     import torch
 
     from planar_optical_flow_tpu_torch.infer import (
@@ -3463,9 +3816,10 @@ def load_artifacts(root):
     # as the exporting process runs: f32 convolutions and products in f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    scans = torch.load(os.path.join(root, "scans.pt")).to(device)
     results = {}
-    for job in spec["serving"]:
+    if spec.get("serving"):
+        scans = torch.load(os.path.join(root, "scans.pt")).to(device)
+    for job in spec.get("serving", ()):
         t0 = time.perf_counter()
         runner = StreamingRunner.from_artifact(job["path"])
         load_s = time.perf_counter() - t0
@@ -3478,11 +3832,15 @@ def load_artifacts(root):
     for job in spec["models"]:
         engine = load_model(job["path"])
         inputs = torch.load(job["path"] + ".inputs.pt")
-        results[job["name"]] = {"out": engine(*inputs).cpu()}
-    frame = np.load(os.path.join(root, "box_frame.npz"))
-    results["box"] = BoxRegressor.from_artifact(
-        spec["box"]["path"], spec["box"]["cfg"])(frame["points"],
-                                                 frame["centres"])
+        out = engine(*inputs)
+        results[job["name"]] = {"out": tuple(o.cpu() for o in out)
+                                if isinstance(out, (tuple, list))
+                                else out.cpu()}
+    if "box" in spec:
+        frame = np.load(os.path.join(root, "box_frame.npz"))
+        results["box"] = BoxRegressor.from_artifact(
+            spec["box"]["path"], spec["box"]["cfg"])(frame["points"],
+                                                     frame["centres"])
     torch.save(results, os.path.join(root, "loaded.pt"))
     return 0
 
@@ -3716,6 +4074,8 @@ def main(argv=None):
     flow_phase(device, card, det_cfg, det_ckpt)
     torch.cuda.empty_cache()
     box_phase(device, card)
+    torch.cuda.empty_cache()
+    fc_phase(device, args.seed, card)
     torch.cuda.empty_cache()
     trace_phase(model, scans, device, calib)
     torch.cuda.empty_cache()

@@ -5,9 +5,9 @@
         [--engine auto|module|v3|int8c] [--cpu]
 
 Without ``--ap``/``--serve-flow`` it takes the module path: the
-``Pipeline`` of the config (any ported model type: the flow U-Net's, the
-DROW family's, the box regressor's), the weights of ``--ckpt`` loaded (a
-training checkpoint directory, or a weights file), and
+``Pipeline`` of the config (any model type: the flow U-Net's, the DROW
+family's, the fc detectors', the box regressor's), the weights of
+``--ckpt`` loaded (a training checkpoint directory, or a weights file), and
 ``Pipeline.evaluate``'s means of the task's metrics over the ``val``
 split, else the ``train`` split, printed rounded to 6 places. For
 ``box_reg`` it then prints the mean-box baseline of the same split
@@ -19,8 +19,9 @@ scores that.
 
 With ``--ap`` (detection AP through ``evaluate_detection_ap_batched``)
 and/or ``--serve-flow`` (flow EPE/AAE through ``evaluate_flow_serving``,
-flow_drow models) it scores a streaming type's serving engines, ``--ckpt``
-being its weights, on the ``val`` split, else ``train``. With
+flow_drow models) it scores a streaming type's serving engines (the fc
+detectors have none, as in JAX), ``--ckpt`` being its weights, on the
+``val`` split, else ``train``. With
 ``--artifact DIR`` they score a serving artifact of ``cli.export_serving``
 instead of ``--ckpt``'s weights: the exact programs that ship (``--cfg``
 still names the dataset; ``--engine`` and ``--ckpt`` do not apply). The

@@ -5,13 +5,19 @@
         --cfg configs/prototype_flow.yaml --ckpt CKPT --out engines/flow \\
         --batch 64,1024 [--num-pts 450] [--cpu]
 
-For the flow U-Net types (``engine(scan_xy, scan_xy_next)``, ``(B,
-num_pts, 2)`` each) and the box regressor (``engine(segments)``, ``(B,
-input_size, input_dim)``): one ``model_b{B}.pt2`` a batch size and
-``model.json``, loaded with ``infer.export.load_model``; the loaded engine
-routes on the input's batch. ``infer.BoxRegressor.from_artifact(dir, cfg)``
-runs the whole box-regression API on it. The streaming detectors carry a
-template: export them with ``cli.export_serving``.
+For every type whose forward carries no state, with JAX's example inputs
+(``pipeline._example_inputs``): the flow U-Net types
+(``engine(scan_xy, scan_xy_next)``, ``(B, num_pts, 2)`` each), the box
+regressor (``engine(segments)``, ``(B, input_size, input_dim)``), the
+``drow`` detector (``engine(cutouts)``, ``(B, num_pts, num_scans + 1,
+num_cutout_pts)``) and the fc detectors (``engine(columns)``, ``(B,
+num_scans + 1, R, num_pts)``: ``R`` 1 for ``fc1d``, the cutout points for
+``fc1d_fea``, the polar grid's bins for ``fc2d``); the detectors return
+``(cls, reg)``. One ``model_b{B}.pt2`` a batch size and ``model.json``,
+loaded with ``infer.export.load_model``; the loaded engine routes on the
+input's batch. ``infer.BoxRegressor.from_artifact(dir, cfg)`` runs the
+whole box-regression API on it. The streaming detectors carry a template:
+export them with ``cli.export_serving``.
 """
 
 from __future__ import annotations
@@ -22,13 +28,27 @@ import sys
 
 
 def example_inputs(cfg: dict, batch: int, num_pts: int, device) -> tuple:
-    """Zero inputs of the model's forward at ``batch``."""
+    """Zero inputs of the model's forward at ``batch``, shaped as JAX's
+    ``pipeline._example_inputs`` shapes them."""
     import torch
+
+    from planar_optical_flow_tpu_torch.models import (
+        FC_MODEL_TYPES,
+        fc_in_features_of,
+        num_cutout_pts_of,
+    )
 
     mtype = cfg["model"]["type"]
     if mtype == "box_reg":
         size = cfg["dataset"].get("input_size", 256)
         return (torch.zeros(batch, size, cfg["model"].get("input_dim", 4),
+                            device=device),)
+    s = cfg["dataset"].get("num_scans", 5) + 1
+    if mtype in FC_MODEL_TYPES:
+        return (torch.zeros(batch, s, fc_in_features_of(cfg) // s, num_pts,
+                            device=device),)
+    if mtype == "drow":
+        return (torch.zeros(batch, num_pts, s, num_cutout_pts_of(cfg),
                             device=device),)
     x = torch.zeros(batch, num_pts, cfg["model"].get("in_channels", 2),
                     device=device)
@@ -47,8 +67,8 @@ def main(argv=None) -> int:
                         help="batch size(s) baked into the artifact; a comma "
                              "list exports one program per batch")
     parser.add_argument("--num-pts", type=int, default=450,
-                        help="points per scan of a flow export (box_reg "
-                             "takes the dataset's input_size)")
+                        help="points per scan of a flow, drow or fc export "
+                             "(box_reg takes the dataset's input_size)")
     parser.add_argument("--cpu", action="store_true",
                         help="export on the CPU (a CPU artifact)")
     args = parser.parse_args(argv)
@@ -61,9 +81,12 @@ def main(argv=None) -> int:
     from planar_optical_flow_tpu_torch.infer.export import export_model
     from planar_optical_flow_tpu_torch.interop.checkpoint import load_weights
     from planar_optical_flow_tpu_torch.models import (
+        FC_MODEL_TYPES,
         FLOW_MODEL_TYPES,
         STREAMING_MODEL_TYPES,
+        fc_in_features_of,
         get_model,
+        num_cutout_pts_of,
     )
     from planar_optical_flow_tpu_torch.pipeline import normalize_config
     from planar_optical_flow_tpu_torch.utils.config import load_config
@@ -73,11 +96,13 @@ def main(argv=None) -> int:
     if mtype in STREAMING_MODEL_TYPES:
         parser.error(f"{mtype!r} is a streaming detector (it carries a "
                      "template); export it with cli.export_serving")
-    if mtype not in (*FLOW_MODEL_TYPES, "box_reg"):
+    stateless = (*FLOW_MODEL_TYPES, "box_reg", "drow", *FC_MODEL_TYPES)
+    if mtype not in stateless:
         parser.error(f"model type {mtype!r} has no stateless export; "
-                     f"{'/'.join((*FLOW_MODEL_TYPES, 'box_reg'))} do")
+                     f"{'/'.join(stateless)} do")
     device = resolve_device("cpu" if args.cpu else "cuda")
-    model = get_model(cfg["model"])
+    model = get_model(cfg["model"], num_cutout_pts_of(cfg),
+                      in_features=fc_in_features_of(cfg))
     if args.ckpt:
         load_weights(model, args.ckpt)
     model = model.to(device).eval()

@@ -19,7 +19,7 @@ batch size keeps the names ``boot.pt2``/``step.pt2``; a list of sizes
 writes ``boot_b{B}.pt2``/``step_b{B}.pt2`` and the loaded engine routes on
 the scan's batch. :func:`export_model` writes ``model_b{B}.pt2`` and
 ``model.json`` for a stateless ``fn(*inputs)`` (the flow U-Net, the box
-regressor).
+regressor, the ``drow`` and fc detectors).
 
 The programs hold the weights as constants and every kernel as its
 ``pof_torch::`` op node (``ops/kernels/library.py``): the loaded engine
@@ -261,7 +261,8 @@ def export_model(out_dir: str, fn, example_inputs, meta: dict | None = None
     """Write a stateless ``fn(*inputs) -> outputs`` (an ``nn.Module`` in
     eval mode, or a function closing over its weights) as an artifact, the
     batch-inference counterpart of :func:`export_serving_engine` for the
-    flow U-Net and the box regressor. Returns ``out_dir``.
+    stateless models (the flow U-Net, the box regressor, the ``drow`` and
+    fc detectors). Returns ``out_dir``.
 
     ``example_inputs``: a tuple of tensors (one program) or a LIST of such
     tuples (one ``model_b{B}.pt2`` each, routed at load on the first

@@ -31,7 +31,7 @@ The other builders of the JAX module, which ``StreamingRunner`` does not
 offer (as in JAX):
 
 * :func:`make_fused_stream_step`: the module cutout, K14's backbone and
-  head (``ops/kernels/fused_drow.py``, f32 or bf16) around the dense module
+  head (``ops/kernels/fused_drow.py``, f32 or bf16) around the module
   gate and flow head; it does not sanitize its scans, as in JAX;
 * :func:`make_serve_step`: the module backbone and head (cast to
   ``compute_dtype``), the band gate carrying the embedding ``z``
@@ -223,8 +223,9 @@ def _parts(model):
 
 
 def _module_gate(det, feats, template):
-    """The dense module gate: (new template, sim band); on a stream's first
-    scan (``template=None``) the features are the template."""
+    """The model's own gate (dense, or block-banded with ``banded_chunk``):
+    (new template, sim band); on a stream's first scan (``template=None``)
+    the features are the template."""
     if template is None:
         return feats, det.gate(feats, feats)[1]
     return det.gate(feats, template)
@@ -292,7 +293,7 @@ def make_fused_stream_step(model, cutout_kwargs, num_pts: int = 450,
     out once here: ``fused_drow.backbone_weights_f32`` and
     ``head_weights_f32`` in f32, ``backbone_weights_bf16`` and
     ``head_weights_bf16`` in bf16), the
-    dense module gate (on a copy of the model cast to ``compute_dtype``,
+    module gate (on a copy of the model cast to ``compute_dtype``,
     with the features in it), K14's head on the new template, the module
     flow head, sigmoid, canonical->global flow and the full vote NMS. The
     scans are not sanitized, as in JAX. ``tile`` is accepted for API parity
@@ -346,7 +347,7 @@ def make_quantized_stream_step(model, cutout_kwargs, calib_scans,
     calibrated on ``calib_scans (B0, num_pts)`` (sanitized first when
     ``sanitize_inputs``): the backbone's on the first 4096 of their module
     cutouts, the head's on the first 4096 rows of the template after two
-    f32 module steps. The int8 backbone's f32 feats go to the dense module
+    f32 module steps. The int8 backbone's f32 feats go to the module
     gate and the template to the int8 head in ``gate_dtype``; the flow head
     runs in ``gate_dtype``, the NMS and the flow rotation in f32.
     """

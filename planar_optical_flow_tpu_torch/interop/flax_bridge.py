@@ -11,7 +11,8 @@ mechanical:
   ``flow_out``; the flow U-Net's ``encoder_0..2``, ``decoder_0..1``,
   ``flow_reg``, ``flow_reg_linear``, ``conv1..4``; the box regressor's
   ``backbone``, ``fc1..3`` and the ``DenseBlock_i`` of its ``PointNet``,
-  and of ``TNet``) is kept;
+  and of ``TNet``; the fc detector's ``embed``, ``embed_bn``, ``ctx1``,
+  ``ctx2``, ``cls``, ``reg``) is kept;
 * conv ``kernel (K, Cin, Cout)`` -> ``weight (Cout, Cin, K)``; dense
   ``kernel (in, out)`` -> ``weight (out, in)`` (a bare flax ``Dense``, such
   as ``flow_reg_linear``, maps to an ``nn.Linear`` of that name);
@@ -20,7 +21,8 @@ mechanical:
   ``running_mean``/``running_var``.
 
 Works for any port module given the matching flax sub-tree (a whole
-``FlowDrow`` or ``BoundingBoxRegressor``, or e.g. one ``ConvBlock``).
+``FlowDrow``, ``PolarGridDetector`` or ``BoundingBoxRegressor``, or e.g.
+one ``ConvBlock``).
 Raises on a missing or unused key and on a shape mismatch. Load with
 ``model.load_state_dict(variables_to_state_dict(variables_np, model))``.
 """

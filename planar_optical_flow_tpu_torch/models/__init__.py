@@ -1,5 +1,9 @@
-"""Model modules of the port (eval and train mode) and their registry."""
+"""Model modules of the port (eval and train mode), their registry, and
+the AdaBoost baseline (host numpy)."""
 
+from planar_optical_flow_tpu_torch.models.adaboost_detector import (
+    AdaBoostPersonDetector,
+)
 from planar_optical_flow_tpu_torch.models.blocks import (
     ConvBlock,
     ConvStack,
@@ -21,9 +25,14 @@ from planar_optical_flow_tpu_torch.models.pointnet import (
     PointNet,
     TNet,
 )
+from planar_optical_flow_tpu_torch.models.polar_grid_net import (
+    PolarGridDetector,
+)
 from planar_optical_flow_tpu_torch.models.registry import (
+    FC_MODEL_TYPES,
     FLOW_MODEL_TYPES,
     STREAMING_MODEL_TYPES,
+    fc_in_features_of,
     get_model,
     num_cutout_pts_of,
 )
@@ -32,9 +41,10 @@ from planar_optical_flow_tpu_torch.models.spatial_drow import (
     SpatialDrow,
 )
 
-__all__ = ["BoundingBoxRegressor", "ConvBlock", "ConvStack", "DenseBlock",
-           "Drow", "DrowBackbone", "DrowHead", "FLOW_MODEL_TYPES",
-           "FlowDrow", "FlowUNet", "FlowUNetAdditive", "PointNet",
+__all__ = ["AdaBoostPersonDetector", "BoundingBoxRegressor", "ConvBlock",
+           "ConvStack", "DenseBlock", "Drow", "DrowBackbone", "DrowHead",
+           "FC_MODEL_TYPES", "FLOW_MODEL_TYPES", "FlowDrow", "FlowUNet",
+           "FlowUNetAdditive", "PointNet", "PolarGridDetector",
            "STREAMING_MODEL_TYPES", "SpatialAttentionGate", "SpatialDrow",
-           "TNet", "correlation_cost_volume", "get_model",
-           "num_cutout_pts_of"]
+           "TNet", "correlation_cost_volume", "fc_in_features_of",
+           "get_model", "num_cutout_pts_of"]

@@ -24,7 +24,7 @@ class FlowDrow(nn.Module):
     def __init__(self, alpha: float = 0.5, window_size: int = 7,
                  pedestrian_only: bool = False, num_cutout_pts: int = 48,
                  dropout: float = 0.0, freeze_detector: bool = True,
-                 remat: bool = False,
+                 remat: bool = False, banded_chunk: int = 0,
                  *, generator: torch.Generator | None = None):
         super().__init__()
         if generator is None:
@@ -34,7 +34,7 @@ class FlowDrow(nn.Module):
         self.freeze_detector = freeze_detector
         self.dr_spaam = SpatialDrow(alpha, window_size, pedestrian_only,
                                     num_cutout_pts, dropout, remat,
-                                    generator=generator)
+                                    banded_chunk, generator=generator)
         self.flow_conv1 = ConvBlock(window_size + 1, 128, 3,
                                     generator=generator)
         self.flow_conv2 = ConvBlock(128, 64, 3, generator=generator)

@@ -1,25 +1,26 @@
 """Model registry: config dict -> port module.
 
-Counterpart of ``planar_optical_flow_tpu/models/registry.py`` for the DROW
-family, the flow U-Net and the box regressor: the streaming types the
-serving engines run, ``"flow_drow"`` -> :class:`FlowDrow` and
-``"dr-spaam"``/``"spatial_drow"`` -> :class:`SpatialDrow`, ``"drow"`` ->
-:class:`Drow`, the flow types ``"flow_unet"``/``"prototype"`` ->
-:class:`FlowUNet` (``in_channels``, ``max_displacement``,
-``linear_head``) and ``"prototype_test"`` -> :class:`FlowUNetAdditive`,
-and ``"box_reg"`` -> :class:`BoundingBoxRegressor` (``input_dim``,
-``target_dim``, ``dropout``). The DROW training keys
-``dropout``, ``remat`` and ``freeze_detector`` are passed on;
-``banded_chunk`` is accepted and computes the dense gate, which is the
-same function (ROADMAP item 11b ports the banded form).
+Counterpart of ``planar_optical_flow_tpu/models/registry.py``; it builds
+every type of the JAX registry: the streaming types the serving engines
+run, ``"flow_drow"`` -> :class:`FlowDrow` and ``"dr-spaam"``/
+``"spatial_drow"`` -> :class:`SpatialDrow`, ``"drow"`` -> :class:`Drow`,
+the fc detectors ``"fc1d"``/``"fc1d_fea"``/``"fc2d"`` ->
+:class:`PolarGridDetector` (``hidden``, ``dropout``), the flow types
+``"flow_unet"``/``"prototype"`` -> :class:`FlowUNet` (``in_channels``,
+``max_displacement``, ``linear_head``) and ``"prototype_test"`` ->
+:class:`FlowUNetAdditive`, and ``"box_reg"`` ->
+:class:`BoundingBoxRegressor` (``input_dim``, ``target_dim``,
+``dropout``). The DROW training keys ``dropout``, ``remat``,
+``freeze_detector`` and ``banded_chunk`` (the block-banded gate) are
+passed on.
 
-The flax modules infer the gate's feature width from their first input;
-the port's are built with it, from ``num_cutout_pts`` (the config's
-``dataset.cutout_kwargs.num_cutout_pts``, default 48, as ``bin/infer.py``
-reads it: :func:`num_cutout_pts_of`).
-
-Every other type of the JAX registry raises ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports it.
+The flax modules infer their input widths from their first input; the
+port's are built with them: the gate's from ``num_cutout_pts`` (the
+config's ``dataset.cutout_kwargs.num_cutout_pts``, default 48, as
+``bin/infer.py`` reads it: :func:`num_cutout_pts_of`), and the fc
+detectors' embedding from ``in_features`` (``(num_scans + 1) * R``, as
+JAX's ``pipeline._example_inputs`` shapes the input:
+:func:`fc_in_features_of`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,11 @@ from planar_optical_flow_tpu_torch.models.flow_unet import (
     FlowUNetAdditive,
 )
 from planar_optical_flow_tpu_torch.models.pointnet import BoundingBoxRegressor
+from planar_optical_flow_tpu_torch.models.polar_grid_net import (
+    PolarGridDetector,
+)
 from planar_optical_flow_tpu_torch.models.spatial_drow import SpatialDrow
+from planar_optical_flow_tpu_torch.ops.polar_grid import num_range_bins
 
 # model types whose forward carries template state across scans: these
 # serve through the streaming engines
@@ -41,14 +46,10 @@ STREAMING_MODEL_TYPES = ("flow_drow", "dr-spaam", "spatial_drow")
 DROW_MODEL_TYPES = (*STREAMING_MODEL_TYPES, "drow")
 # the scan-pair flow nets: stateless, trained on FlowScanPairDataset
 FLOW_MODEL_TYPES = ("flow_unet", "prototype", "prototype_test")
-PORTED_MODEL_TYPES = (*DROW_MODEL_TYPES, *FLOW_MODEL_TYPES, "box_reg")
-
-# the JAX registry's other types -> the ROADMAP.md item that ports them
-NOT_PORTED = {
-    "fc1d": "17",
-    "fc1d_fea": "17",
-    "fc2d": "17",
-}
+# the fc detectors (PolarGridDetector) and their DetectionTask encodings
+FC_MODEL_TYPES = ("fc1d", "fc1d_fea", "fc2d")
+PORTED_MODEL_TYPES = (*DROW_MODEL_TYPES, *FC_MODEL_TYPES, *FLOW_MODEL_TYPES,
+                      "box_reg")
 
 
 def num_cutout_pts_of(cfg: dict) -> int:
@@ -57,25 +58,53 @@ def num_cutout_pts_of(cfg: dict) -> int:
         "num_cutout_pts", 48)
 
 
+def fc_in_features_of(cfg: dict) -> int | None:
+    """The fc detector's embedding width ``(num_scans + 1) * R`` of a nested
+    pipeline config: ``R`` = 1 for ``fc1d``, the cutout points for
+    ``fc1d_fea``, the polar grid's range bins for ``fc2d``. None for the
+    other types."""
+    mtype = cfg["model"]["type"]
+    if mtype not in FC_MODEL_TYPES:
+        return None
+    ds = cfg.get("dataset", {})
+    if mtype == "fc1d":
+        r = 1
+    elif mtype == "fc1d_fea":
+        r = num_cutout_pts_of(cfg)
+    else:
+        pg = ds.get("polar_grid_kwargs", {})
+        r = num_range_bins(pg.get("min_range", 0.0),
+                           pg.get("max_range", 30.0),
+                           pg.get("range_bin_size", 1.0))
+    return (ds.get("num_scans", 5) + 1) * r
+
+
 def get_model(cfg: dict, num_cutout_pts: int = 48,
-              generator: torch.Generator | None = None):
+              generator: torch.Generator | None = None,
+              in_features: int | None = None):
     """Build the module of ``cfg["type"]`` (the ``model`` section of a
     nested config), in eval mode (its forward trains only when called with
     ``train=True``). ``generator`` seeds the initial weights (default: seed
-    0); load trained ones with ``load_state_dict``. The flow types and the
-    box regressor do not read ``num_cutout_pts``."""
+    0); load trained ones with ``load_state_dict``. Only the cutout DROW
+    types read ``num_cutout_pts``; the fc types need ``in_features``
+    (:func:`fc_in_features_of`)."""
     mtype = cfg["type"]
-    if mtype in NOT_PORTED:
-        raise NotImplementedError(
-            f"model type {mtype!r} is not ported yet (ROADMAP.md queue 1 "
-            f"item {NOT_PORTED[mtype]}); the port builds "
-            f"{list(PORTED_MODEL_TYPES)}")
     if mtype not in PORTED_MODEL_TYPES:
         raise NotImplementedError(
             f"unknown model type {mtype!r}; known: "
-            f"{sorted((*PORTED_MODEL_TYPES, *NOT_PORTED))}")
+            f"{sorted(PORTED_MODEL_TYPES)}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if mtype in FC_MODEL_TYPES:
+        if in_features is None:
+            raise ValueError(
+                f"model type {mtype!r} needs in_features, the width of its "
+                "per-beam columns: fc_in_features_of(nested_cfg)")
+        return PolarGridDetector(
+            in_features,
+            num_classes=1 if cfg.get("pedestrian_only", False) else 4,
+            hidden=cfg.get("hidden", 256), dropout=cfg.get("dropout", 0.0),
+            generator=generator).eval()
     if mtype == "box_reg":
         return BoundingBoxRegressor(input_dim=cfg.get("input_dim", 4),
                                     target_dim=cfg.get("target_dim", 5),
@@ -96,7 +125,8 @@ def get_model(cfg: dict, num_cutout_pts: int = 48,
         return Drow(**common).eval()
     kw = dict(common, alpha=cfg.get("alpha", 0.5),
               window_size=cfg.get("window_size", 7),
-              num_cutout_pts=num_cutout_pts)
+              num_cutout_pts=num_cutout_pts,
+              banded_chunk=cfg.get("banded_chunk", 0))
     if mtype == "flow_drow":
         model = FlowDrow(freeze_detector=cfg.get("freeze_detector", True),
                          **kw)

@@ -1,13 +1,14 @@
 """Batched per-beam cutout extraction (the module engine's encoder).
 
-Counterpart of ``planar_optical_flow_tpu/ops/cutout.py`` for the
-configuration the serving step builders use: ``fixed=True`` (each scan sets
-its own window geometry) and ``stride=1``, centered or not, point or area
-sampling. ``fixed=False`` and ``stride>1`` are training-time options and
-raise ``NotImplementedError`` here.
+Counterpart of ``planar_optical_flow_tpu/ops/cutout.py``, with every option
+of the JAX function: ``fixed`` (each scan sets its own window geometry; with
+``fixed=False`` every scan of the stack is windowed with the most recent
+scan's ranges), ``stride`` (output beams ``phi[::stride]``), centered or
+not, point or area sampling. The window geometry runs in float32 whatever
+the input dtype.
 
 Sampling uses ``torch.gather``. In area mode the JAX ``gather_mode`` picks
-between two different area estimates, and so does this port:
+between different area estimates, and so does this port:
 
 * ``"matmul"``: the band mean over beams ``rint(ind -+ tap_w/2)``, the
   estimate the fused cutout kernel also computes. JAX gathers here with a
@@ -17,7 +18,12 @@ between two different area estimates, and so does this port:
   split values (each part's band sum is exact: from a float64 prefix sum).
   Exact ranges instead shift the f32 cutouts by up to ~2e-4, which moves the
   int8 head calibration taken from the module step by up to ~2e-5
-  relative;
+  relative. ``area_fast`` has no effect in this mode, as in JAX;
+* ``"gather"`` with ``area_fast``: the same band mean as a box filter over
+  an f32 prefix sum of the exact ranges, taken in the order XLA's CPU
+  backend computes ``jnp.cumsum`` (``ops/kernels/cutout_kernel.py
+  prefix_sum``), so that a band sum is the same difference of two rounded
+  running sums;
 * ``"gather"``: the mean of ``area_s`` rint-rounded oversampled taps per
   output tap.
 """
@@ -28,6 +34,11 @@ import math
 
 import numpy as np
 import torch
+
+from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import (
+    div_f32,
+    prefix_sum,
+)
 
 
 def area_s_for(window_width: float, num_cutout_pts: int,
@@ -71,6 +82,16 @@ def band_mean(scans, a_lo, a_hi):
     return sums / (a_hi - a_lo + 1).float()
 
 
+def _area_band(inds, c: int, num_pts: int):
+    """The beam band ``[rint(ind - tap_w/2), rint(ind + tap_w/2)]`` of each
+    tap (``(..., P', C)`` int64 each; ``tap_w`` the window's span over ``c -
+    1``), clamped to the scan and to ``lo <= hi``."""
+    tap_w = div_f32(inds[..., -1:] - inds[..., 0:1], c - 1)
+    a_lo = torch.round(torch.clamp(inds - 0.5 * tap_w, 0, num_pts - 1)).long()
+    a_hi = torch.round(torch.clamp(inds + 0.5 * tap_w, 0, num_pts - 1)).long()
+    return a_lo, torch.maximum(a_hi, a_lo)
+
+
 def scans_to_cutout(
     scans,
     scan_phi,
@@ -86,16 +107,15 @@ def scans_to_cutout(
     area_fast: bool = False,
     gather_mode: str = "gather",
 ):
-    """``(..., S, P)`` range scans -> ``(..., P, S, C)`` cutouts.
+    """``(..., S, P)`` range scans -> ``(..., P', S, C)`` cutouts, ``P' =
+    ceil(P / stride)``.
 
     Same contract as the JAX function; see the module docstring for the
-    supported options. Geometry runs in float32 whatever the input dtype.
+    area estimates. Geometry runs in float32 whatever the input dtype;
+    each division is one IEEE f32 division on either device (``div_f32``:
+    CUDA would multiply by a rounded reciprocal), so that the card's taps
+    and band edges are the CPU's, up to the ulps of ``atan``.
     """
-    if not fixed or stride != 1 or area_fast:
-        raise NotImplementedError(
-            "the port's cutout covers fixed=True, stride=1, area_fast=False "
-            "(the serving configuration); the training options are "
-            "ROADMAP queue 1 item 12")
     if gather_mode not in ("gather", "matmul"):
         raise ValueError(f"unknown gather_mode {gather_mode!r}")
     scans = torch.as_tensor(scans)
@@ -105,18 +125,23 @@ def scans_to_cutout(
     phi = np.asarray(scan_phi)
     angle_inc = float(phi[1] - phi[0])
     phi0 = float(phi[0])
-    phi_s = torch.as_tensor(phi, dtype=torch.float32, device=x.device)
+    phi_s = torch.as_tensor(phi[::stride].copy(), dtype=torch.float32,
+                            device=x.device)
     c = num_cutout_pts
 
-    dists = x
-    half_alpha = torch.atan(0.5 * window_width / torch.clamp(dists, min=1e-2))
+    dists = x[..., ::stride]  # (..., S, P')
+    if not fixed:
+        # every scan windowed with the most recent scan's ranges
+        dists = dists[..., -1:, :].expand(dists.shape)
+    half_alpha = torch.atan(div_f32(0.5 * window_width,
+                                    torch.clamp(dists, min=1e-2)))
 
     def window_indices(n_samples):
         # angles of the window taps -> fractional beam indices
-        delta = 2.0 * half_alpha / (n_samples - 1)
+        delta = div_f32(2.0 * half_alpha, n_samples - 1)
         taps = torch.arange(n_samples, dtype=torch.float32, device=x.device)
         ang = (phi_s - half_alpha)[..., None] + taps * delta[..., None]
-        return (ang - phi0) / angle_inc  # (..., S, P, n_samples)
+        return div_f32(ang - phi0, angle_inc)  # (..., S, P', n_samples)
 
     inds = window_indices(c)
     outbound = (inds < 0) | (inds > num_pts - 1)
@@ -136,13 +161,16 @@ def scans_to_cutout(
         window_span = inds[..., -1:] - inds[..., 0:1]
         use_area = window_span > c
         if gather_mode == "matmul":
-            tap_w = (inds[..., -1:] - inds[..., 0:1]) / (c - 1)
-            a_lo = torch.round(torch.clamp(inds - 0.5 * tap_w, 0, num_pts - 1)
-                               ).long()
-            a_hi = torch.round(torch.clamp(inds + 0.5 * tap_w, 0, num_pts - 1)
-                               ).long()
-            a_hi = torch.maximum(a_hi, a_lo)
+            a_lo, a_hi = _area_band(inds, c, num_pts)
             ct = torch.where(use_area, band_mean(x, a_lo, a_hi), ct)
+        elif area_fast:
+            # the box filter: differences of the f32 prefix sum with a
+            # leading zero (csum[i] = sum of beams < i)
+            csum = prefix_sum(x)
+            csum = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
+            a_lo, a_hi = _area_band(inds, c, num_pts)
+            sums = _gather_last(csum, a_hi + 1) - _gather_last(csum, a_lo)
+            ct = torch.where(use_area, sums / (a_hi - a_lo + 1).float(), ct)
         else:
             s = (area_s_for(window_width, c, angle_inc) if area_s is None
                  else int(area_s))
@@ -158,5 +186,5 @@ def scans_to_cutout(
     ct = torch.minimum(torch.maximum(ct, (dists - window_depth)[..., None]),
                        (dists + window_depth)[..., None])
     if centered:
-        ct = (ct - dists[..., None]) / window_depth
+        ct = div_f32(ct - dists[..., None], window_depth)
     return ct.transpose(-3, -2).to(out_dtype)

@@ -13,7 +13,10 @@ task, the optimizer and the trainer from it, on
 runs the plain versions of the kernels), and trains, evaluates and
 checkpoints.
 
-The fc encodings raise in the registry, naming their ROADMAP item (17).
+The fc types (``network: fc1d``, ``fc1d_fea``, ``fc2d``) train a
+:class:`PolarGridDetector` on ``DetectionTask``'s encoding of that name
+(the polar grid from ``polar_grid_kwargs``), its embedding as wide as the
+dataset's stack makes it (``models.fc_in_features_of``).
 ``pipeline.mesh`` raises, naming item 20.
 """
 
@@ -96,7 +99,10 @@ def normalize_config(cfg: dict) -> dict:
 def _build_task(cfg: dict, model=None, num_pts: int | None = None):
     """The task of ``cfg["model"]["type"]``; ``num_pts`` is the beam count
     of the corpus loaded (the detection tasks' beam geometry)."""
-    from planar_optical_flow_tpu_torch.models import FLOW_MODEL_TYPES
+    from planar_optical_flow_tpu_torch.models import (
+        FC_MODEL_TYPES,
+        FLOW_MODEL_TYPES,
+    )
     from planar_optical_flow_tpu_torch.train import tasks
 
     mtype = cfg["model"]["type"]
@@ -112,6 +118,10 @@ def _build_task(cfg: dict, model=None, num_pts: int | None = None):
     )
     if num_pts is not None:
         common["num_pts"] = int(num_pts)
+    if mtype in FC_MODEL_TYPES:
+        return tasks.DetectionTask(
+            **common, encoding=mtype,
+            polar_grid_kwargs=ds.get("polar_grid_kwargs", {}))
     if mtype == "flow_drow":
         if cfg["model"].get("fused_frozen_detector"):
             # the frozen detector on the serving kernels in the step
@@ -174,6 +184,7 @@ class Pipeline:
         from planar_optical_flow_tpu_torch import resolve_device
         from planar_optical_flow_tpu_torch.data.loader import BatchLoader
         from planar_optical_flow_tpu_torch.models import (
+            fc_in_features_of,
             get_model,
             num_cutout_pts_of,
         )
@@ -198,8 +209,9 @@ class Pipeline:
             raise no_mesh(f"pipeline.mesh {mesh_cfg}")
         self.device = resolve_device(device)
         self.logger = RunLogger(pcfg["Logger"])
-        self.model = get_model(cfg["model"], num_cutout_pts_of(cfg)).to(
-            self.device)
+        self.model = get_model(
+            cfg["model"], num_cutout_pts_of(cfg),
+            in_features=fc_in_features_of(cfg)).to(self.device)
         self.train_set, self.val_set = _build_datasets(cfg, synthetic_dir,
                                                        self.device)
         # the beam count comes from the corpus (the scan datasets')

@@ -1,10 +1,10 @@
 """Per-workload losses and metrics ("tasks").
 
 Counterpart of ``planar_optical_flow_tpu/train/tasks.py`` for the flow
-U-Net, the DROW family and the box regressor: :class:`FlowUNetTask`
+U-Net, the detectors and the box regressor: :class:`FlowUNetTask`
 (``"flow_unet"``, ``"prototype"``, ``"prototype_test"``) on scan pairs,
-:class:`DetectionTask` (``"drow"``, ``"dr-spaam"``) with the cutout
-encoding, :class:`FlowDrowTask` and :class:`FlowDrowFusedTask`
+:class:`DetectionTask` (``"drow"``, ``"dr-spaam"`` on cutouts; ``"fc1d"``,
+``"fc1d_fea"``, ``"fc2d"`` on their per-beam columns), :class:`FlowDrowTask` and :class:`FlowDrowFusedTask`
 (``"flow_drow"``), and :class:`BoxRegressionTask` (``"box_reg"``) on
 point segments. Each task's ``loss(model, batch, train, rng)`` returns
 ``(loss, tb_dict, outputs, new_batch_stats)`` and ``metrics(model, batch)``
@@ -19,8 +19,7 @@ as JAX casts them to the cast parameters' dtype. The losses run in f32.
 ``new_batch_stats`` is the whole statistics collection after the forward
 (the frozen detector's included), as flax's mutable collection is.
 
-The fc encodings (``fc1d``, ``fc1d_fea``, ``fc2d``) are ROADMAP item 17,
-and ``loss_pipelined`` item 20.
+``loss_pipelined`` is ROADMAP item 20.
 """
 
 from __future__ import annotations
@@ -34,9 +33,11 @@ from planar_optical_flow_tpu_torch.ops import losses, rotated_iou
 from planar_optical_flow_tpu_torch.ops.cutout import area_s_for, scans_to_cutout
 from planar_optical_flow_tpu_torch.ops.geometry import get_laser_phi
 from planar_optical_flow_tpu_torch.ops.kernels.cutout_kernel import cutout
+from planar_optical_flow_tpu_torch.ops.polar_grid import scans_to_polar_grid
 from planar_optical_flow_tpu_torch.train.state import named_stats
 
 KERNEL_IMPLS = ("auto", "pallas", "pallas_interpret")
+ENCODINGS = ("cutout", "fc1d", "fc1d_fea", "fc2d")
 
 
 def _model_dtype(model) -> torch.dtype:
@@ -82,7 +83,14 @@ class FlowUNetTask:
 
 @dataclass(frozen=True)
 class DetectionTask:
-    """DROW / DR-SPAAM person detection on cutouts.
+    """Person detection: DROW / DR-SPAAM on cutouts, the fc detectors on
+    per-beam columns.
+
+    ``encoding``: ``"cutout"`` (``(B, P, S, C)``), ``"fc1d"`` (the ranges,
+    ``(B, S, 1, P)``), ``"fc1d_fea"`` (the cutouts transposed, ``(B, S, C,
+    P)``; K1 on the card as for ``"cutout"``) or ``"fc2d"`` (the polar grid
+    of ``polar_grid_kwargs``, ``(B, S, R, P)``). The encoding runs in f32
+    and is then cast to the model's dtype.
 
     ``cutout_kwargs["encode_impl"]``: ``"auto"`` (default: K1, the fused
     cutout kernel, on the card when the geometry allows, ``fixed=True,
@@ -99,10 +107,9 @@ class DetectionTask:
     polar_grid_kwargs: dict = field(default_factory=dict)
 
     def __post_init__(self):
-        if self.encoding != "cutout":
-            raise NotImplementedError(
-                f"encoding {self.encoding!r} is not ported yet (ROADMAP.md "
-                "queue 1 item 17); the port encodes cutouts")
+        if self.encoding not in ENCODINGS:
+            raise ValueError(f"unknown encoding {self.encoding!r}; known: "
+                             f"{ENCODINGS}")
 
     def _encode_cutout(self, scans):
         """``(B, S, P)`` f32 scans -> ``(B, P, S, C)`` f32 cutouts."""
@@ -141,6 +148,15 @@ class DetectionTask:
         return ct.reshape(b, s, p_pad, -1)[:, :, :p].permute(0, 2, 1, 3)
 
     def _encode(self, scans):
+        if self.encoding == "fc1d":
+            # (B, S, P) ranges -> (B, S, 1, P) columns
+            return scans.float()[..., None, :]
+        if self.encoding == "fc1d_fea":
+            # cutouts (B, P, S, C) -> (B, S, C, P) columns (the reference's
+            # transpose, dataset_dr_spaam.py:452-454)
+            return self._encode_cutout(scans).permute(0, 2, 3, 1)
+        if self.encoding == "fc2d":
+            return scans_to_polar_grid(scans, **self.polar_grid_kwargs)
         return self._encode_cutout(scans)
 
     def forward(self, model, batch, train, rng=None):

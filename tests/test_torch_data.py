@@ -34,7 +34,8 @@ from planar_optical_flow_tpu_torch.interop import variables_to_state_dict
 from planar_optical_flow_tpu_torch.models import get_model
 from planar_optical_flow_tpu_torch.models.registry import (
     DROW_MODEL_TYPES,
-    NOT_PORTED,
+    FC_MODEL_TYPES,
+    fc_in_features_of,
 )
 from planar_optical_flow_tpu_torch.ops import geometry as geo
 from planar_optical_flow_tpu_torch.ops import targets as tgt
@@ -116,11 +117,29 @@ def test_registry_streaming_types_take_jax_weights(mtype):
     port.load_state_dict(variables_to_state_dict(v_np, port), strict=True)
 
 
-@pytest.mark.parametrize("mtype", sorted(NOT_PORTED))
+@pytest.mark.parametrize("mtype", FC_MODEL_TYPES)
 def test_registry_other_types_name_their_item(mtype):
-    with pytest.raises(NotImplementedError,
-                       match=f"item {NOT_PORTED[mtype]}"):
-        get_model({"type": mtype})
+    """The fc types, the last of the JAX registry: the port's model, its
+    embedding as wide as ``fc_in_features_of`` says (JAX's
+    ``_example_inputs`` widths), takes the JAX model's weights with no
+    missing or unused key; without ``in_features`` it raises."""
+    pg = {"min_range": 0.0, "max_range": 20.0, "range_bin_size": 0.5}
+    cfg = normalize_config({"network": mtype, "num_scans": 2,
+                            "pedestrian_only": True, "polar_grid_kwargs": pg,
+                            "cutout_kwargs": {"num_cutout_pts": 16}})
+    cfg["model"].update(hidden=32, dropout=0.1)
+    r = {"fc1d": 1, "fc1d_fea": 16, "fc2d": 41}[mtype]
+    assert fc_in_features_of(cfg) == 3 * r
+    jm = jax_get_model(cfg["model"])
+    variables = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, r, NUM_PTS)),
+                        train=False)
+    v_np = perturb_batch_stats(variables, np.random.default_rng(1))
+    port = get_model(cfg["model"], in_features=fc_in_features_of(cfg))
+    assert type(port).__name__ == type(jm).__name__ == "PolarGridDetector"
+    assert port.cls.out_features == 1 and port.embed.out_features == 32
+    port.load_state_dict(variables_to_state_dict(v_np, port), strict=True)
+    with pytest.raises(ValueError, match="in_features"):
+        get_model(cfg["model"])
 
 
 # ------------------------------------------------------- readers and writer

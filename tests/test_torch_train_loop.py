@@ -337,7 +337,8 @@ def test_detection_task_encode_impls(corpus):
     """``encode_impl``: on CPU tensors "auto" and "xla" take the module
     cutout, as JAX takes XLA's on the CPU, and "pallas" K1's plain version;
     the two agree within the cutout kernel's bar; "pallas" on a geometry
-    K1 does not cover raises."""
+    K1 does not cover raises. ``encoding="fc2d"`` builds and encodes the
+    polar grid; an unknown encoding raises."""
     scans = torch.tensor(DrowDetectionDataset(
         corpus, "train", num_scans=NUM_SCANS, device="cpu").batch(
             np.arange(2))["scans"])
@@ -353,8 +354,14 @@ def test_detection_task_encode_impls(corpus):
         tasks.DetectionTask(cutout_kwargs=dict(
             CUTOUT_KW, fixed=False, encode_impl="pallas"),
             num_pts=NUM_PTS)._encode(scans)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tasks.DetectionTask(encoding="fc2d")
+    fc2d = tasks.DetectionTask(cutout_kwargs=CUTOUT_KW, num_pts=NUM_PTS,
+                               encoding="fc2d",
+                               polar_grid_kwargs={"range_bin_size": 0.5})
+    grid = fc2d._encode(scans)
+    assert grid.shape == (2, NUM_SCANS + 1, 61, NUM_PTS)
+    assert grid.dtype == torch.float32 and bool(torch.isfinite(grid).all())
+    with pytest.raises(ValueError, match="encoding"):
+        tasks.DetectionTask(encoding="polar")
 
 
 def test_pipeline_grafts_a_detector_checkpoint(corpus, tmp_path):
