@@ -218,7 +218,23 @@ Phases:
    written as a reference ``.pth`` envelope, imported by
    ``cli.import_checkpoint`` and served on the int8c runner at B=384,
    equal to its source weights to the bit;
-12. the kernels line, the card line and the result line.
+13. ``[parallel]`` (after ``[export]``): the int8c p2 step unsharded and
+   over a ``data`` mesh of 2 shards of 192 streams, both on this card
+   (``make_serve_step_v3(mesh=parallel.make_mesh(...))``, calibrated once),
+   1 bootstrap + 5 carried steps each: every template and z carry equal
+   to the bit, K1, K5, K6 and K7 launched twice a step (counted from 0
+   just before the sharded run), both step times (CUDA events) printed as
+   shard dispatch on one card, not scaling; then ``cli.train`` (the
+   detector, ``configs/dr_spaam.yaml``'s keys, bf16, 3 steps of 8 x 11 x
+   450 on a synthetic sequence) with ``pipeline.mesh: {data: 1}`` under
+   ``torch.distributed.run --standalone --nproc_per_node=1`` (a world of
+   one over NCCL, the gradients all-reduced over a group of one) and the
+   same config without a mesh, each a process of this script
+   (``--cli-train CFG``, deterministic cuDNN): losses and final weights
+   equal to the bit, the same K1-K4 launches; a line that says which
+   multi-rank legs one card cannot run (NCCL refuses two ranks on one
+   device) and which CPU tests hold them;
+14. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
@@ -3845,6 +3861,195 @@ def load_artifacts(root):
     return 0
 
 
+# the "parallel" phase: the int8c p2 step over PAR_SHARDS shards of one
+# card, and cli.train on a world of one over NCCL against the run without
+# a mesh, on one train sequence of PAR_FRAMES frames (3 steps of 8)
+PAR_SHARDS = 2
+PAR_FRAMES = 25
+PAR_STEPS = 3
+
+
+def cli_train_worker(cfg_path) -> int:
+    """The ``[parallel]`` phase's ``cli.train`` process, plain or a rank of
+    ``torch.distributed.run``: deterministic cuDNN (the two runs are held
+    to the bit), the K1-K4 launches counted from 0 and printed on a
+    ``LAUNCHES`` line."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.cli import train as train_cli
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    train_counts(zero=True)
+    rc = train_cli.main(["--cfg", cfg_path])
+    print("LAUNCHES " + json.dumps(train_counts()), flush=True)
+    return rc
+
+
+def _parallel_serving(model, scans, device, calib, card):
+    """Step 1 of the ``[parallel]`` phase: the int8c p2 step unsharded,
+    then over a ``data`` mesh of PAR_SHARDS shards on this card."""
+    import torch
+
+    from planar_optical_flow_tpu_torch import parallel
+    from planar_optical_flow_tpu_torch.infer.streaming import (
+        ShardedCarry, make_serve_step_v3,
+    )
+
+    kw = dict(num_pts=NUM_PTS, precision="int8c", calib=calib)
+    single = make_serve_step_v3(model, CUTOUT_KW, device=device, **kw)
+    mesh = parallel.make_mesh(devices=[device] * PAR_SHARDS)
+    sharded = make_serve_step_v3(model, CUTOUT_KW, mesh=mesh, **kw)
+    check(sharded.calibration is calib and sharded.shards == [device]
+          * PAR_SHARDS, "[parallel] the sharded step's calibration")
+
+    def run(step):
+        carry, kept, ms = None, [], []
+        for i in range(STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            carry, out = step(carry, scans[i])
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            whole = (carry.gather() if isinstance(carry, ShardedCarry)
+                     else carry)
+            kept.append({k: v.clone() for k, v in whole.items()})
+            check(all(torch.isfinite(v.float()).all() for k, v in out.items()
+                      if v.is_floating_point()),
+                  f"[parallel] step {i}: non-finite outputs")
+        return kept, ms
+
+    fns = wrappers()
+    want, ms_single = run(single)
+    for fn in fns.values():
+        fn.launches = 0
+    got, ms_sharded = run(sharded)
+    counts = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    expect = {k: PAR_SHARDS * STEPS for k in INT8C_KERNELS}
+    check(counts == expect, f"[parallel] sharded launches {counts}, want "
+          f"{expect}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("template", "z"):
+            check(torch.equal(g[k], w[k]),
+                  f"[parallel] step {i}: sharded {k} differs from the "
+                  "unsharded step's")
+    med = (float(np.median(ms_single[1:])), float(np.median(ms_sharded[1:])))
+    print(f"[parallel] serving: make_serve_step_v3(precision='int8c', "
+          f"layout='p2') on a data mesh of {PAR_SHARDS} shards of "
+          f"{BATCH // PAR_SHARDS} streams, both on {device}: template and z "
+          f"carries of all {STEPS} steps (1 bootstrap + {STEPS - 1} carried) "
+          f"equal to the bit to the unsharded step's; launches "
+          f"{json.dumps(counts)} ({PAR_SHARDS} a step); {card}", flush=True)
+    print(f"[parallel] serving step_ms: unsharded "
+          f"{json.dumps([round(t, 3) for t in ms_single])}, carried median "
+          f"{med[0]:.3f} ms; {PAR_SHARDS} shards "
+          f"{json.dumps([round(t, 3) for t in ms_sharded])}, carried median "
+          f"{med[1]:.3f} ms (B={BATCH}, {NUM_PTS} beams) — shard dispatch "
+          f"on one card, the shards one after the other: not a scaling "
+          f"figure; {card}", flush=True)
+    del want, got
+
+
+def _parallel_training(seed, card):
+    """Step 2 of the ``[parallel]`` phase: ``cli.train`` with
+    ``pipeline.mesh: {data: 1}`` under ``torch.distributed.run`` (a world
+    of one over NCCL) against the same config without a mesh."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.data import write_synthetic_drow_split
+    from planar_optical_flow_tpu_torch.pipeline import normalize_config
+
+    root = os.path.join(BUILD_DIR, "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    data, logs = os.path.join(root, "drow"), os.path.join(root, "logs")
+    write_synthetic_drow_split(data, "train", num_sequences=1,
+                               num_frames=PAR_FRAMES, seed=seed,
+                               num_pts=NUM_PTS)
+    flat = dict(FLAGSHIP_CFG, epochs=1, data_dir=data, log_dir=logs,
+                network="cutout_gating", train_with_val=False,
+                ckpt_interval=0, eval_interval=0)
+    paths = {}
+    for tag, mesh in (("mesh", {"data": 1}), ("plain", None)):
+        cfg = normalize_config(dict(flat, tag=tag))
+        cfg["pipeline"]["Logger"].update(tensorboard=False)
+        cfg["pipeline"]["mesh"] = mesh
+        paths[tag] = os.path.join(root, f"{tag}.json")
+        with open(paths[tag], "w") as f:
+            json.dump(cfg, f)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    me = os.path.abspath(__file__)
+    launches, secs = {}, {}
+    for tag, cmd in (
+            ("mesh", [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node=1", me,
+                      "--cli-train", paths["mesh"]]),
+            ("plain", [sys.executable, me, "--cli-train", paths["plain"]])):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600)
+        secs[tag] = time.perf_counter() - t0
+        check(res.returncode == 0, f"[parallel] cli.train ({tag}): rc "
+              f"{res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        line = [x for x in res.stdout.splitlines()
+                if x.startswith("LAUNCHES ")]
+        check(len(line) == 1, f"[parallel] cli.train ({tag}): no LAUNCHES")
+        launches[tag] = json.loads(line[0][len("LAUNCHES "):])
+    runs = {}
+    for tag in paths:
+        (run,) = [d for d in os.listdir(logs) if d.endswith("_" + tag)]
+        run = os.path.join(logs, run)
+        runs[tag] = (run_scalars(run, "TRAIN_loss"), torch.load(
+            os.path.join(run, "ckpt", "ckpt_final", "weights.pt"),
+            map_location="cpu", weights_only=True),
+            run_scalars(run, "TRAIN_step_ms"))
+    (l_mesh, w_mesh, ms_mesh), (l_plain, w_plain, ms_plain) = (
+        runs["mesh"], runs["plain"])
+    check(len(l_mesh) == PAR_STEPS and np.isfinite(l_mesh).all(),
+          f"[parallel] cli.train on the mesh: losses {l_mesh}")
+    check(l_mesh == l_plain, f"[parallel] losses {l_mesh} vs {l_plain}")
+    check(set(w_mesh) == set(w_plain) and all(
+        torch.equal(w_mesh[k], v) for k, v in w_plain.items()),
+        "[parallel] the mesh run's weights differ from the plain run's")
+    check(launches["mesh"] == launches["plain"]
+          and launches["mesh"]["cutout"] >= PAR_STEPS,
+          f"[parallel] launches {launches}")
+    print(f"[parallel] training: cli.train --cfg (network cutout_gating, "
+          f"dr-spaam, bf16, B={flat['batch_size']} x "
+          f"{flat['num_scans'] + 1} x {NUM_PTS}) under torch.distributed.run "
+          f"--standalone --nproc_per_node=1 with pipeline.mesh {{data: 1}} "
+          f"(NCCL, the gradients all-reduced over a group of one), "
+          f"{PAR_STEPS} steps: losses {json.dumps(l_mesh)} and the final "
+          f"weights equal to the bit to the run without a mesh; launches "
+          f"{json.dumps(launches['mesh'])} in each; "
+          f"{secs['mesh']:.1f} s and {secs['plain']:.1f} s with their "
+          f"processes; {card}", flush=True)
+    print(f"[parallel] training step_ms: mesh "
+          f"{json.dumps([round(t, 3) for t in ms_mesh])}, no mesh "
+          f"{json.dumps([round(t, 3) for t in ms_plain])} (host clock until "
+          f"the loss is read back); {card}", flush=True)
+
+
+def parallel_phase(model, scans, device, calib, seed, card):
+    """The ``[parallel]`` phase: sharded serving on one card, and
+    data-parallel training in a world of one over NCCL."""
+    t_phase = time.perf_counter()
+    _parallel_serving(model, scans, device, calib, card)
+    _parallel_training(seed, card)
+    print("[parallel] not run on one card: NCCL refuses two ranks on one "
+          "device, so every multi-rank leg (data, model, pipe and dcn axes, "
+          "the context-parallel gate, ranks serving their rows) is held "
+          "only by the CPU tests over Gloo (tests/test_torch_parallel.py, "
+          "test_torch_pipeline_parallel.py, test_torch_distributed.py)",
+          flush=True)
+    print(f"[parallel] the phase took {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3852,9 +4057,14 @@ def main(argv=None):
     ap.add_argument("--load-artifacts", default=None, metavar="DIR",
                     help="the [export] phase's loading process (run by the "
                          "phase itself)")
+    ap.add_argument("--cli-train", default=None, metavar="CFG",
+                    help="the [parallel] phase's training process (run by "
+                         "the phase itself)")
     args = ap.parse_args(argv)
     if args.load_artifacts:
         return load_artifacts(args.load_artifacts)
+    if args.cli_train:
+        return cli_train_worker(args.cli_train)
 
     import torch
 
@@ -4082,6 +4292,8 @@ def main(argv=None):
     trace_phase(model, scans, device, calib, engine="v3")
     torch.cuda.empty_cache()
     export_phase(model, scans, device, calib, card)
+    torch.cuda.empty_cache()
+    parallel_phase(model, scans, device, calib, args.seed, card)
 
     kernels = []
     for name, (src, replaces, wrapper, run) in KERNELS.items():

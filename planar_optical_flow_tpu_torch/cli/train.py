@@ -14,11 +14,21 @@ sequence of 3 frames x 4 boxes), else DROW splits (2 x 40 train frames, 15
 val frames, with their ``.difodom``/``.flow`` files). It runs on the card
 unless ``--cpu`` is given. A ``.json`` config needs no PyYAML. Returns the
 trainer's rc: 0, or 1 after a preemption (the sigterm checkpoint written).
+
+Across devices, launch one process a device with ``torch.distributed.run``
+(``python -m torch.distributed.run --nproc_per_node=N -m
+planar_optical_flow_tpu_torch.cli.train --cfg CFG``): each rank joins the
+process group (NCCL on ``cuda:LOCAL_RANK``; Gloo on the CPU with
+``--cpu``), the config's ``pipeline.mesh`` (default: ``data`` over the
+world) lays the ranks out, each rank's loader reads its rows of every
+batch, and rank 0 writes the synthetic corpus, the logs and the
+checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -44,27 +54,46 @@ def main(argv=None) -> int:
     )
     from planar_optical_flow_tpu_torch.utils.config import load_config
 
-    device = resolve_device("cpu" if args.cpu else "cuda")
-    cfg = normalize_config(load_config(args.cfg, tag=args.tag))
-    synthetic_dir = (make_synthetic(args.synthetic, device,
-                                    cfg["model"]["type"])
-                     if args.synthetic else None)
-    pipeline = Pipeline(cfg, synthetic_dir=synthetic_dir, device=device)
-    if args.ckpt:
-        pipeline.load_ckpt(args.ckpt)
-    elif args.cont and pipeline.sigterm_ckpt_exists():
-        pipeline.load_sigterm_ckpt()
+    import torch.distributed as dist
 
-    if args.evaluation:
-        metrics = pipeline.evaluate()
-        print({k: round(v, 6) for k, v in metrics.items()})
-        return 0
-    rc = pipeline.train()
-    if rc == 0:
-        pipeline.save_ckpt()
-        metrics = pipeline.evaluate()
-        pipeline.logger.save_dict("final_metrics", metrics)
-    return rc
+    from planar_optical_flow_tpu_torch.parallel import initialize_distributed
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    launched = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if launched:
+        device = initialize_distributed(device=device)
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    try:
+        cfg = normalize_config(load_config(args.cfg, tag=args.tag))
+        synthetic_dir = None
+        if args.synthetic:
+            if main_rank:
+                make_synthetic(args.synthetic, device, cfg["model"]["type"])
+            if dist.is_initialized():
+                dist.barrier()
+            synthetic_dir = args.synthetic
+        pipeline = Pipeline(cfg, synthetic_dir=synthetic_dir, device=device)
+        if args.ckpt:
+            pipeline.load_ckpt(args.ckpt)
+        elif args.cont and pipeline.sigterm_ckpt_exists():
+            pipeline.load_sigterm_ckpt()
+
+        if args.evaluation:
+            metrics = pipeline.evaluate()
+            if main_rank:
+                print({k: round(v, 6) for k, v in metrics.items()})
+            return 0
+        rc = pipeline.train()
+        if rc == 0:
+            if main_rank:
+                pipeline.save_ckpt()
+            metrics = pipeline.evaluate()
+            if main_rank:
+                pipeline.logger.save_dict("final_metrics", metrics)
+        return rc
+    finally:
+        if launched:
+            dist.destroy_process_group()
 
 
 def make_synthetic(out_dir: str, device, model_type: str | None = None

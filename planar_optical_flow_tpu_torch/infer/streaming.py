@@ -681,7 +681,8 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
                        fuse_gate_head: bool = False,
                        calib_percentile: float | None = None,
                        calib_steps: int = 2, output_fields=None,
-                       sanitize_inputs: bool = True, device="cuda"):
+                       sanitize_inputs: bool = True, device="cuda",
+                       mesh=None):
     """The fused serving step on the CUDA kernels.
 
     * ``precision="bf16"``: K1 cutout, K2 backbone (layer 1 included) +
@@ -746,7 +747,15 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     the int8 scales in effect (None for bf16), ``step.raw_step`` the same
     step outside ``torch.inference_mode`` (what ``infer.export.
     export_serving_engine`` traces).
+
+    ``mesh`` (``parallel.Mesh``) shards the streams over its ``data`` axis
+    (:func:`_sharded_serve_step`): the step then takes no ``device``.
     """
+    if mesh is not None:
+        kwargs = dict(locals())
+        for k in ("mesh", "model", "cutout_kwargs", "device"):
+            kwargs.pop(k)
+        return _sharded_serve_step(mesh, model, cutout_kwargs, **kwargs)
     pm = _check_v3_options(precision, layout, fuse_gate_head, gate_per_stream,
                            pm_tile, conv_mode, int8_conv_mode, p2_l1_mode)
     if not cutout_kwargs.get("fixed") or cutout_kwargs.get("stride", 1) != 1:
@@ -935,6 +944,97 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         return finish(scan, b, template, z, sim, cls, reg)
 
     return _serving(step, calib, dev, precision)
+
+
+class ShardedCarry(list):
+    """The carry of a sharded serving step: one carry a shard, each on its
+    shard's device, its rows those of the shard's streams."""
+
+    def gather(self, device=None) -> dict:
+        """The whole carry (stream-major rows, shard after shard) on
+        ``device`` (default: shard 0's)."""
+        device = device or self[0]["template"].device
+        return {k: torch.cat([c[k].to(device) for c in self])
+                for k in self[0]}
+
+
+def _sharded_serve_step(mesh, model, cutout_kwargs, *, calib=None,
+                        calib_scans=None, **kwargs):
+    """``make_serve_step_v3`` over ``mesh``'s ``data`` axis (JAX's
+    ``shard_map`` of the step over ``P("data")``, ``streaming.py:1010-1030``).
+    Streams are independent, so each shard runs the whole step on its
+    block of the batch with no collective: every kernel (K1, K5, K6, K7 on
+    int8c p2) launches once a shard, on whole streams since the carry rows
+    are stream-major. The int8 calibration is computed once (on shard 0's
+    device) and shared; a model is copied to each further device.
+
+    In one process the step takes the whole batch, which must be a multiple
+    of the ``data`` size, and returns a :class:`ShardedCarry` (a dict carry
+    is split by rows) and the outputs concatenated on shard 0's device.
+    Across processes each rank serves its block of the batch's rows
+    (``parallel.batch_sharding``) on its device, and returns its rows."""
+    from planar_optical_flow_tpu_torch.parallel.mesh import batch_sharding
+
+    if "data" not in mesh.shape:
+        raise ValueError(f"mesh {mesh.shape} has no data axis to shard the "
+                         "streams over")
+    n = mesh.shape["data"]
+    if mesh.multi_process:
+        step = make_serve_step_v3(model, cutout_kwargs, calib=calib,
+                                  calib_scans=calib_scans,
+                                  device=mesh.device, **kwargs)
+        rows_of = batch_sharding(mesh)
+
+        def dispatch_rank(carry, scan):
+            b = scan.shape[0]
+            if b % rows_of.count:
+                raise ValueError(f"batch {b} must be a multiple of the mesh "
+                                 f"data-axis size {rows_of.count}")
+            return step(carry, scan[rows_of.rows(b)])
+
+        dispatch_rank.calibration = step.calibration
+        dispatch_rank.device, dispatch_rank.precision = (step.device,
+                                                         step.precision)
+        return dispatch_rank
+    data = mesh.axis_names.index("data")
+    devs = [torch.device(d) for d in np.moveaxis(mesh.devices, data, 0)
+            .reshape(n, -1)[:, 0]]
+    steps = {}
+    for dev in devs:
+        if dev in steps:
+            continue
+        steps[dev] = make_serve_step_v3(
+            model if not steps else copy.deepcopy(model), cutout_kwargs,
+            calib=calib, calib_scans=None if calib is not None
+            else calib_scans, device=dev, **kwargs)
+        calib = steps[dev].calibration if calib is None else calib
+
+    @torch.inference_mode()
+    def dispatch(carry, scan):
+        b = scan.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} must be a multiple of the mesh "
+                             f"data-axis size {n}")
+        per = b // n
+        if carry is None:
+            carries = [None] * n
+        elif isinstance(carry, ShardedCarry):
+            carries = carry
+        else:  # a whole carry: its stream-major rows split evenly
+            carries = [{k: v.chunk(n)[i].to(devs[i]) for k, v in
+                        carry.items()} for i in range(n)]
+        new, outs = ShardedCarry(), []
+        for i, dev in enumerate(devs):
+            c, out = steps[dev](carries[i], scan[i * per:(i + 1) * per])
+            new.append(c)
+            outs.append(out)
+        return new, {k: torch.cat([o[k].to(devs[0]) for o in outs])
+                     for k in outs[0]}
+
+    dispatch.calibration = calib
+    dispatch.device, dispatch.precision = devs[0], steps[devs[0]].precision
+    dispatch.shards = devs
+    return dispatch
 
 
 def _serving(raw, calibration, device, precision):

@@ -48,6 +48,31 @@ def _torch_name(flax_name: str) -> str:
     return _RENAME.get(flax_name, flax_name)
 
 
+_FLAX_NAME = {v: k for k, v in _RENAME.items()}
+_FLAX_LEAF = {"weight": "kernel", "bias": "bias", "running_mean": "mean",
+              "running_var": "var"}
+
+
+def flax_path(name: str) -> tuple:
+    """A port parameter or statistic name -> its flax path (module names,
+    then the leaf; a BatchNorm's ``weight`` reads ``kernel``, as the rule
+    of ``parallel/mesh.py`` needs no more): ``"head.block3.blocks.2.conv.
+    weight"`` -> ``("head", "block3", "ConvBlock_2", "Conv_0",
+    "kernel")``."""
+    parts = name.split(".")
+    out, i = [], 0
+    while i < len(parts) - 1:
+        if parts[i] == "blocks" and i + 1 < len(parts) - 1 \
+                and parts[i + 1].isdigit():
+            out.append(f"ConvBlock_{parts[i + 1]}")
+            i += 2
+            continue
+        out.append(_FLAX_NAME.get(parts[i], parts[i]))
+        i += 1
+    out.append(_FLAX_LEAF.get(parts[-1], parts[-1]))
+    return tuple(out)
+
+
 def _flatten(tree, collection, prefix=()):
     for name, sub in tree.items():
         path = prefix + (name,)

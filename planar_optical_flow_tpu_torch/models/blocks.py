@@ -87,9 +87,18 @@ def leaky_relu(x: torch.Tensor,
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """flax ``Dense`` in ``x``'s dtype: the product, rounded, then the
-    bias (bf16 rounds twice, as flax does)."""
-    return (F.linear(x, lin.weight.to(x.dtype))
-            + lin.bias.to(x.dtype))
+    bias (bf16 rounds twice, as flax does). A layer column-split over a
+    ``model`` axis (``parallel/tensor_parallel.py``) computes its shard of
+    the outputs and gathers them."""
+    tp = getattr(lin, "tp", None)
+    if tp is not None:
+        from planar_optical_flow_tpu_torch.parallel import comm
+
+        x = comm.copy_to(x, tp.group)
+    y = F.linear(x, lin.weight.to(x.dtype)) + lin.bias.to(x.dtype)
+    if tp is not None:
+        y = comm.gather(y, tp.group, dim=-1)
+    return y
 
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d,
@@ -128,9 +137,26 @@ def batch_moments(x: torch.Tensor, dims) -> tuple:
     """flax 0.12.3's ``_compute_stats``: ``x`` promoted to f32, mean and
     biased variance over ``dims`` by the fast formula ``E[x^2] - E[x]^2``
     clipped at 0; a mean is the f32 sum times the f32 reciprocal of the
-    count, as XLA computes ``jnp.mean``."""
+    count, as XLA computes ``jnp.mean``.
+
+    Inside a data-parallel step (``parallel.comm.data_parallel``) the
+    moments are the global batch's, as JAX's partitioner computes them on
+    a sharded batch: the f32 sums, sums of squares and counts are
+    all-reduced over the data group (their gradient too), and the mean is
+    the global sum times the reciprocal of the global count."""
+    from planar_optical_flow_tpu_torch.parallel import comm
+
     xf = x.float()
     count = math.prod(x.shape[d] for d in dims)
+    group = comm.data_group()
+    if group is not None:
+        c = xf.shape[[d for d in range(x.ndim) if d not in dims][0]]
+        sums = comm.moments_sum(torch.cat([
+            xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+            xf.new_full((1,), float(count))]), group)
+        recip = torch.reciprocal(sums[2 * c:])
+        mean, mean2 = sums[:c] * recip, sums[c:2 * c] * recip
+        return mean, torch.clamp(mean2 - mean * mean, min=0.0)
     recip = rounded(1.0 / rounded(count, torch.float32), torch.float32)
     mean = xf.sum(dim=dims) * recip
     mean2 = (xf * xf).sum(dim=dims) * recip
@@ -253,9 +279,17 @@ class ConvBlock(nn.Module):
         k = self.kernel_size
         if k > 1:
             x = F.pad(x, ((k - 1) // 2, k // 2))
+        tp = getattr(self, "tp", None)  # split over a model axis
+        if tp is not None:
+            from planar_optical_flow_tpu_torch.parallel import comm
+
+            if tp.kind == "col":
+                x = comm.copy_to(x, tp.group)
+        y = F.conv1d(x, self.conv.weight.to(x.dtype), stride=self.stride)
+        if tp is not None and tp.kind == "row":
+            y = comm.reduce_sum(y, tp.group)
         # the bias after the rounded product, as flax's Conv adds it
-        y = (F.conv1d(x, self.conv.weight.to(x.dtype), stride=self.stride)
-             + self.conv.bias.to(x.dtype)[:, None])
+        y = y + self.conv.bias.to(x.dtype)[:, None]
         return leaky_relu(batch_norm(y, self.bn, 1, train),
                           self.negative_slope)
 

@@ -5,6 +5,12 @@ endpoint-error flow loss, the EPE/AAE metrics, the multi-class and binary
 focal losses, the box-regression L1 losses and the DROW detection loss.
 Every loss computes in f32 whatever the network's dtype (a bf16 model's
 predictions are promoted first), as the JAX functions do.
+
+Inside a data-parallel step (``parallel.comm.data_parallel``) every mean
+is the global batch's, as JAX's is on a sharded batch: the numerator and
+the count are all-reduced over the data group, the numerator with an
+identity gradient, so each rank's backward carries its own rows' share
+and the trainer sums the gradients once.
 """
 
 from __future__ import annotations
@@ -13,6 +19,27 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+
+def _masked_mean(num: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``num / max(count, 1)``, both over the global batch inside a
+    data-parallel step."""
+    from planar_optical_flow_tpu_torch.parallel import comm
+
+    group = comm.data_group()
+    if group is not None:
+        num, count = comm.reduce_sum(
+            torch.stack([num, count.detach().to(num.dtype)]), group)
+    return num / torch.clamp(count, min=1.0)
+
+
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    """``t.mean()``, over the global batch inside a data-parallel step."""
+    from planar_optical_flow_tpu_torch.parallel import comm
+
+    if comm.data_group() is None:
+        return t.mean()
+    return _masked_mean(t.sum(), t.new_tensor(float(t.numel())))
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -25,9 +52,9 @@ def epe_loss(pred, target, mask=None):
     the mean over the points where it is 1."""
     err = _norm(pred.float() - target.float())
     if mask is None:
-        return err.mean()
+        return _mean(err)
     m = mask.to(err.dtype)
-    return (err * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return _masked_mean((err * m).sum(), m.sum())
 
 
 def epe_aae(pred, target, wrap_angles: bool = False):
@@ -44,7 +71,7 @@ def epe_aae(pred, target, wrap_angles: bool = False):
 
 def _reduce(loss, reduction: str):
     if reduction == "mean":
-        return loss.mean()
+        return _mean(loss)
     if reduction == "sum":
         return loss.sum()
     return loss
@@ -83,13 +110,13 @@ def box_regression_loss(pred, target, alpha: float = 0.5):
     |ori|."""
     d = pred.shape[-1]
     pred, target = pred.float(), target.float()
-    loss_ori = (pred[..., -1] - target[..., -1]).abs().mean()
+    loss_ori = _mean((pred[..., -1] - target[..., -1]).abs())
     if d == 5:
-        loss_z = (pred[..., 0] - target[..., 0]).abs().mean()
-        loss_dim = (pred[..., 1:-1] - target[..., 1:-1]).abs().sum(-1).mean()
+        loss_z = _mean((pred[..., 0] - target[..., 0]).abs())
+        loss_dim = _mean((pred[..., 1:-1] - target[..., 1:-1]).abs().sum(-1))
         return loss_z + loss_dim + alpha * loss_ori
     if d == 3:
-        loss_dim = (pred[..., :-1] - target[..., :-1]).abs().sum(-1).mean()
+        loss_dim = _mean((pred[..., :-1] - target[..., :-1]).abs().sum(-1))
         return loss_dim + alpha * loss_ori
     raise ValueError(f"unsupported target dim {d}")
 
@@ -112,5 +139,5 @@ def detection_loss(pred_cls, pred_reg, target_cls, target_reg,
         cls_loss = focal_loss(cls_flat, tgt_flat, gamma=focal_gamma)
     fg = (tgt_flat != 0).to(pred_reg.dtype)
     reg_err = _norm(pred_reg.reshape(n, -1) - target_reg.reshape(n, -1))
-    reg_loss = (reg_err * fg).sum() / torch.clamp(fg.sum(), min=1.0)
-    return cls_loss, reg_loss, fg.mean()
+    reg_loss = _masked_mean((reg_err * fg).sum(), fg.sum())
+    return cls_loss, reg_loss, _mean(fg)

@@ -17,7 +17,17 @@ The fc types (``network: fc1d``, ``fc1d_fea``, ``fc2d``) train a
 :class:`PolarGridDetector` on ``DetectionTask``'s encoding of that name
 (the polar grid from ``polar_grid_kwargs``), its embedding as wide as the
 dataset's stack makes it (``models.fc_in_features_of``).
-``pipeline.mesh`` raises, naming item 20.
+``pipeline.mesh`` (``{dcn, data, model, pipe}`` sizes, ``-1``/``"auto"``
+on one of them, ``strict``) builds the trainer's mesh as JAX's
+``pipeline.py:264-366`` does; without it the mesh is ``data`` over the
+world of a ``torch.distributed.run`` launch, and none for one process. A
+mesh that cannot be built, or whose data extent (``data`` x microbatches
+on a ``pipe`` mesh) does not divide the batch, falls back to no mesh with a
+warning (an error under ``strict``); an unknown axis, a mesh that is not a
+mapping, and ``dcn`` with ``pipe`` raise. With a ``model`` axis the state
+is split by ``parallel.state_shardings``. The loaders of a data mesh
+without ``pipe`` read each rank's rows only; rank 0 logs and writes
+checkpoints into the run directory of its stamp, which every rank shares.
 """
 
 from __future__ import annotations
@@ -177,6 +187,26 @@ def _build_datasets(cfg: dict, synthetic_dir: str | None = None,
     return train, val
 
 
+def _rank_logger_cfg(logger_cfg: dict) -> dict:
+    """The logger config of this rank: under ``torch.distributed`` every
+    rank takes rank 0's stamp, so they share one run directory, and the
+    other ranks write only their own log file there."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return logger_cfg
+    import time
+
+    stamp = [time.strftime("%Y%m%d_%H%M%S", time.gmtime())]
+    dist.broadcast_object_list(stamp, src=0)
+    cfg = dict(logger_cfg, stamp=stamp[0])
+    rank = dist.get_rank()
+    if rank:
+        cfg.update(console=False, tensorboard=False, wandb=False,
+                   log_fname=f"log_rank{rank}.txt")
+    return cfg
+
+
 class Pipeline:
     def __init__(self, cfg: dict, synthetic_dir: str | None = None,
                  use_mesh: bool = True, install_signal_handlers: bool = True,
@@ -194,7 +224,6 @@ class Pipeline:
             exp_decay_schedule,
             make_optimizer,
         )
-        from planar_optical_flow_tpu_torch.train.trainer import no_mesh
         from planar_optical_flow_tpu_torch.utils.logger import RunLogger
 
         cfg = normalize_config(cfg)
@@ -205,10 +234,8 @@ class Pipeline:
             raise TypeError(
                 f"pipeline.mesh must be a mapping of axis sizes, got "
                 f"{type(mesh_cfg).__name__}: {mesh_cfg!r}")
-        if use_mesh and mesh_cfg:
-            raise no_mesh(f"pipeline.mesh {mesh_cfg}")
         self.device = resolve_device(device)
-        self.logger = RunLogger(pcfg["Logger"])
+        self.logger = RunLogger(_rank_logger_cfg(pcfg["Logger"]))
         self.model = get_model(
             cfg["model"], num_cutout_pts_of(cfg),
             in_features=fc_in_features_of(cfg)).to(self.device)
@@ -220,9 +247,18 @@ class Pipeline:
         self.task = _build_task(cfg, self.model, num_pts=num_pts)
 
         bsz = cfg["dataloader"]["batch_size"]
-        self.train_loader = BatchLoader(self.train_set, bsz, shuffle=True)
+        mesh, sharding_fn = (self._build_mesh(pcfg, bsz) if use_mesh
+                             else (None, None))
+        self.mesh = mesh
+        # a data mesh without pipe: each rank reads its rows only
+        split = (mesh is not None and mesh.multi_process
+                 and mesh.axis_size("pipe") == 1 and mesh.data_extent > 1)
+        part = (dict(process_index=mesh.data_index,
+                     process_count=mesh.data_extent) if split else {})
+        self.train_loader = BatchLoader(self.train_set, bsz, shuffle=True,
+                                        **part)
         self.val_loader = (
-            BatchLoader(self.val_set, bsz, shuffle=False)
+            BatchLoader(self.val_set, bsz, shuffle=False, **part)
             if self.val_set is not None and len(self.val_set) >= bsz
             else None)
 
@@ -244,8 +280,77 @@ class Pipeline:
             self.load_pretrained_detector(pretrained)
         self.trainer = Trainer(
             self.logger, pcfg["Trainer"], self.task, lr_schedule=schedule,
+            mesh=mesh, state_sharding_fn=sharding_fn,
             install_signal_handlers=install_signal_handlers,
             device=self.device)
+
+    def _build_mesh(self, pcfg: dict, bsz: int):
+        """(mesh or None, state sharding fn or None) of ``pipeline.mesh``,
+        with JAX's rules: a request is never dropped silently."""
+        import torch.distributed as dist
+
+        from planar_optical_flow_tpu_torch.parallel import (
+            make_mesh_from_config,
+            state_shardings,
+        )
+        from planar_optical_flow_tpu_torch.parallel.mesh import AXES
+
+        mesh_cfg = pcfg.get("mesh")
+        strict = False
+        if mesh_cfg:
+            mesh_cfg = dict(mesh_cfg)
+            strict = bool(mesh_cfg.pop("strict", False))
+            unknown = set(mesh_cfg) - set(AXES)
+            if unknown:
+                raise ValueError(
+                    f"unknown mesh axis {sorted(unknown)} in pipeline.mesh "
+                    "— valid axes: dcn, data, model, pipe (plus strict: "
+                    "true/false)")
+        elif not (dist.is_available() and dist.is_initialized()):
+            return None, None  # one process: no mesh
+
+        def fallback(reason):
+            if strict:
+                raise ValueError(
+                    f"pipeline.mesh {mesh_cfg} unusable: {reason} (strict: "
+                    "true — remove it to allow the single-device fallback)")
+            if mesh_cfg:
+                self.logger.warning(
+                    f"pipeline.mesh {mesh_cfg} dropped — {reason}; falling "
+                    "back to single-device training")
+            return None
+
+        try:
+            mesh = make_mesh_from_config(mesh_cfg)
+        except ValueError as e:
+            mesh = fallback(f"mesh construction failed: {e}")
+        sharding_fn = None
+        if mesh is not None:
+            shape = mesh.shape
+            if shape.get("pipe", 1) > 1 and shape.get("dcn", 1) > 1:
+                raise ValueError(
+                    f"pipeline.mesh {mesh_cfg}: a dcn axis cannot combine "
+                    "with a pipe axis (the pipeline wavefront does not span "
+                    "DCN; each dcn group would redundantly compute the same "
+                    "schedule) — use {dcn, data[, model]} or {data, pipe}")
+            if shape.get("pipe", 1) > 1:
+                micro = int(pcfg["Trainer"].get("pp_microbatches")
+                            or shape["pipe"])
+                rows = shape.get("data", 1) * max(micro, 1)
+                if bsz % max(rows, 1) != 0:
+                    mesh = fallback(
+                        f"batch_size {bsz} does not divide into data="
+                        f"{shape.get('data', 1)} x {micro} microbatches")
+            else:
+                # a model-only mesh keeps the whole batch on every rank
+                data_size = mesh.data_extent
+                if bsz % max(data_size, 1) != 0:
+                    mesh = fallback(
+                        f"batch_size {bsz} not divisible by the "
+                        f"data-parallel extent {data_size}")
+                if mesh is not None and shape.get("model", 1) > 1:
+                    sharding_fn = state_shardings
+        return mesh, sharding_fn
 
     # ------------------------------------------------------------- control
 

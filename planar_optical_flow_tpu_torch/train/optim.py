@@ -72,28 +72,32 @@ class Optimizer:
                           for n in names}
         return state
 
-    def _clip(self, grads: dict) -> dict:
+    def _clip(self, grads: dict, sq_norm=None) -> dict:
         """optax ``clip_by_global_norm``: unchanged below the bound, else
-        ``(g / norm) * bound``."""
+        ``(g / norm) * bound``; ``sq_norm(grads)``, where given, is the
+        squared global norm (a mesh's)."""
         clip = self.grad_norm_clip
         if clip <= 0 or not grads:
             return grads
-        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        norm = torch.sqrt(sum((g * g).sum() for g in grads.values())
+                          if sq_norm is None else sq_norm(grads))
         keep = norm < clip
         return {n: torch.where(keep, g, (g / norm) * clip)
                 for n, g in grads.items()}
 
     @torch.no_grad()
-    def apply(self, params: dict, grads: dict, state: dict) -> dict:
+    def apply(self, params: dict, grads: dict, state: dict,
+              sq_norm=None) -> dict:
         """One update of ``params`` (name -> f32 tensor, changed in place)
-        from ``grads`` (name -> tensor or None). Returns the new state."""
+        from ``grads`` (name -> tensor or None). ``sq_norm``: see
+        :meth:`_clip`. Returns the new state."""
         names = list(state["mu"])
         g = {}
         for n in names:
             gn = grads.get(n)
             g[n] = (torch.zeros_like(params[n]) if gn is None
                     else gn.detach().float())
-        g = self._clip(g)
+        g = self._clip(g, sq_norm)
         count = state["count"] + 1
         f32 = np.float32
         bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))

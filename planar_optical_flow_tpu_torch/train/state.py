@@ -53,12 +53,14 @@ class TrainState:
     def batch_stats(self) -> dict:
         return named_stats(self.model)
 
-    def apply_gradients(self, grads: dict, new_batch_stats: dict | None = None
-                        ) -> "TrainState":
+    def apply_gradients(self, grads: dict, new_batch_stats: dict | None = None,
+                        sq_norm=None) -> "TrainState":
         """One optimizer update from ``grads`` (name -> tensor or None) and,
-        if given, the new running statistics (cast to f32). Returns
-        ``self``."""
-        self.opt_state = self.tx.apply(self.params, grads, self.opt_state)
+        if given, the new running statistics (cast to f32). ``sq_norm``
+        (name -> tensor dict -> squared norm) gives the clip its global
+        norm under a mesh. Returns ``self``."""
+        self.opt_state = self.tx.apply(self.params, grads, self.opt_state,
+                                       sq_norm=sq_norm)
         if new_batch_stats is not None:
             set_stats(self.model, {n: t.detach().float()
                                    for n, t in new_batch_stats.items()})

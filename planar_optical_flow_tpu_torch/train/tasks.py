@@ -19,7 +19,9 @@ as JAX casts them to the cast parameters' dtype. The losses run in f32.
 ``new_batch_stats`` is the whole statistics collection after the forward
 (the frozen detector's included), as flax's mutable collection is.
 
-``loss_pipelined`` is ROADMAP item 20.
+:meth:`DetectionTask.loss_pipelined` runs the plain DROW detector as a
+GPipe wavefront over a mesh's ``pipe`` axis (``parallel/
+pipeline_parallel.py``) with ghost-batch BatchNorm, as JAX's does.
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ class DetectionTask:
     num_pts: int = 450
     encoding: str = "cutout"
     polar_grid_kwargs: dict = field(default_factory=dict)
+    pp_num_stages = 2  # loss_pipelined's stages (backbone | head)
 
     def __post_init__(self):
         if self.encoding not in ENCODINGS:
@@ -186,6 +189,45 @@ class DetectionTask:
         return ({"cls_loss": cls_loss, "reg_loss": reg_loss,
                  "fg_ratio": fg_ratio},
                 {"pred_cls": pred_cls, "pred_reg": pred_reg})
+
+    def loss_pipelined(self, model, batch, train, rng=None, *, mesh,
+                       n_microbatches=None):
+        """The training loss with the detector run as a GPipe wavefront over
+        ``mesh``'s ``pipe`` axis (backbone | head). BatchNorm follows the
+        ghost-batch policy: each microbatch (its rows of this data shard)
+        normalizes on its own statistics and the running statistics advance
+        once a microbatch, in order (``drow_pipeline_train_stages``). The
+        batch is the whole batch on every rank. The plain DROW detector
+        only (SpatialDROW's gate couples cutouts between the stages;
+        PolarGridDetector has another trunk): others raise. Out of training
+        it is :meth:`loss`."""
+        from planar_optical_flow_tpu_torch.models.drow import Drow
+        from planar_optical_flow_tpu_torch.parallel.pipeline_parallel import (
+            drow_pipeline_train_stages,
+            pipeline_apply,
+        )
+        from planar_optical_flow_tpu_torch.train.state import named_params
+
+        if type(model) is not Drow:
+            raise ValueError(
+                "pipeline-parallel training stages exist for the plain DROW "
+                f"detector only, got {type(model).__name__} — use a "
+                "data/model mesh for other detectors")
+        if not train:
+            return self.loss(model, batch, train, rng)
+        encoded = self._encode(batch["scans"]).to(_model_dtype(model))
+        fns, split_p, split_s, combine = drow_pipeline_train_stages(
+            model, dropout_rng=rng if model.backbone.dropout > 0 else None)
+        (pred_cls, pred_reg), new_states = pipeline_apply(
+            fns, split_p(named_params(model)), encoded, mesh,
+            n_microbatches=n_microbatches,
+            stage_state=split_s(dict(named_stats(model))))
+        cls_loss, reg_loss, fg_ratio = self._losses(pred_cls, pred_reg, batch)
+        loss = cls_loss + reg_loss
+        tb = {"loss": loss, "cls_loss": cls_loss, "reg_loss": reg_loss,
+              "fg_ratio": fg_ratio}
+        return loss, tb, {"pred_cls": pred_cls, "pred_reg": pred_reg}, \
+            combine(new_states)
 
 
 def _flow_losses(pred_flow, batch):

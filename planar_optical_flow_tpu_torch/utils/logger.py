@@ -29,7 +29,8 @@ class RunLogger:
     def __init__(self, cfg: dict):
         log_dir = os.path.abspath(os.path.expanduser(cfg["log_dir"]))
         tag = cfg.get("tag", "run")
-        stamp = time.strftime("%Y%m%d_%H%M%S", time.gmtime())
+        stamp = cfg.get("stamp") or time.strftime("%Y%m%d_%H%M%S",
+                                                  time.gmtime())
         self.run_dir = os.path.join(log_dir, f"{stamp}_{tag}")
 
         self.backup_dir = os.path.join(self.run_dir, "backup")

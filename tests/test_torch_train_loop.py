@@ -282,14 +282,27 @@ def test_train_entry_points_default_to_the_card(monkeypatch, tmp_path):
         Trainer(None, {}, None, install_signal_handlers=False)
 
 
-def test_pipeline_mesh_names_its_item(tmp_path):
-    cfg, _ = _nested_cfg(tmp_path)
+def test_pipeline_mesh_names_its_item(tmp_path, corpus):
+    """``pipeline.mesh`` in one process of one device: a data or pipe mesh
+    of two cannot be built, so the pipeline falls back to no mesh with a
+    warning, as JAX's does (``strict`` raises instead); a trainer given a
+    mesh of several devices in one process refuses at its first step,
+    naming ``torch.distributed.run`` (one process a device)."""
+    from planar_optical_flow_tpu_torch.parallel import make_mesh
+
+    cfg, _ = _nested_cfg(tmp_path, data_dir=corpus)
     for mesh in ({"data": 2}, {"pipe": 2}):
         cfg["pipeline"]["mesh"] = mesh
-        with pytest.raises(NotImplementedError, match="item 20"):
-            Pipeline(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        Trainer(None, {}, None, mesh=object(), device="cpu")
+        pipe = Pipeline(cfg, device="cpu", install_signal_handlers=False)
+        assert pipe.trainer._mesh is None
+        cfg["pipeline"]["mesh"] = dict(mesh, strict=True)
+        with pytest.raises(ValueError, match="strict"):
+            Pipeline(cfg, device="cpu", install_signal_handlers=False)
+    trainer = Trainer(None, {}, tasks.DetectionTask(),
+                      mesh=make_mesh(devices=[torch.device("cpu")] * 2),
+                      install_signal_handlers=False, device="cpu")
+    with pytest.raises(ValueError, match="torch.distributed.run"):
+        trainer._build_steps(None)
 
 
 def test_batch_loader_order_matches_jax(corpus):
