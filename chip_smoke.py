@@ -101,7 +101,18 @@ Phases:
    each, ``make_quantized_stream_step`` (no kernel; mean |pred_cls - module|
    < 0.05, ``tests/test_quantized.py``), and ``make_serve_sequence_processor``
    over the int8c p2 step, equal to the bit to the per-step run;
-6. ``[files]``: the serving CLI and the serving evaluators from files.
+6. ``[v3 cutouts]`` (after phase 5): ``make_serve_step_v3`` at
+   ``fixed=False`` (JAX's fallback to its module cutout) in each of bf16
+   flat, ``"int8"`` flat, int8c p2, p2c, pm and cell, 1 bootstrap + 5
+   carried steps at B=384, each with every launch counter set to 0 just
+   before its build and read just after: the int8 ones calibrated on the
+   fallback's zero-padded rows (p2 and ``"int8"`` on ``scans[0][:8]``, p2c,
+   pm and cell on p2's scales), each against the f32 module step at phase
+   5's bars, held to its exact launches (K2-K4; K10, K3, K7; K5, K6, K7 on
+   p2 and p2c; K9, K6, K7; K13 5 times; K16 once an int8 build), K1 and K8
+   never; each carried-step median beside the kernel-cutout run's of phase
+   5; ``stride=2`` refused at the build (``ValueError``);
+7. ``[files]``: the serving CLI and the serving evaluators from files.
    The model's weights saved with ``interop.checkpoint`` and the flagship
    config (the keys of ``configs/dr_spaam.yaml``) written as JSON under
    ``build/chip_smoke/files/`` (held equal to the YAML's where PyYAML is
@@ -121,7 +132,7 @@ Phases:
    (finite EPE and AAE, the frames dropped). No plain version of a kernel
    may run in the phase (the plain band attention only in a bootstrap).
    Each line gives frames/s and the card;
-7. ``[train]``: training at the flagship config's full width (its keys,
+8. ``[train]``: training at the flagship config's full width (its keys,
    ``epochs`` cut to 1) on a synthetic split of 2 x 20 train and 1 x 12 val
    450-beam frames (``train_with_val``: 49 samples of 11 scans, 6 steps of
    8; one val batch): ``cli.train`` on the detector config (``network:
@@ -137,7 +148,7 @@ Phases:
    ``request_stop()`` after 2 steps writes the sigterm checkpoint (rc 1)
    and a resumed run completes the epoch. Each task's step ms (median after
    the first) and the phase's seconds beside the card;
-8. ``[trace train]``: ``torch.profiler`` over 3 train steps of each
+9. ``[trace train]``: ``torch.profiler`` over 3 train steps of each
    FlowDROW task (device busy share, top device operations, the time
    outside K1, or K1-K3); ``[trace]``: the same over 3 carried steps of
    the int8c runner (the JAX serving default): the device busy share, the
@@ -146,7 +157,7 @@ Phases:
    ``[trace v3]``
    the same for the v3 runner, outside K1-K4 (``[trace]`` and ``[trace
    v3]`` run after ``[flow]``);
-9. ``[flow]`` (after ``[trace train]``): the flow U-Net at its full width
+10. ``[flow]`` (after ``[trace train]``): the flow U-Net at its full width
    (64/128/256 channels, 450 beams), ``configs/prototype_flow.yaml`` read
    and written as JSON with ``epochs`` cut to 1, through ``cli.train --synthetic``
    (2 x 40 train and 1 x 15 val frames) in f32 with ``profile_steps``
@@ -163,7 +174,7 @@ Phases:
    ``[train]`` phase's detector checkpoint through ``cli.evaluate
    --synthetic`` on the module path (finite metrics, K1 once an evaluation
    batch, K2-K4 never, no plain version);
-10. ``[box]`` (after ``[flow]``): the PointNet box regressor at the full
+11. ``[box]`` (after ``[flow]``): the PointNet box regressor at the full
    width of ``configs/train_3d_box_regression.yaml`` (B=256 segments of
    256 points, input_dim 4, target_dim 5, dropout 0.3, augmentation on),
    read and written as JSON with ``epoch`` cut to 1, on a synthetic JRDB
@@ -183,7 +194,7 @@ Phases:
    the metrics' rotated IoU of 256 predictions against 8 neighbours each
    (ms, within 1e-5 of the CPU's). No kernel of the port launches in the
    phase and no plain version of one runs;
-11. ``[fc]`` (after ``[box]``): the fc detectors at the flagship config's
+12. ``[fc]`` (after ``[box]``): the fc detectors at the flagship config's
    full width (its keys, ``network`` fc1d, fc1d_fea and fc2d, ``epochs``
    cut to 1; B=8, 11 scans, 450 beams, bf16, 56 area-mode cutout points,
    the 301-bin polar grid, ``hidden`` 256) through ``cli.train`` on
@@ -201,7 +212,16 @@ Phases:
    ``fc2d`` and ``drow`` at B=8 loaded in a fresh process (``--load-
    artifacts``), equal to the live forward to the bit; AdaBoost fitted
    and run on the host (seconds, recall above 0.5);
-12. ``[export]`` (last, after the ``[trace]`` lines): the int8c p2 and v3
+13. ``[tools]`` (after ``[fc]``): the tool CLIs on the card in a
+   temporary directory: ``cli.demo`` at 1 + 1 epochs (K1 launched by its
+   training; ``--video`` only where matplotlib imports, else one line that
+   says why not), ``cli.prepare_data`` on 2 x 24 450-beam frames
+   (``.difodom`` equal to, ``.flow`` within 1e-5 of, the same split
+   prepared with ``--cpu``), ``cli.validate_corpus`` on a synthetic 450-beam
+   DROW corpus with a random detector's weights through ``--checkpoint
+   --score-ap --engine int8c`` and on a synthetic JRDB tree, each manifest
+   ok; the seconds of each;
+14. ``[export]`` (last, after the ``[trace]`` lines): the int8c p2 and v3
    steps exported at B=384 (``infer.export_serving_engine``: export
    seconds, MB) and every other ``make_serve_step_v3`` configuration
    (``"int8"``, pm, flat, p2c, cell, p2 fused) at B=8, the flow U-Net and
@@ -218,7 +238,7 @@ Phases:
    written as a reference ``.pth`` envelope, imported by
    ``cli.import_checkpoint`` and served on the int8c runner at B=384,
    equal to its source weights to the bit;
-13. ``[parallel]`` (after ``[export]``): the int8c p2 step unsharded and
+15. ``[parallel]`` (after ``[export]``): the int8c p2 step unsharded and
    over a ``data`` mesh of 2 shards of 192 streams, both on this card
    (``make_serve_step_v3(mesh=parallel.make_mesh(...))``, calibrated once),
    1 bootstrap + 5 carried steps each: every template and z carry equal
@@ -234,7 +254,7 @@ Phases:
    equal to the bit, the same K1-K4 launches; a line that says which
    multi-rank legs one card cannot run (NCCL refuses two ranks on one
    device) and which CPU tests hold them;
-14. the kernels line, the card line and the result line.
+16. the kernels line, the card line and the result line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Run: ``python3 chip_smoke.py`` (needs one CUDA card).
@@ -1740,6 +1760,122 @@ def layouts_slice_phase(model, scans, device, calib):
         del step, carry, out, steps
         torch.cuda.empty_cache()
     return all_launches, all_ms
+
+
+# the [v3 cutouts] runs: make_serve_step_v3 at fixed=False (JAX's fallback
+# to its module cutout): (options, the launches of each wrapper in 1
+# bootstrap + 5 carried steps (every other wrapper 0, K1 and K8 among them;
+# K16 once in each int8 build), the corr bar against the module step (None:
+# the bf16 bars), the kernel-cutout run of phase 5 whose ms it is printed
+# beside)
+FALLBACK_KW = dict(CUTOUT_KW, fixed=False)
+FALLBACK = {
+    "bf16": (dict(precision="bf16", layout="flat"),
+             dict(backbone_bf16=6, gate=6, head=6), None, "v3"),
+    "int8": (dict(precision="int8", layout="flat"),
+             dict(backbone_int8_tail=6, gate=6, head_int8=6),
+             CORR_INT8_STACKS, "int8"),
+    "p2": (dict(precision="int8c", layout="p2"),
+           dict(backbone_int8=6, gate_int8=6, head_int8=6), CORR_INT8, "p2"),
+    # off the kernel's cutout p2c runs p2's K5, as JAX's builder does
+    "p2c": (dict(precision="int8c", layout="p2c"),
+            dict(backbone_int8=6, gate_int8=6, head_int8=6), CORR_INT8,
+            "p2c"),
+    "pm": (dict(precision="int8c", layout="pm"),
+           dict(backbone_int8_pm=6, gate_int8=6, head_int8=6), CORR_INT8,
+           "pm"),
+    "cell": (dict(precision="int8c", layout="cell"),
+             dict(serve_cell_int8=5, backbone_int8_pm=1, gate_int8=1,
+                  head_int8=1), CORR_INT8, "cell"),
+}
+
+
+def fallback_phase(model, scans, device, card, kernel_ms):
+    """The ``[v3 cutouts]`` phase: every configuration of :data:`FALLBACK`
+    built at ``fixed=False`` and run (1 bootstrap + 5 carried steps), each
+    with every launch counter set to 0 just before its build and read just
+    after its last step, calibrated on the fallback's own rows (p2 and
+    "int8" on ``scans[0][:8]``; p2c, pm and cell on p2's calibration, as
+    they pad the sample alike), against the f32 module step at the phase-5
+    bars; K1 and K8 never launch; ``stride=2`` is refused at the build.
+    Prints each run's carried-step ms beside the kernel-cutout run's
+    (``kernel_ms``, phase 5's)."""
+    import torch
+
+    from planar_optical_flow_tpu_torch.infer.streaming import (
+        make_serve_step_v3, make_stream_step,
+    )
+    from planar_optical_flow_tpu_torch.ops.kernels import conv_stack
+
+    t_phase = time.perf_counter()
+    b = scans.shape[1]
+    ref_step = make_stream_step(model, FALLBACK_KW, NUM_PTS, with_nms=False,
+                                device=device)
+    refs, tmpl = [], None
+    for scan in scans:
+        tmpl, out = ref_step(tmpl, scan)
+        refs.append({k: out[k] for k in ("pred_cls", "pred_reg",
+                                         "pred_flow")})
+    del tmpl, ref_step
+    torch.cuda.empty_cache()
+
+    calib = None
+    for name, (opts, counts, bar, kernel_run) in FALLBACK.items():
+        for wr in wrappers().values():
+            wr.launches = 0
+        conv_stack._ROW_SHIFT_OK.clear()
+        int8 = opts["precision"] != "bf16"
+        own = int8 and (calib is None or name == "int8")
+        t0 = time.perf_counter()
+        step = make_serve_step_v3(
+            model, FALLBACK_KW, num_pts=NUM_PTS, device=device,
+            calib=None if own or not int8 else calib,
+            calib_scans=scans[0][:CALIB_SCANS] if own else None, **opts)
+        build_s = time.perf_counter() - t0
+        if name == "p2":
+            calib = step.calibration
+        carry, step_ms = None, []
+        for i, scan in enumerate(scans):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, out = step(carry, scan)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_outputs(out, b, f"fallback {name} step {i}")
+            if bar is None:
+                compare_engines(out, refs[i], i, label="v3 cutouts bf16")
+            else:
+                compare_int8c(out, refs[i], i, bar, f"cutouts-{name}")
+        launches = {k: wr.launches for k, wr in wrappers().items()}
+        want = dict.fromkeys(launches, 0)
+        want.update(counts)
+        if int8:
+            want["row_shift"] = 1
+        print(f"[v3 cutouts] {name} launches: {json.dumps(launches)}",
+              flush=True)
+        check(launches == want, f"fallback {name} launches {launches}, "
+              f"expected {want}")
+        carried = float(np.median(step_ms[1:]))
+        k_ms = float(np.median(kernel_ms[kernel_run][1:]))
+        print(f"[v3 cutouts] {name} B={b} step_ms="
+              f"{json.dumps([round(t, 3) for t in step_ms])} carried median "
+              f"{carried:.3f} ms = {b / carried * 1e3:.1f} scans/s (K1's "
+              f"cutout, phase 5 {kernel_run}: {k_ms:.3f} ms); build "
+              f"{build_s:.1f} s{' with its calibration' if own else ''}; "
+              f"{card}", flush=True)
+        del step, carry, out
+        torch.cuda.empty_cache()
+    try:
+        make_serve_step_v3(model, dict(FALLBACK_KW, stride=2),
+                           num_pts=NUM_PTS, device=device, precision="int8c",
+                           calib_scans=scans[0][:CALIB_SCANS])
+    except ValueError as e:
+        check("one cutout per beam" in str(e), f"stride=2: {e}")
+        print(f"[v3 cutouts] stride=2 refused at the build: {e}", flush=True)
+    else:
+        check(False, "stride=2 built a v3 step")
+    print(f"[v3 cutouts] the phase took {time.perf_counter() - t_phase:.1f} "
+          f"s on {card}", flush=True)
 
 
 def engines_slice_phase(model, scans, device, calib):
@@ -3536,6 +3672,117 @@ EXPORT_BOX_CENTRES = 8
 EXPORT_LOAD_TIMEOUT = 600  # seconds for the loading process
 
 
+TOOLS_FRAMES = 24        # frames of each train sequence of the tools' corpus
+TOOLS_TOL_FLOW = 1e-5    # .flow written on the card against the CPU's
+
+
+def tools_phase(device, seed, card):
+    """The ``[tools]`` phase: the port's tool CLIs on the card, in a
+    temporary directory under ``build/chip_smoke``: ``cli.demo`` at 1 + 1
+    epochs (with ``--video`` where matplotlib imports), ``cli.prepare_data``
+    (its ``.flow`` against the same split prepared with ``--cpu``) and
+    ``cli.validate_corpus`` on port-written synthetic DROW (450 beams, a
+    random detector's weights scored with ``--score-ap --engine int8c``)
+    and JRDB corpora, each manifest ok. Seconds of each beside the
+    card."""
+    import tempfile
+
+    from planar_optical_flow_tpu_torch.cli import demo as demo_cli
+    from planar_optical_flow_tpu_torch.cli import prepare_data as prepare_cli
+    from planar_optical_flow_tpu_torch.cli import validate_corpus as vc_cli
+    from planar_optical_flow_tpu_torch.data import (
+        list_sequences, write_synthetic_drow_split, write_synthetic_jrdb,
+    )
+    from planar_optical_flow_tpu_torch.interop.checkpoint import save_weights
+    from planar_optical_flow_tpu_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        video = []
+        print("[tools] --video not run: matplotlib is not installed here "
+              "(utils/viz.py needs it; tests/test_torch_viz.py holds it on "
+              "the CPU)", flush=True)
+    else:
+        video = ["--video"]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        for w in wrappers().values():
+            w.launches = 0
+        work = os.path.join(tmp, "demo")
+        rc, s_demo = host_seconds(demo_cli.main, [
+            "--workdir", work, "--det-epochs", "1", "--flow-epochs", "1",
+            *video])
+        check(rc == 0, f"cli.demo rc {rc}")
+        launches = {k: w.launches for k, w in wrappers().items() if w.launches}
+        check(launches.get("cutout", 0) > 0, "cli.demo launched no K1 on the "
+              f"card: {launches}")
+        if video:
+            check(os.path.exists(os.path.join(work, "demo.mp4"))
+                  or len(os.listdir(os.path.join(work, "demo"))) > 0,
+                  "cli.demo --video wrote no video")
+        print(f"[tools] cli.demo --det-epochs 1 --flow-epochs 1 "
+              f"{' '.join(video)}: rc 0 in {s_demo:.1f} s, launches "
+              f"{json.dumps(launches)}; {card}", flush=True)
+
+        prep = {}
+        for name, flags in (("card", []), ("cpu", ["--cpu"])):
+            root = os.path.join(tmp, f"prepare_{name}")
+            write_synthetic_drow_split(root, "train", num_sequences=2,
+                                       num_frames=TOOLS_FRAMES, seed=seed,
+                                       num_pts=NUM_PTS)
+            rc, secs = host_seconds(prepare_cli.main, [
+                "--data-dir", root, "--split", "train", *flags])
+            check(rc == 0, f"cli.prepare_data ({name}) rc {rc}")
+            prep[name] = ([np.loadtxt(stem + ext, delimiter=",")
+                           for stem in list_sequences(root, "train")
+                           for ext in (".difodom", ".flow")], secs)
+        (card_files, s_card), (cpu_files, _) = prep["card"], prep["cpu"]
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(card_files, cpu_files, strict=True))
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(card_files[::2], cpu_files[::2])), ".difodom differs")
+        check(err <= TOOLS_TOL_FLOW, f"cli.prepare_data: card .flow differs "
+              f"from the CPU's by {err}")
+        print(f"[tools] cli.prepare_data: 2 sequences x {TOOLS_FRAMES} "
+              f"frames of {NUM_PTS} beams in {s_card:.2f} s; .difodom equal "
+              f"and .flow within {err:.3g} (bar {TOOLS_TOL_FLOW}) of --cpu's; "
+              f"{card}", flush=True)
+
+        drow = os.path.join(tmp, "corpus_drow")
+        write_synthetic_drow_split(drow, "train", num_sequences=2,
+                                   num_frames=TOOLS_FRAMES, num_pts=NUM_PTS,
+                                   seed=seed)
+        write_synthetic_drow_split(drow, "val", num_sequences=1,
+                                   num_frames=TOOLS_FRAMES, num_pts=NUM_PTS,
+                                   seed=seed + 7)
+        weights = save_weights(get_model(
+            {"type": "dr-spaam", "window_size": 11, "alpha": 0.5,
+             "pedestrian_only": True}, 56), os.path.join(tmp, "det.pt"))
+        jrdb = os.path.join(tmp, "corpus_jrdb")
+        write_synthetic_jrdb(jrdb, num_frames=3, boxes_per_frame=4)
+        for name, argv, flags in (
+                ("DROW", [drow, "--checkpoint", weights, "--score-ap",
+                          "--engine", "int8c"],
+                 " --checkpoint det.pt --score-ap --engine int8c"),
+                ("JRDB", [jrdb], "")):
+            out = os.path.join(tmp, f"manifest_{name}.json")
+            rc, secs = host_seconds(vc_cli.main, [*argv, "--out", out])
+            with open(out) as f:
+                doc = json.load(f)
+            bad = [st["stage"] + ": " + st["detail"] for st in doc["stages"]
+                   if not st["ok"]]
+            check(rc == 0 and doc["ok"], f"cli.validate_corpus {name}: rc "
+                  f"{rc}, failed stages {bad}")
+            print(f"[tools] cli.validate_corpus {name}{flags}: "
+                  f"{len(doc['stages'])} stages ok in "
+                  f"{secs:.1f} s ({doc['stages'][-1]['stage']}: "
+                  f"{doc['stages'][-1]['detail']}); {card}", flush=True)
+    print(f"[tools] the phase took {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}", flush=True)
+
+
 def carry_digests(carry):
     """SHA-256 of every carry tensor's bytes, by name: the loading process
     and this one compare their carries through these (a B=384 carry is
@@ -4275,6 +4522,8 @@ def main(argv=None):
               f"scans/s on {card}", flush=True)
 
     torch.cuda.empty_cache()
+    fallback_phase(model, scans, device, card, step_ms)
+    torch.cuda.empty_cache()
     files_phase(model, device, args.seed, card)
     torch.cuda.empty_cache()
     train_pipes, det_cfg, det_ckpt = train_phase(device, args.seed, card)
@@ -4286,6 +4535,8 @@ def main(argv=None):
     box_phase(device, card)
     torch.cuda.empty_cache()
     fc_phase(device, args.seed, card)
+    torch.cuda.empty_cache()
+    tools_phase(device, args.seed, card)
     torch.cuda.empty_cache()
     trace_phase(model, scans, device, calib)
     torch.cuda.empty_cache()

@@ -2,7 +2,8 @@
 port's counterpart of ``bin/infer.py``:
 
     python -m planar_optical_flow_tpu_torch.cli.infer --cfg cfg.json \\
-        --ckpt w.pt --sequence seq.csv [--engine module|v3|int8c] [--cpu]
+        --ckpt w.pt --sequence seq.csv [--engine module|v3|int8c] [--cpu] \
+        [--video out.mp4]
 
 Feeds each scan of the sequence through a ``StreamingRunner`` (cutout,
 backbone, template memory, head, flow head and NMS) on the card, or on the
@@ -12,8 +13,10 @@ model keeps its seeded initial weights. ``--artifact DIR`` serves an
 artifact of ``cli.export_serving`` instead (``--cfg``, ``--ckpt``,
 ``--engine`` and the calibration flags do not apply; the artifact must
 hold batch 1 and the sequence's beam count, and ``--cpu`` must match the
-device it was exported on). ``--video`` (ROADMAP item 18) is not ported
-yet.
+device it was exported on). ``--video`` renders the scans, detections and
+per-instance flow arrows with ``utils.viz.render_detection_video`` (PNG
+frames in a directory named after the video where ffmpeg is missing); it
+needs matplotlib.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="path to a DROW .csv scan file (stem ok)")
     parser.add_argument("--max-frames", type=int, default=0)
     parser.add_argument("--video", default=None,
-                        help="not ported yet (ROADMAP item 18)")
+                        help="render detections and flow to this video "
+                             "(needs matplotlib)")
     parser.add_argument("--conf", type=float, default=0.5)
     parser.add_argument("--world-frame", action="store_true",
                         help="match odometry by timestamp and report "
@@ -73,8 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_args(parser, args):
     if args.video:
-        parser.error("--video is not ported yet (ROADMAP item 18: "
-                     "utils/viz.py)")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            parser.error("--video needs matplotlib, which is not installed")
     if args.artifact:
         # the artifact is self-contained: these would do nothing, or
         # contradict what is baked into it
@@ -133,8 +139,9 @@ def frame_outputs(runner, scans, replay: bool = False):
 def serve_sequence(runner, scans, conf: float = 0.5, poses=None,
                    replay: bool = False, log=print) -> list:
     """The per-frame loop: each frame's kept detections above ``conf``
-    (``dets (N, 2)``, ``conf (N,)``) and its flow ``(P, 2)`` (None without a
-    flow head), in the world frame when ``poses (T, 3)`` are given."""
+    (``dets (N, 2)``, ``conf (N,)``), its flow ``(P, 2)`` (None without a
+    flow head), in the world frame when ``poses (T, 3)`` are given, and its
+    ``instance_mask (P,)`` where the runner outputs one (else None)."""
     results = []
     for i, out in enumerate(frame_outputs(runner, scans, replay)):
         keep = out["det_keep"][0]
@@ -150,7 +157,9 @@ def serve_sequence(runner, scans, conf: float = 0.5, poses=None,
             dets = dets @ rot.T + [x, y]
             if flow is not None:
                 flow = flow @ rot.T
-        results.append({"dets": dets, "conf": cls[sel], "flow": flow})
+        inst = out["instance_mask"][0] if "instance_mask" in out else None
+        results.append({"dets": dets, "conf": cls[sel], "flow": flow,
+                        "instance_mask": inst})
         if log is not None and i % 50 == 0:
             log(f"frame {i}: {len(dets)} detections")
     return results
@@ -196,7 +205,13 @@ def infer(argv=None):
     t0 = time.perf_counter()
     results = serve_sequence(runner, scans_dev, conf=args.conf, poses=poses,
                              replay=args.replay)
-    return 0, results, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    if args.video:
+        from planar_optical_flow_tpu_torch.utils import viz
+
+        viz.render_detection_video(scans, results, args.video)
+        print(f"video written to {args.video}")
+    return 0, results, seconds
 
 
 def _artifact_runner(parser, path, num_pts, device):
@@ -253,11 +268,13 @@ def _model_runner(parser, args, scans, device):
             # calibrate on the sequence's first scans
             calib_scans = np.asarray(scans[:8], np.float32)
 
-    # only what this CLI reads: detections, and flow where the model has a
-    # flow head
+    # only what this CLI reads: detections, flow where the model has a
+    # flow head, and the instance ids only for the video's arrow colors
     fields = ["det_xys", "det_cls", "det_keep"]
     if cfg["model"]["type"] == "flow_drow":
         fields.append("pred_flow")
+    if args.video:
+        fields.append("instance_mask")
     return StreamingRunner(model, cfg["dataset"].get("cutout_kwargs", {}),
                            num_pts=scans.shape[1], engine=args.engine,
                            calib=calib, calib_scans=calib_scans,

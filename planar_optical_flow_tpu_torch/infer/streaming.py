@@ -525,13 +525,14 @@ _CALIB_ROWS = 4096  # cutouts of each calibration sample (the JAX cap)
 
 
 @torch.inference_mode()
-def _calibrate(model, det, cutout_kwargs, calib_scans, *, num_pts, cut_kw,
-               calib_pad, percentile, steps, sanitize, san_max,
+def _calibrate(model, det, cutout_kwargs, calib_scans, *, num_pts, encode,
+               percentile, steps, sanitize, san_max,
                dev) -> ServeCalibration:
     """The JAX int8c calibration (``streaming.py:692-743``) on this
     package's encode path: the backbone scales from layer 1's f32 output on
-    the first 4096 cutouts of the sanitized scans, padded to ``calib_pad``
-    beams as the JAX p2 path pads them (dead beams included); the head
+    the first 4096 cutouts that ``encode`` makes of the sanitized scans
+    (the step's own encode at the beam padding of the JAX layout, dead rows
+    included: K1's, or the zeros of the module cutout's fallback); the head
     scales from the last two templates of ``steps`` f32 module steps,
     newest first."""
     ct_len = cutout_kwargs.get("num_cutout_pts", 48)
@@ -541,7 +542,7 @@ def _calibrate(model, det, cutout_kwargs, calib_scans, *, num_pts, cut_kw,
     if sanitize:
         scans = _sanitize_scan(scans, san_max)
     with _full_f32():
-        cut = cutout(F.pad(scans, (0, calib_pad - num_pts)), **cut_kw)
+        cut = encode(scans)
         act1 = backbone_layer1(cut[:_CALIB_ROWS], bb_blocks[0],
                                compute_dtype=torch.float32)
         bb_in_scale, bb_act_scales = quant.stack_act_scales(
@@ -734,6 +735,15 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     and process. The steps themselves pad to a multiple of 8 beams, except
     ``"pm"`` and ``"cell"``.
 
+    K1 (and K8) cover the serving cutout, ``fixed=True``. At any other
+    ``cutout_kwargs`` (``fixed`` False or absent) every step and the
+    calibration take JAX's fallback: the module cutout (``ops/cutout.py``,
+    ``area_s`` defaulted as the module step defaults it), its dead rows
+    zeros up to the padding, then the same kernels from the backbone on;
+    ``"p2c"`` then runs ``"p2"``'s K5. A ``stride`` other than 1 raises
+    ``ValueError``: the step takes one cutout per beam, and JAX's builder
+    fails there at its first encode.
+
     ``conv_mode``, ``int8_conv_mode`` and ``tile`` are accepted for API
     parity with the JAX builder only: they choose between JAX kernel forms
     with the same results, and the CUDA kernels compute those results
@@ -758,19 +768,27 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         return _sharded_serve_step(mesh, model, cutout_kwargs, **kwargs)
     pm = _check_v3_options(precision, layout, fuse_gate_head, gate_per_stream,
                            pm_tile, conv_mode, int8_conv_mode, p2_l1_mode)
-    if not cutout_kwargs.get("fixed") or cutout_kwargs.get("stride", 1) != 1:
-        raise NotImplementedError(
-            "the v3 engine's cutout kernel covers fixed=True, stride=1 (the "
-            "serving configuration)")
+    if cutout_kwargs.get("stride", 1) != 1:
+        # JAX's builder pads and reshapes one cutout a beam: at a stride its
+        # first encode fails (a reshape of ceil(P / stride) rows)
+        raise ValueError(
+            f"stride={cutout_kwargs['stride']}: the v3 step takes one cutout "
+            "per beam (stride 1)")
+    # K1 covers the serving cutout (fixed geometry, stride 1); any other
+    # falls back to the module cutout, as JAX's builder falls back to XLA's
+    kernel_cutout = bool(cutout_kwargs.get("fixed"))
     del tile  # the CUDA kernels choose their own blocks
-    dev, model, _, phi_t = _prepare(model, device, num_pts)
+    dev, model, phi, phi_t = _prepare(model, device, num_pts)
     is_flow, det = _parts(model)
     output_fields = _check_output_fields(output_fields, is_flow, with_nms)
     san_max = float(cutout_kwargs.get("padding_val", 29.99))
     ct_len = cutout_kwargs.get("num_cutout_pts", 48)
     l4 = ct_len // 4
     int8c = precision == "int8c"
-    p2c, cell = int8c and layout == "p2c", int8c and layout == "cell"
+    # "p2c" off the kernel's cutout is the module cutout + p2's K5 (JAX's
+    # fallback to its separate cutout + p2 backbone)
+    p2c = int8c and layout == "p2c" and kernel_cutout
+    cell = int8c and layout == "cell"
     pad8 = -(-num_pts // 8) * 8
     pad_pm = -(-num_pts // pm_tile) * pm_tile
     pad_cell = -(-num_pts // 32) * 32
@@ -805,15 +823,24 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         return {"template": template, "z": z}, out
 
     def prepare(scan):
-        """-> (the sanitized scan (B, num_pts), padded to (B, p_pad))."""
+        """-> the sanitized scan (B, num_pts)."""
         scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
         if sanitize_inputs:
             scan = _sanitize_scan(scan, san_max)
-        return scan, F.pad(scan, (0, p_pad - num_pts))
+        return scan
+
+    def cutouts(scan, pad=p_pad):
+        """Sanitized ``(B, num_pts)`` scans -> ``(B*pad, C)`` cutouts: K1 on
+        the scans padded to ``pad`` beams, or JAX's fallback, the module
+        cutout with its dead rows zeros."""
+        if kernel_cutout:
+            return cutout(F.pad(scan, (0, pad - num_pts)), **cut_kw)
+        cut = _encode_single(scan, phi, cutout_kwargs)
+        return F.pad(cut, (0, 0, 0, pad - num_pts)).reshape(-1, ct_len)
 
     def encode(scan):
-        scan, padded = prepare(scan)
-        return scan, cutout(padded, **cut_kw)
+        scan = prepare(scan)
+        return scan, cutouts(scan)
 
     if precision == "bf16":
         layer1, tail_w = fold.backbone_stack_weights(det.backbone)
@@ -851,8 +878,8 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     else:
         calib = _calibrate(
             model, det, cutout_kwargs, calib_scans, num_pts=num_pts,
-            cut_kw=cut_kw, calib_pad=pad_cell if cell else pad_pm if pm
-            else pad8,
+            encode=lambda s: cutouts(
+                s, pad_cell if cell else pad_pm if pm else pad8),
             percentile=calib_percentile, steps=calib_steps,
             sanitize=sanitize_inputs, san_max=san_max, dev=dev)
     w = int8_weights(det, calib, dev, precision)
@@ -902,21 +929,23 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     gate_kw.update(s_x=feat_scale, s_out=tmpl_scale)
     embed_cell = cell_embed(w.embed) if cell else None
 
-    def features(padded):
-        """(B, p_pad) scans -> (feats (N, D) int8, zx (N, 128) bf16)."""
+    def features(scan):
+        """Sanitized scans (B, num_pts) -> (feats (N, D) int8, zx (N, 128)
+        bf16)."""
         if p2c:
-            feats, zx = backbone_int8_cut(padded, w.layer1, bb_laid,
-                                          w.embed, **cut_kw)
+            feats, zx = backbone_int8_cut(F.pad(scan, (0, p_pad - num_pts)),
+                                          w.layer1, bb_laid, w.embed,
+                                          **cut_kw)
         else:
-            feats, zx = backbone(cutout(padded, **cut_kw))
+            feats, zx = backbone(cutouts(scan))
         return feats.reshape(zx.shape[0], l4 * FEAT_CHANNELS), zx
 
     def step(carry, scan):
-        scan, padded = prepare(scan)
+        scan = prepare(scan)
         b = scan.shape[0]
         if carry is None:
             # bootstrap: the features, rescaled to the carry's scale
-            feats, zx = features(padded)
+            feats, zx = features(scan)
             template = torch.clamp(torch.round(
                 feats.float() * (feat_scale / tmpl_scale)), -127, 127).to(
                     torch.int8)
@@ -926,17 +955,17 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             cls, reg = head_of(template.reshape(-1, FEAT_CHANNELS))
         elif cell:
             template, z, sim, cls, reg = serve_cell_int8(
-                cutout(padded, **cut_kw), carry["z"], carry["template"],
+                cutouts(scan), carry["z"], carry["template"],
                 w.layer1_div, bb_laid, embed_cell, hd_laid, hd_head_w,
                 l=ct_len, in_scale=w.in_scale, s_t=tmpl_scale,
                 num_classes=num_classes, **gate_kw)
         elif fuse_gate_head:
-            feats, zx = features(padded)
+            feats, zx = features(scan)
             template, z, sim, cls, reg = gate_head_int8(
                 zx, carry["z"], feats, carry["template"], hd_laid, hd_head_w,
                 s_t=tmpl_scale, num_classes=num_classes, l4=l4, **gate_kw)
         else:
-            feats, zx = features(padded)
+            feats, zx = features(scan)
             template, z, sim = gate_int8(zx, carry["z"], feats,
                                          carry["template"], s_t=tmpl_scale,
                                          **gate_kw)

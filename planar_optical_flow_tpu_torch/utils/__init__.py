@@ -1,4 +1,5 @@
-"""Host utilities of the port: the config loader and the run logger."""
+"""Host utilities of the port: the config loader, the run logger and
+``utils.viz`` (matplotlib plots and videos, imported on its own)."""
 
 from planar_optical_flow_tpu_torch.utils.config import load_config
 from planar_optical_flow_tpu_torch.utils.logger import RunLogger
