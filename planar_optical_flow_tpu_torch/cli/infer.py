@@ -3,7 +3,7 @@ port's counterpart of ``bin/infer.py``:
 
     python -m planar_optical_flow_tpu_torch.cli.infer --cfg cfg.json \\
         --ckpt w.pt --sequence seq.csv [--engine module|v3|int8c] [--cpu] \
-        [--video out.mp4]
+        [--video out.mp4] [--trace-spans spans.json]
 
 Feeds each scan of the sequence through a ``StreamingRunner`` (cutout,
 backbone, template memory, head, flow head and NMS) on the card, or on the
@@ -16,7 +16,14 @@ hold batch 1 and the sequence's beam count, and ``--cpu`` must match the
 device it was exported on). ``--video`` renders the scans, detections and
 per-instance flow arrows with ``utils.viz.render_detection_video`` (PNG
 frames in a directory named after the video where ffmpeg is missing); it
-needs matplotlib.
+needs matplotlib. ``--trace-spans PATH`` records the runner's and the
+step's spans (``utils.tracing``: the runner call, restart, bootstrap and
+merge; prepare, cutout, backbone, gate, head, flow head and epilogue; the
+set-up's calibration, weight layout and kernel builds) over the frame loop
+and writes them to ``PATH`` as Chrome trace JSON (microseconds on the
+``time.time_ns`` clock, the clock of a ``torch.profiler`` trace; each
+event's args hold its step, parent span and device ms), which opens in
+Perfetto.
 """
 
 from __future__ import annotations
@@ -72,6 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the kernels' plain versions) "
                              "instead of the card")
+    parser.add_argument("--trace-spans", default=None, metavar="PATH",
+                        help="write the runner's and step's spans of the "
+                             "frame loop (and the set-up's) to PATH as "
+                             "Chrome trace JSON")
     return parser
 
 
@@ -174,6 +185,7 @@ def infer(argv=None):
 
     from planar_optical_flow_tpu_torch import resolve_device
     from planar_optical_flow_tpu_torch.data import drow_io
+    from planar_optical_flow_tpu_torch.utils import tracing
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     stem = args.sequence[:-4] if args.sequence.endswith(".csv") \
@@ -202,10 +214,19 @@ def infer(argv=None):
               f"{runner.calibration.save(args.save_calib)}")
 
     scans_dev = torch.as_tensor(scans, device=device)
-    t0 = time.perf_counter()
-    results = serve_sequence(runner, scans_dev, conf=args.conf, poses=poses,
-                             replay=args.replay)
-    seconds = time.perf_counter() - t0
+    if args.trace_spans:
+        tracing.enable()
+    try:
+        t0 = time.perf_counter()
+        results = serve_sequence(runner, scans_dev, conf=args.conf,
+                                 poses=poses, replay=args.replay)
+        seconds = time.perf_counter() - t0
+    finally:
+        if args.trace_spans:
+            tracing.enable(False)
+    if args.trace_spans:
+        path = tracing.write_chrome_trace(args.trace_spans)
+        print(f"spans written to {path}")
     if args.video:
         from planar_optical_flow_tpu_torch.utils import viz
 

@@ -102,6 +102,7 @@ from planar_optical_flow_tpu_torch.ops.nms import (
     nms_predicted_center,
     nms_predicted_center_topk,
 )
+from planar_optical_flow_tpu_torch.utils import tracing
 
 ENGINES = ("module", "v3", "int8c")
 
@@ -812,60 +813,70 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         pred_reg = reg.reshape(b, p_pad, 2)[:, :num_pts].float()
         flow = None
         if is_flow:
-            sim_b = sim.reshape(b, p_pad, -1)[:, :num_pts].to(torch.bfloat16)
-            flow = model.flow_head(sim_b, scan.to(torch.bfloat16)).float()
-        out = _detection_epilogue(scan, pred_cls, pred_reg, flow, phi_t,
-                                  with_nms=with_nms,
-                                  nms_min_dist=nms_min_dist,
-                                  nms_top_k=nms_top_k)
+            with tracing.span("step.flow_head", device=True):
+                sim_b = sim.reshape(b, p_pad, -1)[:, :num_pts].to(
+                    torch.bfloat16)
+                flow = model.flow_head(sim_b, scan.to(torch.bfloat16)).float()
+        with tracing.span("step.epilogue", device=True):
+            out = _detection_epilogue(scan, pred_cls, pred_reg, flow, phi_t,
+                                      with_nms=with_nms,
+                                      nms_min_dist=nms_min_dist,
+                                      nms_top_k=nms_top_k)
         if output_fields is not None:
             out = {k: out[k] for k in output_fields}
         return {"template": template, "z": z}, out
 
     def prepare(scan):
         """-> the sanitized scan (B, num_pts)."""
-        scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
-        if sanitize_inputs:
-            scan = _sanitize_scan(scan, san_max)
+        with tracing.span("step.prepare"):
+            scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
+            if sanitize_inputs:
+                scan = _sanitize_scan(scan, san_max)
         return scan
 
     def cutouts(scan, pad=p_pad):
         """Sanitized ``(B, num_pts)`` scans -> ``(B*pad, C)`` cutouts: K1 on
         the scans padded to ``pad`` beams, or JAX's fallback, the module
         cutout with its dead rows zeros."""
-        if kernel_cutout:
-            return cutout(F.pad(scan, (0, pad - num_pts)), **cut_kw)
-        cut = _encode_single(scan, phi, cutout_kwargs)
-        return F.pad(cut, (0, 0, 0, pad - num_pts)).reshape(-1, ct_len)
+        with tracing.span("step.cutout"):
+            if kernel_cutout:
+                return cutout(F.pad(scan, (0, pad - num_pts)), **cut_kw)
+            cut = _encode_single(scan, phi, cutout_kwargs)
+            return F.pad(cut, (0, 0, 0, pad - num_pts)).reshape(-1, ct_len)
 
     def encode(scan):
         scan = prepare(scan)
         return scan, cutouts(scan)
 
     if precision == "bf16":
-        layer1, tail_w = fold.backbone_stack_weights(det.backbone)
-        # K2's and K4's conv weights laid out for their weight rings once,
-        # for every step
-        bb_w = backbone_weights_bf16(tail_w)
-        hd_conv_w = head_weights_bf16(
-            fold.prepare_stack_weights(fold.head_conv_blocks(det.head)))
+        with tracing.span("serve.weights", always=True):
+            layer1, tail_w = fold.backbone_stack_weights(det.backbone)
+            # K2's and K4's conv weights laid out for their weight rings
+            # once, for every step
+            bb_w = backbone_weights_bf16(tail_w)
+            hd_conv_w = head_weights_bf16(
+                fold.prepare_stack_weights(fold.head_conv_blocks(det.head)))
 
         def step(carry, scan):
             scan, flat = encode(scan)
             b = scan.shape[0]
-            feats, zx = backbone_bf16(flat, layer1, bb_w, (gp.w, gp.b),
-                                      l=ct_len)
+            with tracing.span("step.backbone"):
+                feats, zx = backbone_bf16(flat, layer1, bb_w, (gp.w, gp.b),
+                                          l=ct_len)
             feats = feats.reshape(b * p_pad, l4 * FEAT_CHANNELS)
-            if carry is None:
-                # bootstrap: the features become the template; the gate
-                # only supplies the similarity band
-                template, z = feats, zx
-                _, _, sim = gate(zx, zx, feats, feats, **gate_kw)
-            else:
-                template, z, sim = gate(zx, carry["z"], feats,
-                                        carry["template"], **gate_kw)
-            cls, reg = head(template.reshape(-1, FEAT_CHANNELS), hd_conv_w,
-                            hd_head_w, num_classes=num_classes, l4=l4)
+            with tracing.span("step.gate"):
+                if carry is None:
+                    # bootstrap: the features become the template; the gate
+                    # only supplies the similarity band
+                    template, z = feats, zx
+                    _, _, sim = gate(zx, zx, feats, feats, **gate_kw)
+                else:
+                    template, z, sim = gate(zx, carry["z"], feats,
+                                            carry["template"], **gate_kw)
+            with tracing.span("step.head"):
+                cls, reg = head(template.reshape(-1, FEAT_CHANNELS),
+                                hd_conv_w, hd_head_w,
+                                num_classes=num_classes, l4=l4)
             return finish(scan, b, template, z, sim, cls, reg)
 
         return _serving(step, None, dev, precision)
@@ -876,35 +887,42 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
     elif calib_scans is None:
         raise ValueError("int8 precision requires calib_scans or calib")
     else:
-        calib = _calibrate(
-            model, det, cutout_kwargs, calib_scans, num_pts=num_pts,
-            encode=lambda s: cutouts(
-                s, pad_cell if cell else pad_pm if pm else pad8),
-            percentile=calib_percentile, steps=calib_steps,
-            sanitize=sanitize_inputs, san_max=san_max, dev=dev)
-    w = int8_weights(det, calib, dev, precision)
-    check_row_shift(dev)
-    # the int8 convs' weights (K5, K7-K10, K12, K13) laid out for their
-    # weight rings once, for every step
-    bb_laid, hd_laid = backbone_weights_int8(w.backbone), head_weights_int8(
-        w.head)
+        with tracing.span("serve.calibrate", always=True):
+            calib = _calibrate(
+                model, det, cutout_kwargs, calib_scans, num_pts=num_pts,
+                encode=lambda s: cutouts(
+                    s, pad_cell if cell else pad_pm if pm else pad8),
+                percentile=calib_percentile, steps=calib_steps,
+                sanitize=sanitize_inputs, san_max=san_max, dev=dev)
+    with tracing.span("serve.row_check", always=True):
+        check_row_shift(dev)
+    with tracing.span("serve.weights", always=True):
+        w = int8_weights(det, calib, dev, precision)
+        # the int8 convs' weights (K5, K7-K10, K12, K13) laid out for their
+        # weight rings once, for every step
+        bb_laid, hd_laid = (backbone_weights_int8(w.backbone),
+                            head_weights_int8(w.head))
 
     def head_of(template):
         """int8 ``(N*l4, 256)`` template -> (cls, reg): K7."""
-        return head_int8(template, hd_laid, hd_head_w,
-                         num_classes=num_classes, l4=l4)
+        with tracing.span("step.head"):
+            return head_int8(template, hd_laid, hd_head_w,
+                             num_classes=num_classes, l4=l4)
 
     def backbone(flat):
         """-> (feats (N*l4, 256), zx (N, 128) bf16)."""
-        if pm and (layout in ("pm", "cell") or p2_l1_mode != "mm"):
-            return backbone_int8_pm(flat, w.layer1_div, bb_laid, w.embed,
-                                    l=ct_len, in_scale=w.in_scale)
-        if pm:
-            return backbone_int8(flat, w.layer1, bb_laid, w.embed, l=ct_len)
-        act1 = backbone_layer1(flat, w.layer1_div, out_scale=w.in_scale)
-        return backbone_int8_tail(
-            act1, bb_laid, w.embed, l=ct_len,
-            out_dtype=torch.int8 if precision == "int8c" else torch.bfloat16)
+        with tracing.span("step.backbone"):
+            if pm and (layout in ("pm", "cell") or p2_l1_mode != "mm"):
+                return backbone_int8_pm(flat, w.layer1_div, bb_laid, w.embed,
+                                        l=ct_len, in_scale=w.in_scale)
+            if pm:
+                return backbone_int8(flat, w.layer1, bb_laid, w.embed,
+                                     l=ct_len)
+            act1 = backbone_layer1(flat, w.layer1_div, out_scale=w.in_scale)
+            return backbone_int8_tail(
+                act1, bb_laid, w.embed, l=ct_len,
+                out_dtype=(torch.int8 if precision == "int8c"
+                           else torch.bfloat16))
 
     if precision == "int8":
         def step(carry, scan):
@@ -912,12 +930,13 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
             b = scan.shape[0]
             feats, zx = backbone(flat)
             feats = feats.reshape(b * p_pad, l4 * FEAT_CHANNELS)  # bf16
-            if carry is None:
-                template, z = feats, zx
-                _, _, sim = gate(zx, zx, feats, feats, **gate_kw)
-            else:
-                template, z, sim = gate(zx, carry["z"], feats,
-                                        carry["template"], **gate_kw)
+            with tracing.span("step.gate"):
+                if carry is None:
+                    template, z = feats, zx
+                    _, _, sim = gate(zx, zx, feats, feats, **gate_kw)
+                else:
+                    template, z, sim = gate(zx, carry["z"], feats,
+                                            carry["template"], **gate_kw)
             # the bf16 template, quantized through f32 for the int8 head
             cls, reg = head_of(quant.quantize_int8(
                 template.reshape(-1, FEAT_CHANNELS), w.tmpl_scale))
@@ -933,9 +952,10 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         """Sanitized scans (B, num_pts) -> (feats (N, D) int8, zx (N, 128)
         bf16)."""
         if p2c:
-            feats, zx = backbone_int8_cut(F.pad(scan, (0, p_pad - num_pts)),
-                                          w.layer1, bb_laid, w.embed,
-                                          **cut_kw)
+            with tracing.span("step.backbone"):  # K8: K1's cutouts and K5
+                feats, zx = backbone_int8_cut(
+                    F.pad(scan, (0, p_pad - num_pts)), w.layer1, bb_laid,
+                    w.embed, **cut_kw)
         else:
             feats, zx = backbone(cutouts(scan))
         return feats.reshape(zx.shape[0], l4 * FEAT_CHANNELS), zx
@@ -946,29 +966,36 @@ def make_serve_step_v3(model, cutout_kwargs, calib_scans=None,
         if carry is None:
             # bootstrap: the features, rescaled to the carry's scale
             feats, zx = features(scan)
-            template = torch.clamp(torch.round(
-                feats.float() * (feat_scale / tmpl_scale)), -127, 127).to(
-                    torch.int8)
+            with tracing.span("step.rescale", device=True):
+                template = torch.clamp(torch.round(
+                    feats.float() * (feat_scale / tmpl_scale)), -127,
+                    127).to(torch.int8)
             z = zx
-            _, _, sim = gate_int8(zx, zx, feats, feats, s_t=feat_scale,
-                                  **gate_kw)
+            with tracing.span("step.gate"):
+                _, _, sim = gate_int8(zx, zx, feats, feats, s_t=feat_scale,
+                                      **gate_kw)
             cls, reg = head_of(template.reshape(-1, FEAT_CHANNELS))
         elif cell:
-            template, z, sim, cls, reg = serve_cell_int8(
-                cutouts(scan), carry["z"], carry["template"],
-                w.layer1_div, bb_laid, embed_cell, hd_laid, hd_head_w,
-                l=ct_len, in_scale=w.in_scale, s_t=tmpl_scale,
-                num_classes=num_classes, **gate_kw)
+            flat = cutouts(scan)
+            with tracing.span("step.backbone"):  # K13: the whole cell
+                template, z, sim, cls, reg = serve_cell_int8(
+                    flat, carry["z"], carry["template"],
+                    w.layer1_div, bb_laid, embed_cell, hd_laid, hd_head_w,
+                    l=ct_len, in_scale=w.in_scale, s_t=tmpl_scale,
+                    num_classes=num_classes, **gate_kw)
         elif fuse_gate_head:
             feats, zx = features(scan)
-            template, z, sim, cls, reg = gate_head_int8(
-                zx, carry["z"], feats, carry["template"], hd_laid, hd_head_w,
-                s_t=tmpl_scale, num_classes=num_classes, l4=l4, **gate_kw)
+            with tracing.span("step.gate"):  # K12: the gate and the head
+                template, z, sim, cls, reg = gate_head_int8(
+                    zx, carry["z"], feats, carry["template"], hd_laid,
+                    hd_head_w, s_t=tmpl_scale, num_classes=num_classes,
+                    l4=l4, **gate_kw)
         else:
             feats, zx = features(scan)
-            template, z, sim = gate_int8(zx, carry["z"], feats,
-                                         carry["template"], s_t=tmpl_scale,
-                                         **gate_kw)
+            with tracing.span("step.gate"):
+                template, z, sim = gate_int8(zx, carry["z"], feats,
+                                             carry["template"],
+                                             s_t=tmpl_scale, **gate_kw)
             cls, reg = head_of(template.reshape(-1, FEAT_CHANNELS))
         return finish(scan, b, template, z, sim, cls, reg)
 
@@ -1179,6 +1206,10 @@ class StreamingRunner:
 
     def __call__(self, scan) -> dict:
         """Process one ``(B, P)`` scan batch; returns a dict of tensors."""
+        with tracing.span("runner.call"):
+            return self._call(scan)
+
+    def _call(self, scan) -> dict:
         if self._step is None:
             # lazy int8c: calibrate on this batch
             self._step = self._build(calib_scans=scan)
@@ -1194,11 +1225,19 @@ class StreamingRunner:
                     f"ones stay pending)")
             mask = np.zeros(b, dtype=bool)
             mask[pending] = True
-            boot_carry, boot_out = self._dispatch(None, scan)
-            carry, out = self._dispatch(self._carry, scan)
-            self._carry = merge_stream_carries(carry, boot_carry, mask)
+            tracing.count("runner.restarted_streams", int(mask.sum()))
+            tracing.count("runner.boot_streams", b)
+            with tracing.span("runner.restart", device=True):
+                with tracing.span("runner.bootstrap", device=True):
+                    boot_carry, boot_out = self._dispatch(None, scan)
+                with tracing.span("runner.carried", device=True):
+                    carry, out = self._dispatch(self._carry, scan)
+                with tracing.span("runner.merge", device=True):
+                    self._carry = merge_stream_carries(carry, boot_carry,
+                                                       mask)
+                    out = _merge_stream_outputs(out, boot_out, mask)
             self._pending_reset = None
-            return _merge_stream_outputs(out, boot_out, mask)
+            return out
         self._pending_reset = None
         self._carry, out = self._dispatch(self._carry, scan)
         return out

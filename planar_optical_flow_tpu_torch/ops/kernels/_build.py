@@ -15,6 +15,10 @@ the stream are passed as ``c_void_p``; every entry returns
   for every one of them.
 * ``-Xptxas -v`` is always on; its report (registers, shared memory,
   spills) is kept beside each library as ``<lib>.log``.
+* Each ``nvcc`` run is a ``kernels.build`` span (its source in the span's
+  args) and adds to the counter ``kernels.built``; each library loaded is a
+  ``kernels.load`` span (``utils.tracing``; both recorded whether tracing
+  is on or not).
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from planar_optical_flow_tpu_torch.utils import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PACKAGE_DIR / "csrc"
@@ -67,40 +73,52 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _nvcc(compiler: str, name: str):
+    """Compile ``csrc/<name>.cu`` into a temporary library beside its
+    :func:`library_path`, as one ``kernels.build`` span: (return code,
+    compiler output, the temporary library)."""
+    out = library_path(name)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    with tracing.span("kernels.build", always=True, args={"source": name}):
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, tmp
+
+
 def build_all(names=SOURCES) -> dict:
     """Compile every source in ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together.
+    ``nvcc`` process per source (each waited for on a thread of its own),
+    all started together.
 
-    Returns ``{name: {"seconds": float or None (already built), "log":
-    ptxas report}}``; raises ``RuntimeError`` with the compiler output if
-    any build fails.
+    Returns ``{name: {"log": ptxas report}}``; raises ``RuntimeError``
+    with the compiler output if any build fails. How long each build took
+    is its ``kernels.build`` span.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, report = {}, {}
-    compiler = None
+    report, todo = {}, []
     for name in names:
         out = library_path(name)
         if out.exists():
             log = out.with_suffix(".log")
-            report[name] = {"seconds": None, "log": log.read_text()
-                            if log.exists() else ""}
-            continue
-        compiler = compiler or nvcc()
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+            report[name] = {"log": log.read_text() if log.exists() else ""}
+        else:
+            todo.append(name)
+    if not todo:
+        return report
+    compiler = nvcc()
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        runs = list(pool.map(lambda n: _nvcc(compiler, n), todo))
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n{log}")
+    for name, (rc, log, tmp) in zip(todo, runs):
+        if rc != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {rc})\n{log}")
             continue
+        tracing.count("kernels.built", always=True)
+        out = library_path(name)
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: concurrent builders race safely
-        report[name] = {"seconds": secs, "log": log}
+        report[name] = {"log": log}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
@@ -112,7 +130,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LOADED.get(name)
         if lib is None:
             build_all((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            with tracing.span("kernels.load", always=True,
+                              args={"source": name}):
+                lib = ctypes.CDLL(str(library_path(name)))
             _LOADED[name] = lib
         return lib
 
