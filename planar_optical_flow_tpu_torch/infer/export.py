@@ -409,13 +409,18 @@ class ServingEngine:
         self.meta = meta
         self.device = torch.device(device)
 
+    @property
+    def batches(self) -> list:
+        """The batch sizes this artifact holds programs for."""
+        return sorted(self._programs)
+
     def __call__(self, carry, scan):
         scan = torch.as_tensor(scan, dtype=torch.float32, device=self.device)
         b = scan.shape[0]
         if b not in self._programs:
             raise ValueError(
                 f"no exported program for batch {b}; this artifact holds "
-                f"batches {sorted(self._programs)} (re-export with the "
+                f"batches {self.batches} (re-export with the "
                 "batch you need, see cli.export_serving --batch)")
         boot, step = self._programs[b]
         with torch.inference_mode():

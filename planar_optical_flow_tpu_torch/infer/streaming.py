@@ -184,12 +184,21 @@ def merge_stream_carries(carry, boot_carry, reset_mask):
     return _tree_map(merge, carry, boot_carry)
 
 
-def _merge_stream_outputs(out, boot_out, reset_mask):
-    """Outputs counterpart of :func:`merge_stream_carries`."""
-    mask = torch.as_tensor(np.asarray(reset_mask, dtype=bool))
-    return {k: torch.where(mask.to(a.device).reshape(
-        (mask.shape[0],) + (1,) * (a.ndim - 1)), boot_out[k], a)
-        for k, a in out.items()}
+@torch.inference_mode()
+def _scatter_streams(dst, src, idx, b: int, whole: bool):
+    """Writes the rows of streams ``idx`` (a device index) from ``src``
+    into ``dst`` in place and returns ``dst``. Every leaf of ``dst`` leads
+    with ``b * rows`` stream-major rows (outputs: ``rows`` 1); ``src``
+    holds those of the streams ``idx`` alone, or of the whole batch
+    (``whole``). ``dst`` must be tensors no one else holds."""
+    def scatter(d, s):
+        s = s.unflatten(0, (-1, d.shape[0] // b))
+        if whole:
+            s = s.index_select(0, idx)
+        d.unflatten(0, (b, -1)).index_copy_(0, idx, s)
+        return d
+
+    return _tree_map(scatter, dst, src)
 
 
 def _encode_single(scan, phi, cutout_kwargs):
@@ -1118,6 +1127,17 @@ class StreamingRunner:
     calibrates on the first batch it sees. ``runner.calibration`` holds the
     scales in effect. :meth:`from_artifact` runs a serving artifact
     instead of a model.
+
+    A call after :meth:`reset` of some streams is a restart step: the
+    carried pass on the whole batch, then the bootstrap pass on the
+    restarted streams' rows alone (its launches overlap the carried
+    kernels on the card), then the bootstrapped rows of the carry and the
+    outputs scattered, on the device, into those the carried pass made.
+    The step is batch-agnostic (fixed int8 scales; the gate band and the
+    NMS are per stream), so those rows equal the same rows of a bootstrap
+    of the whole batch. An artifact runner bootstraps the restarted rows
+    alone only if its artifact holds a program for that batch; otherwise it
+    bootstraps the whole batch and scatters the restarted rows out of it.
     """
 
     def __init__(self, model, cutout_kwargs, num_pts: int = 450,
@@ -1181,15 +1201,17 @@ class StreamingRunner:
 
     def reset(self, streams=None):
         """``streams=None`` restarts every stream (the next call
-        bootstraps); ``streams=[i, ...]`` restarts only those batch rows on
-        the next call, which then runs both the bootstrap and the carried
-        step and takes the named rows (carry and outputs) from the
-        bootstrap. An empty list is a no-op."""
+        bootstraps the whole batch); ``streams=[i, ...]`` restarts only
+        those batch rows on the next call (calls add up), which then runs
+        the carried step on the whole batch and the bootstrap on those rows
+        alone (on an artifact without a program for that many rows: on the
+        whole batch), and takes the named rows of the carry and the outputs
+        from the bootstrap. An empty list is a no-op."""
         if streams is None:
             self._carry = None
             self._pending_reset = None
             return
-        idx = np.atleast_1d(np.asarray(streams, dtype=np.int64))
+        idx = np.unique(np.asarray(streams, dtype=np.int64))
         if idx.size == 0:
             return
         if idx.min() < 0:
@@ -1223,21 +1245,37 @@ class StreamingRunner:
                     f"reset stream indices {pending.tolist()} out of range "
                     f"for batch {b} (invalid indices discarded; in-range "
                     f"ones stay pending)")
-            mask = np.zeros(b, dtype=bool)
-            mask[pending] = True
-            tracing.count("runner.restarted_streams", int(mask.sum()))
-            tracing.count("runner.boot_streams", b)
-            with tracing.span("runner.restart", device=True):
-                with tracing.span("runner.bootstrap", device=True):
-                    boot_carry, boot_out = self._dispatch(None, scan)
-                with tracing.span("runner.carried", device=True):
-                    carry, out = self._dispatch(self._carry, scan)
-                with tracing.span("runner.merge", device=True):
-                    self._carry = merge_stream_carries(carry, boot_carry,
-                                                       mask)
-                    out = _merge_stream_outputs(out, boot_out, mask)
             self._pending_reset = None
-            return out
+            return self._restart(scan, pending)
         self._pending_reset = None
         self._carry, out = self._dispatch(self._carry, scan)
         return out
+
+    def _restart(self, scan, idx):
+        """The restart step of the streams ``idx`` (sorted, unique)."""
+        b, k = scan.shape[0], idx.size
+        whole = self._engine == "artifact" and k not in self._step.batches
+        carry = self._carry
+        dev = next(iter(carry.values() if isinstance(carry, dict)
+                        else (carry,))).device
+        idx_h = torch.from_numpy(idx)
+        # from pinned memory: the host waits for no pass to copy the index
+        idx_d = (idx_h.pin_memory().to(dev, non_blocking=True)
+                 if dev.type == "cuda" else idx_h.to(dev))
+        tracing.count("runner.restarted_streams", k)
+        tracing.count("runner.boot_streams", b if whole else k)
+        with tracing.span("runner.restart", device=True):
+            # both passes take the batch from the device: an upload inside
+            # the bootstrap would wait for the carried pass, whose kernels
+            # the bootstrap's launches are meant to overlap
+            scan = torch.as_tensor(scan, dtype=torch.float32, device=dev)
+            with tracing.span("runner.carried", device=True):
+                carry, out = self._dispatch(carry, scan)
+            with tracing.span("runner.bootstrap", device=True):
+                boot_carry, boot_out = self._dispatch(
+                    None, scan if whole else scan.index_select(0, idx_d))
+            # in place into what the carried pass made in this call
+            with tracing.span("runner.merge", device=True):
+                self._carry = _scatter_streams(carry, boot_carry, idx_d, b,
+                                               whole)
+                return _scatter_streams(out, boot_out, idx_d, b, whole)

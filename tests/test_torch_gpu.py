@@ -13,7 +13,9 @@ to the plain mix on its own attention, K15 to its plain version. The
 detection dataset's targets computed on the card equal the CPU's (class
 and exclude mask exact, offsets and flow within 1e-5), and
 ``evaluate_detection_ap_batched`` (v3, int8c) on the card scores the same
-frames as on the CPU, AP within 0.02.
+frames as on the CPU, AP within 0.02. A serving step's bootstrap of 1 or 3
+of 384 streams equals those rows of its bootstrap of all 384 (int8c p2 and
+bf16, 450 beams), to the bit but ``pred_flow`` (2e-2 x max).
 """
 
 from __future__ import annotations
@@ -40,7 +42,10 @@ from planar_optical_flow_tpu_torch.infer.fast_gate import (
     gate_mix_plain,
     gate_plain,
 )
-from planar_optical_flow_tpu_torch.infer.streaming import int8_weights
+from planar_optical_flow_tpu_torch.infer.streaming import (
+    int8_weights,
+    make_serve_step_v3,
+)
 from planar_optical_flow_tpu_torch.models import FlowDrow
 from planar_optical_flow_tpu_torch.ops import quantized_drow as qd
 from planar_optical_flow_tpu_torch.ops.kernels import (
@@ -902,3 +907,35 @@ def test_detection_ap_on_the_card(cuda, tmp_path, engine):
         engine=engine, device=dev) for dev in (cuda, "cpu")}
     assert got[cuda]["num_frames"] == got["cpu"]["num_frames"] == len(ds)
     assert abs(got[cuda]["ap"] - got["cpu"]["ap"]) <= 0.02, got
+
+
+@pytest.mark.parametrize("streams", [[200], [0, 191, 383]])
+@pytest.mark.parametrize("precision", ["int8c", "bf16"])
+def test_bootstrap_of_some_streams(cuda, precision, streams):
+    """What the runner's restart step rests on: the bootstrap of some
+    streams equals those streams' rows of the bootstrap of the whole batch,
+    at B=384 and 450 beams. Bit for bit, carry and outputs, but
+    ``pred_flow``: the flow head's cuDNN convs may take another algorithm
+    at another batch, so it is held at 2e-2 x max."""
+    b, num_pts = 384, 450
+    kw = dict(fixed=True, centered=True, window_width=1.0, window_depth=0.5,
+              num_cutout_pts=56, padding_val=29.99, area_mode=True)
+    gen = torch.Generator().manual_seed(len(streams))
+    scan = torch.rand((b, num_pts), generator=gen) * 19.5 + 0.5
+    scan[3, 7] = float("nan")
+    step = make_serve_step_v3(
+        _model(56, 11, cuda), kw, num_pts=num_pts, precision=precision,
+        calib_scans=scan[:8] if precision == "int8c" else None, device=cuda)
+    carry, out = step(None, scan)
+    sub_carry, sub_out = step(None, scan[streams])
+    idx = torch.tensor(streams, device=cuda)
+    assert set(sub_carry) == set(carry) and set(sub_out) == set(out)
+    for got, whole in ((sub_carry, carry), (sub_out, out)):
+        for k, leaf in whole.items():
+            want = leaf.unflatten(0, (b, -1)).index_select(0, idx).flatten(
+                0, 1)
+            assert got[k].dtype == want.dtype and got[k].shape == want.shape
+            if k == "pred_flow":
+                _close(got[k], want, BF16_REL)
+            else:
+                assert torch.equal(got[k], want), k

@@ -9,6 +9,9 @@
 * ``StreamingRunner`` with a per-stream reset, all three engines (int8c
   calibrating lazily on its first batch in both packages, at rtol/atol 5e-2,
   ``tests/test_int8_serving_gate.py``);
+* its restart step (the restarted rows bootstrapped alone, scattered into
+  the carried pass) against the whole-batch bootstrap merged by
+  ``merge_stream_carries``, to the bit, at B=8;
 * the port's v3 engine vs its module engine at the JAX package's own
   bf16-vs-f32 tolerance (``tests/test_fast_gate.py``), the check the card
   run repeats at full size; its int8c engine vs its module engine at the
@@ -35,6 +38,7 @@ from planar_optical_flow_tpu_torch.infer.streaming import (
     StreamingRunner,
     make_serve_step_v3,
     make_stream_step,
+    merge_stream_carries,
 )
 from planar_optical_flow_tpu_torch.ops.nms import (
     nms_predicted_center,
@@ -45,6 +49,7 @@ from tests.test_torch_common import (
     NUM_PTS,
     assert_close_to_max,
     flow_drow_pair,
+    one_thread,  # noqa: F401 (a fixture)
     t2n,
     to_jax,
 )
@@ -54,6 +59,11 @@ INT8 = dict(rtol=5e-2, atol=5e-2)  # tests/test_int8_serving_gate.py
 BF16_REL = 2e-2
 FLOAT_FIELDS = ("pred_cls", "pred_reg", "pred_flow")
 PHI = torch.as_tensor(get_laser_phi(num_pts=NUM_PTS), dtype=torch.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads(one_thread):
+    """See ``test_torch_common.one_thread``."""
 
 
 @pytest.fixture(scope="module")
@@ -177,6 +187,84 @@ def test_runner_with_stream_reset_matches_jax(pair, engine):
         assert run._carry["template"].dtype == torch.int8
     run.reset()
     assert run._carry is None
+
+
+# step -> the ``reset`` calls made before it
+RESTARTS = {
+    "two_streams": {1: [[1, 3]]},
+    "two_calls": {1: [[3], [5, 1, 3]]},
+    "consecutive_steps": {1: [[1, 3]], 2: [[6]]},
+    "every_stream": {1: [list(range(8))]},
+}
+
+
+def _restart_before(step, carry, scan, streams):
+    """The restart step as the runner made it before: the bootstrap of the
+    whole batch, the carried pass, and the restarted streams' rows taken
+    from the bootstrap by ``merge_stream_carries`` and a mask."""
+    mask = np.zeros(scan.shape[0], dtype=bool)
+    mask[streams] = True
+    boot_carry, boot_out = step(None, scan)
+    carry, out = step(carry, scan)
+    m = torch.from_numpy(mask)
+    return merge_stream_carries(carry, boot_carry, mask), {
+        k: torch.where(m.reshape((-1,) + (1,) * (v.ndim - 1)), boot_out[k], v)
+        for k, v in out.items()}
+
+
+def _assert_bits(got, want, what, near=()):
+    """Equal to the bit, but the keys ``near``: within 1e-5 x max|want|."""
+    got, want = ((x if isinstance(x, dict) else {"template": x})
+                 for x in (got, want))
+    assert set(got) == set(want), what
+    for k in want:
+        assert got[k].dtype == want[k].dtype, (what, k)
+        if k in near:
+            assert_close_to_max(t2n(got[k]), t2n(want[k]), 1e-5,
+                                f"{what} {k}")
+        else:
+            assert torch.equal(got[k], want[k]), (what, k)
+
+
+@pytest.fixture(scope="module")
+def b8_runners(pair):
+    """One runner an engine at B=8, shared by the restart cases (each
+    starts with ``reset()``); int8c calibrated on the cases' first batch."""
+    calib = torch.from_numpy(_scans(33, steps=4, b=8)[0])
+    return {engine: StreamingRunner(
+        pair[2], CUTOUT_KW, num_pts=NUM_PTS, engine=engine,
+        calib_scans=calib if engine == "int8c" else None, device="cpu")
+        for engine in ("module", "v3", "int8c")}
+
+
+@pytest.mark.parametrize("case", sorted(RESTARTS))
+@pytest.mark.parametrize("engine", ["module", "v3", "int8c"])
+def test_restart_bootstraps_the_restarted_rows_alone(b8_runners, engine,
+                                                     case):
+    """A runner with restarts equals, to the bit (carry and every output),
+    the whole-batch bootstrap merged into the carried pass, computed here
+    from the runner's own step. The one exception: the module engine's f32
+    flow head convolves a batch of one stream with another of oneDNN's
+    kernels (another order of sums), so its ``pred_flow`` is held at 1e-5 x
+    max, ~80 f32 ulps of the largest flow (it reads ~5e-7)."""
+    scans = torch.from_numpy(_scans(33, steps=4, b=8))
+    run = b8_runners[engine]
+    run.reset()
+    carry = None
+    for i, scan in enumerate(scans):
+        streams = set()
+        for call in RESTARTS[case].get(i, ()):
+            run.reset(call)
+            streams.update(call)
+        got = run(scan)
+        if streams:
+            carry, want = _restart_before(run._step, carry, scan,
+                                          sorted(streams))
+        else:
+            carry, want = run._step(carry, scan)
+        _assert_bits(got, want, f"step {i} outputs",
+                     near=("pred_flow",) if engine == "module" else ())
+        _assert_bits(run._carry, carry, f"step {i} carry")
 
 
 def test_v3_against_module_engine(pair):

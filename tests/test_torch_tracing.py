@@ -131,8 +131,39 @@ def restarted(model):
 
 
 def test_restart_counts_the_streams(restarted):
+    # the bootstrap runs on the two restarted streams' rows alone
     assert restarted["counters"] == {"runner.restarted_streams": 2,
-                                     "runner.boot_streams": B}
+                                     "runner.boot_streams": 2}
+
+
+@pytest.mark.parametrize("batches,boot", [((B,), B), ((B, 2), 2)])
+def test_artifact_restart_counts_the_rows_it_bootstraps(model, tmp_path,
+                                                        batches, boot):
+    """An artifact without a program for the two restarted streams
+    bootstraps the whole batch; with one, those two alone. Either way its
+    outputs and carry equal the live runner's to the bit."""
+    step = make_serve_step_v3(model, CUTOUT_KW, num_pts=NUM_PTS,
+                              with_nms=False, device="cpu")
+    path = export_serving_engine(str(tmp_path / "engine"), step,
+                                 [(b, NUM_PTS) for b in batches])
+    art = StreamingRunner.from_artifact(path)
+    live = StreamingRunner(model, CUTOUT_KW, num_pts=NUM_PTS, engine="v3",
+                           with_nms=False, device="cpu")
+    scans = _scans(1)
+    for r in (art, live):
+        r(scans[0])
+        r.reset([1, 3])
+    tracing.reset()  # the build's set-up spans
+    tracing.enable()
+    got = art(scans[1])
+    tracing.enable(False)
+    assert tracing.snapshot()["counters"] == {"runner.restarted_streams": 2,
+                                              "runner.boot_streams": boot}
+    want = live(scans[1])
+    for got, want in ((got, want), (art._carry, live._carry)):
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
 
 
 def test_restart_step_nests_under_the_call(restarted, tmp_path):
@@ -319,7 +350,8 @@ def test_span_metric_reads_the_recorder(filled, metric, monkeypatch):
     for i, s in enumerate(snap["spans"].values()):
         s["device_s"] = 1e-3 * (i + 1)
     want = _expected(snap)
-    assert want["runner.boot_useful_pct"] == pytest.approx(25.0)
+    # the restart bootstraps the restarted streams alone
+    assert want["runner.boot_useful_pct"] == pytest.approx(100.0)
     assert read(traced) == pytest.approx(want[metric])
 
 
