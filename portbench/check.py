@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``.
 
-After the window, the reference (``reference/model.py``) replays every step
+After the window, the reference (``reference/<module>.py``, the module the
+configuration names, ``reference/model.py`` by default) replays every step
 of a sample of streams, drawn from the seed, from the step each stream
 started on (the window's first step, or its last restart), and the
 program's outputs on those streams are held against it:
@@ -39,7 +40,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.reference.model import Reference, run_streams
 from portbench.reference.nms import vote_nms
 from portbench.reference.quant import quantized_reference
 
@@ -101,24 +101,26 @@ def nms_mismatch(got, scans, phi, nms_cfg, device, rows=4096):
     return bad
 
 
-def reference_for(sd, cfg, calib):
-    """The reference the program's outputs are held to (module docstring);
-    ``calib (N, P)``: the calibration scans, as the program got them."""
+def reference_for(sd, cfg, calib, module):
+    """The reference the program's outputs are held to (module docstring),
+    from ``module``, the configuration's reference module; ``calib (N,
+    P)``: the calibration scans, as the program got them."""
     bits = cfg["check"].get("reference_bits")
     if not bits:
-        return Reference(sd, cfg)
+        return module.Reference(sd, cfg)
     calib = sanitize(torch.as_tensor(calib, dtype=torch.float32),
                      float(cfg["cutout"]["padding_val"]))
-    return quantized_reference(sd, cfg, calib, int(bits))
+    return quantized_reference(sd, cfg, calib, int(bits), module)
 
 
-def compare(sd, cfg, scans, boot, got, device, calib, detail=None):
+def compare(sd, cfg, scans, boot, got, device, calib, module, detail=None):
     """The numbers of the comparison (module docstring). ``scans (T, S,
     P)`` and ``boot (T, S)`` are what the sampled streams were fed; ``got``
     the program's outputs on them, host arrays with leading ``(T, S)``;
-    ``calib`` the program's calibration scans. ``detail``, a dict, receives
-    each field's error and spread."""
-    ref = reference_for(sd, cfg, calib)
+    ``calib`` the program's calibration scans; ``module`` the
+    configuration's reference module. ``detail``, a dict, receives each
+    field's error and spread."""
+    ref = reference_for(sd, cfg, calib, module)
     max_range = float(cfg["cutout"]["padding_val"])
     scans = sanitize(torch.as_tensor(scans), max_range)
     fields = ("pred_cls", "cls_logit", "pred_reg") + (
@@ -134,7 +136,7 @@ def compare(sd, cfg, scans, boot, got, device, calib, detail=None):
                 mine = torch.logit(mine.double(), eps=1e-12)
             moments[f].add(mine, out[f])
 
-    run_streams(ref, scans, boot, on_block=on_block)
+    module.run_streams(ref, scans, boot, on_block=on_block)
     numbers = {"cls": moments["cls_logit"].value(),
                "reg": moments["pred_reg"].value()}
     if ref.flow:

@@ -24,6 +24,8 @@ import time
 
 import numpy as np
 
+from portbench.spec import angle_inc
+
 BANNED = ("jax", "jaxlib", "flax", "planar_optical_flow_tpu")
 TRACE_FROM = 3      # the traced slice starts at this window step
 TRACE_STEPS = 40    # ... and holds this many steps
@@ -60,7 +62,8 @@ def cutout_kwargs(cfg: dict) -> dict:
 
 def build_model(cfg: dict):
     """The port's model of the configuration, on the default device, its
-    parameters as the model initialises them."""
+    parameters as the model initialises them; the configuration's
+    ``model_kwargs`` are passed as they stand."""
     import torch
 
     from planar_optical_flow_tpu_torch.models import FlowDrow, SpatialDrow
@@ -69,7 +72,7 @@ def build_model(cfg: dict):
     return cls(alpha=cfg["alpha"], window_size=cfg["window_size"],
                pedestrian_only=cfg["pedestrian_only"],
                num_cutout_pts=cfg["cutout"]["num_cutout_pts"],
-               generator=torch.Generator())
+               generator=torch.Generator(), **cfg.get("model_kwargs", {}))
 
 
 def make_model(cfg: dict, sd: dict, device):
@@ -90,23 +93,28 @@ def template_state_dict(cfg: dict) -> dict:
 
 def make_runner(cfg: dict, sd: dict, calib_scans, device, engine=None):
     """The port's ``StreamingRunner`` on the configuration's engine (or
-    ``engine``), with every output field."""
+    ``engine``), with every output field. The configuration's
+    ``runner_kwargs`` are passed as they stand, and its beam angle
+    (``angle_inc``, radians) only where the configuration states one."""
     from planar_optical_flow_tpu_torch.infer.streaming import StreamingRunner
 
     engine = engine or cfg["engine"]
     model = make_model(cfg, sd, device)
+    extra = dict(cfg.get("runner_kwargs", {}))
+    if "angle_inc_deg" in cfg:
+        extra["angle_inc"] = angle_inc(cfg)
     return StreamingRunner(
         model, cutout_kwargs(cfg), num_pts=cfg["num_pts"],
         nms_min_dist=cfg["nms"]["min_dist"], engine=engine,
         calib_scans=calib_scans if engine == "int8c" else None,
-        device=device)
+        device=device, **extra)
 
 
-def sample_streams(cfg: dict, seed: int) -> np.ndarray:
-    """The compared streams, drawn from the seed."""
+def sample_streams(cell, seed: int) -> np.ndarray:
+    """The compared streams of ``cell``, drawn from the seed."""
     rng = np.random.default_rng([int(seed) % (2 ** 64), _SALT_SAMPLE])
-    n = min(int(cfg["check"]["sample_streams"]), int(cfg["streams"]))
-    return np.sort(rng.choice(int(cfg["streams"]), n, replace=False))
+    n = min(int(cell.config["check"]["sample_streams"]), cell.streams)
+    return np.sort(rng.choice(cell.streams, n, replace=False))
 
 
 class _Consumer:
@@ -190,30 +198,30 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
         program=None, log=print, min_steps=0) -> dict:
     """Run ``cell`` once; returns the result line as a dict. ``program``
     (None: the port's runner on the configuration's engine) is a callable
-    ``(cfg, sd, calib_scans, device, sample) -> runner`` that puts another
+    ``(cell, sd, calib_scans, device, sample) -> runner`` that puts another
     program in the runner's place: the check's control and its planted
     faults. The window lasts ``seconds`` and at least ``min_steps`` steps
     (for a slow device: a fault that shows over steps needs them)."""
     import torch
 
     from portbench import check, weights
-    from portbench.reference.model import fit_batch_norm
     from portbench.device_trace import TraceView, events
 
-    cfg, mix = cell.config, cell.traffic
-    b, p = int(cfg["streams"]), int(cfg["num_pts"])
+    cfg, mix, reference = cell.config, cell.traffic, cell.reference()
+    b, p = cell.streams, int(cfg["num_pts"])
     marks = [("start", process_age_s())]
     is_cuda = torch.device(device).type == "cuda"
     sd = weights.make_state_dict(template_state_dict(cfg), seed, device)
     marks.append(("weights", process_age_s()))
-    streams = cell.generator().make(mix, b, p, seed, device)
+    streams = cell.generator().make(mix, b, p, seed, device,
+                                    angle_inc=angle_inc(cfg))
     marks.append(("scans", process_age_s()))
-    sample = sample_streams(cfg, seed)
+    sample = sample_streams(cell, seed)
     rows0 = streams.rows_at_start()
     calib = streams.pool[torch.from_numpy(
         rows0[:int(cfg["calib_scans"])])].clone()
     # BatchNorm statistics of the model's own data, on the same scans
-    fit_batch_norm(sd, cfg, check.sanitize(
+    reference.fit_batch_norm(sd, cfg, check.sanitize(
         calib, float(cfg["cutout"]["padding_val"])))
     marks.append(("batch_norm", process_age_s()))
     if is_cuda:
@@ -221,7 +229,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
     if program is None:
         runner = make_runner(cfg, sd, calib, device)
     else:
-        runner = program(cfg, sd, calib, device, sample)
+        runner = program(cell, sd, calib, device, sample)
     marks.append(("runner", process_age_s()))
     fields = ["det_xys", "det_cls", "det_keep"] + (
         ["pred_flow"] if cfg["model"] == "flow_drow" else [])
@@ -345,7 +353,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
         rows.shape + (p,))
     detail = {}
     numbers = check.compare(sd, cfg, scans, boot, got, device, calib,
-                            detail=detail)
+                            reference, detail=detail)
     correct, table = check.verdict(numbers, cfg["check"]["limits"])
 
     ctx = {"cfg": cfg, "cell": cell, "records": records, "wall_s": wall_s,

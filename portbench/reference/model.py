@@ -42,6 +42,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from portbench.spec import angle_inc
+
 SLOPE = 0.1
 BN_EPS = 1e-5
 FEAT = 256
@@ -161,7 +163,7 @@ class Reference:
         self.cut_kw = {k: v for k, v in cfg["cutout"].items()
                        if k != "gather_mode"}
         self.num_pts = int(cfg["num_pts"])
-        self.phi = laser_phi(self.num_pts)
+        self.phi = laser_phi(self.num_pts, angle_inc(cfg))
         self.quant = quant
         self.fit = False  # see fit_batch_norm
 

@@ -51,16 +51,16 @@ class FakeQuant:
         return self._round(w, torch.clamp(amax, min=1e-12) / self.levels)
 
 
-def quantized_reference(sd: dict, cfg: dict, calib, bits: int):
-    """The reference at ``bits`` bits, its scales the largest magnitudes
-    that the float32 reference reaches on ``calib (N, P)`` (sanitized
-    scans) in a bootstrap and a carried step."""
-    from portbench.reference.model import Reference, run_streams
-
+def quantized_reference(sd: dict, cfg: dict, calib, bits: int, module):
+    """The reference of ``module`` (the configuration's reference module:
+    its ``Reference`` and ``run_streams``) at ``bits`` bits, its scales the
+    largest magnitudes that the float32 reference reaches on ``calib (N,
+    P)`` (sanitized scans) in a bootstrap and a carried step."""
     rec = Recorder()
     calib = torch.as_tensor(calib, dtype=torch.float32)
     s = calib.shape[0]
-    run_streams(Reference(sd, cfg, rec), torch.stack([calib, calib]),
-                np.array([[True] * s, [False] * s]),
-                on_block=lambda *_: None)
-    return Reference(sd, cfg, FakeQuant(rec.amax, bits))
+    module.run_streams(module.Reference(sd, cfg, rec),
+                       torch.stack([calib, calib]),
+                       np.array([[True] * s, [False] * s]),
+                       on_block=lambda *_: None)
+    return module.Reference(sd, cfg, FakeQuant(rec.amax, bits))

@@ -8,17 +8,42 @@ file of its own under ``portbench/``, found by its name:
 * a traffic mix: ``traffic/<mix>.json``, whose ``"generator"`` names the
   module ``traffic/<generator>.py`` that makes the scans (its ``make``);
 * a metric: ``metrics/<metric>.py``, whose ``read(ctx)`` returns the value
-  or None where the run holds nothing to read.
+  or None where the run holds nothing to read;
+* a reference: ``reference/<module>.py``, the plain reference the program's
+  outputs are held to (its ``Reference``, ``run_streams`` and
+  ``fit_batch_norm``).
+
+Besides its sizes, a configuration may state:
+
+* ``angle_inc_deg``: the angle between two beams (default 0.5, DROW's);
+  beam ``i`` of ``P`` lies at ``(i - (P - 1) / 2) * angle_inc``. The traffic
+  is cast at it and the reference reads it (:func:`angle_inc`), and where
+  the key is stated the runner is given it (``angle_inc``, in radians);
+* ``reference``: the reference's module (default ``model``);
+* ``model_kwargs``, ``runner_kwargs``: passed as they stand to the port's
+  model class and to its ``StreamingRunner``; nothing where absent.
+
+A mix may state ``streams``, which overrides the configuration's count
+(:attr:`Cell.streams`).
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+DEFAULT_ANGLE_INC_DEG = 0.5
+DEFAULT_REFERENCE = "model"
+
+
+def angle_inc(cfg: dict) -> float:
+    """The configuration's angle between beams, in radians."""
+    return math.radians(float(cfg.get("angle_inc_deg",
+                                      DEFAULT_ANGLE_INC_DEG)))
 
 
 def _load_module(path: Path, name: str):
@@ -53,6 +78,13 @@ class Cell:
         self.end_to_end = [m for m in bench["end_to_end"]
                            if self._has(m)]
         self.per_layer = [m for m in bench["per_layer"] if self._has(m)]
+        self._reference = None
+
+    @property
+    def streams(self) -> int:
+        """Streams of the cell: the mix's ``streams``, else the
+        configuration's."""
+        return int(self.traffic.get("streams", self.config["streams"]))
 
     @property
     def bench_dir(self) -> Path:
@@ -69,6 +101,16 @@ class Cell:
         name = self.traffic["generator"]
         return _load_module(self.bench_dir / "traffic" / f"{name}.py",
                             f"portbench_traffic_{name}")
+
+    def reference(self):
+        """The module of the configuration's plain reference (loaded
+        once)."""
+        if self._reference is None:
+            name = self.config.get("reference", DEFAULT_REFERENCE)
+            self._reference = _load_module(
+                self.bench_dir / "reference" / f"{name}.py",
+                f"portbench_reference_{name}")
+        return self._reference
 
     def reader(self, metric: str):
         return _load_module(self.bench_dir / "metrics" / f"{metric}.py",

@@ -1,6 +1,7 @@
 """A throwaway benchmark tree at a size the CPU runs in seconds: the real
 configuration with 64 beams and a few streams, a small scan pool, and
-copies of the real generator and metric readers, under a temporary root."""
+copies of the real generator, reference and metric readers, under a
+temporary root."""
 
 from __future__ import annotations
 
@@ -13,15 +14,19 @@ REAL = Path(__file__).resolve().parents[1]
 
 def tiny_root(tmp: Path, config="flowdrow-int8c", mix="steady",
               streams=3, num_pts=64, restart_mean=None, scan_hz=None,
-              extra_metric=None, pool_frames=16) -> Path:
-    """Write the tree under ``tmp``; its one cell is ``tiny.<mix>``."""
+              extra_metric=None, pool_frames=16, config_keys=None,
+              mix_keys=None) -> Path:
+    """Write the tree under ``tmp``; its one cell is ``tiny.<mix>``.
+    ``config_keys`` and ``mix_keys`` are set in the configuration and the
+    mix last."""
     root = Path(tmp)
     bench = root / "portbench"
-    for sub in ("configs", "traffic", "metrics"):
+    for sub in ("configs", "traffic", "metrics", "reference"):
         (bench / sub).mkdir(parents=True, exist_ok=True)
     cfg = json.loads((REAL / "configs" / f"{config}.json").read_text())
     cfg.update(name="tiny", streams=streams, num_pts=num_pts, calib_scans=2)
     cfg["check"]["sample_streams"] = streams
+    cfg.update(config_keys or {})
     (bench / "configs" / "tiny.json").write_text(json.dumps(cfg))
     traffic = json.loads((REAL / "traffic" / f"{mix}.json").read_text())
     traffic.update(pool_sequences=4, pool_frames=pool_frames)
@@ -29,8 +34,11 @@ def tiny_root(tmp: Path, config="flowdrow-int8c", mix="steady",
         traffic["restart_mean_scans"] = restart_mean
     if scan_hz is not None:
         traffic["scan_hz"] = scan_hz
+    traffic.update(mix_keys or {})
     (bench / "traffic" / f"{mix}.json").write_text(json.dumps(traffic))
     shutil.copy(REAL / "traffic" / "streams.py", bench / "traffic")
+    for ref in (REAL / "reference").glob("*.py"):
+        shutil.copy(ref, bench / "reference")
     real = json.loads((REAL.parent / "BENCHMARK.json").read_text())
     for m in real["end_to_end"] + real["per_layer"]:
         shutil.copy(REAL / "metrics" / f"{m['name']}.py", bench / "metrics")

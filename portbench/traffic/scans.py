@@ -2,15 +2,15 @@
 DROW scenes, batched over sequences and frames and ray-cast on the device.
 
 A robot drives through a square room (walls at +-10 m) while cylindrical
-people (radius 0.3 m) walk about; 450 beams at 0.5 deg are cast each frame
-and clipped at 29.99 m, as the original does. Two changes keep long
-sequences alive: the robot and the people reflect off their bounds (+-6 m and
-+-8 m) where the original clips them there, so nobody ends up stuck in a
-corner after a minute; and the number of people of each sequence is drawn
-from a range. Trajectories are integrated on the host in float64 (a few
-thousand small steps, vectorised over sequences); the ray casting runs in
-float64 on the device over every frame at once, and the ranges are stored
-as float32.
+people (radius 0.3 m) walk about; the configuration's beams (DROW's 450 at
+0.5 deg by default) are cast each frame and clipped at 29.99 m, as the
+original does. Two changes keep long sequences alive: the robot and the
+people reflect off their bounds (+-6 m and +-8 m) where the original clips
+them there, so nobody ends up stuck in a corner after a minute; and the
+number of people of each sequence is drawn from a range. Trajectories are
+integrated on the host in float64 (a few thousand small steps, vectorised
+over sequences); the ray casting runs in float64 on the device over every
+frame at once, and the ranges are stored as float32.
 """
 
 from __future__ import annotations
@@ -25,9 +25,10 @@ PERSON_RADIUS = 0.3
 MAX_RANGE = 29.99
 ROBOT_BOUND = 6.0
 PEOPLE_BOUND = 8.0
+DROW_ANGLE_INC = math.radians(0.5)
 
 
-def laser_phi(num_pts: int, angle_inc: float = math.radians(0.5)):
+def laser_phi(num_pts: int, angle_inc: float = DROW_ANGLE_INC):
     """Beam angles: ``num_pts`` beams at ``angle_inc``, centred on 0."""
     fov = (num_pts - 1) * angle_inc
     return np.linspace(-0.5 * fov, 0.5 * fov, num_pts)

@@ -24,11 +24,15 @@ always consecutive frames. Step 0 starts every stream; a restart at step
 ``k`` starts the stream on a new sequence and frame. Everything is a
 function of the seed and the step index only.
 
+A mix may also state ``streams``, the number of streams, which the harness
+reads in place of the configuration's (``spec.Cell.streams``).
+
 What the harness asks of a generator module: ``make(params, num_streams,
-num_pts, seed, device)`` returning an object with ``pool`` (the host scans,
-one a row), ``rows_at_start()``, ``advance(k)`` -> (pool rows of step
-``k``, restarted streams), and ``restarts_per_block`` (0 where streams
-never restart).
+num_pts, seed, device, angle_inc=...)`` (``angle_inc``: the angle between
+beams, in radians, from the configuration) returning an object with
+``pool`` (the host scans, one a row), ``rows_at_start()``, ``advance(k)``
+-> (pool rows of step ``k``, restarted streams), and
+``restarts_per_block`` (0 where streams never restart).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ class Streams:
     """The scans and restarts of one run (see the module docstring)."""
 
     def __init__(self, params: dict, num_streams: int, num_pts: int,
-                 seed: int, device):
+                 seed: int, device, angle_inc: float = sim.DROW_ANGLE_INC):
         self.params = params
         self.num_streams = b = int(num_streams)
         self.num_pts = num_pts
@@ -58,7 +62,7 @@ class Streams:
         s, length = int(params["pool_sequences"]), int(params["pool_frames"])
         self.pool_sequences, self.pool_frames = s, length
         self.period = 2 * length - 2
-        self.pool = make_pool(params, num_pts, seed, device)
+        self.pool = make_pool(params, num_pts, seed, device, angle_inc)
         rng = _rng(seed, _SALT_START)
         self._seq = rng.integers(0, s, b)
         self._start = rng.integers(0, self.period, b)
@@ -131,14 +135,16 @@ class Streams:
         return self._rows(0)
 
 
-def make_pool(params: dict, num_pts: int, seed: int, device) -> torch.Tensor:
+def make_pool(params: dict, num_pts: int, seed: int, device,
+              angle_inc: float = sim.DROW_ANGLE_INC) -> torch.Tensor:
     """The simulated sequences, ``(pool_sequences * pool_frames, num_pts)``
-    float32 on the host (pinned where a card is used)."""
+    float32 on the host (pinned where a card is used), cast at beams
+    ``angle_inc`` radians apart."""
     s, length = int(params["pool_sequences"]), int(params["pool_frames"])
     poses, tracks = sim.trajectories(_rng(seed, _SALT_POOL), s, length,
                                      params["people"],
                                      1.0 / float(params["scan_hz"]))
-    phi = sim.laser_phi(num_pts)
+    phi = sim.laser_phi(num_pts, angle_inc)
     pinned = torch.device(device).type == "cuda"
     pool = torch.empty((s * length, num_pts), dtype=torch.float32,
                        pin_memory=pinned)
@@ -151,6 +157,7 @@ def make_pool(params: dict, num_pts: int, seed: int, device) -> torch.Tensor:
     return pool
 
 
-def make(params: dict, num_streams: int, num_pts: int, seed: int, device):
+def make(params: dict, num_streams: int, num_pts: int, seed: int, device,
+         angle_inc: float = sim.DROW_ANGLE_INC):
     """The generator's entry: a :class:`Streams`."""
-    return Streams(params, num_streams, num_pts, seed, device)
+    return Streams(params, num_streams, num_pts, seed, device, angle_inc)

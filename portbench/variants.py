@@ -3,7 +3,8 @@
 * :class:`LowPrecisionReference`: the control of an int8 configuration, the
   reference itself computed in int4 (``reference/quant.py``), calibrated on
   the same scans as the program. It computes the compared streams only; the
-  others' outputs are zeros, which nothing reads.
+  others' outputs are zeros, which nothing reads. With no bits it is the
+  float32 reference itself, a program that must read correct.
 * :func:`program_at` with another engine: the control of a bf16
   configuration is the program's own int8c path.
 * :class:`Fault`: the program with one fault planted in its timed path:
@@ -14,7 +15,7 @@
   the step's mean class probability and vote on every beam, and the NMS
   runs on those: only the ``cls`` and ``reg`` numbers can see it).
 
-Each is a callable ``(cfg, sd, calib_scans, device, sample) -> runner`` for
+Each is a callable ``(cell, sd, calib_scans, device, sample) -> runner`` for
 ``harness.run(program=...)``.
 """
 
@@ -25,7 +26,7 @@ import torch
 
 from portbench import harness
 from portbench.check import sanitize
-from portbench.reference.model import full_f32, laser_phi
+from portbench.reference.model import full_f32
 from portbench.reference.nms import vote_nms
 from portbench.reference.quant import quantized_reference
 
@@ -33,16 +34,21 @@ FAULTS = ("stale_state", "half_batch", "altered_answer", "constant_head")
 
 
 class LowPrecisionReference:
-    """The reference at ``bits`` bits in the runner's place (4: one step
-    below int8)."""
+    """The reference (``module``, a configuration's reference module) at
+    ``bits`` bits in the runner's place (4: one step below int8; None:
+    float32) for ``streams`` streams of the configuration ``cfg``."""
 
-    def __init__(self, cfg, sd, calib_scans, device, sample, bits):
+    def __init__(self, cfg, streams, module, sd, calib_scans, device, sample,
+                 bits):
         self.cfg, self.device = cfg, device
         self.sample = torch.as_tensor(sample)
-        self.b = int(cfg["streams"])
-        calib = torch.as_tensor(calib_scans, dtype=torch.float32)
-        calib = sanitize(calib, float(cfg["cutout"]["padding_val"]))
-        self.ref = quantized_reference(sd, cfg, calib, bits)
+        self.b = int(streams)
+        if bits is None:
+            self.ref = module.Reference(sd, cfg)
+        else:
+            calib = torch.as_tensor(calib_scans, dtype=torch.float32)
+            calib = sanitize(calib, float(cfg["cutout"]["padding_val"]))
+            self.ref = quantized_reference(sd, cfg, calib, bits, module)
         self.phi = torch.as_tensor(self.ref.phi, dtype=torch.float32,
                                    device=device)
         self.template = None
@@ -84,25 +90,28 @@ class LowPrecisionReference:
 
 
 def low_precision_reference(bits):
-    def make(cfg, sd, calib_scans, device, sample):
-        return LowPrecisionReference(cfg, sd, calib_scans, device, sample,
-                                     bits)
+    def make(cell, sd, calib_scans, device, sample):
+        return LowPrecisionReference(cell.config, cell.streams,
+                                     cell.reference(), sd, calib_scans,
+                                     device, sample, bits)
     return make
 
 
 def program_at(engine):
-    def make(cfg, sd, calib_scans, device, sample):
-        return harness.make_runner(cfg, sd, calib_scans, device, engine)
+    def make(cell, sd, calib_scans, device, sample):
+        return harness.make_runner(cell.config, sd, calib_scans, device,
+                                   engine)
     return make
 
 
 class Fault:
-    """The port's runner with ``kind`` (one of :data:`FAULTS`) planted."""
+    """The port's runner with ``kind`` (one of :data:`FAULTS`) planted;
+    ``phi``: the beam angles, the reference's."""
 
-    def __init__(self, runner, kind, cfg):
+    def __init__(self, runner, kind, cfg, phi):
         if kind not in FAULTS:
             raise ValueError(f"unknown fault {kind!r}")
-        self.runner, self.kind, self.cfg = runner, kind, cfg
+        self.runner, self.kind, self.cfg, self.phi = runner, kind, cfg, phi
 
     def reset(self, streams=None):
         self.runner.reset(streams)
@@ -135,7 +144,7 @@ class Fault:
         reg = reg.float().mean(dim=(0, 1)).expand(reg.shape).to(reg.dtype)
         x = torch.as_tensor(batch).to(cls.device, torch.float32)
         x = sanitize(x, float(self.cfg["cutout"]["padding_val"]))
-        phi = torch.as_tensor(laser_phi(x.shape[1]), dtype=torch.float32,
+        phi = torch.as_tensor(self.phi, dtype=torch.float32,
                               device=x.device)
         nms = self.cfg["nms"]
         xy, conf, keep = vote_nms(x, phi, cls[..., 0].float(), reg.float(),
@@ -147,9 +156,11 @@ class Fault:
 
 
 def fault(kind):
-    def make(cfg, sd, calib_scans, device, sample):
+    def make(cell, sd, calib_scans, device, sample):
+        cfg = cell.config
+        phi = cell.reference().Reference(sd, cfg).phi
         return Fault(harness.make_runner(cfg, sd, calib_scans, device), kind,
-                     cfg)
+                     cfg, phi)
     return make
 
 
